@@ -1,0 +1,36 @@
+"""CoModGAN generator: mapping → encoder → co-modulated synthesis (port of
+``CoModGANGenerator`` in ``shgan_tpu/models/generator.py``, direct path;
+the folded-layout matching is a TPU formulation and is not ported)."""
+
+from __future__ import annotations
+
+import torch.nn as nn
+
+
+class CoModGANGenerator(nn.Module):
+    """``x`` is the 4-channel (mask−0.5 ‖ masked RGB) conditioning image."""
+
+    def __init__(self, mapping, encoder, synthesis):
+        super().__init__()
+        if synthesis.num_ws != mapping.num_ws:
+            raise ValueError((synthesis.num_ws, mapping.num_ws))
+        self.mapping = mapping
+        self.encoder = encoder
+        self.synthesis = synthesis
+        self.num_ws = mapping.num_ws
+        self.z_dim = mapping.z_dim
+        self.c_dim = mapping.c_dim
+        self.w_dim = mapping.w_dim
+        self.ic_n = encoder.ic_n
+        self.img_resolution = synthesis.resolution
+        self.img_channels = synthesis.rgb_n
+
+    def forward(self, x, z, c=None, truncation_psi=1.0,
+                truncation_cutoff=None, noise_mode="random", noise_seed=None):
+        """``noise_seed`` keys the random noise of every synthesis layer
+        (``noise_mode='random'``)."""
+        ws = self.mapping(z, c, truncation_psi=truncation_psi,
+                          truncation_cutoff=truncation_cutoff)
+        x_global, feats = self.encoder(x)
+        return self.synthesis(x_global, feats, ws, noise_mode=noise_mode,
+                              noise_seed=noise_seed)

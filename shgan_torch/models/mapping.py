@@ -1,0 +1,63 @@
+"""StyleGAN2 mapping network (port of ``shgan_tpu/models/mapping.py``):
+equalized-LR dense layers with lr multiplier 0.01, input 2nd-moment
+normalization, the ``w_avg`` buffer with the truncation trick, broadcast to
+``num_ws``.  Serving only: the ``w_avg`` EMA update comes with training.
+The class-conditional embedding (``c_dim > 0``) is not ported yet: no
+SH-GAN config uses it."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from .layers import Dense, normalize_2nd_moment
+
+
+class Mapping(nn.Module):
+    def __init__(self, z_dim=512, c_dim=0, w_dim=512, num_ws=14, num_layers=8,
+                 embed_features=None, layer_features=None,
+                 activation="lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)",
+                 lr_multiplier=0.01, w_avg_beta=0.995, generator=None):
+        super().__init__()
+        if c_dim:
+            raise NotImplementedError("c_dim > 0 is not ported yet")
+        self.z_dim = z_dim
+        self.c_dim = c_dim
+        self.w_dim = w_dim
+        self.num_ws = num_ws
+        self.num_layers = num_layers
+
+        if layer_features is None:
+            layer_features = w_dim
+        features = [z_dim] + [layer_features] * (num_layers - 1) + [w_dim]
+        for idx in range(num_layers):
+            setattr(self, f"fc{idx}",
+                    Dense(features[idx], features[idx + 1],
+                          activation=activation, lr_multi=lr_multiplier,
+                          generator=generator))
+        if num_ws is not None and w_avg_beta is not None:
+            self.register_buffer("w_avg", torch.zeros(w_dim))
+        else:
+            self.w_avg = None
+
+    def forward(self, z, c=None, truncation_psi=1.0, truncation_cutoff=None):
+        """``ws`` [N, num_ws, w_dim] (or [N, w_dim] when num_ws is None);
+        ``c`` is accepted for the reference signature and unused."""
+        x = normalize_2nd_moment(z.float())
+        for idx in range(self.num_layers):
+            x = getattr(self, f"fc{idx}")(x)
+
+        if self.num_ws is not None:
+            x = x[:, None].repeat(1, self.num_ws, 1)
+
+        if truncation_psi != 1:
+            if self.w_avg is None:
+                raise ValueError("truncation needs w_avg (w_avg_beta)")
+            w_avg = self.w_avg
+            if self.num_ws is None or truncation_cutoff is None:
+                x = w_avg + truncation_psi * (x - w_avg)
+            else:
+                head = w_avg + truncation_psi * (
+                    x[:, :truncation_cutoff] - w_avg)
+                x = torch.cat([head, x[:, truncation_cutoff:]], dim=1)
+        return x

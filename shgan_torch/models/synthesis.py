@@ -1,0 +1,150 @@
+"""CoModGAN synthesis network (port of the direct path of
+``CoModSynthesisBlockFirst``, ``CoModSynthesisBlock`` and ``CoModSynthesis``
+in ``shgan_tpu/models/synthesis.py``; the StyleGAN2 and pluralistic
+variants come later).
+
+Co-modulation: every affine reads ``concat[w_i, w0]``, the mapping style
+beside the encoder's global code.  Random noise: synthesis layer
+``conv0``/``conv1`` of the block at resolution ``r`` has layer id ``2r`` /
+``2r + 1`` and the 4² block's conv has ``8``, so each noise layer draws its
+own stream under the forward's ``noise_seed``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..ops.upfirdn2d import setup_filter, upsample2d
+from .layers import Dense, SynthesisLayer, ToRGBLayer
+
+
+class CoModSynthesisBlockFirst(nn.Module):
+    """4×4 block: fc(global code) → grid, plus the encoder skip."""
+
+    def __init__(self, w0_dim, oc_n, w_dim, resolution=4, rgb_n=None,
+                 activation="lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)",
+                 generator=None):
+        super().__init__()
+        self.resolution = resolution
+        g = generator
+        self.fc = Dense(w0_dim, oc_n * resolution ** 2, activation=activation,
+                        generator=g)
+        self.num_conv = 1
+        self.conv = SynthesisLayer(oc_n, oc_n, 3, w0_dim + w_dim,
+                                   resolution=resolution, bias=True,
+                                   activation=activation,
+                                   layer_id=2 * resolution, generator=g)
+        self.torgb = (ToRGBLayer(oc_n, rgb_n, 1, w0_dim + w_dim, generator=g)
+                      if rgb_n is not None else None)
+        self.num_torgb = 1 if rgb_n is not None else 0
+
+    def forward(self, x, x0, ws, noise_mode="random", noise_seed=None):
+        x = x.float()
+        w0 = x
+        x = self.fc(x).reshape(x.shape[0], -1, self.resolution,
+                               self.resolution)
+        x = x + x0.float()
+        x = self.conv(x, torch.cat([ws[:, 0], w0], dim=1),
+                      noise_mode=noise_mode, noise_seed=noise_seed)
+        img = None
+        if self.torgb is not None:
+            img = self.torgb(x, torch.cat([ws[:, 1], w0], dim=1))
+        return x, img
+
+
+class CoModSynthesisBlock(nn.Module):
+    """Upsampling co-modulated block with the encoder skip added."""
+
+    def __init__(self, ic_n, oc_n, w_dim, w0_dim, resolution, rgb_n,
+                 resample_filter=(1, 3, 3, 1),
+                 activation="lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)",
+                 use_fp16=False, generator=None):
+        super().__init__()
+        if ic_n == 0:
+            raise ValueError("CoModSynthesisBlock needs input channels")
+        self.dtype = torch.bfloat16 if use_fp16 else torch.float32
+        self.resample_filter = setup_filter(resample_filter)
+        self.num_conv = 2
+        g = generator
+        self.conv0 = SynthesisLayer(
+            ic_n, oc_n, 3, w_dim=w_dim + w0_dim, resolution=resolution, up=2,
+            activation=activation, resample_filter=resample_filter,
+            layer_id=2 * resolution, generator=g)
+        self.conv1 = SynthesisLayer(
+            oc_n, oc_n, 3, w_dim=w_dim + w0_dim, resolution=resolution, up=1,
+            activation=activation, resample_filter=None,
+            layer_id=2 * resolution + 1, generator=g)
+        self.torgb = (ToRGBLayer(oc_n, rgb_n, 1, w_dim=w_dim + w0_dim,
+                                 generator=g)
+                      if rgb_n is not None else None)
+        self.num_torgb = 1 if rgb_n is not None else 0
+
+    def forward(self, x, x0, img, ws, w0, noise_mode="random",
+                noise_seed=None):
+        x = x.to(self.dtype)
+        x0 = x0.to(self.dtype)
+        x = self.conv0(x, torch.cat([ws[:, 0], w0], dim=1),
+                       noise_mode=noise_mode, noise_seed=noise_seed)
+        x = x + x0
+        x = self.conv1(x, torch.cat([ws[:, 1], w0], dim=1),
+                       noise_mode=noise_mode, noise_seed=noise_seed)
+        if img is not None:
+            img = upsample2d(img, self.resample_filter)
+        if self.torgb is not None:
+            y = self.torgb(x, torch.cat([ws[:, 2], w0], dim=1)).float()
+            img = img + y if img is not None else y
+        return x, img
+
+
+class CoModSynthesis(nn.Module):
+    """CoModGAN synthesis pyramid 4² → resolution; blocks are attributes
+    ``b{res}``."""
+
+    def __init__(self, w_dim=512, w0_dim=1024, resolution=256, rgb_n=3,
+                 ch_base=16384, ch_max=512, use_fp16_after_res=16,
+                 resample_filter=(1, 3, 3, 1),
+                 activation="lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)",
+                 remat=False, fold_above_res=None, generator=None):
+        # remat / fold_above_res are TPU formulations: accepted, not used
+        super().__init__()
+        log2res = int(np.log2(resolution))
+        if 2 ** log2res != resolution:
+            raise ValueError(resolution)
+        self.resolution = resolution
+        self.rgb_n = rgb_n
+        self.block_res = [2 ** i for i in range(2, log2res + 1)]
+        # b4 takes one conv w and the final torgb w, every other block two
+        self.num_ws = 2 * len(self.block_res)
+        g = generator
+        hidden_ch = min(ch_base // self.block_res[0], ch_max)
+        self.b4 = CoModSynthesisBlockFirst(w0_dim, hidden_ch, w_dim,
+                                           resolution=4, rgb_n=rgb_n,
+                                           activation=activation, generator=g)
+        for resi, resj in zip(self.block_res[:-1], self.block_res[1:]):
+            ch_i = min(ch_base // resi, ch_max)
+            ch_j = min(ch_base // resj, ch_max)
+            use_fp16 = (use_fp16_after_res is not None
+                        and resj > use_fp16_after_res)
+            setattr(self, f"b{resj}", CoModSynthesisBlock(
+                ch_i, ch_j, w_dim=w_dim, w0_dim=w0_dim, resolution=resj,
+                rgb_n=rgb_n, resample_filter=resample_filter,
+                activation=activation, use_fp16=use_fp16, generator=g))
+
+    def forward(self, x, feats, ws, noise_mode="random", noise_seed=None):
+        ws = ws.float()
+        w_idx, block_ws = 0, []
+        for res in self.block_res:
+            block = getattr(self, f"b{res}")
+            block_ws.append(ws[:, w_idx: w_idx + block.num_conv
+                               + block.num_torgb])
+            w_idx += block.num_conv
+        w0 = x
+        x, img = self.b4(x, feats[4], block_ws[0], noise_mode=noise_mode,
+                         noise_seed=noise_seed)
+        for res, cur_ws in zip(self.block_res[1:], block_ws[1:]):
+            x, img = getattr(self, f"b{res}")(
+                x, feats[res], img, cur_ws, w0, noise_mode=noise_mode,
+                noise_seed=noise_seed)
+        return img

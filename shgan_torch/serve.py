@@ -1,0 +1,164 @@
+"""Batch inference engine: serving of an inpainting generator on one device
+(port of ``shgan_tpu/serve.py``; multi-device serving comes later).
+
+* **fixed batch shapes** — requests run in chunks of ``batch_size``; a
+  ragged tail pads up to the smallest latency bucket that fits and the
+  padding rows are stripped;
+* **on-device postprocess** — mask-composite and uint8 quantization on the
+  device (``models/infer.py``), so the readback is 1 byte per pixel; uint8
+  images travel to the device as uint8;
+* **asynchronous window** — ``inpaint_stream`` keeps up to ``window``
+  batches queued on the device before it reads one back.
+
+Determinism: z is keyed by (seed, global position), identical for any
+batch layout.  Random synthesis noise (``noise_mode='random'``, the serving
+default) is keyed by (seed, the batch's global start, layer) and drawn at
+the batch's padded shape, so it reproduces for the same layout but not
+across re-batching; ``noise_mode='const'``/``'none'`` engines are layout
+invariant — up to the style normalization's batch-wide mean, which padded
+rows enter (``ops/modulated_conv.py``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .checkpoint.convert import load_pth
+from .data.rng import derive_seed
+from .models.infer import composite_forward, z_for_positions
+from .models.registry import get_model
+from .runtime.config import model_cfg_bank
+
+BATCH_NOISE_SALT = 0xB47C  # epoch slot of derive_seed for batch noise seeds
+
+
+def resolve_device(device):
+    """``None`` → the CUDA device, or raise when there is none; anything
+    else is taken as given (``"cpu"`` runs the kernels' plain versions)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                               "plain PyTorch versions on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def _as_model_input(images, masks):
+    """Normalize user inputs to (real NCHW, mask [N,1,H,W]) numpy arrays.
+
+    ``images``: [N,3,H,W] or [N,H,W,3]; uint8 [0,255] (kept as uint8 and
+    normalized on the device) or float [-1,1] (→ float32).
+    ``masks``: [N,H,W] or [N,1,H,W]; bool / {0,1}; 0 = hole, 1 = keep.
+    """
+    images = np.asarray(images)
+    masks = np.asarray(masks)
+    if images.ndim != 4:
+        raise ValueError(f"images must be 4D, got {images.shape}")
+    if images.shape[-1] == 3 and images.shape[1] != 3:
+        images = images.transpose(0, 3, 1, 2)
+    if images.dtype != np.uint8:
+        images = images.astype(np.float32)
+    if masks.ndim == 3:
+        masks = masks[:, None]
+    if masks.dtype != np.float32:
+        masks = masks.astype(np.uint8)
+    if images.shape[0] != masks.shape[0]:
+        raise ValueError("images/masks batch mismatch")
+    return np.ascontiguousarray(images), np.ascontiguousarray(masks)
+
+
+class InpaintEngine:
+    """Batched inpainting inference on one model and one device.
+
+    Args:
+        model_cfg: model-bank name (e.g. ``"shgan_g512"``) or a model cfg
+            dict.
+        pretrained: optional released ``.pth`` state_dict (strict load).
+        batch_size: the batch every full chunk runs at.
+        noise_mode: 'random' (serving default) | 'const' | 'none'.
+        seed: base seed for the weights' random init, z and noise.
+        latency_batches: smaller batch buckets a short tail pads up to.
+        device: None = the CUDA device (raise if absent); "cpu" runs the
+            plain PyTorch versions of the kernels.
+    """
+
+    def __init__(self, model_cfg, pretrained=None, batch_size=16,
+                 noise_mode="random", seed=0, latency_batches=(),
+                 device=None):
+        self.device = resolve_device(device)
+        if isinstance(model_cfg, str):
+            model_cfg = model_cfg_bank()(model_cfg)
+        self.buckets = sorted({int(b) for b in latency_batches}
+                              | {int(batch_size)})
+        if self.buckets[0] <= 0:
+            raise ValueError(f"batch buckets must be positive: {self.buckets}")
+        if noise_mode not in ("random", "const", "none"):
+            raise ValueError(f"noise_mode {noise_mode!r}")
+        self.batch_size = int(batch_size)
+        self.noise_mode = noise_mode
+        self.seed = seed
+        G = get_model(model_cfg, seed=seed)
+        if pretrained is not None:
+            G.load_state_dict(load_pth(pretrained), strict=True)
+        self.G = G.to(self.device).eval().requires_grad_(False)
+
+    def _run_padded(self, real, mask, start):
+        """Queue one padded batch on the device; returns the device uint8
+        tensor without waiting for it."""
+        n = real.shape[0]
+        z = z_for_positions(self.seed, self.G.z_dim, range(start, start + n))
+        dev = self.device
+        with torch.inference_mode():
+            return composite_forward(
+                self.G, torch.from_numpy(real).to(dev),
+                torch.from_numpy(mask).to(dev), torch.from_numpy(z).to(dev),
+                noise_mode=self.noise_mode,
+                noise_seed=derive_seed(self.seed, start, BATCH_NOISE_SALT))
+
+    def inpaint(self, images, masks, start_index=0):
+        """Inpaint a batch of any size; returns uint8 NCHW composites.
+
+        ``start_index`` positions the batch in the deterministic z stream
+        (the global dataset offset).  Random noise is keyed by each chunk's
+        global start and drawn at the padded shape."""
+        real, mask = _as_model_input(images, masks)
+        n, bs = real.shape[0], self.batch_size
+        if n == 0:
+            return np.zeros(real.shape, np.uint8)
+        outs = []
+        for lo in range(0, n, bs):
+            chunk_r, chunk_m = real[lo:lo + bs], mask[lo:lo + bs]
+            k = chunk_r.shape[0]
+            tgt = next((b for b in self.buckets if b >= k), bs)
+            if k < tgt:
+                pad = [(0, tgt - k)] + [(0, 0)] * 3
+                chunk_r = np.pad(chunk_r, pad)
+                chunk_m = np.pad(chunk_m, pad, constant_values=1)
+            out = self._run_padded(chunk_r, chunk_m, start_index + lo)
+            outs.append(out[:k].cpu().numpy())
+        return np.concatenate(outs) if len(outs) > 1 else outs[0]
+
+    def inpaint_stream(self, batches, start_index=0, window=2):
+        """Stream (images, masks) batches through the engine, yielding uint8
+        NCHW composites per input batch; up to ``window`` batches stay
+        queued on the device.  Every batch has ``batch_size`` rows except
+        the last."""
+        inflight = []
+        gi = start_index
+        for images, masks in batches:
+            real, mask = _as_model_input(images, masks)
+            k, bs = real.shape[0], self.batch_size
+            if k > bs:
+                raise ValueError(f"stream batch {k} > engine batch {bs}")
+            if k < bs:
+                pad = [(0, bs - k)] + [(0, 0)] * 3
+                real = np.pad(real, pad)
+                mask = np.pad(mask, pad, constant_values=1)
+            inflight.append((self._run_padded(real, mask, gi), k))
+            gi += k
+            if len(inflight) > window:
+                dev, valid = inflight.pop(0)
+                yield dev[:valid].cpu().numpy()
+        for dev, valid in inflight:
+            yield dev[:valid].cpu().numpy()
