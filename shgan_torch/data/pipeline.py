@@ -1,0 +1,104 @@
+"""Host-side eval pipeline with parallel background prefetch (port of
+``_Prefetcher`` and ``EvalPipeline`` of ``shgan_tpu/data/pipeline.py``,
+single process).
+
+A thread pool builds whole batches concurrently (PIL decode and numpy
+release the GIL), results are yielded in order, and each batch is copied to
+the device inside its worker, so the upload of batch i+1 overlaps the
+device's work on batch i.  On a CUDA device the copy goes through pinned
+memory with ``non_blocking=True``.
+"""
+
+from __future__ import annotations
+
+import os
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+from .sampler import DataShard
+
+
+def default_num_threads(cap=8):
+    try:
+        n = len(os.sched_getaffinity(0))
+    except AttributeError:  # non-Linux
+        n = os.cpu_count() or 1
+    return max(1, min(n, cap))
+
+
+class _Prefetcher:
+    """Ordered parallel prefetch over ``make_batch(0..n_batches-1)``.
+
+    Up to ``max(depth, num_threads)`` batches are in flight on a
+    ``num_threads``-wide pool; results yield strictly in order.
+    ``num_threads=0`` → synchronous."""
+
+    def __init__(self, make_batch, n_batches, depth=4, num_threads=None):
+        self.make_batch = make_batch
+        self.n_batches = n_batches
+        self.depth = depth
+        self.num_threads = (default_num_threads() if num_threads is None
+                            else num_threads)
+
+    def __iter__(self):
+        n = self.n_batches
+        if self.num_threads <= 0:
+            for b in range(n):
+                yield self.make_batch(b)
+            return
+        window = max(self.depth, self.num_threads)
+        ex = ThreadPoolExecutor(self.num_threads)
+        try:
+            inflight = deque()
+            nxt = 0
+            while nxt < min(window, n):
+                inflight.append(ex.submit(self.make_batch, nxt))
+                nxt += 1
+            while inflight:
+                batch = inflight.popleft().result()
+                if nxt < n:
+                    inflight.append(ex.submit(self.make_batch, nxt))
+                    nxt += 1
+                yield batch
+        finally:
+            # an abandoned iterator does not wait for queued batch builds
+            ex.shutdown(wait=False, cancel_futures=True)
+
+
+class EvalPipeline:
+    """Sequential (no shuffle, extend=True) evaluation pipeline.
+
+    Yields ``(real, mask, valid, uids)``: ``real``/``mask`` as torch tensors
+    on ``device`` (numpy arrays when ``device`` is None), ``valid`` a bool
+    numpy array of the rows that are not padding, ``uids`` the unique
+    ids."""
+
+    def __init__(self, dataset, formatter, batch_size, device=None, depth=4,
+                 seed=0, num_threads=None, transport="f32"):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.device = None if device is None else torch.device(device)
+        self.shard = DataShard(dataset, formatter, batch_size, shuffle=False,
+                               extend=True, seed=seed, transport=transport)
+        make = (self.shard.get_batch if self.device is None
+                else self._worker_batch)
+        self.prefetch = _Prefetcher(make, len(self.shard), depth=depth,
+                                    num_threads=num_threads)
+
+    def _worker_batch(self, b):
+        real, mask, valid, uids = self.shard.get_batch(b)
+        return (self._to_device(real), self._to_device(mask), valid, uids)
+
+    def _to_device(self, arr):
+        t = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def __len__(self):
+        return len(self.shard)
+
+    def __iter__(self):
+        return iter(self.prefetch)

@@ -36,11 +36,13 @@ ENTRY_POINTS = {
     "noise": {"shgan_philox_normal": (_P, _I, _I, _U, _U, _P)},
     "upfirdn2d": {"shgan_upfirdn2d": (_P, _P, _I, _LL) + (_I,) * 10
                   + (_P, _I, _I, _P)},
+    "conv3x3_lowch": {"shgan_conv3x3_lowch": (_P, _P, _P) + (_I,) * 6
+                      + (_P,)},
 }
 
 # Launch counts of the kernel wrappers: each wrapper adds one where it
 # launches its kernel, and nowhere else.
-launches = {"upfirdn2d": 0, "philox_normal": 0}
+launches = {"upfirdn2d": 0, "philox_normal": 0, "conv3x3_lowch": 0}
 
 
 def reset_launches():

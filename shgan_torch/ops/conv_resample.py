@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
+from .conv1024 import conv1024_eligible, conv3x3_lowch
 from .upfirdn2d import upfirdn2d, _parse_padding, _get_filter_size
 
 
@@ -29,8 +30,12 @@ def _maybe_flip(w, flip_weight):
 
 
 def _conv2d(x, w, stride=1, padding=(0, 0), groups=1, flip_weight=True):
-    """Plain correlation; padding=(py, px)."""
+    """Plain correlation; padding=(py, px).  With the conv1024 switch on,
+    the low-channel 3×3 convs at ≥1024² go to kernel K3 (the routing of
+    ``shgan_tpu/ops/conv_resample.py:108-118``)."""
     w = _maybe_flip(w, flip_weight)
+    if conv1024_eligible(x.shape, w.shape, stride, groups, padding):
+        return conv3x3_lowch(x, w)
     return F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding,
                     groups=groups)
 

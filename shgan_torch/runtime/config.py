@@ -1,10 +1,12 @@
-"""Model-bank YAML loader (the ``model_cfg_bank`` part of
-``shgan_tpu/runtime/config.py:29-180``).
+"""Config banks (port of ``shgan_tpu/runtime/config.py``, without the
+training-resume reader).
 
-Reads the repository's ``configs/model/*.yaml`` as data, with the same
-semantics: ``super_cfg`` single inheritance with ``args`` dict-merge and
-``delete_args``; the string macros ``SAME(path)``, ``SEARCH(path)`` and
-``MODEL(name)`` resolved recursively.
+Reads the repository's ``configs/{model,dataset,experiment}/*.yaml`` as
+data, with the same semantics: ``super_cfg`` single inheritance (``args``
+dict-merge and ``delete_args`` for models, a top-level merge and ``delete``
+for datasets); the string macros ``SAME(path)``, ``SEARCH(path)``,
+``MODEL(name)`` and ``DATASET(name)`` resolved recursively; experiment
+configs solved twice so SEARCH sees expanded values.
 """
 
 from __future__ import annotations
@@ -48,42 +50,45 @@ def _lookup(root, path):
     return zoom
 
 
-def _solve_one(cmd, root, bank):
+def _solve_one(cmd, root, banks):
     if not isinstance(cmd, str):
         return cmd
     if cmd.startswith("SAME"):
         path = [p.strip() for p in cmd[len("SAME"):].strip("()").split(".")]
         try:
-            return _solve_one(_lookup(root, path), root, bank)
+            return _solve_one(_lookup(root, path), root, banks)
         except (KeyError, IndexError, TypeError):
             return cmd
     if cmd.startswith("SEARCH"):
         path = [p.strip() for p in cmd[len("SEARCH"):].strip("()").split(".")]
         try:
-            return _solve_one(_lookup(root, path), root, bank)
+            return _solve_one(_lookup(root, path), root, banks)
         except (KeyError, IndexError, TypeError):
             pass
         children = (root.values() if isinstance(root, dict)
                     else root if isinstance(root, list) else ())
         for child in children:
-            rv = _solve_one(cmd, child, bank)
+            rv = _solve_one(cmd, child, banks)
             if rv != cmd:
                 return rv
         return cmd
     if cmd.startswith("MODEL"):
-        return bank(cmd[len("MODEL"):].strip("()"))
+        return banks["model"](cmd[len("MODEL"):].strip("()"))
+    if cmd.startswith("DATASET"):
+        return banks["dataset"](cmd[len("DATASET"):].strip("()"))
     return cmd
 
 
-def cfg_solve(cfg, root, bank):
-    """Resolve macros in place through lists and dicts."""
+def cfg_solve(cfg, root, banks):
+    """Resolve macros in place through lists and dicts; ``banks`` maps
+    'model' / 'dataset' to the banks the MODEL / DATASET macros read."""
     it = (enumerate(cfg) if isinstance(cfg, list)
           else cfg.items() if isinstance(cfg, dict) else ())
     for k, v in list(it):
         if isinstance(v, (list, dict)):
-            cfg[k] = cfg_solve(v, root, bank)
+            cfg[k] = cfg_solve(v, root, banks)
         else:
-            cfg[k] = _solve_one(v, root, bank)
+            cfg[k] = _solve_one(v, root, banks)
     return cfg
 
 
@@ -96,16 +101,26 @@ def find_config_root():
     raise FileNotFoundError("no configs/ directory found")
 
 
-class model_cfg_bank:
-    """``model_cfg_bank()(name)`` → the solved model config dict."""
+class _Bank:
+    """``bank(name)`` → a deep copy of the solved entry ``name``."""
+
+    subdir = None
 
     def __init__(self, cfg_root=None):
-        self.cfg_dir = osp.join(cfg_root or find_config_root(), "model")
+        self.cfg_root = cfg_root or find_config_root()
+        self.cfg_dir = osp.join(self.cfg_root, self.subdir)
         self.raw = {}
+        self._solved = {}
+        self._load_all()
+
+    def _load_all(self):
         for path in sorted(glob.glob(osp.join(self.cfg_dir, "*.yaml"))):
             with open(path) as f:
                 self.raw.update(yaml.safe_load(f) or {})
-        self._solved = {}
+
+    def banks(self):
+        return {"model": model_cfg_bank(self.cfg_root),
+                "dataset": dataset_cfg_bank(self.cfg_root)}
 
     def __call__(self, name):
         if name not in self._solved:
@@ -114,6 +129,16 @@ class model_cfg_bank:
             cfg = Config.wrap(copy.deepcopy(self.raw[name]))
             self._solved[name] = self._resolve(name, cfg)
         return copy.deepcopy(self._solved[name])
+
+    def _resolve(self, name, cfg):
+        raise NotImplementedError
+
+
+class model_cfg_bank(_Bank):
+    subdir = "model"
+
+    def banks(self):
+        return {"model": self, "dataset": dataset_cfg_bank(self.cfg_root)}
 
     def _resolve(self, name, cfg):
         cfg["name"] = name
@@ -126,4 +151,58 @@ class model_cfg_bank:
             for d in cfg.pop("delete_args", []) or []:
                 cfg["args"].pop(d, None)
         cfg.pop("super_cfg", None)
-        return cfg_solve(cfg, cfg, self)
+        return cfg_solve(cfg, cfg, self.banks())
+
+
+class dataset_cfg_bank(_Bank):
+    subdir = "dataset"
+
+    def banks(self):
+        return {"model": model_cfg_bank(self.cfg_root), "dataset": self}
+
+    def _resolve(self, name, cfg):
+        cfg["name"] = name
+        if cfg.get("super_cfg"):
+            sup = self(cfg.pop("super_cfg"))
+            sup.update(cfg)
+            cfg = sup
+            for d in cfg.pop("delete", []) or []:
+                cfg.pop(d, None)
+        cfg.pop("super_cfg", None)
+        return cfg_solve(cfg, cfg, self.banks())
+
+
+class experiment_cfg_bank(_Bank):
+    """One file per experiment, whose top level is the config."""
+
+    subdir = "experiment"
+
+    def _load_all(self):
+        for path in sorted(glob.glob(osp.join(self.cfg_dir, "*.yaml"))):
+            name = osp.splitext(osp.basename(path))[0]
+            with open(path) as f:
+                self.raw[name] = yaml.safe_load(f) or {}
+
+    def _resolve(self, name, cfg):
+        cfg["name"] = name
+        banks = self.banks()
+        cfg = cfg_solve(cfg, cfg, banks)
+        return cfg_solve(cfg, cfg, banks)  # twice so SEARCH sees expansions
+
+
+def apply_debug_shrink(cfg):
+    """--debug: tiny batches, few samples, no workers, no demo grid."""
+    for sec in ("train", "eval"):
+        if cfg.get(sec):
+            cfg[sec]["batch_size_per_gpu"] = 2
+            cfg[sec]["dataset_num_workers_per_gpu"] = 0
+            if cfg[sec].get("dataset") is not None:
+                cfg[sec]["dataset"]["try_sample"] = 32
+            cfg[sec]["output_sample_images"] = False
+    if cfg.get("train"):
+        cfg["train"]["total_kimg"] = 0.08
+        cfg["train"]["kimg_per_tick"] = 0.02
+        cfg["train"]["snapshot_ticks"] = 2
+    if cfg.get("env") is not None:
+        cfg["env"]["debug"] = True
+    return cfg

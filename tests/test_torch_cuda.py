@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 against their plain PyTorch versions on the card.
+"""Kernels K1, K2 and K3 against their plain PyTorch versions on the card.
 
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false.
 This file imports no JAX, so it also runs on a machine that has only the
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from shgan_torch.kernels import build
-from shgan_torch.ops import noise
+from shgan_torch.ops import conv1024, noise
 from shgan_torch.serve import InpaintEngine
 
 fir_mod = importlib.import_module("shgan_torch.ops.upfirdn2d")
@@ -81,9 +81,39 @@ def test_wrappers_count_launches_and_refuse_grad(cuda):
     x = torch.randn(1, 2, 8, 8, device=cuda)
     fir_mod.upfirdn2d(x, fir_mod.setup_filter([1, 3, 3, 1]), padding=1)
     noise.random_noise(0, 8, 2, 8, cuda)
-    assert build.launches == {"upfirdn2d": 1, "philox_normal": 1}
+    assert build.launches == {"upfirdn2d": 1, "philox_normal": 1,
+                              "conv3x3_lowch": 0}
     with pytest.raises(RuntimeError):
         fir_mod.upfirdn2d(x.requires_grad_(), fir_mod.setup_filter([1, 3]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,o,h,w", [
+    (2, 32, 32, 64, 64), (1, 32, 32, 33, 70), (1, 5, 3, 13, 21),
+    (1, 12, 32, 17, 130)])
+def test_conv3x3_lowch_kernel_matches_plain(cuda, dtype, n, c, o, h, w):
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(n, c, h, w, generator=g).to(cuda, dtype)
+    wt = (torch.randn(o, c, 3, 3, generator=g) / (9 * c) ** 0.5).to(cuda)
+    build.reset_launches()
+    got = conv1024.conv3x3_lowch(x, wt)
+    assert build.launches["conv3x3_lowch"] == 1
+    # the plain version in float32 on the same inputs: x as given, and the
+    # weights rounded to x's dtype, as the wrapper hands them to the kernel
+    wr = wt.to(dtype).float()
+    want = conv1024.conv3x3_lowch_plain(x.float(), wr)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    else:
+        ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                      - 7)
+        assert ((got.float() - want).abs() <= ulp + 1e-6).all()
+    lib = torch.nn.functional.conv2d(x.float(), wr, padding=1)
+    torch.testing.assert_close(want, lib, rtol=0, atol=1e-4)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        conv1024.conv3x3_lowch(x.float().requires_grad_(), wt)
 
 
 def test_tiny_engine_card_matches_cpu(cuda):

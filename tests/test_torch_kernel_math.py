@@ -1,8 +1,9 @@
 """The kernels' arithmetic on the host: a g++ harness around the
 ``__host__ __device__`` headers of ``shgan_torch/csrc`` (the Philox rounds,
 the Box–Muller conversion and the noise layout of kernel K1; the upfirdn2d
-index and padding arithmetic of kernel K2), held to the plain PyTorch
-versions.  This is the only way the kernels' own code runs without a card.
+index and padding arithmetic of kernel K2; the tiling, halo staging and
+weight layout of kernel K3, run as a host emulation of its tiled loop),
+held to the plain PyTorch versions.  This is the only way the kernels' own code runs without a card.
 """
 
 import os
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from shgan_torch.ops import noise
+from shgan_torch.ops.conv1024 import conv3x3_lowch_plain
 from shgan_torch.ops.upfirdn2d import fir_plain, out_size
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -23,6 +25,7 @@ HARNESS = r"""
 #include <cstdio>
 #include <string>
 #include <vector>
+#include "conv3x3_lowch.cuh"
 #include "philox.cuh"
 #include "upfirdn2d.cuh"
 
@@ -32,6 +35,7 @@ HARNESS = r"""
 //   fir h w upx upy downx downy px0 px1 py0 py1 fh fw taps... x...
 //                                   -> out_h out_w, then the outputs
 //   tile (same arguments, up = down = 1) -> the tiled kernel's outputs
+//   conv3 n c o h w weights... x...  -> K3's tiled loop, block by block
 int main() {
   char cmd[16];
   while (std::scanf("%15s", cmd) == 1) {
@@ -58,6 +62,58 @@ int main() {
           base[half] = sn[0]; base[half + 1] = sn[1];
         }
       for (float v : out) std::printf("%.9g\n", v);
+    } else if (c == "conv3") {
+      namespace k3 = shgan::conv3;
+      int n, ch, oc, h, w;
+      std::scanf("%d %d %d %d %d", &n, &ch, &oc, &h, &w);
+      std::vector<float> wt(oc * ch * 9), x((long)n * ch * h * w);
+      for (float& v : wt) std::scanf("%f", &v);
+      for (float& v : x) std::scanf("%f", &v);
+      std::vector<float> y((long)n * oc * h * w, -1e30f);  // unwritten: huge
+      static float xs[k3::kInElems], ws[k3::kWElems];
+      static float acc[k3::kThreads][k3::kOGroup][k3::kPix];
+      auto in = [&](int i) { return xs[i]; };
+      auto wgt = [&](int i) { return ws[i]; };
+      const long plane = (long)h * w;
+      for (int b = 0; b < n; ++b)
+        for (int by = 0; by * k3::kTileH < h; ++by)
+          for (int bx = 0; bx * k3::kTileW < w; ++bx) {
+            const int x0 = k3::tile_x0(bx), y0 = k3::tile_y0(by);
+            for (auto& a : acc) for (auto& r : a) for (float& v : r) v = 0.0f;
+            for (int c0 = 0; c0 < ch; c0 += k3::kCChunk) {
+              for (int i = 0; i < k3::kInElems; ++i) {
+                int ci, sy, sx;
+                k3::halo_coords(i, y0, x0, &ci, &sy, &sx);
+                xs[i] = k3::halo_inside(c0 + ci, sy, sx, ch, h, w)
+                            ? x[(b * ch + c0 + ci) * plane + (long)sy * w + sx]
+                            : 0.0f;
+              }
+              for (int i = 0; i < k3::kWElems; ++i) {
+                int ci, dy, dx, o;
+                k3::weight_coords(i, &ci, &dy, &dx, &o);
+                ws[i] = (c0 + ci < ch && o < oc)
+                            ? wt[k3::weight_offset(o, c0 + ci, dy, dx, ch)]
+                            : 0.0f;
+              }
+              for (int t = 0; t < k3::kThreads; ++t) {
+                int og, ty, tx0;
+                k3::thread_role(t, &og, &ty, &tx0);
+                k3::accumulate_chunk(in, wgt, og, ty, tx0, acc[t]);
+              }
+            }
+            for (int t = 0; t < k3::kThreads; ++t) {
+              int og, ty, tx0;
+              k3::thread_role(t, &og, &ty, &tx0);
+              for (int o = 0; o < k3::kOGroup; ++o)
+                for (int p = 0; p < k3::kPix; ++p) {
+                  const int oo = og * k3::kOGroup + o, yy = y0 + ty,
+                            xx = x0 + tx0 + p;
+                  if (oo < oc && yy < h && xx < w)
+                    y[(b * oc + oo) * plane + (long)yy * w + xx] = acc[t][o][p];
+                }
+            }
+          }
+      for (float v : y) std::printf("%.9g\n", v);
     } else if (c == "fir" || c == "tile") {
       const bool tiled = c == "tile";  // tile: up = down = 1 only
       int h, w, upx, upy, dx, dy, px0, px1, py0, py1, fh, fw;
@@ -200,3 +256,30 @@ def test_upfirdn_tiled_header_matches_plain(harness, h, w, up, down, pads,
 @pytest.mark.parametrize("h,w,up,down,pads,taps", FIR_CASES)
 def test_upfirdn_header_matches_plain(harness, h, w, up, down, pads, taps):
     _run_fir(harness, "fir", h, w, up, down, pads, taps)
+
+
+CONV3_CASES = [
+    # (n, c, o, h, w) — one whole tile; ragged rows and columns; W not a
+    # multiple of the 64-wide tile or of the 8-pixel strip; C not a multiple
+    # of the 8-channel chunk; O < 32 (part of a channel group unused)
+    (1, 8, 8, 8, 64),
+    (2, 32, 32, 9, 70),
+    (1, 5, 3, 13, 21),
+    (1, 12, 32, 17, 130),
+    (1, 32, 7, 3, 5),
+]
+
+
+@pytest.mark.parametrize("n,c,o,h,w", CONV3_CASES)
+def test_conv3x3_lowch_tiled_loop_matches_plain(harness, n, c, o, h, w):
+    rng = np.random.RandomState(n * 1000 + c * 37 + w)
+    wt = (rng.randn(o, c, 3, 3) / np.sqrt(9 * c)).astype(np.float32)
+    x = rng.randn(n, c, h, w).astype(np.float32)
+    vals = " ".join(f"{v:.9g}" for v in np.concatenate([wt.ravel(),
+                                                        x.ravel()]))
+    got = np.array(harness(f"conv3 {n} {c} {o} {h} {w} {vals}"),
+                   np.float32).reshape(n, o, h, w)
+    want = conv3x3_lowch_plain(torch.from_numpy(x),
+                               torch.from_numpy(wt)).numpy()
+    # every output written once; float32 sums in another order
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)

@@ -215,6 +215,7 @@ def test_import_and_cpu_engine_leave_jax_out():
     code = (
         "import json, sys, numpy as np\n"
         "import shgan_torch\n"
+        "import shgan_torch.main, shgan_torch.runtime.stages\n"
         "from shgan_torch.serve import InpaintEngine\n"
         f"cfg = json.loads({json.dumps(tiny_cfg())!r})\n"
         "e = InpaintEngine(cfg, batch_size=2, device='cpu')\n"
