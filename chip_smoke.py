@@ -10,8 +10,9 @@ Phases, each printing one JSON line:
 1. card: the card's name and power limit (``nvidia-smi``), the kernels'
    build time (all built from ``shgan_torch/csrc`` in parallel);
 2. kernels, held against their plain PyTorch versions on the same inputs
-   with TF32 off (kernel, plain and library-yardstick times, and each
-   call's least time on the card): kernel K2 (upfirdn2d) at every FIR call
+   with TF32 off (kernel, plain and library-yardstick times, each call's
+   least time on the card and, for K2, its share of the HBM rate): kernel
+   K2 (upfirdn2d) at every FIR call
    of a ``shgan_g512`` forward and kernel K1 (Philox noise) at every noise
    resolution, at the serving batch (8) and at batch 4; K2 and K1 at the
    1024² calls of a ``shgan_g1024`` forward at the eval batch (4); kernel
@@ -73,6 +74,7 @@ K3_RES = 1024
 K3_F32_ATOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bfloat16 tensor cores, dense
 FIR_F32_ATOL = 1e-5
 NOISE_ATOL = 1e-4
@@ -174,11 +176,12 @@ def noise_layers(cfg):
     return out
 
 
-def bound(row, nbytes, ops):
+def bound(row, nbytes, ops, flops_per_s=FP32_FLOPS_PER_S):
     """The least time for the call: its bytes over the memory rate or its
-    operations over the float32 rate, whichever is larger."""
+    operations over ``flops_per_s`` (the fastest rate the card has for
+    them), whichever is larger."""
     row["bytes_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
-    row["ops_ms"] = ops / FP32_FLOPS_PER_S * 1e3
+    row["ops_ms"] = ops / flops_per_s * 1e3
     row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
     row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["ops_ms"]
                        else "operations")
@@ -236,6 +239,7 @@ def check_fir(fir, calls, dtype_list, cpu_plain=True):
         row["library_eager_ms"] = eager_ms(lib, row["iters"])
         nz = t.size // (up * up)          # taps that meet a sample
         bound(row, nbytes, 2 * y.numel() * nz)
+        row["hbm_share"] = row["bytes_ms"] / row["ms"]   # of 3.35 TB/s
         if cpu_plain:
             xc = x.cpu()
             row["plain_cpu_ms"] = cpu_ms(
@@ -253,6 +257,7 @@ def check_fir(fir, calls, dtype_list, cpu_plain=True):
                 lambda: fir.fir_cuda(xb, t, ups, downs, pads), nbytes // 2)
             row["bf16_bound_ms"] = (xb.numel() + yb.numel()) * 2 \
                 / HBM_BYTES_PER_S * 1e3
+            row["bf16_hbm_share"] = row["bf16_bound_ms"] / row["bf16_ms"]
         rows.append(row)
     return rows
 
@@ -357,7 +362,12 @@ def check_conv3(conv1024, conv_resample):
         row["library_tf32_ms"] = graph_ms(lib, nbytes)
         torch.backends.cudnn.allow_tf32 = False
         row["ops"] = 2 * n * K3_RES * K3_RES * 9 * c * o
-        bound(row, nbytes, row["ops"])
+        # a float32 conv's least time: its operations at the dense TF32
+        # tensor-core rate (not the 67 TF/s outside the tensor cores)
+        bound(row, nbytes, row["ops"], TF32_FLOPS_PER_S)
+        # K3 keeps float32 accuracy with three TF32 products per
+        # multiply-add (3xTF32): the floor of that design, not a bound
+        row["floor_3xtf32_ms"] = 3 * row["ops"] / TF32_FLOPS_PER_S * 1e3
         if not flip:
             xb = x.bfloat16()
             yb = conv1024.conv3x3_lowch(xb, wc)
@@ -546,6 +556,9 @@ def main():
                   "ms": [r["ms"] for r in rows],
                   "eager_ms": [r["eager_ms"] for r in rows],
                   "bound_ms": [r["bound_ms"] for r in rows],
+                  "hbm_share": [r["hbm_share"] for r in rows],
+                  "bf16_ms": [r["bf16_ms"] for r in rows],
+                  "bf16_hbm_share": [r["bf16_hbm_share"] for r in rows],
                   "plain_ms": [r["plain_ms"] for r in rows],
                   "library_ms": [r["library_ms"] for r in rows]})
         emit({"phase": "kernel_check", "kernel": "philox_normal", "batch": b,
@@ -572,9 +585,9 @@ def main():
               "model": MODEL_1024, "batch": EVAL_BATCH,
               **{k: row[k] for k in ("site", "res", "shape", "max_abs_err",
                                      "bf16_max_abs_err", "ms", "eager_ms",
-                                     "bound_ms", "bound_by", "plain_ms",
-                                     "library_ms", "bf16_ms",
-                                     "bf16_bound_ms")}})
+                                     "bound_ms", "bound_by", "hbm_share",
+                                     "plain_ms", "library_ms", "bf16_ms",
+                                     "bf16_bound_ms", "bf16_hbm_share")}})
     for row in noise_1024:
         emit({"phase": "kernel_check", "kernel": "philox_normal",
               "model": MODEL_1024, "batch": EVAL_BATCH,
@@ -785,11 +798,13 @@ def main():
          "launches_eval_path": eval_launches["upfirdn2d"],
          "max_abs_err": max(r["max_abs_err"] for r in fr + fir_1024),
          "ms": wsum(fr, "ms"), "eager_ms": wsum(fr, "eager_ms"),
+         "bf16_ms": wsum(fr, "bf16_ms"),
          "plain_ms": wsum(fr, "plain_ms"),
          "bound_ms": wsum(fr, "bound_ms"), "bound_by": bound_by(fr),
          "library_ms": wsum(fr, "library_ms"),
          "scope": f"all {len(fr)} calls of one {MODEL} forward at batch "
-                  f"{SERVE_BATCH}, float32; launches over the serving path "
+                  f"{SERVE_BATCH}, float32 (bf16_ms: in bfloat16); "
+                  "launches over the serving path "
                   f"(and over the {MODEL_1024} eval path)"},
         {"name": "philox_normal", "route": "cuda",
          "source": "shgan_torch/csrc/noise.cu",
@@ -814,11 +829,18 @@ def main():
          "ms": 2 * k3["ms"], "eager_ms": 2 * k3["eager_ms"],
          "plain_ms": 2 * k3["plain_ms"],
          "bound_ms": 2 * k3["bound_ms"], "bound_by": k3["bound_by"],
+         "floor_3xtf32_ms": 2 * k3["floor_3xtf32_ms"],
          "library_ms": 2 * k3["library_ms"],
          "library_tf32_ms": 2 * k3["library_tf32_ms"],
+         "bf16_ms": 2 * k3["bf16_ms"],
+         "bf16_bound_ms": 2 * k3["bf16_bound_ms"],
+         "bf16_library_ms": 2 * k3["bf16_library_ms"],
          "scope": f"both calls of one {MODEL_1024} forward at batch "
                   f"{EVAL_BATCH} ([{EVAL_BATCH},32,1024,1024] 32->32), "
-                  "float32, TF32 off (library_tf32_ms: cuDNN with TF32); "
+                  "float32, TF32 off (library_tf32_ms: cuDNN with TF32; "
+                  "bound: bytes or operations at the TF32 tensor-core rate; "
+                  "floor_3xtf32_ms: three TF32 products a multiply-add; "
+                  "bf16_*: in bfloat16); "
                   f"launches over the {MODEL_1024} eval path"},
     ], "wall_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,26 +4,36 @@
 //
 // Replaces the TPU kernel shgan_tpu/ops/conv1024.py::conv3x3_lowch (body
 // `_kernel`), which ran the conv as three dy-shifted [O,3C] x [3C,BH*W]
-// contractions over three row-shifted copies of the padded input, because
-// blocked BlockSpecs cannot express overlapping windows.  Here a block stages
-// its input tile with the 1-pixel halo in shared memory, so the input is read
-// from device memory once (plus the halo) and no shifted copy is written.
+// contractions on the matrix unit over three row-shifted copies of the
+// padded input, because blocked BlockSpecs cannot express overlapping
+// windows.
 //
-// Bound on the card: operations.  Each output does 9*C multiply-adds per
-// output channel (288 at C = 32) against 8 bytes moved per pixel and channel,
-// far above the card's float32 ratio of operations to bytes; the least time
-// is 2*N*H*W*9*C*O flops at the float32 rate outside the tensor cores.
-// Design: every thread keeps 8 output channels x 8 consecutive pixels (64
-// sums) in registers; per staged input channel and kernel row it reads a
-// 10-pixel window once and 8 weights per tap (the same address for the whole
-// warp: a broadcast), then issues 8x8 FMAs per tap, so the shared-memory
-// reads are ~1/12 of the FMAs.  Staging per 8-channel chunk takes 30 KB of
-// static shared memory (inputs 21 KB, weights 9 KB), under the 48 KB limit.
-// Tensor cores (TF32/bf16 wgmma), TMA and a fused bias/activation epilogue
-// are left for a later version.
+// Bound on the card: bytes for bfloat16 I/O (0.54 GB at [4,32,1024^2] take
+// 0.160 ms at 3.35 TB/s, the 77.3 GFLOP 0.078 ms at 989 TF/s); for float32
+// I/O the 1.07 GB take 0.321 ms against 0.156 ms for the operations at the
+// dense TF32 rate, but float32 accuracy needs three TF32 products per
+// multiply-add (3xTF32), whose 0.469 ms at that rate are this design's floor.
+// Design: an implicit GEMM on the tensor cores through mma.sync (M = output
+// pixels, N = 32 output channels, K = 9*C; the layout is in
+// conv3x3_lowch.cuh).  mma.sync and not wgmma: a dx shift of one pixel puts
+// A's rows 4 bytes off the 16-byte alignment that a wgmma shared-memory
+// descriptor needs, while mma.sync takes its A fragment from registers that
+// each lane loads with a plain ld.shared at (c, y+dy, x+dx).
+// * float32: m16n8k8 TF32, each operand split into a TF32 high part and a
+//   TF32 residual; the weights are split once, as the block stages them.
+// * bfloat16: m16n8k16 bf16 on channel pairs interleaved at staging.
+// A persistent block per SM walks its tiles (16 rows x 64 pixels, all
+// output channels) with every weight fragment resident in shared memory,
+// and double-buffers the input stages: float32 stages land by cp.async
+// (16-byte copies of the interior, 4-byte copies of the halo columns, zero
+// fill outside the image) while the previous stage multiplies; bfloat16
+// stages are loaded to registers and interleaved there, their loads in
+// flight during the previous stage's multiplies.  The epilogue passes each
+// warp's sums through shared memory and stores 16 bytes at a time along W.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "conv3x3_lowch.cuh"
@@ -32,83 +42,393 @@ namespace {
 
 using namespace shgan::conv3;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+struct Args {
+  const void* x;
+  const float* w;
+  void* y;
+  int C, O, H, W, tiles_x, tiles_y, ntiles, nst;
+  bool vec;  // W a multiple of 16 bytes and x, y 16-byte aligned
+};
 
-// 8 consecutive outputs to a 16- (bf16) or 32-byte (f32) aligned address.
-__device__ __forceinline__ void store8(float* p, const float (&v)[kPix]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[kPix]) {
-  __nv_bfloat162 h[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-  *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(h);
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    conv3x3_lowch_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                         T* __restrict__ y, int C, int O, int H, int W) {
-  __shared__ float xs[kInElems];
-  __shared__ __align__(16) float ws[kWElems];
-  const int n = blockIdx.z;
-  const int x0 = tile_x0(blockIdx.x);
-  const int y0 = tile_y0(blockIdx.y);
-  const int t = threadIdx.x;
-  int og, ty, tx0;
-  thread_role(t, &og, &ty, &tx0);
-  const int64_t plane = static_cast<int64_t>(H) * W;
-  const T* xn = x + static_cast<int64_t>(n) * C * plane;
+__device__ __forceinline__ const T* src_at(const T* x, const Args& a, int n, int c, int sy,
+                                           int sx) {
+  return x + ((static_cast<int64_t>(n) * a.C + c) * a.H + sy) * a.W + sx;
+}
 
-  float acc[kOGroup][kPix];
-#pragma unroll
-  for (int o = 0; o < kOGroup; ++o)
-#pragma unroll
-    for (int p = 0; p < kPix; ++p) acc[o][p] = 0.0f;
+using Acc = float[kMTiles][kNTiles][4];
 
-  auto in = [](int i) { return xs[i]; };  // static storage: no capture
-  auto wt = [](int i) { return ws[i]; };
-  for (int c0 = 0; c0 < C; c0 += kCChunk) {
-    for (int i = t; i < kInElems; i += kThreads) {
-      int ci, sy, sx;
-      halo_coords(i, y0, x0, &ci, &sy, &sx);
-      const int c = c0 + ci;
-      xs[i] = halo_inside(c, sy, sx, C, H, W)
-                  ? to_float(__ldg(xn + c * plane + static_cast<int64_t>(sy) * W + sx))
-                  : 0.0f;
+// ---- float32: cp.async staging, 3xTF32 ----------------------------------------
+
+__device__ void stage_f32(const float* x, uint32_t* buf, const Args& a, int t, int s) {
+  int n, y0, x0;
+  tile_origin(t, a.tiles_x, a.tiles_y, &n, &y0, &x0);
+  const uint32_t base = smem_addr(buf);
+  if (a.vec) {
+    for (int j = threadIdx.x; j < kSlots * kInH * (kTileW / 4); j += kThreads) {
+      int slot, iy, ix;
+      vec_item(j, 4, &slot, &iy, &ix);
+      const int c = s * 8 + slot, sy = y0 - 1 + iy, sx = x0 - 1 + ix;
+      const bool ok = inside(c, sy, sx, a.C, a.H, a.W);  // all 4 or none: W % 4 == 0
+      cp_async16(base + 4 * staged_word(slot, iy, ix), ok ? src_at(x, a, n, c, sy, sx) : x, ok);
     }
-    for (int i = t; i < kWElems; i += kThreads) {
-      int ci, dy, dx, o;
-      weight_coords(i, &ci, &dy, &dx, &o);
-      const int c = c0 + ci;
-      ws[i] = (c < C && o < O) ? __ldg(w + weight_offset(o, c, dy, dx, C)) : 0.0f;
+    for (int j = threadIdx.x; j < kSlots * kInH * 2; j += kThreads) {
+      int slot, iy, ix;
+      halo_item(j, &slot, &iy, &ix);
+      const int c = s * 8 + slot, sy = y0 - 1 + iy, sx = x0 - 1 + ix;
+      const bool ok = inside(c, sy, sx, a.C, a.H, a.W);
+      cp_async4(base + 4 * staged_word(slot, iy, ix), ok ? src_at(x, a, n, c, sy, sx) : x, ok);
     }
-    __syncthreads();
-    accumulate_chunk(in, wt, og, ty, tx0, acc);
-    __syncthreads();
-  }
-
-  const int oy = y0 + ty;
-  const int ox = x0 + tx0;
-  if (oy >= H || ox >= W) return;
-  const bool whole = ox + kPix <= W && (W % kPix) == 0;
-#pragma unroll
-  for (int o = 0; o < kOGroup; ++o) {
-    const int oc = og * kOGroup + o;
-    if (oc >= O) break;
-    T* dst = y + (static_cast<int64_t>(n) * O + oc) * plane + static_cast<int64_t>(oy) * W + ox;
-    if (whole) {
-      store8(dst, acc[o]);
-    } else {
-#pragma unroll
-      for (int p = 0; p < kPix; ++p)
-        if (ox + p < W) store(dst + p, acc[o][p]);
+  } else {
+    for (int j = threadIdx.x; j < kSlots * kInH * kInW; j += kThreads) {
+      int slot, iy, ix;
+      pixel_item(j, &slot, &iy, &ix);
+      const int c = s * 8 + slot, sy = y0 - 1 + iy, sx = x0 - 1 + ix;
+      const bool ok = inside(c, sy, sx, a.C, a.H, a.W);
+      cp_async4(base + 4 * staged_word(slot, iy, ix), ok ? src_at(x, a, n, c, sy, sx) : x, ok);
     }
   }
+}
+
+// Weight fragment entry: B registers 0 and 1, TF32 high parts then residuals.
+__device__ void stage_weights_f32(float4* wsm, const Args& a) {
+  for (int e = threadIdx.x; e < a.nst * 9 * kNTiles * 32; e += kThreads) {
+    const int lane = e & 31, nt = (e >> 5) % kNTiles, tap = (e / (32 * kNTiles)) % 9;
+    const int s = e / (32 * kNTiles * 9);
+    const int o = nt * 8 + b_col(lane);
+    float hi[2], lo[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int c = slot_channel<4>(s, b_slot(lane, r), 0);
+      const float v =
+          (c < a.C && o < a.O) ? __ldg(a.w + weight_offset(o, c, tap / 3, tap % 3, a.C)) : 0.0f;
+      split_tf32(v, &hi[r], &lo[r]);
+    }
+    wsm[wfrag_index(s, tap, nt, lane)] = make_float4(hi[0], hi[1], lo[0], lo[1]);
+  }
+}
+
+__device__ __forceinline__ void mma_stage_f32(const uint32_t* buf, const float4* wsm, int s,
+                                              int warp, int lane, Acc& acc) {
+  const float* in = reinterpret_cast<const float*>(buf);
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = tap / 3, dx = tap % 3;
+    float4 b[kNTiles];
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt) b[nt] = wsm[wfrag_index(s, tap, nt, lane)];
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float h, l;
+        split_tf32_a(in[a_word(lane, r, warp, mt, dy, dx)], &h, &l);
+        ah[r] = __float_as_uint(h);
+        al[r] = __float_as_uint(l);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kNTiles; ++nt) {  // small terms first
+        mma_tf32(acc[mt][nt], al, __float_as_uint(b[nt].x), __float_as_uint(b[nt].y));
+        mma_tf32(acc[mt][nt], ah, __float_as_uint(b[nt].z), __float_as_uint(b[nt].w));
+        mma_tf32(acc[mt][nt], ah, __float_as_uint(b[nt].x), __float_as_uint(b[nt].y));
+      }
+    }
+  }
+}
+
+// ---- bfloat16: register staging with interleaved channel pairs ----------------
+
+struct Bf16Stage {
+  static constexpr int kItems = kSlots * kInH * (kTileW / 8);  // 8-pixel groups
+  static constexpr int kPer = (kItems + kThreads - 1) / kThreads;
+  static constexpr int kHalo = kSlots * kInH * 2;
+  static_assert(kHalo <= kThreads, "one halo pair per thread");
+  uint4 even[kPer], odd[kPer];  // channels 2p and 2p+1, 8 pixels each
+  uint32_t halo;
+
+  static __device__ __forceinline__ uint32_t pair(const __nv_bfloat16* x, const Args& a, int n,
+                                                  int c, int sy, int sx) {
+    const bool row = sy >= 0 && sy < a.H && sx >= 0 && sx < a.W;
+    const uint32_t lo =
+        (row && c < a.C) ? __bfloat16_as_ushort(src_at(x, a, n, c, sy, sx)[0]) : 0u;
+    const uint32_t hi =
+        (row && c + 1 < a.C) ? __bfloat16_as_ushort(src_at(x, a, n, c + 1, sy, sx)[0]) : 0u;
+    return lo | (hi << 16);
+  }
+
+  // Start the global loads of stage s of tile t (16-byte path only).
+  __device__ __forceinline__ void load(const __nv_bfloat16* x, const Args& a, int t, int s) {
+    if (!a.vec) return;
+    int n, y0, x0;
+    tile_origin(t, a.tiles_x, a.tiles_y, &n, &y0, &x0);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int j = threadIdx.x + k * kThreads;
+      even[k] = odd[k] = make_uint4(0, 0, 0, 0);
+      if (j >= kItems) continue;
+      int p, iy, ix;
+      vec_item(j, 8, &p, &iy, &ix);
+      const int c = slot_channel<2>(s, p, 0), sy = y0 - 1 + iy, sx = x0 - 1 + ix;
+      if (sy < 0 || sy >= a.H || sx >= a.W) continue;  // all 8 or none: W % 8 == 0
+      if (c < a.C) even[k] = __ldg(reinterpret_cast<const uint4*>(src_at(x, a, n, c, sy, sx)));
+      if (c + 1 < a.C)
+        odd[k] = __ldg(reinterpret_cast<const uint4*>(src_at(x, a, n, c + 1, sy, sx)));
+    }
+    halo = 0;
+    if (threadIdx.x < kHalo) {
+      int p, iy, ix;
+      halo_item(threadIdx.x, &p, &iy, &ix);
+      halo = pair(x, a, n, slot_channel<2>(s, p, 0), y0 - 1 + iy, x0 - 1 + ix);
+    }
+  }
+
+  // Interleave what load() fetched into `buf` (or, off the 16-byte path,
+  // load and store the stage pixel by pixel).
+  __device__ __forceinline__ void store(const __nv_bfloat16* x, uint32_t* buf, const Args& a,
+                                        int t, int s) const {
+    if (!a.vec) {
+      int n, y0, x0;
+      tile_origin(t, a.tiles_x, a.tiles_y, &n, &y0, &x0);
+      for (int j = threadIdx.x; j < kSlots * kInH * kInW; j += kThreads) {
+        int p, iy, ix;
+        pixel_item(j, &p, &iy, &ix);
+        buf[staged_word(p, iy, ix)] =
+            pair(x, a, n, slot_channel<2>(s, p, 0), y0 - 1 + iy, x0 - 1 + ix);
+      }
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int j = threadIdx.x + k * kThreads;
+      if (j >= kItems) continue;
+      int p, iy, ix;
+      vec_item(j, 8, &p, &iy, &ix);
+      const uint32_t e[4] = {even[k].x, even[k].y, even[k].z, even[k].w};
+      const uint32_t o[4] = {odd[k].x, odd[k].y, odd[k].z, odd[k].w};
+      uint32_t wv[8];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        wv[2 * q] = pair_first(e[q], o[q]);
+        wv[2 * q + 1] = pair_second(e[q], o[q]);
+      }
+      uint4* dst = reinterpret_cast<uint4*>(buf + staged_word(p, iy, ix));
+      dst[0] = make_uint4(wv[0], wv[1], wv[2], wv[3]);
+      dst[1] = make_uint4(wv[4], wv[5], wv[6], wv[7]);
+    }
+    if (threadIdx.x < kHalo) {
+      int p, iy, ix;
+      halo_item(threadIdx.x, &p, &iy, &ix);
+      buf[staged_word(p, iy, ix)] = halo;
+    }
+  }
+};
+
+// Weight fragment entry: B registers 0 and 1, each a (c, c+1) bf16 pair.
+__device__ void stage_weights_bf16(uint2* wsm, const Args& a) {
+  for (int e = threadIdx.x; e < a.nst * 9 * kNTiles * 32; e += kThreads) {
+    const int lane = e & 31, nt = (e >> 5) % kNTiles, tap = (e / (32 * kNTiles)) % 9;
+    const int s = e / (32 * kNTiles * 9);
+    const int o = nt * 8 + b_col(lane);
+    uint32_t reg[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float v[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = slot_channel<2>(s, b_slot(lane, r), h);
+        v[h] = (c < a.C && o < a.O) ? __ldg(a.w + weight_offset(o, c, tap / 3, tap % 3, a.C))
+                                    : 0.0f;
+      }
+      const __nv_bfloat162 b = __floats2bfloat162_rn(v[0], v[1]);  // .x: the lower K
+      reg[r] = *reinterpret_cast<const uint32_t*>(&b);
+    }
+    wsm[wfrag_index(s, tap, nt, lane)] = make_uint2(reg[0], reg[1]);
+  }
+}
+
+__device__ __forceinline__ void mma_stage_bf16(const uint32_t* buf, const uint2* wsm, int s,
+                                               int warp, int lane, Acc& acc) {
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int dy = tap / 3, dx = tap % 3;
+    uint2 b[kNTiles];
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt) b[nt] = wsm[wfrag_index(s, tap, nt, lane)];
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt) {
+      uint32_t af[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) af[r] = buf[a_word(lane, r, warp, mt, dy, dx)];
+#pragma unroll
+      for (int nt = 0; nt < kNTiles; ++nt) mma_bf16(acc[mt][nt], af, b[nt].x, b[nt].y);
+    }
+  }
+}
+
+// ---- epilogue -------------------------------------------------------------------
+
+__device__ __forceinline__ void store_vec(float* dst, const float* v) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(v);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* dst, const float* v) {
+  __nv_bfloat162 h[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(h);
+}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// Warp `warp` writes its tile row (all output channels) and zeroes its sums.
+template <typename T>
+__device__ __forceinline__ void epilogue(Acc& acc, float* sc, T* y, const Args& a, int t,
+                                         int warp, int lane) {
+  constexpr int kVec = Io<sizeof(T)>::kVec, kSegs = kTileW / kVec;
+  int n, y0, x0;
+  tile_origin(t, a.tiles_x, a.tiles_y, &n, &y0, &x0);
+  const int oy = y0 + warp;
+#pragma unroll
+  for (int nt = 0; nt < kNTiles; ++nt) {
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        sc[out_word(c_col(lane, r), 16 * mt + c_row(lane, r))] = acc[mt][nt][r];
+        acc[mt][nt][r] = 0.0f;
+      }
+    __syncwarp();
+    if (oy < a.H) {
+      for (int j = lane; j < 8 * kSegs; j += 32) {
+        const int cl = j / kSegs, px = (j - cl * kSegs) * kVec;
+        const int o = nt * 8 + cl, ox = x0 + px;
+        if (o >= a.O || ox >= a.W) continue;
+        const float* v = sc + out_word(cl, px);
+        T* dst = y + ((static_cast<int64_t>(n) * a.O + o) * a.H + oy) * a.W + ox;
+        if (a.vec) {  // W % kVec == 0, so the whole vector is inside
+          store_vec(dst, v);
+        } else {
+          for (int q = 0; q < kVec && ox + q < a.W; ++q) store1(dst + q, v[q]);
+        }
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// ---- the kernels ----------------------------------------------------------------
+
+// Shared memory: two stage buffers, the warps' epilogue scratch, the weights.
+constexpr int kBufBytes = 2 * kStageWords * 4;
+constexpr int kScratchBytes = kWarps * kOutWords * 4;
+constexpr int kSmemF32 = kBufBytes + kScratchBytes + kMaxStages * 9 * kNTiles * 32 * 16;
+constexpr int kSmemBf16 = kBufBytes + kScratchBytes + (kMaxStages / 2) * 9 * kNTiles * 32 * 8;
+
+// Block b walks tiles b, b + gridDim.x, ...; item i is stage i % nst of its
+// (i / nst)-th tile.
+__device__ __forceinline__ int item_tile(int i, int nst) {
+  return blockIdx.x + (i / nst) * gridDim.x;
+}
+__device__ __forceinline__ int block_items(const Args& a) {
+  return (a.ntiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x * a.nst;
+}
+
+__global__ void __launch_bounds__(kThreads, 1) conv3x3_f32_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* bufs = reinterpret_cast<uint32_t*>(smem);
+  float* sc = reinterpret_cast<float*>(smem + kBufBytes) + (threadIdx.x / 32) * kOutWords;
+  float4* wsm = reinterpret_cast<float4*>(smem + kBufBytes + kScratchBytes);
+  const float* x = static_cast<const float*>(a.x);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int items = block_items(a);
+  if (items <= 0) return;
+  stage_f32(x, bufs, a, item_tile(0, a.nst), 0);
+  cp_async_commit();
+  stage_weights_f32(wsm, a);  // while the first stage is in flight
+  Acc acc = {};
+  for (int i = 0; i < items; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // stage i landed; every warp is done with stage i - 1
+    if (i + 1 < items) {
+      stage_f32(x, bufs + ((i + 1) & 1) * kStageWords, a, item_tile(i + 1, a.nst),
+                (i + 1) % a.nst);
+      cp_async_commit();
+    }
+    mma_stage_f32(bufs + (i & 1) * kStageWords, wsm, i % a.nst, warp, lane, acc);
+    if (i % a.nst == a.nst - 1)
+      epilogue(acc, sc, static_cast<float*>(a.y), a, item_tile(i, a.nst), warp, lane);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) conv3x3_bf16_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* bufs = reinterpret_cast<uint32_t*>(smem);
+  float* sc = reinterpret_cast<float*>(smem + kBufBytes) + (threadIdx.x / 32) * kOutWords;
+  uint2* wsm = reinterpret_cast<uint2*>(smem + kBufBytes + kScratchBytes);
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int items = block_items(a);
+  if (items <= 0) return;
+  Bf16Stage st;
+  st.load(x, a, item_tile(0, a.nst), 0);
+  stage_weights_bf16(wsm, a);
+  st.store(x, bufs, a, item_tile(0, a.nst), 0);
+  Acc acc = {};
+  for (int i = 0; i < items; ++i) {
+    const bool next = i + 1 < items;
+    const int tn = item_tile(i + 1, a.nst), sn = (i + 1) % a.nst;
+    if (next) st.load(x, a, tn, sn);  // in flight during this stage's multiplies
+    __syncthreads();  // stage i stored; every warp is done with stage i - 1
+    mma_stage_bf16(bufs + (i & 1) * kStageWords, wsm, i % a.nst, warp, lane, acc);
+    if (i % a.nst == a.nst - 1)
+      epilogue(acc, sc, static_cast<__nv_bfloat16*>(a.y), a, item_tile(i, a.nst), warp, lane);
+    if (next) st.store(x, bufs + ((i + 1) & 1) * kStageWords, a, tn, sn);
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, int dev, bool* done) {
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done[dev] = e == cudaSuccess;
+  return e;
 }
 
 }  // namespace
@@ -120,18 +440,32 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int shgan_conv3x3_lowch(const void* x, const float* w, void* y, int dtype, int n,
                                    int c, int o, int h, int wd, void* stream) {
   if (c < 1 || c > kMaxC || o < 1 || o > kMaxO || h < 1 || wd < 1 || n < 0 ||
-      n > 65535 || (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((wd + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, n);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_x = (wd + kTileW - 1) / kTileW, tiles_y = (h + kTileH - 1) / kTileH;
+  const int64_t ntiles = static_cast<int64_t>(n) * tiles_x * tiles_y;
+  if (ntiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int vec_px = dtype == 0 ? 4 : 8;
+  Args a{x, w, y, c, o, h, wd, tiles_x, tiles_y, static_cast<int>(ntiles),
+         stages_for(c, dtype == 0 ? Io<4>::kStageCh : Io<2>::kStageCh),
+         wd % vec_px == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+             reinterpret_cast<uintptr_t>(y) % 16 == 0};
+  const int grid = static_cast<int>(ntiles < sms ? ntiles : sms);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static bool f32_ready[64] = {}, bf16_ready[64] = {};
   if (dtype == 0) {
-    conv3x3_lowch_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), w, static_cast<float*>(y), c, o, h, wd);
+    e = allow_smem(conv3x3_f32_kernel, kSmemF32, dev, f32_ready);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    conv3x3_f32_kernel<<<grid, kThreads, kSmemF32, s>>>(a);
   } else {
-    conv3x3_lowch_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), w, static_cast<__nv_bfloat16*>(y), c, o, h, wd);
+    e = allow_smem(conv3x3_bf16_kernel, kSmemBf16, dev, bf16_ready);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    conv3x3_bf16_kernel<<<grid, kThreads, kSmemBf16, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

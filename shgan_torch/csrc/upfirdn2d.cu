@@ -12,15 +12,32 @@
 // least traffic is one read of the input and one write of the output.
 // Design:
 // * up = down = 1 (every FIR of the main path but the 3-channel image
-//   upsample): a block stages a 39x39 input tile (a 32x32 output tile and
-//   its halo, zero-filled where the padding falls outside the input) in
-//   shared memory with row-coalesced loads, then each thread computes 4
-//   outputs of a column from it; 4x4 taps are unrolled.
+//   upsample; the arithmetic is in upfirdn2d.cuh): a persistent grid (as
+//   many blocks as fit on the card at once) walks work items, each a 64x64
+//   output tile of one plane, a 32x32 tile of four planes or a 16x16 tile
+//   of sixteen (fir_tile_mode: the fewest staged input elements plus a fixed
+//   cost per item), so an 8x8 plane does not leave a tile mostly idle, and
+//   an item's window is clipped to the plane, so the encoder's (R+1)x(R+1)
+//   edge items cost little.  The window is read with 16-byte loads (4
+//   float32 or 8 bfloat16) from the chunk boundary at or below each row's
+//   first element, so every row loads vectorized whatever W and the pads
+//   are.  Each chunk lands in shared memory as float with 16-byte stores at
+//   its own place in the staged row (the row starts `shift` floats into its
+//   first chunk), and only a chunk that crosses an end of the plane row is
+//   masked.  The loads of the next item are issued into registers before
+//   this item computes, so they are in flight while it does.  Each thread
+//   slides a 4-row window of 5 values down a strip of 8 rows x 2 columns of
+//   outputs in registers, reading each staged row once per strip, two values
+//   at a time.  Other taps up to 8x8 take the same staging with a plain loop
+//   over the taps.
 // * other factors: one thread per output element; the taps that meet a
 //   sample are found with shifts and masks (up is 1 or 2).
 // The taps ride in the kernel's parameter space.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
 
 #include "upfirdn2d.cuh"
 
@@ -35,51 +52,186 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162f
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
-// K = 4: 4x4 taps, unrolled; K = 0: any fh, fw <= kMaxTaps.
-template <typename T, int K>
-__global__ void __launch_bounds__(shgan::kBlockW * shgan::kBlockH)
-    upfirdn2d_tile_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t planes, int h,
-                          int w, int out_h, int out_w, int padx0, int pady0, Taps taps,
-                          int fh, int fw) {
-  using namespace shgan;
-  __shared__ float tile[kTileInH][kTileInW];
-  const int ox0 = blockIdx.x * kTileW;
-  const int oy0 = blockIdx.y * kTileH;
-  const int th = kTileH + fh - 1;
-  const int tw = kTileW + fw - 1;
-  const int64_t in_plane = static_cast<int64_t>(h) * w;
-  const int64_t out_plane = static_cast<int64_t>(out_h) * out_w;
-  // `tile` has static storage: the lambda reads it without a capture
-  auto at = [](int r, int c) { return tile[r][c]; };
-  for (int64_t p = blockIdx.z; p < planes; p += gridDim.z) {
-    const T* src = x + p * in_plane;
-    for (int iy = threadIdx.y; iy < th; iy += kBlockH) {
-      const int sy = tile_src(oy0, pady0, iy);
-      const bool row_in = sy >= 0 && sy < h;
-      for (int ix = threadIdx.x; ix < tw; ix += kBlockW) {
-        const int sx = tile_src(ox0, padx0, ix);
-        tile[iy][ix] = (row_in && sx >= 0 && sx < w)
-                           ? to_float(__ldg(src + static_cast<int64_t>(sy) * w + sx))
-                           : 0.0f;
-      }
-    }
-    __syncthreads();
-    const int ox = ox0 + threadIdx.x;
+struct TileArgs {
+  long long planes;
+  int items, h, w, out_h, out_w, padx0, pady0, fh, fw, tiles_x, tiles_y;
+};
+
+// A 16-byte chunk as float: 4 float32 or 8 bfloat16.
+__device__ __forceinline__ void chunk_floats(const uint4& d, float (&f)[4]) {
+  f[0] = __uint_as_float(d.x);
+  f[1] = __uint_as_float(d.y);
+  f[2] = __uint_as_float(d.z);
+  f[3] = __uint_as_float(d.w);
+}
+__device__ __forceinline__ void chunk_floats(const uint4& d, float (&f)[8]) {
+  const uint32_t w[4] = {d.x, d.y, d.z, d.w};
 #pragma unroll
-    for (int r = 0; r < kTileH / kBlockH; ++r) {
-      const int ty = threadIdx.y + r * kBlockH;
-      const int oy = oy0 + ty;
-      if (oy < out_h && ox < out_w) {
-        float v;
-        if constexpr (K > 0) {
-          v = tile_point_fixed<K, K>(at, taps.v, ty, threadIdx.x);
-        } else {
-          v = tile_point(at, taps.v, fh, fw, ty, threadIdx.x);
-        }
-        store(y + p * out_plane + static_cast<int64_t>(oy) * out_w + ox, v);
-      }
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// K = 4: 4x4 taps, unrolled; K = 0: any fh, fw <= kMaxTaps.
+template <typename T, int GW, int GH, int K>
+__global__ void __launch_bounds__(shgan::kFirThreads)
+    upfirdn2d_tile_kernel(const T* __restrict__ x, T* __restrict__ y, TileArgs a, Taps taps) {
+  using namespace shgan;
+  using M = FirMode<GW, GH>;
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kTaps = K > 0 ? K : kMaxTaps;
+  constexpr int kRows = GH + kTaps - 1;                   // staged rows, at most
+  constexpr int kRowF = fir_row_elems(GW, kTaps, kVec);  // floats a staged row
+  constexpr int kRoles =  // staging roles of a thread, at most
+      (M::kPlanes * kRows * (kRowF / kVec) + kFirThreads - 1) / kFirThreads;
+  __shared__ __align__(16) float tile[M::kPlanes * kRows * kRowF];
+  const int th = GH + a.fh - 1, nch = fir_chunks(GW + a.fw - 1, kVec);
+  const int roles = M::kPlanes * th * nch;
+  const long long in_plane = static_cast<long long>(a.h) * a.w;
+  const long long out_plane = static_cast<long long>(a.out_h) * a.out_w;
+  // This thread's staging roles, the same for every item: plane slot, staged
+  // row, chunk, packed k << 20 | iy << 10 | q (-1: none).
+  int role[kRoles];
+#pragma unroll
+  for (int i = 0; i < kRoles; ++i) {
+    const int j = threadIdx.x + i * kFirThreads;
+    int k, iy, q;
+    fir_stage_role(j, th, nch, &k, &iy, &q);
+    role[i] = j < roles ? (k << 20) | (iy << 10) | q : -1;
+  }
+  int tk, ts, tc;
+  fir_thread(threadIdx.x, GW, GH, &tk, &ts, &tc);
+
+  // An item: index (-1: none), plane group, tile origin, staged window.
+  struct Item {
+    int idx, g, ty0, tx0, th, tw;
+  };
+  auto item_at = [&](int idx) {
+    Item it{-1, 0, 0, 0, 0, 0};
+    if (idx < 0 || idx >= a.items) return it;
+    it.idx = idx;
+    fir_item(idx, a.tiles_x, a.tiles_y, GW, GH, &it.g, &it.ty0, &it.tx0);
+    it.th = fir_window(it.ty0, a.out_h, GH, a.fh);
+    it.tw = fir_window(it.tx0, a.out_w, GW, a.fw);
+    return it;
+  };
+  // Flat index of window element (iy, 0) of plane slot k of item `it`.
+  auto row_start = [&](const Item& it, int k, int iy) {
+    const long long plane = static_cast<long long>(it.g) * M::kPlanes + k;
+    return plane * in_plane + static_cast<long long>(it.ty0 - a.pady0 + iy) * a.w +
+           (it.tx0 - a.padx0);
+  };
+  // Issue the loads of item `it` into d (col: each chunk's window column;
+  // a chunk at or past the window's end is not staged).
+  auto load = [&](uint4 (&d)[kRoles], int (&col)[kRoles], const Item& it) {
+    const int x0 = it.tx0 - a.padx0;
+#pragma unroll
+    for (int i = 0; i < kRoles; ++i) {
+      d[i] = make_uint4(0, 0, 0, 0);
+      col[i] = INT_MAX;
+      const int iy = (role[i] >> 10) & 1023;
+      if (role[i] < 0 || iy >= it.th) continue;
+      const int k = role[i] >> 20, q = role[i] & 1023, sy = it.ty0 - a.pady0 + iy;
+      const long long start = row_start(it, k, iy);
+      col[i] = fir_chunk_col(start, q, kVec);
+      if (static_cast<long long>(it.g) * M::kPlanes + k >= a.planes || sy < 0 || sy >= a.h ||
+          !fir_chunk_needed(col[i], kVec, x0, a.w, it.tw))
+        continue;
+      d[i] = __ldg(reinterpret_cast<const uint4*>(x + fir_chunk_at(start, q, kVec)));
     }
+  };
+  // Store the chunks of item `it` into its staged rows, 16 bytes at a time,
+  // masking the elements of a chunk that crosses the plane row's ends.
+  auto stage = [&](const uint4 (&d)[kRoles], const int (&col)[kRoles], const Item& it) {
+    const int x0 = it.tx0 - a.padx0;
+#pragma unroll
+    for (int i = 0; i < kRoles; ++i) {
+      if (col[i] >= it.tw) continue;
+      float f[kVec];
+      chunk_floats(d[i], f);
+      if (!fir_chunk_in_row(col[i], kVec, x0, a.w)) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          if (!fir_col_in_row(col[i] + e, x0, a.w)) f[e] = 0.0f;
+      }
+      float4* dst = reinterpret_cast<float4*>(
+          tile + ((role[i] >> 20) * kRows + ((role[i] >> 10) & 1023)) * kRowF +
+          (role[i] & 1023) * kVec);
+#pragma unroll
+      for (int v = 0; v < kVec / 4; ++v)
+        dst[v] = make_float4(f[4 * v], f[4 * v + 1], f[4 * v + 2], f[4 * v + 3]);
+    }
+  };
+  const float* win = tile + tk * kRows * kRowF;
+  // This thread's outputs of the staged item `it`.
+  auto compute = [&](const Item& it) {
+    const long long plane = static_cast<long long>(it.g) * M::kPlanes + tk;
+    const int ox = it.tx0 + tc, oy0 = it.ty0 + ts * kStrip;
+    if (plane >= a.planes || ox >= a.out_w || oy0 >= a.out_h) return;
+    const int s0 = fir_row_shift(row_start(it, tk, 0), kVec);
+    auto pos = [=](int r, int c) { return fir_staged_pos(r, c, kRowF, s0, a.w, kVec); };
+    float out[kStrip][kCols];
+    if constexpr (K > 0) {
+      // N values of staged row r from window column c: pairs from an even
+      // float index (8-byte aligned), a single value where one is left over
+      auto row = [&](int r, int c, auto& v) {
+        constexpr int N = sizeof(v) / sizeof(float);
+        const int p = pos(r, c);
+        const float* src = win + p;
+        if ((p & 1) == 0) {
+#pragma unroll
+          for (int j = 0; j + 1 < N; j += 2) {
+            const float2 t = *reinterpret_cast<const float2*>(src + j);
+            v[j] = t.x;
+            v[j + 1] = t.y;
+          }
+          if (N % 2) v[N - 1] = src[N - 1];
+        } else {
+          v[0] = src[0];
+#pragma unroll
+          for (int j = 1; j + 1 < N; j += 2) {
+            const float2 t = *reinterpret_cast<const float2*>(src + j);
+            v[j] = t.x;
+            v[j + 1] = t.y;
+          }
+          if (N % 2 == 0) v[N - 1] = src[N - 1];
+        }
+      };
+      fir_strip_fixed<K, K>(row, taps.v, ts * kStrip, tc, out);
+    } else {
+      auto at = [&](int r, int c) { return win[pos(r, c)]; };
+      fir_strip(at, taps.v, a.fh, a.fw, ts * kStrip, tc, out);
+    }
+    T* dst = y + plane * out_plane + static_cast<long long>(oy0) * a.out_w + ox;
+    const bool both = ox + 1 < a.out_w;
+#pragma unroll
+    for (int r = 0; r < kStrip; ++r) {
+      if (oy0 + r >= a.out_h) break;
+      store(dst, out[r][0]);
+      if (both) store(dst + 1, out[r][1]);
+      dst += a.out_w;
+    }
+  };
+
+  // The chunks of the next item are loaded into registers while the staged
+  // item computes.
+  uint4 d[kRoles];
+  int col[kRoles];
+  Item cur = item_at(blockIdx.x);
+  if (cur.idx < 0) return;
+  load(d, col, cur);
+  stage(d, col, cur);
+  __syncthreads();
+  while (true) {
+    const Item nxt = item_at(cur.idx + static_cast<int>(gridDim.x));
+    if (nxt.idx >= 0) load(d, col, nxt);
+    compute(cur);
+    if (nxt.idx < 0) break;
+    __syncthreads();  // every thread is done with cur's windows
+    stage(d, col, nxt);
     __syncthreads();
+    cur = nxt;
   }
 }
 
@@ -102,31 +254,66 @@ __global__ void upfirdn2d_kernel(const T* __restrict__ x, T* __restrict__ y, int
   }
 }
 
+template <typename T, int GW, int GH>
+cudaError_t launch_tile(const T* x, T* y, long long planes, int h, int w, int out_h, int out_w,
+                        int padx0, int pady0, const Taps& t, int fh, int fw, cudaStream_t s) {
+  using M = shgan::FirMode<GW, GH>;
+  TileArgs a{planes, 0, h, w, out_h, out_w, padx0, pady0, fh, fw, (out_w + GW - 1) / GW,
+             (out_h + GH - 1) / GH};
+  const long long items = (planes + M::kPlanes - 1) / M::kPlanes * a.tiles_x * a.tiles_y;
+  if (items > INT_MAX) return cudaErrorInvalidValue;
+  a.items = static_cast<int>(items);
+  const bool k4 = fh == 4 && fw == 4;
+  const void* fn = k4 ? reinterpret_cast<const void*>(upfirdn2d_tile_kernel<T, GW, GH, 4>)
+                      : reinterpret_cast<const void*>(upfirdn2d_tile_kernel<T, GW, GH, 0>);
+  // one wave: as many blocks as the card holds at once, or fewer
+  static int blocks_per_sm[2] = {0, 0};  // of this instantiation: 4x4 taps, other taps
+  int& per_sm = blocks_per_sm[k4 ? 0 : 1];
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && per_sm == 0)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, shgan::kFirThreads, 0);
+  if (e != cudaSuccess) return e;
+  const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const unsigned int grid = static_cast<unsigned int>(a.items < cap ? a.items : cap);
+  if (k4) {
+    upfirdn2d_tile_kernel<T, GW, GH, 4><<<grid, shgan::kFirThreads, 0, s>>>(x, y, a, t);
+  } else {
+    upfirdn2d_tile_kernel<T, GW, GH, 0><<<grid, shgan::kFirThreads, 0, s>>>(x, y, a, t);
+  }
+  return cudaSuccess;
+}
+
 template <typename T>
-void launch(const void* x, void* y, long long planes, int h, int w, int out_h, int out_w,
-            int upx, int upy, int downx, int downy, int padx0, int pady0, const Taps& t,
-            int fh, int fw, cudaStream_t s) {
+cudaError_t launch(const void* x, void* y, long long planes, int h, int w, int out_h, int out_w,
+                   int upx, int upy, int downx, int downy, int padx0, int pady0, const Taps& t,
+                   int fh, int fw, cudaStream_t s) {
   const T* xin = static_cast<const T*>(x);
   T* yout = static_cast<T*>(y);
+  // the tiled path's 16-byte loads need a 16-byte aligned tensor
+  if (upx == 1 && upy == 1 && downx == 1 && downy == 1 &&
+      reinterpret_cast<uintptr_t>(x) % 16 == 0) {
+    switch (shgan::fir_tile_mode(out_h, out_w, fh, fw)) {
+      case 0:
+        return launch_tile<T, 64, 64>(xin, yout, planes, h, w, out_h, out_w, padx0, pady0, t,
+                                      fh, fw, s);
+      case 1:
+        return launch_tile<T, 32, 32>(xin, yout, planes, h, w, out_h, out_w, padx0, pady0, t,
+                                      fh, fw, s);
+      default:
+        return launch_tile<T, 16, 16>(xin, yout, planes, h, w, out_h, out_w, padx0, pady0, t,
+                                      fh, fw, s);
+    }
+  }
   const unsigned int gz = static_cast<unsigned int>(planes < 65535 ? planes : 65535);
   const dim3 block(shgan::kBlockW, shgan::kBlockH);
-  if (upx == 1 && upy == 1 && downx == 1 && downy == 1) {
-    const dim3 grid((out_w + shgan::kTileW - 1) / shgan::kTileW,
-                    (out_h + shgan::kTileH - 1) / shgan::kTileH, gz);
-    if (fh == 4 && fw == 4) {
-      upfirdn2d_tile_kernel<T, 4><<<grid, block, 0, s>>>(xin, yout, planes, h, w, out_h,
-                                                         out_w, padx0, pady0, t, fh, fw);
-    } else {
-      upfirdn2d_tile_kernel<T, 0><<<grid, block, 0, s>>>(xin, yout, planes, h, w, out_h,
-                                                         out_w, padx0, pady0, t, fh, fw);
-    }
-    return;
-  }
   const dim3 grid((out_w + shgan::kBlockW - 1) / shgan::kBlockW,
                   (out_h + shgan::kBlockH - 1) / shgan::kBlockH, gz);
   upfirdn2d_kernel<T><<<grid, block, 0, s>>>(
       xin, yout, planes, h, w, out_h, out_w, shgan::log2_factor(upx), shgan::log2_factor(upy),
       downx, downy, padx0, pady0, t, fh, fw);
+  return cudaSuccess;
 }
 
 bool factor_ok(int f) { return f == 1 || f == 2; }
@@ -148,12 +335,11 @@ extern "C" int shgan_upfirdn2d(const void* x, void* y, int dtype, long long plan
   Taps t = {};
   for (int i = 0; i < fh * fw; ++i) t.v[i] = taps[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch<float>(x, y, planes, h, w, out_h, out_w, upx, upy, downx, downy, padx0, pady0, t,
-                  fh, fw, s);
-  } else {
-    launch<__nv_bfloat16>(x, y, planes, h, w, out_h, out_w, upx, upy, downx, downy, padx0,
-                          pady0, t, fh, fw, s);
-  }
+  const cudaError_t e =
+      dtype == 0 ? launch<float>(x, y, planes, h, w, out_h, out_w, upx, upy, downx, downy,
+                                 padx0, pady0, t, fh, fw, s)
+                 : launch<__nv_bfloat16>(x, y, planes, h, w, out_h, out_w, upx, upy, downx,
+                                         downy, padx0, pady0, t, fh, fw, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

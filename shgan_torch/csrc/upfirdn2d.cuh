@@ -1,5 +1,6 @@
-// Index and padding arithmetic of the upfirdn2d contract, shared by the CUDA
-// kernels (upfirdn2d.cu) and the host harness of tests/test_torch_kernel_math.py.
+// Index, padding and tiling arithmetic of the upfirdn2d contract, shared by
+// the CUDA kernels (upfirdn2d.cu) and the host harness of
+// tests/test_torch_kernel_math.py.
 //
 // Contract (shgan_tpu/ops/upfirdn2d.py:180-196): zero-insert up-1 zeros after
 // every sample, signed pad (negative = crop), correlate with the taps (already
@@ -12,22 +13,19 @@
 
 #if defined(__CUDACC__)
 #define SHGAN_HD __host__ __device__ __forceinline__
+#define SHGAN_UNROLL _Pragma("unroll")
 #else
 #define SHGAN_HD inline
+#define SHGAN_UNROLL
 #endif
 
 namespace shgan {
 
 constexpr int kMaxTaps = 8;
-// Tiled path (up = down = 1): a block of kBlockW x kBlockH threads computes a
-// kTileW x kTileH output tile from a (kTileH + fh - 1) x (kTileW + fw - 1)
-// input tile staged in shared memory.
-constexpr int kTileW = 32;
-constexpr int kTileH = 32;
+// Generic path (any up/down in {1, 2}): one thread per output, blocks of
+// kBlockW x kBlockH threads.
 constexpr int kBlockW = 32;
 constexpr int kBlockH = 8;
-constexpr int kTileInW = kTileW + kMaxTaps - 1;
-constexpr int kTileInH = kTileH + kMaxTaps - 1;
 
 // Output extent along one axis (the reference host wrapper's arithmetic).
 SHGAN_HD int upfirdn_out_size(int n_in, int up, int down, int pad0, int pad1, int taps) {
@@ -65,34 +63,189 @@ SHGAN_HD float upfirdn2d_point(const Load& load, int h, int w, int lupx, int lup
   return acc;
 }
 
-// Tiled path: tile element i along one axis holds input sample o0 - pad0 + i
-// (o0 = the tile's first output), zero where that falls outside the input.
-SHGAN_HD int tile_src(int o0, int pad0, int i) { return o0 - pad0 + i; }
+// ---- Tiled path (up = down = 1) -------------------------------------------
+//
+// A block of kFirThreads threads walks work items; an item is a GW x GH
+// output tile of each of kPlanes consecutive planes (a "plane group").  Thread
+// t owns kCols adjacent columns and a strip of kStrip output rows of one plane
+// of the group (fir_thread).  The item's input, a (GH + fh - 1) x (GW + fw - 1)
+// window per plane (element (iy, cc) = input (ty0 - pady0 + iy, x0 + cc),
+// x0 = tx0 - padx0, zero outside the plane), is fetched in 16-byte chunks (4
+// float32 or 8 bfloat16) from the chunk boundary at or below each row's first
+// element, so every load is aligned whatever W and the pads are.  A staged
+// row holds its chunks as they come, as float: chunk q at float q * vec, so
+// window element cc sits at cc + shift, shift = the row start's offset in its
+// chunk (fir_row_shift), and each chunk is stored with 16-byte stores.  Only
+// a chunk that crosses the plane row's ends is masked, in registers.
+//
+// Modes: 0 = 64 x 64 tiles, one plane an item; 1 = 32 x 32, four planes;
+// 2 = 16 x 16, sixteen planes (fir_tile_mode).
+constexpr int kFirThreads = 256;
+constexpr int kStrip = 8;  // output rows per thread
+constexpr int kCols = 2;   // adjacent output columns per thread
 
-// Output (ty, tx) of a tile from the staged input `tile(r, c)`.
-template <typename Tile>
-SHGAN_HD float tile_point(const Tile& tile, const float* taps, int fh, int fw, int ty,
-                          int tx) {
-  float acc = 0.0f;
-  for (int i = 0; i < fh; ++i)
-    for (int j = 0; j < fw; ++j) acc += taps[i * fw + j] * tile(ty + i, tx + j);
-  return acc;
+template <int GW, int GH>
+struct FirMode {
+  static constexpr int kGroupThreads = (GW / kCols) * (GH / kStrip);
+  static constexpr int kPlanes = kFirThreads / kGroupThreads;
+  static_assert(kPlanes * kGroupThreads == kFirThreads, "whole groups");
+};
+
+// Chunks per staged row: enough to cover tw columns from any offset in the
+// first chunk; the elements a staged row takes for taps up to `taps` wide.
+SHGAN_HD constexpr int fir_chunks(int tw, int vec) { return (tw + 2 * vec - 2) / vec; }
+SHGAN_HD constexpr int fir_row_elems(int gw, int taps, int vec) {
+  return fir_chunks(gw + taps - 1, vec) * vec;
 }
 
-// The same with the tap count fixed at compile time, so the loops unroll.
-template <int FH, int FW, typename Tile>
-SHGAN_HD float tile_point_fixed(const Tile& tile, const float* taps, int ty, int tx) {
-  float acc = 0.0f;
-#if defined(__CUDACC__)
-#pragma unroll
-#endif
-  for (int i = 0; i < FH; ++i) {
-#if defined(__CUDACC__)
-#pragma unroll
-#endif
-    for (int j = 0; j < FW; ++j) acc += taps[i * FW + j] * tile(ty + i, tx + j);
+constexpr int kFirModes = 3;
+SHGAN_HD int fir_mode_w(int mode) { return 64 >> mode; }
+// Cost of one work item in staged elements: its fixed share of index
+// arithmetic and barriers (fitted to the card's times of the main path's
+// FIR calls under each mode).
+constexpr int kFirItemCost = 800;
+
+// The mode that stages the fewest input elements for one out_h x out_w plane
+// (the windows of its tiles, clipped to the plane, fir_window) plus a fixed
+// cost per item; the larger tile on a tie.
+SHGAN_HD int fir_tile_mode(int out_h, int out_w, int fh, int fw) {
+  int best = 0;
+  long long best_cost = -1;
+  for (int m = 0; m < kFirModes; ++m) {
+    const int g = fir_mode_w(m), ty = (out_h + g - 1) / g, tx = (out_w + g - 1) / g;
+    const int planes = kFirThreads / ((g / kCols) * (g / kStrip));
+    const long long cost =
+        static_cast<long long>(out_h + ty * (fh - 1)) * (out_w + tx * (fw - 1)) +
+        static_cast<long long>(ty) * tx * kFirItemCost / planes;
+    if (best_cost < 0 || cost < best_cost) {
+      best = m;
+      best_cost = cost;
+    }
   }
-  return acc;
+  return best;
+}
+
+// Floor of v / d, for d > 0 and v of either sign.
+SHGAN_HD long long floor_div(long long v, int d) {
+  const long long q = v / d;
+  return (v % d != 0 && v < 0) ? q - 1 : q;
+}
+
+// Item `item` -> plane group g, tile origin (ty0, tx0); tiles x fastest.
+SHGAN_HD void fir_item(int item, int tiles_x, int tiles_y, int gw, int gh, int* g, int* ty0,
+                       int* tx0) {
+  const int per_group = tiles_x * tiles_y;
+  *g = item / per_group;
+  const int r = item - *g * per_group;
+  *ty0 = (r / tiles_x) * gh;
+  *tx0 = (r % tiles_x) * gw;
+}
+
+// Extent of an item's staged window along one axis: the input that its
+// outputs in [o0, min(o0 + g, out)) read.  Rows and columns beyond it are
+// neither loaded nor staged, so an item at the ragged edge (the encoder's
+// R + 1 outputs leave one row and one column of items with one output row or
+// column) costs little.
+SHGAN_HD int fir_window(int o0, int out, int g, int taps) {
+  return (out - o0 < g ? out - o0 : g) + taps - 1;
+}
+
+// Thread t -> plane slot k of the group, strip s, first column c (even).
+SHGAN_HD void fir_thread(int t, int gw, int gh, int* k, int* s, int* c) {
+  const int pairs = gw / kCols, group = pairs * (gh / kStrip);
+  *k = t / group;
+  const int r = t - *k * group;
+  *s = r / pairs;
+  *c = (r - *s * pairs) * kCols;
+}
+
+// Staging role j of an item (j < kPlanes * th * nch) -> plane slot k, staged
+// row iy, chunk q of that row.
+SHGAN_HD void fir_stage_role(int j, int th, int nch, int* k, int* iy, int* q) {
+  *k = j / (th * nch);
+  const int r = j - *k * (th * nch);
+  *iy = r / nch;
+  *q = r - *iy * nch;
+}
+
+// A staged row whose window starts at flat index `start` (row base + x0):
+// its first element's offset in its chunk; chunk q's flat index (a multiple
+// of vec) and window column (negative for elements before the window).
+SHGAN_HD int fir_row_shift(long long start, int vec) {
+  return static_cast<int>(start - floor_div(start, vec) * vec);
+}
+// Index of window element (r, c) in a plane's staged rows of row_e elements
+// each, when window row 0 starts s0 = fir_row_shift(..) into its chunk: row
+// r starts (s0 + r * w) mod vec into its own (vec a power of two).
+SHGAN_HD int fir_staged_pos(int r, int c, int row_e, int s0, int w, int vec) {
+  return r * row_e + c + ((s0 + r * (w & (vec - 1))) & (vec - 1));
+}
+SHGAN_HD long long fir_chunk_at(long long start, int q, int vec) {
+  return floor_div(start, vec) * vec + static_cast<long long>(q) * vec;
+}
+SHGAN_HD int fir_chunk_col(long long start, int q, int vec) {
+  return static_cast<int>(fir_chunk_at(start, q, vec) - start);
+}
+
+// Whether chunk element columns [cc0, cc0 + vec) of the window meet the
+// plane row (input columns x0 + cc in [0, w)) and the window [0, tw): the
+// chunk is loaded only then, so a chunk read from memory always holds an
+// element of the tensor.  A chunk with cc0 >= tw is not staged at all.
+SHGAN_HD bool fir_chunk_needed(int cc0, int vec, int x0, int w, int tw) {
+  const int lo = cc0 > -x0 ? cc0 : -x0;                      // max(cc0, -x0)
+  const int hi = cc0 + vec < w - x0 ? cc0 + vec : w - x0;    // min(.., w - x0)
+  return lo < hi && cc0 + vec > 0 && cc0 < tw;
+}
+
+// Whether element cc is inside the plane row (else it is staged as zero); a
+// chunk wholly inside is staged without per-element tests.
+SHGAN_HD bool fir_col_in_row(int cc, int x0, int w) { return x0 + cc >= 0 && x0 + cc < w; }
+SHGAN_HD bool fir_chunk_in_row(int cc0, int vec, int x0, int w) {
+  return x0 + cc0 >= 0 && x0 + cc0 + vec <= w;
+}
+
+// The kStrip x kCols outputs of a thread from the staged window:
+// out[r][u] = sum_{i,j} taps[i][j] * window(r0 + r + i, c + u + j).  The
+// fixed-size version slides an FH-row window of FW + kCols - 1 values down
+// the strip in registers, so each staged row is read once per strip;
+// `row(r, c, v)` fills v[0..N) with window(r, c .. c + N).
+template <int FH, int FW, typename Row>
+SHGAN_HD void fir_strip_fixed(const Row& row, const float* taps, int r0, int c,
+                              float (&out)[kStrip][kCols]) {
+  constexpr int N = FW + kCols - 1;
+  float win[FH][N];
+  SHGAN_UNROLL
+  for (int i = 0; i < FH - 1; ++i) row(r0 + i, c, win[i]);
+  SHGAN_UNROLL
+  for (int r = 0; r < kStrip; ++r) {
+    row(r0 + r + FH - 1, c, win[FH - 1]);
+    SHGAN_UNROLL
+    for (int u = 0; u < kCols; ++u) {
+      float acc = 0.0f;
+      SHGAN_UNROLL
+      for (int i = 0; i < FH; ++i)
+        SHGAN_UNROLL
+        for (int j = 0; j < FW; ++j) acc += taps[i * FW + j] * win[i][u + j];
+      out[r][u] = acc;
+    }
+    SHGAN_UNROLL
+    for (int i = 0; i < FH - 1; ++i)
+      SHGAN_UNROLL
+      for (int j = 0; j < N; ++j) win[i][j] = win[i + 1][j];
+  }
+}
+
+// Any fh, fw: `at(r, c)` reads one staged value.
+template <typename At>
+SHGAN_HD void fir_strip(const At& at, const float* taps, int fh, int fw, int r0, int c,
+                        float (&out)[kStrip][kCols]) {
+  for (int r = 0; r < kStrip; ++r)
+    for (int u = 0; u < kCols; ++u) {
+      float acc = 0.0f;
+      for (int i = 0; i < fh; ++i)
+        for (int j = 0; j < fw; ++j) acc += taps[i * fw + j] * at(r0 + r + i, c + u + j);
+      out[r][u] = acc;
+    }
 }
 
 }  // namespace shgan

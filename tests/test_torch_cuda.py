@@ -42,6 +42,16 @@ FIR_CASES = [
     ((2, 3, 8, 8), 2, 1, (2, 1, 2, 1), 4),      # skip-image upsample
     ((2, 5, 9, 11), 2, 2, (-1, 2, 0, -2), 1),   # signed pads, both ways
     ((1, 2, 12, 7), 1, 2, (1, 1, 1, 1), 1),
+    # the tiled path (up = down = 1): small planes packed 8 (<= 16²) or 2
+    # (<= 32²) to an item with a partial last group; rows whose 16-byte
+    # chunks start at another offset in each row (W not a multiple of 4 or
+    # 8); several 64x32 tiles with ragged edges
+    ((4, 33, 8, 8), 1, 1, (2, 2, 2, 2), 1),     # encoder blur at 8²
+    ((3, 41, 9, 9), 1, 1, (1, 1, 1, 1), 4),     # synthesis up FIR at 8²
+    ((2, 7, 30, 30), 1, 1, (2, 2, 2, 2), 1),
+    ((2, 8, 33, 65), 1, 1, (1, 1, 1, 1), 4),
+    ((1, 4, 70, 130), 1, 1, (2, 2, 2, 2), 1),
+    ((1, 3, 129, 257), 1, 1, (1, 1, 1, 1), 4),
 ]
 
 
@@ -62,6 +72,36 @@ def test_upfirdn2d_kernel_matches_plain(cuda, dtype, shape, up, down, pads,
     else:
         # float32 sums rounded once to bf16: one bf16 ulp of the plain
         # result, plus 1e-6 for the float32 sums' order near zero
+        ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                      - 7)
+        assert ((got.float() - want).abs() <= ulp + 1e-6).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,taps,pads,offset", [
+    ((2, 3, 21, 37), (3, 5), (-1, 2, 2, 0), 0),
+    ((2, 9, 13, 13), (8, 8), (3, 4, 4, 3), 0),
+    ((1, 2, 70, 67), (8, 8), (1, 2, 3, 0), 0),
+    ((2, 5, 17, 19), (4, 4), (1, 1, 1, 1), 1),   # 4 bytes off 16: generic
+    ((2, 4, 40, 70), (4, 4), (2, 1, 1, 2), 0),   # 4x4, random taps
+])
+def test_upfirdn2d_kernel_other_taps(cuda, dtype, shape, taps, pads, offset):
+    """The tiled path with taps other than the main path's, and a tensor
+    that starts off the 16-byte alignment its loads need (the generic
+    kernel takes it)."""
+    g = torch.Generator().manual_seed(2)
+    t = torch.randn(taps, generator=g).numpy()
+    n = int(np.prod(shape))
+    flat = torch.randn(n + offset, generator=g).to(cuda, dtype)
+    x = flat[offset:].view(shape)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    got = fir_mod.fir_cuda(x, t, (1, 1), (1, 1), pads)
+    want = fir_mod.fir_plain(x.float(), t, (1, 1), (1, 1), pads)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    else:
         ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
                       - 7)
         assert ((got.float() - want).abs() <= ulp + 1e-6).all()
@@ -90,7 +130,10 @@ def test_wrappers_count_launches_and_refuse_grad(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,c,o,h,w", [
     (2, 32, 32, 64, 64), (1, 32, 32, 33, 70), (1, 5, 3, 13, 21),
-    (1, 12, 32, 17, 130)])
+    (1, 12, 32, 17, 130),
+    # O < 32 on the 16-byte path; C over two bf16 stages and three float32
+    # ones; a ragged W (not a multiple of 4) over many tiles
+    (1, 32, 20, 40, 96), (1, 17, 32, 24, 72), (2, 32, 32, 19, 1030)])
 def test_conv3x3_lowch_kernel_matches_plain(cuda, dtype, n, c, o, h, w):
     g = torch.Generator().manual_seed(1)
     x = torch.randn(n, c, h, w, generator=g).to(cuda, dtype)

@@ -1,9 +1,10 @@
 """The kernels' arithmetic on the host: a g++ harness around the
 ``__host__ __device__`` headers of ``shgan_torch/csrc`` (the Philox rounds,
 the Box–Muller conversion and the noise layout of kernel K1; the upfirdn2d
-index and padding arithmetic of kernel K2; the tiling, halo staging and
-weight layout of kernel K3, run as a host emulation of its tiled loop),
-held to the plain PyTorch versions.  This is the only way the kernels' own code runs without a card.
+index and padding arithmetic of kernel K2; the tiling, halo staging,
+fragment ownership and TF32 split of kernel K3, run as a host emulation of
+its mma loop), held to the plain PyTorch versions.  This is the only way
+the kernels' own code runs without a card.
 """
 
 import os
@@ -16,26 +17,306 @@ import torch
 
 from shgan_torch.ops import noise
 from shgan_torch.ops.conv1024 import conv3x3_lowch_plain
-from shgan_torch.ops.upfirdn2d import fir_plain, out_size
+from shgan_torch.ops.upfirdn2d import (correlation_taps, fir_plain, out_size,
+                                       setup_filter)
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "shgan_torch", "csrc")
 
 HARNESS = r"""
+#include <array>
+#include <cmath>
 #include <cstdio>
+#include <cstdlib>
+#include <cstring>
 #include <string>
 #include <vector>
 #include "conv3x3_lowch.cuh"
 #include "philox.cuh"
 #include "upfirdn2d.cuh"
 
+
+namespace k3 = shgan::conv3;
+
+static uint32_t bits(float v) { uint32_t u; std::memcpy(&u, &v, 4); return u; }
+static float val(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
+static uint32_t bf16_bits(float v) { return bits(v) >> 16; }  // bf16-exact input
+// what the tensor core multiplies for a .tf32 operand: its top 19 bits
+static float tf32_operand(float v) { return val(bits(v) & 0xffffe000u); }
+static float from_bf16(uint32_t b) { return val((b & 0xffffu) << 16); }
+
+// conv3 bf n c o h w weights... x... -> K3 emulated block by block: the
+// kernel's staging (16-byte or pixel path), its weight fragments, and each
+// mma rebuilt from the fragments the 32 lanes own, summed in float.
+// Unstaged shared words hold NaN, so a fragment read of one shows up.
+static void conv3() {
+  int bf, n, ch, oc, h, w;
+  std::scanf("%d %d %d %d %d %d", &bf, &n, &ch, &oc, &h, &w);
+  std::vector<float> wt(oc * ch * 9), x((long)n * ch * h * w);
+  for (float& v : wt) std::scanf("%f", &v);
+  for (float& v : x) std::scanf("%f", &v);
+  const int stage_ch = bf ? 16 : 8, nst = k3::stages_for(ch, stage_ch);
+  const int px = bf ? 8 : 4;
+  const bool vec = w % px == 0;
+  const int tx = (w + k3::kTileW - 1) / k3::kTileW, ty = (h + k3::kTileH - 1) / k3::kTileH;
+  std::vector<std::array<uint32_t, 4>> wf(nst * 9 * k3::kNTiles * 32);
+  for (int e = 0; e < (int)wf.size(); ++e) {
+    const int lane = e & 31, nt = (e >> 5) % k3::kNTiles;
+    const int tap = (e / (32 * k3::kNTiles)) % 9, s = e / (32 * k3::kNTiles * 9);
+    const int o = nt * 8 + k3::b_col(lane);
+    auto wv = [&](int c) {
+      return (c < ch && o < oc) ? wt[k3::weight_offset(o, c, tap / 3, tap % 3, ch)] : 0.0f;
+    };
+    if (k3::wfrag_index(s, tap, nt, lane) != e) std::abort();
+    for (int r = 0; r < 2; ++r) {
+      if (bf) {
+        const int c = k3::slot_channel<2>(s, k3::b_slot(lane, r), 0);
+        wf[e][r] = bf16_bits(wv(c)) | (bf16_bits(wv(c + 1)) << 16);
+      } else {
+        float hi, lo;
+        k3::split_tf32(wv(k3::slot_channel<4>(s, k3::b_slot(lane, r), 0)), &hi, &lo);
+        wf[e][r] = bits(hi);
+        wf[e][2 + r] = bits(lo);
+      }
+    }
+  }
+  std::vector<uint32_t> buf(k3::kStageWords);
+  std::vector<float> y((long)n * oc * h * w, -1e30f);  // unwritten: huge
+  static float acc[k3::kWarps][32][k3::kMTiles][k3::kNTiles][4];
+  for (int t = 0; t < n * tx * ty; ++t) {
+    int b, y0, x0;
+    k3::tile_origin(t, tx, ty, &b, &y0, &x0);
+    std::memset(acc, 0, sizeof(acc));
+    auto xin = [&](int c, int sy, int sx) {
+      return x[((long)(b * ch + c) * h + sy) * w + sx];
+    };
+    for (int s = 0; s < nst; ++s) {
+      std::fill(buf.begin(), buf.end(), 0x7fc00000u);
+      // the staged word of (slot, iy, ix): one channel, or a bf16 pair
+      auto word = [&](int slot, int iy, int ix) -> uint32_t {
+        const int sy = y0 - 1 + iy, sx = x0 - 1 + ix;
+        if (!bf) {
+          const int c = k3::slot_channel<4>(s, slot, 0);
+          return k3::inside(c, sy, sx, ch, h, w) ? bits(xin(c, sy, sx)) : 0u;
+        }
+        const int c = k3::slot_channel<2>(s, slot, 0);
+        const uint32_t lo = k3::inside(c, sy, sx, ch, h, w) ? bf16_bits(xin(c, sy, sx)) : 0u;
+        const uint32_t hi =
+            k3::inside(c + 1, sy, sx, ch, h, w) ? bf16_bits(xin(c + 1, sy, sx)) : 0u;
+        return lo | (hi << 16);
+      };
+      if (vec) {
+        for (int j = 0; j < k3::kSlots * k3::kInH * (k3::kTileW / px); ++j) {
+          int slot, iy, ix;
+          k3::vec_item(j, px, &slot, &iy, &ix);
+          const int sy = y0 - 1 + iy, sx = x0 - 1 + ix;
+          if (!bf) {  // one 16-byte copy: all four pixels or zero fill
+            const int c = k3::slot_channel<4>(s, slot, 0);
+            const bool ok = k3::inside(c, sy, sx, ch, h, w);
+            for (int q = 0; q < 4; ++q)
+              buf[k3::staged_word(slot, iy, ix + q)] = ok ? bits(xin(c, sy, sx + q)) : 0u;
+            continue;
+          }
+          // two 16-byte loads (channels c, c+1), interleaved word by word
+          const int c = k3::slot_channel<2>(s, slot, 0);
+          const bool row = sy >= 0 && sy < h && sx < w;
+          uint32_t ev[4], od[4];
+          for (int q = 0; q < 4; ++q) {
+            auto two = [&](int cc) -> uint32_t {
+              if (!row || cc >= ch) return 0u;
+              return bf16_bits(xin(cc, sy, sx + 2 * q)) |
+                     (bf16_bits(xin(cc, sy, sx + 2 * q + 1)) << 16);
+            };
+            ev[q] = two(c);
+            od[q] = two(c + 1);
+          }
+          for (int q = 0; q < 4; ++q) {
+            buf[k3::staged_word(slot, iy, ix + 2 * q)] = k3::pair_first(ev[q], od[q]);
+            buf[k3::staged_word(slot, iy, ix + 2 * q + 1)] = k3::pair_second(ev[q], od[q]);
+          }
+        }
+        for (int j = 0; j < k3::kSlots * k3::kInH * 2; ++j) {
+          int slot, iy, ix;
+          k3::halo_item(j, &slot, &iy, &ix);
+          buf[k3::staged_word(slot, iy, ix)] = word(slot, iy, ix);
+        }
+      } else {
+        for (int j = 0; j < k3::kSlots * k3::kInH * k3::kInW; ++j) {
+          int slot, iy, ix;
+          k3::pixel_item(j, &slot, &iy, &ix);
+          buf[k3::staged_word(slot, iy, ix)] = word(slot, iy, ix);
+        }
+      }
+      // the mma loop: A[m][k] and B[k][n] rebuilt from the lanes' registers
+      const int K = bf ? 16 : 8;
+      for (int warp = 0; warp < k3::kWarps; ++warp)
+        for (int tap = 0; tap < 9; ++tap)
+          for (int mt = 0; mt < k3::kMTiles; ++mt)
+            for (int nt = 0; nt < k3::kNTiles; ++nt) {
+              float A[3][16][16], B[3][16][8];  // [part]: 0 hi, 1 lo (float32)
+              for (int lane = 0; lane < 32; ++lane) {
+                for (int r = 0; r < 4; ++r) {
+                  const uint32_t u = buf[k3::a_word(lane, r, warp, mt, tap / 3, tap % 3)];
+                  const int m = k3::a_row(lane, r), sl = k3::a_slot(lane, r);
+                  if (bf) {
+                    A[0][m][2 * sl] = from_bf16(u);
+                    A[0][m][2 * sl + 1] = from_bf16(u >> 16);
+                  } else {
+                    float hi, lo;  // as the tensor core reads them
+                    k3::split_tf32_a(val(u), &hi, &lo);
+                    A[0][m][sl] = tf32_operand(hi);
+                    A[1][m][sl] = tf32_operand(lo);
+                  }
+                }
+                const auto& f = wf[k3::wfrag_index(s, tap, nt, lane)];
+                for (int r = 0; r < 2; ++r) {
+                  const int sl = k3::b_slot(lane, r), col = k3::b_col(lane);
+                  if (bf) {
+                    B[0][2 * sl][col] = from_bf16(f[r]);
+                    B[0][2 * sl + 1][col] = from_bf16(f[r] >> 16);
+                  } else {
+                    B[0][sl][col] = val(f[r]);
+                    B[1][sl][col] = val(f[2 + r]);
+                  }
+                }
+              }
+              // float32: lo*hi, hi*lo, hi*hi (the kernel's order); bf16: one
+              const int parts[3][2] = {{1, 0}, {0, 1}, {0, 0}};
+              for (int p = bf ? 2 : 0; p < 3; ++p)
+                for (int lane = 0; lane < 32; ++lane)
+                  for (int r = 0; r < 4; ++r) {
+                    const int m = k3::c_row(lane, r), nn = k3::c_col(lane, r);
+                    float d = 0.0f;
+                    for (int k = 0; k < K; ++k)
+                      d += A[parts[p][0]][m][k] * B[parts[p][1]][k][nn];
+                    acc[warp][lane][mt][nt][r] += d;
+                  }
+            }
+    }
+    for (int warp = 0; warp < k3::kWarps; ++warp)
+      for (int lane = 0; lane < 32; ++lane)
+        for (int mt = 0; mt < k3::kMTiles; ++mt)
+          for (int nt = 0; nt < k3::kNTiles; ++nt)
+            for (int r = 0; r < 4; ++r) {
+              const int yy = y0 + warp, xx = x0 + 16 * mt + k3::c_row(lane, r);
+              const int o = nt * 8 + k3::c_col(lane, r);
+              if (o < oc && yy < h && xx < w)
+                y[((long)(b * oc + o) * h + yy) * w + xx] = acc[warp][lane][mt][nt][r];
+            }
+  }
+  for (float v : y) std::printf("%.9g\n", v);
+}
+
+// K2's tiled path (up = down = 1) emulated item by item: the work items of
+// plane groups, the 16-byte chunk staging with its masks, each thread's strip.
+// Staged words never written hold NaN; an output written twice aborts.
+template <int GW, int GH>
+static void run_tile(int vec, int planes, int h, int w, int px0, int py0, int fh, int fw,
+                     const std::vector<float>& taps, const std::vector<float>& x, int oh,
+                     int ow) {
+  using M = shgan::FirMode<GW, GH>;
+  const int tiles_x = (ow + GW - 1) / GW, tiles_y = (oh + GH - 1) / GH;
+  const int groups = (planes + M::kPlanes - 1) / M::kPlanes;
+  const int th = GH + fh - 1, tw = GW + fw - 1, nch = shgan::fir_chunks(tw, vec);
+  const int row_f = shgan::fir_row_elems(GW, fw, vec);
+  const long long total = (long long)planes * h * w;
+  const long long granules = (total + vec - 1) / vec * vec;
+  std::vector<float> y((long long)planes * oh * ow, -1e30f);
+  std::vector<float> buf(M::kPlanes * th * row_f);
+  for (int item = 0; item < groups * tiles_x * tiles_y; ++item) {
+    int g, ty0, tx0;
+    shgan::fir_item(item, tiles_x, tiles_y, GW, GH, &g, &ty0, &tx0);
+    std::fill(buf.begin(), buf.end(), std::nanf(""));
+    const int x0 = tx0 - px0;
+    const int tw_i = shgan::fir_window(tx0, ow, GW, fw);
+    const int th_i = shgan::fir_window(ty0, oh, GH, fh);
+    // the flat index of window element (iy, 0) of plane slot k
+    auto row_start = [&](int k, int iy) {
+      return (((long long)g * M::kPlanes + k) * h + ty0 - py0 + iy) * w + x0;
+    };
+    for (int j = 0; j < M::kPlanes * th * nch; ++j) {
+      int k, iy, q;
+      shgan::fir_stage_role(j, th, nch, &k, &iy, &q);
+      if (iy >= th_i) continue;
+      const long long plane = (long long)g * M::kPlanes + k;
+      const int sy = ty0 - py0 + iy;
+      const long long start = row_start(k, iy);
+      const long long at = shgan::fir_chunk_at(start, q, vec);
+      const int cc0 = shgan::fir_chunk_col(start, q, vec);
+      if (cc0 >= tw_i) continue;
+      float v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      if (plane < planes && sy >= 0 && sy < h && shgan::fir_chunk_needed(cc0, vec, x0, w, tw_i)) {
+        if (at < 0 || at + vec > granules || at % vec != 0) std::abort();
+        for (int e = 0; e < vec; ++e) v[e] = at + e < total ? x[at + e] : std::nanf("");
+        if (!shgan::fir_chunk_in_row(cc0, vec, x0, w))
+          for (int e = 0; e < vec; ++e)
+            if (!shgan::fir_col_in_row(cc0 + e, x0, w)) v[e] = 0.0f;
+      }
+      float* row = &buf[(k * th + iy) * row_f];
+      for (int e = 0; e < vec; ++e) row[q * vec + e] = v[e];
+    }
+    for (int t = 0; t < shgan::kFirThreads; ++t) {
+      int k, s, c;
+      shgan::fir_thread(t, GW, GH, &k, &s, &c);
+      const long long plane = (long long)g * M::kPlanes + k;
+      if (plane >= planes || tx0 + c >= ow) continue;
+      const int s0 = shgan::fir_row_shift(row_start(k, 0), vec);
+      auto at = [&](int r, int cc) {
+        return buf[k * th * row_f + shgan::fir_staged_pos(r, cc, row_f, s0, w, vec)];
+      };
+      auto row = [&](int r, int cc, auto& v) {
+        for (int j = 0; j < (int)(sizeof(v) / sizeof(float)); ++j) v[j] = at(r, cc + j);
+      };
+      float out[shgan::kStrip][shgan::kCols];
+      if (fh == 4 && fw == 4) {
+        shgan::fir_strip_fixed<4, 4>(row, taps.data(), s * shgan::kStrip, c, out);
+      } else {
+        shgan::fir_strip(at, taps.data(), fh, fw, s * shgan::kStrip, c, out);
+      }
+      for (int r = 0; r < shgan::kStrip; ++r)
+        for (int u = 0; u < shgan::kCols; ++u) {
+          const int oy = ty0 + s * shgan::kStrip + r, ox = tx0 + c + u;
+          if (oy >= oh || ox >= ow) continue;
+          float& dst = y[(plane * oh + oy) * ow + ox];
+          if (dst != -1e30f) std::abort();
+          dst = out[r][u];
+        }
+    }
+  }
+  for (float v : y) std::printf("%.9g\n", v);
+}
+
+// tile vec planes h w px0 px1 py0 py1 fh fw taps... x... -> out_h out_w,
+// then the outputs of every plane
+static void tile() {
+  int vec, planes, h, w, px0, px1, py0, py1, fh, fw;
+  std::scanf("%d %d %d %d %d %d %d %d %d %d", &vec, &planes, &h, &w, &px0, &px1, &py0, &py1,
+             &fh, &fw);
+  std::vector<float> taps(fh * fw), x((long)planes * h * w);
+  for (float& t : taps) std::scanf("%f", &t);
+  for (float& v : x) std::scanf("%f", &v);
+  const int oh = shgan::upfirdn_out_size(h, 1, 1, py0, py1, fh);
+  const int ow = shgan::upfirdn_out_size(w, 1, 1, px0, px1, fw);
+  std::printf("%d %d\n", oh, ow);
+  switch (shgan::fir_tile_mode(oh, ow, fh, fw)) {
+    case 0: run_tile<64, 64>(vec, planes, h, w, px0, py0, fh, fw, taps, x, oh, ow); break;
+    case 1: run_tile<32, 32>(vec, planes, h, w, px0, py0, fh, fw, taps, x, oh, ow); break;
+    default: run_tile<16, 16>(vec, planes, h, w, px0, py0, fh, fw, taps, x, oh, ow); break;
+  }
+}
+
 // Reads commands from stdin, one per line:
 //   philox k0 k1 c0 c1 c2 c3        -> 4 words
 //   noise k0 k1 batch res           -> batch*res*res floats, kernel layout
 //   fir h w upx upy downx downy px0 px1 py0 py1 fh fw taps... x...
 //                                   -> out_h out_w, then the outputs
-//   tile (same arguments, up = down = 1) -> the tiled kernel's outputs
-//   conv3 n c o h w weights... x...  -> K3's tiled loop, block by block
+//   tile vec planes h w px0 px1 py0 py1 fh fw taps... x...
+//                                   -> the tiled kernel's outputs (up = down = 1)
+//   tilemode out_h out_w fh fw      -> its tile mode
+//   conv3 bf n c o h w weights... x... -> K3 emulated (bf: 0 float32, 1 bf16)
+//   tf32dot K a... b...             -> 3xTF32 and single-TF32 dot products
+//   tf32 v                          -> TF32 high part and residual of v, both
+//                                      splits
 int main() {
   char cmd[16];
   while (std::scanf("%15s", cmd) == 1) {
@@ -63,59 +344,44 @@ int main() {
         }
       for (float v : out) std::printf("%.9g\n", v);
     } else if (c == "conv3") {
-      namespace k3 = shgan::conv3;
-      int n, ch, oc, h, w;
-      std::scanf("%d %d %d %d %d", &n, &ch, &oc, &h, &w);
-      std::vector<float> wt(oc * ch * 9), x((long)n * ch * h * w);
-      for (float& v : wt) std::scanf("%f", &v);
-      for (float& v : x) std::scanf("%f", &v);
-      std::vector<float> y((long)n * oc * h * w, -1e30f);  // unwritten: huge
-      static float xs[k3::kInElems], ws[k3::kWElems];
-      static float acc[k3::kThreads][k3::kOGroup][k3::kPix];
-      auto in = [&](int i) { return xs[i]; };
-      auto wgt = [&](int i) { return ws[i]; };
-      const long plane = (long)h * w;
-      for (int b = 0; b < n; ++b)
-        for (int by = 0; by * k3::kTileH < h; ++by)
-          for (int bx = 0; bx * k3::kTileW < w; ++bx) {
-            const int x0 = k3::tile_x0(bx), y0 = k3::tile_y0(by);
-            for (auto& a : acc) for (auto& r : a) for (float& v : r) v = 0.0f;
-            for (int c0 = 0; c0 < ch; c0 += k3::kCChunk) {
-              for (int i = 0; i < k3::kInElems; ++i) {
-                int ci, sy, sx;
-                k3::halo_coords(i, y0, x0, &ci, &sy, &sx);
-                xs[i] = k3::halo_inside(c0 + ci, sy, sx, ch, h, w)
-                            ? x[(b * ch + c0 + ci) * plane + (long)sy * w + sx]
-                            : 0.0f;
-              }
-              for (int i = 0; i < k3::kWElems; ++i) {
-                int ci, dy, dx, o;
-                k3::weight_coords(i, &ci, &dy, &dx, &o);
-                ws[i] = (c0 + ci < ch && o < oc)
-                            ? wt[k3::weight_offset(o, c0 + ci, dy, dx, ch)]
-                            : 0.0f;
-              }
-              for (int t = 0; t < k3::kThreads; ++t) {
-                int og, ty, tx0;
-                k3::thread_role(t, &og, &ty, &tx0);
-                k3::accumulate_chunk(in, wgt, og, ty, tx0, acc[t]);
-              }
-            }
-            for (int t = 0; t < k3::kThreads; ++t) {
-              int og, ty, tx0;
-              k3::thread_role(t, &og, &ty, &tx0);
-              for (int o = 0; o < k3::kOGroup; ++o)
-                for (int p = 0; p < k3::kPix; ++p) {
-                  const int oo = og * k3::kOGroup + o, yy = y0 + ty,
-                            xx = x0 + tx0 + p;
-                  if (oo < oc && yy < h && xx < w)
-                    y[(b * oc + oo) * plane + (long)yy * w + xx] = acc[t][o][p];
-                }
-            }
-          }
-      for (float v : y) std::printf("%.9g\n", v);
-    } else if (c == "fir" || c == "tile") {
-      const bool tiled = c == "tile";  // tile: up = down = 1 only
+      conv3();
+    } else if (c == "tf32dot") {
+      // tf32dot K a... b... -> the 3xTF32 and the single-TF32 sums, taken
+      // as K3's mma loop takes them (a split per fragment load, b once):
+      // per 8-deep step, residual terms first
+      int K;
+      std::scanf("%d", &K);
+      std::vector<float> av(K), bv(K);
+      for (float& v : av) std::scanf("%f", &v);
+      for (float& v : bv) std::scanf("%f", &v);
+      float three = 0.0f, one = 0.0f;
+      for (int k0 = 0; k0 < K; k0 += 8) {
+        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int k = k0; k < k0 + 8 && k < K; ++k) {
+          float ah, al, bh, bl;
+          k3::split_tf32_a(av[k], &ah, &al);
+          al = tf32_operand(al);
+          k3::split_tf32(bv[k], &bh, &bl);
+          d[0] += al * bh; d[1] += ah * bl; d[2] += ah * bh;
+          d[3] += k3::tf32_rna(av[k]) * k3::tf32_rna(bv[k]);
+        }
+        three += d[0]; three += d[1]; three += d[2];
+        one += d[3];
+      }
+      std::printf("%.9g %.9g\n", three, one);
+    } else if (c == "tf32") {
+      float v, h, l, ha, la;
+      std::scanf("%f", &v);
+      k3::split_tf32(v, &h, &l);
+      k3::split_tf32_a(v, &ha, &la);
+      std::printf("%.9g %.9g %u %u %.9g %.9g\n", h, l, bits(h), bits(l), ha, la);
+    } else if (c == "tile") {
+      tile();
+    } else if (c == "tilemode") {
+      int oh, ow, fh, fw;
+      std::scanf("%d %d %d %d", &oh, &ow, &fh, &fw);
+      std::printf("%d\n", shgan::fir_tile_mode(oh, ow, fh, fw));
+    } else if (c == "fir") {
       int h, w, upx, upy, dx, dy, px0, px1, py0, py1, fh, fw;
       std::scanf("%d %d %d %d %d %d %d %d %d %d %d %d", &h, &w, &upx, &upy,
                  &dx, &dy, &px0, &px1, &py0, &py1, &fh, &fw);
@@ -126,31 +392,6 @@ int main() {
       const int ow = shgan::upfirdn_out_size(w, upx, dx, px0, px1, fw);
       std::printf("%d %d\n", oh, ow);
       auto load = [&](int sy, int sx) { return x[sy * w + sx]; };
-      if (tiled) {  // the tiled kernel's staging and sums, tile by tile
-        std::vector<float> out(oh * ow);
-        static float tile[shgan::kTileInH][shgan::kTileInW];
-        auto at = [&](int r, int cc) { return tile[r][cc]; };
-        for (int oy0 = 0; oy0 < oh; oy0 += shgan::kTileH)
-          for (int ox0 = 0; ox0 < ow; ox0 += shgan::kTileW) {
-            for (int iy = 0; iy < shgan::kTileH + fh - 1; ++iy)
-              for (int ix = 0; ix < shgan::kTileW + fw - 1; ++ix) {
-                const int sy = shgan::tile_src(oy0, py0, iy);
-                const int sx = shgan::tile_src(ox0, px0, ix);
-                tile[iy][ix] = (sy >= 0 && sy < h && sx >= 0 && sx < w)
-                                   ? load(sy, sx) : 0.0f;
-              }
-            for (int ty = 0; ty < shgan::kTileH; ++ty)
-              for (int tx = 0; tx < shgan::kTileW; ++tx) {
-                if (oy0 + ty >= oh || ox0 + tx >= ow) continue;
-                out[(oy0 + ty) * ow + ox0 + tx] =
-                    (fh == 4 && fw == 4)
-                        ? shgan::tile_point_fixed<4, 4>(at, taps.data(), ty, tx)
-                        : shgan::tile_point(at, taps.data(), fh, fw, ty, tx);
-              }
-          }
-        for (float v : out) std::printf("%.9g\n", v);
-        continue;
-      }
       for (int oy = 0; oy < oh; ++oy)
         for (int ox = 0; ox < ow; ++ox)
           std::printf("%.9g\n", shgan::upfirdn2d_point(
@@ -221,23 +462,60 @@ FIR_CASES = [
 ]
 
 
-TILE_CASES = [c for c in FIR_CASES if c[2] == c[3] == (1, 1)] + [
-    (70, 45, (1, 1), (1, 1), (1, 1, 1, 1), (4, 4)),   # several tiles, ragged
-    (66, 33, (1, 1), (1, 1), (2, 2, 2, 2), (4, 4)),
-    (40, 37, (1, 1), (1, 1), (-3, 2, 4, -1), (3, 5)),
-    (34, 34, (1, 1), (1, 1), (0, 0, 0, 0), (8, 8)),
+TILE_CASES = [
+    # (planes, h, w, pads x0 x1 y0 y1, taps) — the FIR_CASES with
+    # up = down = 1; several tiles, ragged; packed small planes (8 a tile
+    # at <= 16², 2 at <= 32²) with a partial last group; widths not a
+    # multiple of 4 or 8 (each row's chunks start at another offset); pads
+    # 1 and 2, where the first tile's window starts left of the plane; the
+    # (3, 5) and (8, 8) taps
+    (1, 9, 9, (1, 1, 1, 1), (4, 4)),
+    (1, 8, 8, (2, 2, 2, 2), (4, 4)),
+    (1, 8, 9, (-1, 2, 0, -2), (3, 5)),
+    (1, 5, 5, (0, 0, 0, 0), (1, 1)),
+    (2, 70, 45, (1, 1, 1, 1), (4, 4)),
+    (1, 66, 33, (2, 2, 2, 2), (4, 4)),
+    (1, 40, 37, (-3, 2, 4, -1), (3, 5)),
+    (1, 34, 34, (0, 0, 0, 0), (8, 8)),
+    (11, 8, 8, (2, 2, 2, 2), (4, 4)),     # encoder blur at 8²: 9² out
+    (19, 9, 9, (1, 1, 1, 1), (4, 4)),     # synthesis up FIR at 8²
+    (5, 17, 17, (1, 1, 1, 1), (4, 4)),    # 16² out
+    (3, 30, 30, (2, 2, 2, 2), (4, 4)),    # 31² out, two planes a tile
+    (3, 13, 13, (1, 1, 1, 1), (8, 8)),
+    (4, 10, 11, (2, 1, 1, 2), (3, 5)),
+    (3, 33, 65, (1, 1, 1, 1), (4, 4)),
+    (2, 20, 130, (2, 2, 2, 2), (4, 4)),
+    (2, 21, 77, (2, 2, 1, 1), (4, 4)),
+    (2, 36, 100, (1, 2, 2, 1), (8, 8)),
+    (2, 129, 129, (1, 1, 1, 1), (4, 4)),  # 64 x 64 tiles
+    (1, 129, 189, (1, 2, 1, 1), (4, 4)),
+    (1, 135, 135, (0, 0, 0, 0), (8, 8)),
 ]
 
 
-def _run_fir(harness, mode, h, w, up, down, pads, taps):
-    rng = np.random.RandomState(h * 31 + w)
-    t = rng.randn(*taps).astype(np.float32)
-    x = rng.randn(h, w).astype(np.float32)
+@pytest.mark.parametrize("out,mode", [
+    (1025, 0), (512, 0), (513, 0), (257, 0), (64, 0), (33, 0), (129, 1),
+    (65, 1), (32, 1), (17, 1), (16, 2), (9, 2), (8, 2)])
+def test_upfirdn_tile_mode_stages_least(harness, out, mode):
+    """The tile mode of a 4x4-tap call on an out x out plane: 64², 32² or 16²
+    tiles, whichever stages the fewest input elements (each tile's window
+    clipped to the plane) plus a fixed cost per work item."""
+    assert int(harness(f"tilemode {out} {out} 4 4")[0]) == mode
+
+
+def _fir_inputs(seed, taps, shape):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(*taps).astype(np.float32),
+            rng.randn(*shape).astype(np.float32))
+
+
+def _run_fir(harness, h, w, up, down, pads, taps):
+    t, x = _fir_inputs(h * 31 + w, taps, (h, w))
     cmd = " ".join(map(str, (h, w, up[0], up[1], down[0], down[1]) + pads
                        + taps))
     vals = " ".join(f"{v:.9g}" for v in np.concatenate([t.ravel(),
                                                         x.ravel()]))
-    out = harness(f"{mode} {cmd} {vals}")
+    out = harness(f"fir {cmd} {vals}")
     oh, ow = int(out[0]), int(out[1])
     assert oh == out_size(h, up[1], down[1], pads[2], pads[3], taps[0])
     assert ow == out_size(w, up[0], down[0], pads[0], pads[1], taps[1])
@@ -247,39 +525,105 @@ def _run_fir(harness, mode, h, w, up, down, pads, taps):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("h,w,up,down,pads,taps", TILE_CASES)
-def test_upfirdn_tiled_header_matches_plain(harness, h, w, up, down, pads,
-                                            taps):
-    _run_fir(harness, "tile", h, w, up, down, pads, taps)
+@pytest.mark.parametrize("vec", [4, 8])   # 16-byte chunks: float32, bf16
+@pytest.mark.parametrize("planes,h,w,pads,taps", TILE_CASES)
+def test_upfirdn_tiled_header_matches_plain(harness, planes, h, w, pads,
+                                            taps, vec):
+    t, x = _fir_inputs(planes * 1000 + h * 31 + w, taps, (planes, h, w))
+    if taps == (4, 4) and (planes + h) % 2:   # the main path's taps
+        t = correlation_taps(setup_filter([1, 3, 3, 1]), gain=4)
+    cmd = " ".join(map(str, (vec, planes, h, w) + pads + taps))
+    vals = " ".join(f"{v:.9g}" for v in np.concatenate([t.ravel(),
+                                                        x.ravel()]))
+    out = harness(f"tile {cmd} {vals}")
+    oh, ow = int(out[0]), int(out[1])
+    got = np.array(out[2:], np.float32).reshape(planes, oh, ow)
+    want = fir_plain(torch.from_numpy(x)[None], t, (1, 1), (1, 1),
+                     pads)[0].numpy()
+    # every output written once and from staged words only (NaN otherwise)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("h,w,up,down,pads,taps", FIR_CASES)
 def test_upfirdn_header_matches_plain(harness, h, w, up, down, pads, taps):
-    _run_fir(harness, "fir", h, w, up, down, pads, taps)
+    _run_fir(harness, h, w, up, down, pads, taps)
 
 
 CONV3_CASES = [
     # (n, c, o, h, w) — one whole tile; ragged rows and columns; W not a
-    # multiple of the 64-wide tile or of the 8-pixel strip; C not a multiple
-    # of the 8-channel chunk; O < 32 (part of a channel group unused)
+    # multiple of the 64-wide tile, of 4 or of 8 (the pixel staging path);
+    # C not a multiple of the 8- or 16-channel stage; O < 32 (part of an n8
+    # tile unused); C = 32 with O < 32; a W that is a multiple of 8 but not
+    # of the tile
     (1, 8, 8, 8, 64),
     (2, 32, 32, 9, 70),
     (1, 5, 3, 13, 21),
     (1, 12, 32, 17, 130),
     (1, 32, 7, 3, 5),
+    (1, 32, 20, 18, 96),
+    (1, 17, 32, 16, 72),
 ]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,c,o,h,w", CONV3_CASES)
-def test_conv3x3_lowch_tiled_loop_matches_plain(harness, n, c, o, h, w):
+def test_conv3x3_lowch_mma_loop_matches_plain(harness, n, c, o, h, w, dtype):
+    """K3's staging, fragment ownership and mma loop, emulated on the host
+    block by block, against the plain version."""
     rng = np.random.RandomState(n * 1000 + c * 37 + w)
     wt = (rng.randn(o, c, 3, 3) / np.sqrt(9 * c)).astype(np.float32)
     x = rng.randn(n, c, h, w).astype(np.float32)
+    bf = dtype == "bfloat16"
+    if bf:   # bf16-exact inputs and weights: the harness reads their bits
+        wt = torch.from_numpy(wt).bfloat16().float().numpy()
+        x = torch.from_numpy(x).bfloat16().float().numpy()
     vals = " ".join(f"{v:.9g}" for v in np.concatenate([wt.ravel(),
                                                         x.ravel()]))
-    got = np.array(harness(f"conv3 {n} {c} {o} {h} {w} {vals}"),
-                   np.float32).reshape(n, o, h, w)
+    got = np.array(harness(f"conv3 {int(bf)} {n} {c} {o} {h} {w} {vals}"),
+                   np.float64).reshape(n, o, h, w)
     want = conv3x3_lowch_plain(torch.from_numpy(x),
                                torch.from_numpy(wt)).numpy()
-    # every output written once; float32 sums in another order
+    # every output written once (an unwritten one reads -1e30, a staged
+    # word never written reads NaN); the products are exact in bf16 and
+    # ~float32 in 3xTF32, the sums in float32 in another order
+    assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+
+
+def _dot_case(seed, k):
+    rng = np.random.RandomState(seed)
+    a = rng.randn(k).astype(np.float32)
+    b = (rng.randn(k) / np.sqrt(k)).astype(np.float32)
+    return a, b
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_3xtf32_dot_keeps_float32_accuracy(harness, seed):
+    """The 3xTF32 sum over K = 9*32 (one output of a C = 32 conv) stays within
+    1e-5 of float64; a single TF32 product per term does not."""
+    k = 9 * 32
+    a, b = _dot_case(seed, k)
+    vals = " ".join(f"{v:.9g}" for v in np.concatenate([a, b]))
+    three, one = (float(v) for v in harness(f"tf32dot {k} {vals}"))
+    exact = float(np.dot(a.astype(np.float64), b.astype(np.float64)))
+    assert abs(three - exact) <= 1e-5
+    assert abs(one - exact) > 1e-5
+
+
+@pytest.mark.parametrize("v", [1.0, -3.14159274, 1.00048828, 1.00036621,
+                               6.1e-5, 1e30])
+def test_tf32_split_is_exact(harness, v):
+    """hi is v rounded to 10 mantissa bits (nearest, ties away from zero),
+    lo the TF32 rounding of the rest; hi + lo is v to ~2^-22.  The input's
+    split in the mma loop has the same hi and keeps the rest exactly."""
+    h, lo, hb, lb, ha, la = harness(f"tf32 {v!r}")
+    # nine digits give each float32 back exactly
+    h, lo, ha, la = (float(np.float32(t)) for t in (h, lo, ha, la))
+    hb, lb = int(hb), int(lb)
+    f = np.float32(v)
+    assert hb & 0x1FFF == 0 and lb & 0x1FFF == 0
+    assert abs(np.float32(h) - f) <= abs(np.spacing(f)) * 2 ** 12
+    assert abs((np.float64(h) + lo) - np.float64(f)) <= abs(f) * 2 ** -21
+    # the mma loop's split of the input: the same high part, the rest exact
+    assert ha == h and ha + la == float(f)
