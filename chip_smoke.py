@@ -18,12 +18,18 @@ Phases, each printing one JSON line:
    1024² calls of a ``shgan_g1024`` forward at the eval batch (4); kernel
    K3 (conv3x3_lowch) at [4|1, 32, 1024, 1024] 32→32, once through
    ``_conv2d`` with ``flip_weight=False``; float32, and bfloat16 for K2
-   and K3;
+   and K3; the fused synthesis epilogue (noise_bias_act: K1's noise,
+   demodulation, bias, lrelu_agc in one pass) at every synthesis layer
+   shape of a ``shgan_g512`` forward at batch 8 and at the 1024² layers of
+   a ``shgan_g1024`` forward at batch 4, float32 and bfloat16, its noise
+   held to K1's bit for bit, beside the unfused path (K1 plus the
+   PyTorch chain) on the same inputs;
 3. serving path: ``InpaintEngine("shgan_g512", device="cuda",
    batch_size=8)`` with random noise (every ``noise_strength`` set to 0.1
    so the noise reaches the image) answers requests of 8, 8 and 3 rows;
-   launch counts over exactly those requests; the composite contract and
-   run-to-run determinism; latency and images/s;
+   launch counts over exactly those requests (the fused epilogue 15 a
+   forward, K1 itself none); the composite contract and run-to-run
+   determinism; latency and images/s;
 4. parity: the same weights with constant noise at batch 1 on the card and
    on the CPU (the plain versions), uint8 composites compared;
 5. eval path: ``shgan_synthetic256_eval`` assembled by the CLI's
@@ -31,9 +37,10 @@ Phases, each printing one JSON line:
    weights loaded strictly from a ``.pth``), 96 synthetic 1024² images
    from a pool of 4, batch 4, ``pallas_conv1024: true``, FID (random
    Inception weights from a pytorch-fid style ``.pth``), PSNR and SSIM,
-   run by the CLI's ``run``; launch counts of all three kernels over
-   exactly that run, finite metrics in ``result.json``, images/s and peak
-   memory; then the same run again with ``SHGAN_EVAL_TIMING=1`` for the
+   run by the CLI's ``run``; launch counts of every kernel over exactly
+   that run (K3 2, K2 24, the fused epilogue 17 a forward, K1 none),
+   finite metrics in ``result.json``, images/s and peak memory; then the
+   same run again with ``SHGAN_EVAL_TIMING=1`` for the
    fenced per-batch split (pipe wait, generator, metrics);
 6. K3 in place: one ``shgan_g1024`` batch with constant noise, TF32 off,
    with the conv1024 switch on (K3) and off (cuDNN): composites compared,
@@ -295,6 +302,104 @@ def check_noise(noise, batch, layers, cpu_plain=True):
     return rows
 
 
+def epilogue_layers(cfg):
+    """{(resolution, channels): synthesis layers at it} of one forward."""
+    syn = cfg["args"]["synthesis"]["args"]
+    ch = lambda r: min(int(syn["ch_base"]) // r, int(syn["ch_max"]))  # noqa
+    return {(r, ch(r)): k for r, k in noise_layers(cfg).items()}
+
+
+def unfused_chain(noise, x, d, b, act, strength, seed, layer):
+    """The unfused path after the conv: kernel K1 draws the noise, then
+    the PyTorch chain scales it, adds it with the dcoefs (addcmul), adds
+    the bias and runs lrelu_agc."""
+    from shgan_torch.ops.bias_act import lrelu_agc
+    n, _, r, _ = x.shape
+    ns = noise.random_noise(seed, layer, n, r, x.device) * strength
+    y = torch.addcmul(ns.to(x.dtype), x, d.to(x.dtype)[:, :, None, None])
+    y = y + b.to(x.dtype)[None, :, None, None]
+    return lrelu_agc(y, act[0], gain=act[1], clamp=act[2])
+
+
+def check_epilogue(noise, nba, cfg, batch, layers=None, seed=1234):
+    """The fused epilogue against its plain version at each synthesis layer
+    shape (random noise, demodulation, bias, the config's lrelu_agc), its
+    noise against K1's bit for bit, and the unfused path (K1 + the PyTorch
+    chain) timed on the same inputs."""
+    from shgan_torch.ops.bias_act import parse_activation
+    spec = cfg["args"]["synthesis"]["args"].get(
+        "activation", "lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)")
+    act = nba.epilogue_act(parse_activation(spec))
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(batch)
+    for (r, c), count in sorted((layers or epilogue_layers(cfg)).items()):
+        layer = 2 * r
+        key = noise.noise_key(seed, layer)
+        x = torch.randn((batch, c, r, r), generator=gen, device="cuda")
+        d = torch.rand((batch, c), generator=gen, device="cuda") + 0.5
+        b = torch.randn((c,), generator=gen, device="cuda") * 0.1
+        s = torch.full((), 0.1, device="cuda")
+        noise_tol = NOISE_ATOL * float(s) * act[1]
+        kw = dict(dcoefs=d, bias=b, act=act, noise_mode="random",
+                  noise_key=key, strength=s)
+        want = nba.noise_bias_act_plain(x, **kw)
+        y = nba.noise_bias_act_cuda(x.clone(), **kw)
+        zero = nba.noise_bias_act_cuda(
+            torch.zeros_like(x), d, noise_mode="random", noise_key=key,
+            strength=torch.ones((), device="cuda"))
+        k1 = noise.philox_normal_cuda(key, batch, r, "cuda")[:, None]
+        torch.cuda.synchronize()
+        if not torch.equal(zero, k1.expand_as(zero)):
+            raise AssertionError(f"fused noise != K1 at R={r}")
+        ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                      - 23)
+        tol = 4 * ulp + noise_tol
+        err = float((y - want).abs().max())
+        if not bool(((y - want).abs() <= tol).all()):
+            raise AssertionError(f"noise_bias_act f32 R={r} C={c}: {err}")
+        nbytes = 2 * x.numel() * 4 + (d.numel() + b.numel() + 1) * 4
+        it = iters_for(nbytes)
+        xk = x.clone()
+        kern = lambda: nba.noise_bias_act_cuda(xk, **kw)  # noqa: E731
+        lib = lambda: unfused_chain(noise, x, d, b, act, s, seed,  # noqa
+                                   layer)
+        lib_d = (lib() - want).abs()
+        if not bool((lib_d <= tol).all()):
+            raise AssertionError(f"unfused path disagrees: "
+                                 f"{float(lib_d.max())}")
+        row = {"res": r, "channels": c, "batch": batch,
+               "layers_per_forward": count, "max_abs_err": err,
+               "noise_equals_k1": True, "iters": it,
+               "ms": graph_ms(kern, nbytes), "eager_ms": eager_ms(kern, it),
+               "plain_ms": eager_ms(lambda: nba.noise_bias_act_plain(
+                   x, **kw), 3),
+               "library_ms": graph_ms(lib, nbytes),
+               "library_eager_ms": eager_ms(lib, it)}
+        # x read once and written once; the normals (~65 operations each,
+        # once per pixel) and ~8 operations an element
+        bound(row, nbytes, batch * r * r * 65 + x.numel() * 8)
+        row["hbm_share"] = row["bytes_ms"] / row["ms"]
+        xb = x.bfloat16()
+        yb = nba.noise_bias_act_cuda(xb.clone(), **kw)
+        wb = nba.noise_bias_act_plain(xb.float(), **kw)
+        torch.cuda.synchronize()
+        db = (yb.float() - wb).abs()
+        if not bool((db <= bf16_ulp(wb) + noise_tol).all()):
+            raise AssertionError(f"noise_bias_act bf16 R={r}: "
+                                 f"{float(db.max())}")
+        row["bf16_max_abs_err"] = float(db.max())
+        xbk = xb.clone()
+        bf16_bytes = nbytes - 2 * x.numel() * 2
+        row["bf16_ms"] = graph_ms(lambda: nba.noise_bias_act_cuda(xbk, **kw),
+                                  bf16_bytes)
+        row["bf16_hbm_share"] = bf16_bytes / HBM_BYTES_PER_S * 1e3 \
+            / row["bf16_ms"]
+        rows.append(row)
+        del x, xk, xb, xbk, y, yb, want, wb, zero, k1
+        torch.cuda.empty_cache()
+    return rows
+
+
 def quantized(imgs_u8):
     """The composite protocol's round trip of a kept uint8 pixel."""
     real = torch.from_numpy(imgs_u8).float() / 127.5 - 1.0
@@ -514,6 +619,7 @@ def main():
 
     from shgan_torch.kernels import build
     from shgan_torch.ops import conv1024, conv_resample, noise
+    from shgan_torch.ops import noise_bias_act as nba
     from shgan_torch.runtime.config import model_cfg_bank
     from shgan_torch.serve import InpaintEngine
     fir = importlib.import_module("shgan_torch.ops.upfirdn2d")
@@ -571,6 +677,18 @@ def main():
               "library_ms": [r["library_ms"] for r in noise_rows[b]]})
     detail["fir"] = fir_rows
     detail["noise"] = noise_rows
+    epi_rows = check_epilogue(noise, nba, cfg, SERVE_BATCH)
+    emit({"phase": "kernel_check", "kernel": "noise_bias_act",
+          "batch": SERVE_BATCH,
+          **{k: [r[k] for r in epi_rows]
+             for k in ("res", "channels", "layers_per_forward", "ms",
+                       "eager_ms", "bound_ms", "hbm_share", "bf16_ms",
+                       "bf16_hbm_share", "plain_ms", "library_ms",
+                       "library_eager_ms")},
+          "max_abs_err": max(r["max_abs_err"] for r in epi_rows),
+          "bf16_max_abs_err": max(r["bf16_max_abs_err"] for r in epi_rows),
+          "noise_equals_k1": True})
+    detail["noise_bias_act"] = epi_rows
 
     # K1 and K2 at the 1024² calls of a shgan_g1024 forward (eval batch)
     cfg_1024 = model_cfg_bank()(MODEL_1024)
@@ -594,11 +712,22 @@ def main():
               **{k: row[k] for k in ("res", "max_abs_err", "ms", "eager_ms",
                                      "bound_ms", "bound_by", "plain_ms",
                                      "library_ms")}})
+    epi_1024 = check_epilogue(
+        noise, nba, cfg_1024, EVAL_BATCH,
+        {k: v for k, v in epilogue_layers(cfg_1024).items() if k[0] == K3_RES})
+    for row in epi_1024:
+        emit({"phase": "kernel_check", "kernel": "noise_bias_act",
+              "model": MODEL_1024, "batch": EVAL_BATCH,
+              **{k: row[k] for k in ("res", "channels", "max_abs_err",
+                                     "bf16_max_abs_err", "ms", "eager_ms",
+                                     "bound_ms", "bound_by", "hbm_share",
+                                     "bf16_ms", "bf16_hbm_share", "plain_ms",
+                                     "library_ms", "library_eager_ms")}})
     conv_rows = check_conv3(conv1024, conv_resample)
     for row in conv_rows:
         emit({"phase": "kernel_check", "kernel": "conv3x3_lowch", **row})
     detail.update(fir_1024=fir_1024, noise_1024=noise_1024,
-                  conv3x3_lowch=conv_rows)
+                  noise_bias_act_1024=epi_1024, conv3x3_lowch=conv_rows)
 
     # ---- 3. the main path ------------------------------------------------
     # PyTorch's defaults for serving: cuDNN may use TF32 for float32 convs
@@ -626,10 +755,13 @@ def main():
 
     per_fwd_fir = len(detail["fir_calls"][SERVE_BATCH])
     per_fwd_noise = sum(layers.values())
-    if launches["upfirdn2d"] != 3 * per_fwd_fir or \
-            launches["philox_normal"] != 3 * per_fwd_noise:
+    # every synthesis layer's epilogue is one fused launch; K1 itself is
+    # off the main path
+    want_serve = {"upfirdn2d": 3 * per_fwd_fir, "philox_normal": 0,
+                  "conv3x3_lowch": 0, "noise_bias_act": 3 * per_fwd_noise}
+    if launches != want_serve:
         raise AssertionError(f"launch counts {launches}, expected "
-                             f"{3 * per_fwd_fir} / {3 * per_fwd_noise}")
+                             f"{want_serve}")
     for (imgs, masks), out in zip(reqs, outs):
         if out.shape != imgs.shape or out.dtype != np.uint8:
             raise AssertionError(f"output {out.shape} {out.dtype}")
@@ -658,8 +790,7 @@ def main():
           "buckets": engine.buckets, "requests_rows": [8, 8, 3],
           "latency_ms": lat_ms, "images_per_s": n_img / (sum(lat_ms) / 1e3),
           "steady_images_per_s": 40 / steady_s, "launches": launches,
-          "expected_per_forward": {"upfirdn2d": per_fwd_fir,
-                                   "philox_normal": per_fwd_noise},
+          "expected_per_forward": {k: v // 3 for k, v in want_serve.items()},
           "setup_s": setup_s, "cudnn_tf32": True,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
           "deterministic": True, "known_pixels_exact": True})
@@ -714,7 +845,8 @@ def main():
         n_batches = EVAL_IMAGES // EVAL_BATCH
         want = {"conv3x3_lowch": 2 * n_batches,
                 "upfirdn2d": len(calls_1024) * n_batches,
-                "philox_normal": sum(layers_1024.values()) * n_batches}
+                "philox_normal": 0,
+                "noise_bias_act": sum(layers_1024.values()) * n_batches}
         if eval_launches != want:
             raise AssertionError(f"eval launch counts {eval_launches}, "
                                  f"expected {want}")
@@ -786,6 +918,7 @@ def main():
     with open(os.path.join(args.out, "chip_smoke_detail.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
     fr, nr = fir_rows[SERVE_BATCH], noise_rows[SERVE_BATCH]
+    er, e1 = epi_rows, epi_1024[0]
     wsum = lambda rows, k: sum(r[k] * r.get("layers_per_forward", 1)  # noqa
                                for r in rows)
     k3 = conv_rows[0]   # [EVAL_BATCH, 32, 1024, 1024], float32
@@ -818,8 +951,36 @@ def main():
          "bound_ms": wsum(nr, "bound_ms"), "bound_by": bound_by(nr),
          "library_ms": wsum(nr, "library_ms"),
          "scope": f"all {per_fwd_noise} noise layers of one {MODEL} forward "
-                  f"at batch {SERVE_BATCH}; launches over the serving path "
-                  f"(and over the {MODEL_1024} eval path)"},
+                  f"at batch {SERVE_BATCH}, the noise-only entry point; "
+                  "launches over the serving path (and over the "
+                  f"{MODEL_1024} eval path): none, the main path draws the "
+                  "noise inside noise_bias_act"},
+        {"name": "noise_bias_act", "route": "cuda",
+         "source": "shgan_torch/csrc/noise_bias_act.cu",
+         "replaces": "shgan_tpu/ops/noise.py:68",
+         "replaces_function": "_pallas_normal, with the PyTorch chain that "
+                              "consumed its noise",
+         "launches": launches["noise_bias_act"],
+         "launches_eval_path": eval_launches["noise_bias_act"],
+         "max_abs_err": max(r["max_abs_err"] for r in er + epi_1024),
+         "ms": wsum(er, "ms"), "eager_ms": wsum(er, "eager_ms"),
+         "bf16_ms": wsum(er, "bf16_ms"),
+         "plain_ms": wsum(er, "plain_ms"),
+         "bound_ms": wsum(er, "bound_ms"), "bound_by": bound_by(er),
+         "hbm_share": wsum(er, "bytes_ms") / wsum(er, "ms"),
+         "library_ms": wsum(er, "library_ms"),
+         "library_eager_ms": wsum(er, "library_eager_ms"),
+         "ms_1024": e1["ms"] * e1["layers_per_forward"],
+         "bound_ms_1024": e1["bound_ms"] * e1["layers_per_forward"],
+         "library_ms_1024": e1["library_ms"] * e1["layers_per_forward"],
+         "scope": f"all {per_fwd_noise} synthesis layers of one {MODEL} "
+                  f"forward at batch {SERVE_BATCH}, random noise, float32 "
+                  "(bf16_ms: in bfloat16; *_1024: the 1024² layers of one "
+                  f"{MODEL_1024} forward at batch {EVAL_BATCH}); "
+                  "library_ms: the unfused path on the same inputs, K1 "
+                  "plus the PyTorch chain (no single PyTorch call computes "
+                  "the function); launches over the serving path (and over "
+                  f"the {MODEL_1024} eval path)"},
         {"name": "conv3x3_lowch", "route": "cuda",
          "source": "shgan_torch/csrc/conv3x3_lowch.cu",
          "replaces": "shgan_tpu/ops/conv1024.py:101",

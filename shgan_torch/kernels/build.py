@@ -31,9 +31,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _U, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points: library name -> {symbol: argtypes}
 ENTRY_POINTS = {
     "noise": {"shgan_philox_normal": (_P, _I, _I, _U, _U, _P)},
+    "noise_bias_act": {"shgan_noise_bias_act": (_P,) + (_I,) * 4 + (_P,) * 4
+                       + (_I, _U, _U, _F, _F, _F, _P)},
     "upfirdn2d": {"shgan_upfirdn2d": (_P, _P, _I, _LL) + (_I,) * 10
                   + (_P, _I, _I, _P)},
     "conv3x3_lowch": {"shgan_conv3x3_lowch": (_P, _P, _P) + (_I,) * 6
@@ -42,7 +45,8 @@ ENTRY_POINTS = {
 
 # Launch counts of the kernel wrappers: each wrapper adds one where it
 # launches its kernel, and nowhere else.
-launches = {"upfirdn2d": 0, "philox_normal": 0, "conv3x3_lowch": 0}
+launches = {"upfirdn2d": 0, "philox_normal": 0, "conv3x3_lowch": 0,
+            "noise_bias_act": 0}
 
 
 def reset_launches():

@@ -16,11 +16,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.bias_act import get_activation
+from ..ops.bias_act import get_activation, parse_activation
 from ..ops.conv_resample import conv2d_resample
 from ..ops.dense import dense_apply
 from ..ops.modulated_conv import modulated_conv2d
-from ..ops.noise import random_noise
+from ..ops.noise import noise_key
+from ..ops.noise_bias_act import epilogue_act, noise_bias_act
 from ..ops.upfirdn2d import setup_filter
 
 
@@ -117,7 +118,9 @@ class SynthesisLayer(nn.Module):
     """Modulated conv + per-layer noise injection.
 
     ``layer_id`` keys this layer's random noise: with ``noise_mode='random'``
-    the noise is :func:`random_noise` of (``noise_seed``, ``layer_id``)."""
+    the noise is K1's Philox stream of ``noise_key(noise_seed, layer_id)``.
+    Everything after the conv (demodulation, noise, bias, activation) runs
+    as one :func:`noise_bias_act` call: one kernel launch on the card."""
 
     def __init__(self, in_channels, out_channels, kernel_size, w_dim,
                  resolution, bias=True,
@@ -132,7 +135,8 @@ class SynthesisLayer(nn.Module):
         self.resample_filter = (setup_filter(resample_filter)
                                 if resample_filter is not None else None)
         self.padding = kernel_size // 2
-        self.activation = get_activation(activation)
+        self.activation = parse_activation(activation)
+        epilogue_act(self.activation)   # lrelu_agc or linear, else raise
         k = kernel_size
         self.weight = nn.Parameter(
             randn((out_channels, in_channels, k, k), generator))
@@ -148,28 +152,22 @@ class SynthesisLayer(nn.Module):
     def forward(self, x, w, gain=1.0, noise_mode="random", noise_seed=None):
         if noise_mode not in ("random", "const", "none"):
             raise ValueError(f"noise_mode {noise_mode!r}")
+        mode = noise_mode if self.use_noise else "none"
+        if mode == "random" and noise_seed is None:
+            raise ValueError("noise_mode='random' requires a noise_seed")
         styles = self.affine(w)
-        noise = None
-        if self.use_noise and noise_mode == "random":
-            if noise_seed is None:
-                raise ValueError("noise_mode='random' requires a noise_seed")
-            noise = random_noise(noise_seed, self.layer_id, x.shape[0],
-                                 self.resolution, x.device) \
-                * self.noise_strength
-        elif self.use_noise and noise_mode == "const":
-            noise = self.noise_const * self.noise_strength
-
-        x = modulated_conv2d(x, self.weight, styles, noise=noise, up=self.up,
-                             padding=self.padding,
-                             resample_filter=self.resample_filter,
-                             flip_weight=(self.up == 1))
-        if self.bias is not None:
-            x = x + self.bias.to(x.dtype)[None, :, None, None]
-        if self.activation is not None:
-            x = self.activation(x, gain=gain)
-        elif gain != 1.0:
-            x = x * gain
-        return x
+        x, dcoefs = modulated_conv2d(x, self.weight, styles, up=self.up,
+                                     padding=self.padding,
+                                     resample_filter=self.resample_filter,
+                                     flip_weight=(self.up == 1),
+                                     split_dcoefs=True)
+        return noise_bias_act(
+            x, dcoefs, self.bias, epilogue_act(self.activation, gain),
+            noise_mode=mode,
+            noise_key=(noise_key(noise_seed, self.layer_id)
+                       if mode == "random" else None),
+            noise_const=self.noise_const if mode == "const" else None,
+            strength=self.noise_strength if mode != "none" else None)
 
 
 class ToRGBLayer(nn.Module):

@@ -14,15 +14,22 @@ from functools import partial
 import torch
 
 
+def lrelu_agc_params(alpha=0.1, gain=1.0, clamp=None, extra_gain=1.0):
+    """``(alpha, act_gain, act_clamp)``: the gain and the clamp scaled by
+    the runtime gain (``act_clamp`` None for no clamp)."""
+    return (alpha, gain * extra_gain,
+            None if clamp is None else clamp * extra_gain)
+
+
 def lrelu_agc(x, alpha=0.1, gain=1.0, clamp=None, extra_gain=1.0):
     """Leaky-ReLU, then gain, then clamp; ``clamp`` scales with the runtime
     gain (shgan_tpu/ops/bias_act.py:21-31)."""
+    alpha, act_gain, act_clamp = lrelu_agc_params(alpha, gain, clamp,
+                                                  extra_gain)
     x = torch.where(x >= 0, x, x * alpha)
-    act_gain = gain * extra_gain
     if act_gain != 1:
         x = x * act_gain
-    if clamp is not None:
-        act_clamp = clamp * extra_gain
+    if act_clamp is not None:
         x = torch.clamp(x, -act_clamp, act_clamp)
     return x
 
@@ -57,9 +64,9 @@ def _parse_value(v):
     return v
 
 
-def get_activation(spec):
-    """Parse an activation spec into ``fn(x, gain=1) -> x`` (None for
-    ``None``/``"none"``); units ``lrelu_agc(...)``, ``sine(...)``, ``relu``."""
+def parse_activation(spec):
+    """``(name, kwargs)`` of an activation spec; None for
+    ``None``/``"none"``."""
     if spec is None or spec == "none":
         return None
     m = _SPEC_RE.match(spec.strip())
@@ -71,7 +78,16 @@ def get_activation(spec):
         for part in argstr.split(","):
             k, v = part.split("=")
             kwargs[k.strip()] = _parse_value(v)
+    return name, kwargs
 
+
+def get_activation(spec):
+    """Parse an activation spec into ``fn(x, gain=1) -> x`` (None for
+    ``None``/``"none"``); units ``lrelu_agc(...)``, ``sine(...)``, ``relu``."""
+    parsed = parse_activation(spec)
+    if parsed is None:
+        return None
+    name, kwargs = parsed
     if name == "lrelu_agc":
         base = partial(lrelu_agc, **kwargs)
     elif name == "sine":

@@ -19,7 +19,8 @@ from .conv_resample import conv2d_resample
 
 
 def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
-                     resample_filter=None, demodulate=True, flip_weight=True):
+                     resample_filter=None, demodulate=True, flip_weight=True,
+                     split_dcoefs=False):
     """
     Args:
         x:       [N, I, H, W] input activations.
@@ -29,6 +30,9 @@ def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
         up/down/padding/resample_filter: as in :func:`conv2d_resample`.
         demodulate: apply weight demodulation.
         flip_weight: False = convolution, True = correlation.
+        split_dcoefs: return ``(conv output, dcoefs [N, O] float32)`` with
+            neither the dcoefs nor any noise applied (dcoefs None without
+            demodulation), for a caller that fuses them into its epilogue.
     """
     n = x.shape[0]
     i_ch = weight.shape[1]
@@ -48,6 +52,10 @@ def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
     x = x * styles.to(x.dtype)[:, :, None, None]
     x = conv2d_resample(x, weight.to(x.dtype), f=resample_filter, up=up,
                         down=down, padding=padding, flip_weight=flip_weight)
+    if split_dcoefs:
+        if noise is not None:
+            raise ValueError("split_dcoefs leaves the noise to the caller")
+        return x, dcoefs
     if demodulate and noise is not None:
         return torch.addcmul(noise.to(x.dtype), x,
                              dcoefs.to(x.dtype)[:, :, None, None])

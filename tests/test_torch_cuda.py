@@ -1,4 +1,5 @@
-"""Kernels K1, K2 and K3 against their plain PyTorch versions on the card.
+"""Kernels K1, K2, K3 and the fused synthesis epilogue against their plain
+PyTorch versions on the card.
 
 Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false.
 This file imports no JAX, so it also runs on a machine that has only the
@@ -14,7 +15,10 @@ import pytest
 import torch
 
 from shgan_torch.kernels import build
+from shgan_torch.models.layers import SynthesisLayer
 from shgan_torch.ops import conv1024, noise
+from shgan_torch.ops import noise_bias_act as nba
+from shgan_torch.ops.bias_act import parse_activation
 from shgan_torch.serve import InpaintEngine
 
 fir_mod = importlib.import_module("shgan_torch.ops.upfirdn2d")
@@ -121,8 +125,13 @@ def test_wrappers_count_launches_and_refuse_grad(cuda):
     x = torch.randn(1, 2, 8, 8, device=cuda)
     fir_mod.upfirdn2d(x, fir_mod.setup_filter([1, 3, 3, 1]), padding=1)
     noise.random_noise(0, 8, 2, 8, cuda)
+    nba.noise_bias_act(torch.zeros(1, 2, 8, 8, device=cuda))
     assert build.launches == {"upfirdn2d": 1, "philox_normal": 1,
-                              "conv3x3_lowch": 0}
+                              "conv3x3_lowch": 0, "noise_bias_act": 1}
+    with pytest.raises(RuntimeError, match="forward-only"):
+        nba.noise_bias_act(torch.zeros(1, 2, 8, 8, device=cuda,
+                                       requires_grad=True))
+    assert build.launches["noise_bias_act"] == 1
     with pytest.raises(RuntimeError):
         fir_mod.upfirdn2d(x.requires_grad_(), fir_mod.setup_filter([1, 3]))
 
@@ -183,3 +192,124 @@ def test_tiny_engine_card_matches_cpu(cuda):
     d = np.abs(a.inpaint(imgs, masks).astype(int)
                - b.inpaint(imgs, masks).astype(int))
     assert d.max() <= 1
+
+
+NBA_ACTS = [
+    # (spec, runtime gain): linear with a gain, lrelu with and without clamp
+    (None, 0.5),
+    ("lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)", 1.0),
+    ("lrelu_agc(alpha=0.2, gain=sqrt_2)", 0.7),
+]
+NOISE_ATOL = 1e-4   # K1 vs its plain version: logf/sincosf rounding
+
+
+def _nba_inputs(cuda, dtype, n, c, res, seed, offset=0):
+    """x (with a NaN, ±0 and values past the clamp), dcoefs, bias, const
+    plane, strength; ``offset`` elements shift x off the 16-byte alignment
+    (the kernel's one-call-a-thread path)."""
+    g = torch.Generator().manual_seed(seed)
+    flat = torch.randn(n * c * res * res + offset, generator=g) * 100
+    flat[offset + 5], flat[offset + 6], flat[offset + 7] = np.nan, -0.0, 0.0
+    x = flat.to(cuda, dtype)[offset:].view(n, c, res, res)
+    dcoefs = (torch.rand(n, c, generator=g) + 0.5).to(cuda)
+    bias = (torch.randn(c, generator=g) * 0.3).to(cuda)
+    const = torch.randn(res, res, generator=g).to(cuda)
+    strength = torch.tensor(0.3, device=cuda)
+    return x, dcoefs, bias, const, strength
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["random", "const", "none"])
+@pytest.mark.parametrize("res,c", [(4, 512), (4, 3), (8, 7), (8, 64),
+                                   (64, 33), (64, 64), (512, 5), (512, 4)])
+def test_noise_bias_act_kernel_matches_plain(cuda, dtype, mode, res, c):
+    """float32: within 4 ulp of the plain result plus the noise term's
+    NOISE_ATOL·strength·gain; bf16: within one bf16 ulp of the plain result
+    in float32 on the bf16 input (plus the same noise term)."""
+    spec, gain = NBA_ACTS[(res + c) % 3]
+    demod, with_bias = c % 2 == 1 or res == 4, c != 64
+    n = 2
+    x, dcoefs, bias, const, strength = _nba_inputs(
+        cuda, dtype, n, c, res, seed=res * 1000 + c,
+        offset=2 if res == 8 else 0)
+    act = nba.epilogue_act(parse_activation(spec), gain)
+    kw = dict(dcoefs=dcoefs if demod else None,
+              bias=bias if with_bias else None, act=act, noise_mode=mode,
+              noise_key=noise.noise_key(5, 2 * res), noise_const=const,
+              strength=strength)
+    want = nba.noise_bias_act_plain(x.float(), **kw)
+    build.reset_launches()
+    got = nba.noise_bias_act(x, **kw)
+    torch.cuda.synchronize()
+    assert build.launches["noise_bias_act"] == 1
+    assert got.data_ptr() == x.data_ptr() and got.dtype == dtype
+    got = got.float()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    got, want = got[ok], want[ok]
+    noise_tol = NOISE_ATOL * 0.3 * act[1] if mode == "random" else 0.0
+    e = torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+    ulp = 2.0 ** (e - (7 if dtype == torch.bfloat16 else 23))
+    tol = ulp * (1 if dtype == torch.bfloat16 else 4) + noise_tol
+    assert ((got - want).abs() <= tol).all(), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("offset", [0, 2])
+@pytest.mark.parametrize("demod", [True, False])
+@pytest.mark.parametrize("res", [4, 8, 64, 512])
+def test_noise_bias_act_noise_is_k1_bit_for_bit(cuda, res, demod, offset):
+    """x = 0, strength 1, no bias, linear, gain 1: the output is K1's noise,
+    bit for bit, broadcast over the channels (offset 2: the kernel's
+    one-call-a-thread path)."""
+    n, c = 3, 5
+    flat = torch.zeros(n * c * res * res + offset, device=cuda)
+    x = flat[offset:].view(n, c, res, res)
+    key = noise.noise_key(9, 2 * res)
+    got = nba.noise_bias_act(
+        x, (torch.rand(n, c, device=cuda) + 0.5) if demod else None,
+        noise_mode="random", noise_key=key,
+        strength=torch.ones((), device=cuda))
+    want = noise.philox_normal_cuda(key, n, res, cuda)[:, None]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want.expand_as(got))
+
+
+def test_noise_bias_act_kernel_keeps_nan_and_refuses_layouts(cuda):
+    act = nba.epilogue_act(parse_activation(NBA_ACTS[1][0]), 0.5)
+    x = torch.tensor([np.nan, 1e4, -1e4, -0.0] * 4, device=cuda).view(
+        1, 1, 4, 4)
+    y = nba.noise_bias_act(x.clone(), act=act).cpu()
+    want = nba.noise_bias_act_plain(x.cpu(), act=act)
+    assert torch.equal(torch.isnan(y), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.equal(y[ok], want[ok]) and float(y.nan_to_num().max()) == 128
+    with pytest.raises(ValueError, match="contiguous"):
+        nba.noise_bias_act(torch.zeros(1, 4, 4, 2, device=cuda).permute(
+            0, 3, 1, 2))
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        nba.noise_bias_act(torch.zeros(1, 2, 4, 4, device=cuda).half())
+    with pytest.raises(ValueError, match="dcoefs"):
+        nba.noise_bias_act(torch.zeros(1, 2, 4, 4, device=cuda),
+                           torch.ones(1, 3, device=cuda))
+
+
+@pytest.mark.parametrize("mode", ["random", "const", "none"])
+@pytest.mark.parametrize("up", [1, 2])
+def test_synthesis_layer_card_matches_cpu(cuda, up, mode):
+    """A SynthesisLayer on the card (conv, then the fused epilogue: one
+    launch) against the same layer on the CPU."""
+    torch.manual_seed(0)
+    layer = SynthesisLayer(16, 24, 3, 8, resolution=32, up=up, layer_id=64,
+                           activation="lrelu_agc(alpha=0.2, gain=sqrt_2, "
+                                      "clamp=256)").requires_grad_(False)
+    layer.noise_strength.fill_(0.3)
+    layer.bias.copy_(torch.randn(24) * 0.2)
+    x, w = torch.randn(2, 16, 32 // up, 32 // up), torch.randn(2, 8)
+    want = layer(x, w, gain=0.7, noise_mode=mode, noise_seed=3)
+    layer.to(cuda)
+    build.reset_launches()
+    got = layer(x.to(cuda), w.to(cuda), gain=0.7, noise_mode=mode,
+                noise_seed=3).cpu()
+    assert build.launches["noise_bias_act"] == 1
+    assert build.launches["philox_normal"] == 0
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

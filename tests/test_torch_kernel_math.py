@@ -3,8 +3,10 @@
 the Box–Muller conversion and the noise layout of kernel K1; the upfirdn2d
 index and padding arithmetic of kernel K2; the tiling, halo staging,
 fragment ownership and TF32 split of kernel K3, run as a host emulation of
-its mma loop), held to the plain PyTorch versions.  This is the only way
-the kernels' own code runs without a card.
+its mma loop; the launch rule, index map, element math and bf16 rounding of
+the fused synthesis epilogue, run as a host emulation of its threads), held
+to the plain PyTorch versions and numpy.  This is the only way the kernels'
+own code runs without a card.
 """
 
 import os
@@ -16,7 +18,9 @@ import pytest
 import torch
 
 from shgan_torch.ops import noise
+from shgan_torch.ops.bias_act import parse_activation
 from shgan_torch.ops.conv1024 import conv3x3_lowch_plain
+from shgan_torch.ops.noise_bias_act import epilogue_act, noise_bias_act_plain
 from shgan_torch.ops.upfirdn2d import (correlation_taps, fir_plain, out_size,
                                        setup_filter)
 
@@ -32,15 +36,113 @@ HARNESS = r"""
 #include <string>
 #include <vector>
 #include "conv3x3_lowch.cuh"
+#include "noise_bias_act.cuh"
 #include "philox.cuh"
 #include "upfirdn2d.cuh"
 
 
 namespace k3 = shgan::conv3;
+namespace nba = shgan::nba;
 
 static uint32_t bits(float v) { uint32_t u; std::memcpy(&u, &v, 4); return u; }
 static float val(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
 static uint32_t bf16_bits(float v) { return bits(v) >> 16; }  // bf16-exact input
+
+// nbamap n c res cpt per -> per chunks bt bc tiles, then the number of
+// elements of [n, c, res, res] not touched exactly once by the index map
+static void nbamap() {
+  int n, c, res, cpt, per;
+  std::scanf("%d %d %d %d %d", &n, &c, &res, &cpt, &per);
+  const nba::Launch L = nba::plan(n, c, res, cpt, per);
+  const long long plane = (long long)res * res, calls = plane / 4;
+  std::vector<unsigned char> hits((size_t)n * c * plane, 0);
+  for (int bz = 0; bz < L.chunks; ++bz)
+    for (int by = 0; by < n; ++by)
+      for (long long bx = 0; bx < L.tiles; ++bx)
+        for (int ty = 0; ty < L.bc; ++ty)
+          for (int tx = 0; tx < L.bt; ++tx) {
+            const long long q0 = nba::first_call(L, bx, tx, calls);
+            if (q0 < 0) continue;
+            for (int k = 0; k < L.per; ++k) {
+              const int ch = nba::channel(L, bz, ty, k, c);
+              if (ch < 0) break;
+              for (int h = 0; h < 2; ++h)
+                for (int e = 0; e < 2 * cpt; ++e) {
+                  const long long at = ((long long)by * c + ch) * plane + h * plane / 2 + 2 * q0 + e;
+                  if (hits[at] < 255) ++hits[at];
+                }
+            }
+          }
+  long long bad = 0;
+  for (unsigned char v : hits) bad += v != 1;
+  std::printf("%d %d %d %d %lld %lld\n", L.per, L.chunks, L.bt, L.bc, L.tiles, bad);
+}
+
+// nba bf cpt per n c res mode k0 k1 alpha gain clamp has_dcoef has_bias
+//     strength dcoef[n*c]... bias[c]... const[res*res]... x[n*c*res*res]...
+// -> the fused epilogue emulated thread by thread as the kernel runs it
+// (bf: x holds bf16 values, each result rounded once to bf16); each output
+// as its float32 bits.  An element written twice or never aborts.
+static void nba_run() {
+  int bf, cpt, per, n, c, res, mode, hd, hb;
+  unsigned k0, k1;
+  float s;
+  nba::Act act;
+  std::scanf("%d %d %d %d %d %d %d %u %u %f %f %f %d %d %f", &bf, &cpt, &per, &n, &c, &res,
+             &mode, &k0, &k1, &act.alpha, &act.gain, &act.clamp, &hd, &hb, &s);
+  const long long plane = (long long)res * res, half = plane / 2, calls = plane / 4;
+  std::vector<float> dcoef(n * c), bias(c), cst(plane), x((size_t)n * c * plane);
+  for (float& v : dcoef) std::scanf("%f", &v);
+  for (float& v : bias) std::scanf("%f", &v);
+  for (float& v : cst) std::scanf("%f", &v);
+  for (float& v : x) std::scanf("%f", &v);
+  std::vector<float> y(x.size());
+  std::vector<int> hits(x.size(), 0);
+  const nba::Launch L = nba::plan(n, c, res, cpt, per);
+  const int V = 2 * cpt;
+  for (int bz = 0; bz < L.chunks; ++bz)
+    for (int row = 0; row < n; ++row)
+      for (long long bx = 0; bx < L.tiles; ++bx)
+        for (int ty = 0; ty < L.bc; ++ty)
+          for (int tx = 0; tx < L.bt; ++tx) {
+            const long long q0 = nba::first_call(L, bx, tx, calls);
+            if (q0 < 0) continue;
+            float nz[2][4];
+            for (int e = 0; e < V; ++e) nz[0][e] = nz[1][e] = -0.0f;
+            if (mode == nba::kNoiseRandom)
+              for (int j = 0; j < cpt; ++j)
+                shgan::noise_quad((unsigned)(q0 + j), (unsigned)row, k0, k1, &nz[0][2 * j],
+                                  &nz[1][2 * j]);
+            if (mode == nba::kNoiseConst)
+              for (int e = 0; e < V; ++e) {
+                nz[0][e] = cst[2 * q0 + e];
+                nz[1][e] = cst[half + 2 * q0 + e];
+              }
+            if (mode != nba::kNoiseNone)
+              for (int e = 0; e < V; ++e) {
+                nz[0][e] = nba::mul_rn(nz[0][e], s);
+                nz[1][e] = nba::mul_rn(nz[1][e], s);
+              }
+            for (int k = 0; k < L.per; ++k) {
+              const int ch = nba::channel(L, bz, ty, k, c);
+              if (ch < 0) break;
+              const long long p = (long long)row * c + ch;
+              const float d = hd ? dcoef[p] : 1.0f, b = hb ? bias[ch] : -0.0f;
+              for (int h = 0; h < 2; ++h)
+                for (int e = 0; e < V; ++e) {
+                  const long long at = p * plane + h * half + 2 * q0 + e;
+                  float v = nba::apply(x[at], d, nz[h][e], b, act);
+                  if (bf) v = nba::from_bf16(nba::to_bf16(v));
+                  if (hits[at]++) std::abort();
+                  y[at] = v;
+                }
+            }
+          }
+  for (int h : hits)
+    if (h != 1) std::abort();
+  for (float v : y) std::printf("%u\n", bits(v));
+}
+
 // what the tensor core multiplies for a .tf32 operand: its top 19 bits
 static float tf32_operand(float v) { return val(bits(v) & 0xffffe000u); }
 static float from_bf16(uint32_t b) { return val((b & 0xffffu) << 16); }
@@ -317,11 +419,42 @@ static void tile() {
 //   tf32dot K a... b...             -> 3xTF32 and single-TF32 dot products
 //   tf32 v                          -> TF32 high part and residual of v, both
 //                                      splits
+//   nbaplan n c res cpt             -> the fused epilogue's launch rule
+//   nbamap n c res cpt per          -> the fused epilogue's launch and coverage
+//   nba ...                         -> the fused epilogue emulated (nba_run)
+//   nbaop alpha gain clamp m x d nz b (m times) -> m results' float32 bits
+//   bf16 m v...                     -> the bf16 bits of m floats
 int main() {
   char cmd[16];
   while (std::scanf("%15s", cmd) == 1) {
     std::string c(cmd);
-    if (c == "philox") {
+    if (c == "nbaplan") {
+      int n, ch, res, cpt;
+      std::scanf("%d %d %d %d", &n, &ch, &res, &cpt);
+      const nba::Launch L = nba::plan(n, ch, res, cpt, 0);
+      std::printf("%d %d %d %d %lld\n", L.per, L.chunks, L.bt, L.bc, L.tiles);
+    } else if (c == "nbamap") {
+      nbamap();
+    } else if (c == "nba") {
+      nba_run();
+    } else if (c == "nbaop") {
+      nba::Act a;
+      int m;
+      std::scanf("%f %f %f %d", &a.alpha, &a.gain, &a.clamp, &m);
+      for (int i = 0; i < m; ++i) {
+        float x, d, nz, b;
+        std::scanf("%f %f %f %f", &x, &d, &nz, &b);
+        std::printf("%u\n", bits(nba::apply(x, d, nz, b, a)));
+      }
+    } else if (c == "bf16") {
+      int m;
+      std::scanf("%d", &m);
+      for (int i = 0; i < m; ++i) {
+        float v;
+        std::scanf("%f", &v);
+        std::printf("%u\n", (unsigned)nba::to_bf16(v));
+      }
+    } else if (c == "philox") {
       unsigned k0, k1;
       shgan::U32x4 ctr;
       std::scanf("%u %u %u %u %u %u", &k0, &k1, &ctr.v[0], &ctr.v[1],
@@ -627,3 +760,168 @@ def test_tf32_split_is_exact(harness, v):
     assert abs((np.float64(h) + lo) - np.float64(f)) <= abs(f) * 2 ** -21
     # the mma loop's split of the input: the same high part, the rest exact
     assert ha == h and ha + la == float(f)
+
+
+# ---- the fused synthesis epilogue (csrc/noise_bias_act.cuh) ----------------
+
+NBA_MAP_CASES = [
+    # (n, c, res): the 4² layer (4 Philox calls a row) with C = 512 and one
+    # channel past a whole lane group; small C; 64² and 512² planes
+    (2, 512, 4), (1, 513, 4), (3, 5, 8), (2, 512, 8), (2, 33, 64),
+    (1, 512, 64), (2, 33, 512), (1, 3, 512),
+]
+
+
+@pytest.mark.parametrize("per", [0, 1, 2, 3, 1 << 20])   # 0: the rule's own
+@pytest.mark.parametrize("cpt", [1, 2])
+@pytest.mark.parametrize("n,c,res", NBA_MAP_CASES)
+def test_noise_bias_act_index_map_covers_each_element_once(harness, n, c, res,
+                                                           cpt, per):
+    """Every (n, c, h, w) is read and written by exactly one thread, for
+    each number of channels a thread may walk (the launch rule's pick, 1,
+    2, 3 and all of them)."""
+    got_per, chunks, bt, bc, tiles, bad = (
+        int(v) for v in harness(f"nbamap {n} {c} {res} {cpt} {per}"))
+    assert bad == 0
+    assert bt * bc == 256 and tiles * bt * cpt >= res * res // 4
+    assert (chunks - 1) * got_per * bc < c <= chunks * got_per * bc
+
+
+@pytest.mark.parametrize("n,c,res,per,chunks", [
+    # every synthesis layer shape of shgan_g512 at batch 8: the blocks come
+    # from the channels at 4²-32², one chunk at 512²
+    (8, 512, 4, 1, 4), (8, 512, 8, 1, 16), (8, 512, 16, 1, 64),
+    (8, 512, 32, 2, 128), (8, 512, 64, 8, 64), (8, 256, 128, 16, 16),
+    (8, 128, 256, 32, 4), (8, 64, 512, 64, 1),
+    # the 1024² layers of shgan_g1024 at batch 4
+    (4, 32, 1024, 32, 1),
+])
+def test_noise_bias_act_launch_rule(harness, n, c, res, per, chunks):
+    """The fewest channel chunks that give 1024 blocks."""
+    got = [int(v) for v in harness(f"nbaplan {n} {c} {res} 2")]
+    assert got[:2] == [per, chunks]
+    assert got[4] * n * chunks >= 1024 or chunks * got[0] * got[3] >= c
+
+
+NBA_ACTS = [
+    # (spec, runtime gain, cpt, per): each activation on another launch
+    (None, 0.5, 1, 2),
+    ("lrelu_agc(alpha=0.2, gain=sqrt_2)", 1.0, 2, 0),
+    ("lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)", 0.7, 2, 1),
+]
+
+
+def _f(v):
+    return f"{float(v):.9g}"
+
+
+@pytest.mark.parametrize("act", NBA_ACTS, ids=["linear", "lrelu",
+                                               "lrelu_clamp"])
+@pytest.mark.parametrize("has_d,has_b", [(True, True), (True, False),
+                                         (False, True), (False, False)])
+@pytest.mark.parametrize("mode", ["random", "const", "none"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_noise_bias_act_emulation_matches_plain(harness, dtype, mode, has_d,
+                                                has_b, act):
+    """The kernel's threads emulated on the host against the plain version
+    on the CPU: the same bits where the noise is not drawn (const, none;
+    bf16: the float32 result rounded once), libm-vs-torch rounding of the
+    Philox normals otherwise."""
+    spec, gain, cpt, per = act
+    n, c, res = 2, 5, 8
+    rng = np.random.RandomState(c * 7 + res + cpt)
+    x = (rng.randn(n, c, res, res) * 300).astype(np.float32)
+    x.flat[3], x.flat[7], x.flat[11] = np.nan, -0.0, 0.0
+    dcoef = (rng.rand(n, c) + 0.5).astype(np.float32)
+    bias = (rng.randn(c) * 0.1).astype(np.float32)
+    cst = rng.randn(res, res).astype(np.float32)
+    s = np.float32(0.3)
+    key = noise.noise_key(3, 2 * res)
+    bf = dtype == "bfloat16"
+    xt = torch.from_numpy(x)
+    if bf:
+        xt = xt.bfloat16().float()
+    alpha, g, clamp = epilogue_act(parse_activation(spec), gain)
+    head = (f"nba {int(bf)} {cpt} {per} {n} {c} {res} "
+            f"{['none', 'random', 'const'].index(mode)} {key[0]} {key[1]} "
+            f"{_f(1.0 if alpha is None else alpha)} {_f(g)} "
+            f"{'inf' if clamp is None else _f(clamp)} {int(has_d)} "
+            f"{int(has_b)} {_f(s)}")
+    vals = " ".join(_f(v) for v in np.concatenate(
+        [dcoef.ravel(), bias, cst.ravel(), xt.numpy().ravel()]))
+    got = np.array(harness(f"{head} {vals}"), np.uint64).astype(
+        np.uint32).view(np.float32).reshape(n, c, res, res)
+    want = noise_bias_act_plain(
+        xt, torch.from_numpy(dcoef) if has_d else None,
+        torch.from_numpy(bias) if has_b else None, (alpha, g, clamp),
+        noise_mode=mode, noise_key=key, noise_const=torch.from_numpy(cst),
+        strength=torch.tensor(s))
+    if bf:
+        want = want.bfloat16().float()
+    want = want.numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    if mode != "random":
+        np.testing.assert_array_equal(got[ok].view(np.uint32),
+                                      want[ok].view(np.uint32))
+    elif bf:
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want[ok]), 1e-30)))
+                      - 7)
+        assert (np.abs(got[ok] - want[ok]) <= ulp).all()
+    else:
+        # the normals' last-ulp differences, which can also move the sums'
+        # rounding by an ulp of the result (|x| up to ~1e3 here)
+        np.testing.assert_allclose(got[ok], want[ok], rtol=2.5e-7,
+                                   atol=1e-5)
+
+
+NBA_SPECIALS = [0.0, -0.0, 1.0, -1.0, 1e-40, -1e-40, 300.0, -300.0, 1e30,
+                -1e30, np.inf, -np.inf, np.nan, 3.14159, -2.5]
+
+
+@pytest.mark.parametrize("alpha,gain,clamp", [
+    (0.2, 2 ** 0.5, 256 * 0.7), (0.2, 1.0, np.inf), (1.0, 0.5, np.inf),
+    (0.0, 3.0, 1.0)])
+def test_noise_bias_act_element_math_matches_numpy(harness, alpha, gain,
+                                                   clamp):
+    """x·d + noise + bias, leaky ReLU, gain and clamp, one float32 rounding
+    per operation, against numpy bit for bit: NaN stays NaN through the
+    clamp, ±0 keep their sign, a -0 bias or noise term changes nothing."""
+    f32 = np.float32
+    cases = [(x, d, nz, b) for x in NBA_SPECIALS
+             for d in (1.0, -0.5, 2.0, np.nan)
+             for nz in (-0.0, 0.0, 0.7, np.nan)
+             for b in (-0.0, 0.3, -0.3)]
+    arr = np.array(cases, np.float32)
+    vals = " ".join(_f(v) for v in arr.ravel())
+    got = np.array(harness(f"nbaop {_f(alpha)} {_f(gain)} {_f(clamp)} "
+                           f"{len(cases)} {vals}"), np.uint64).astype(
+        np.uint32).view(np.float32)
+    x, d, nz, b = arr.T
+    with np.errstate(invalid="ignore", over="ignore"):
+        y = x * d + nz + b
+        y = np.where(y >= 0, y, y * f32(alpha)) * f32(gain)
+        y = np.clip(y, -f32(clamp), f32(clamp))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(y))
+    ok = ~np.isnan(y)
+    np.testing.assert_array_equal(got[ok].view(np.uint32),
+                                  y[ok].view(np.uint32))
+
+
+def test_noise_bias_act_bf16_rounding_matches_torch(harness):
+    """One rounding to bf16 at the store: nearest even, as PyTorch's
+    float -> bfloat16 (ties, carries into the exponent, ±0, subnormals,
+    infinities); NaN stays NaN (PyTorch's own NaN pattern differs between
+    its scalar and vector paths)."""
+    rng = np.random.RandomState(9)
+    ties = [1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, -(1.0 + 2.0 ** -8),
+            2.0 - 2.0 ** -9, 3.3895313e38, 1e-39]
+    vals = np.array(NBA_SPECIALS + ties + list(rng.randn(200) * 1e3),
+                    np.float32)
+    got = np.array(harness(f"bf16 {vals.size} "
+                           + " ".join(_f(v) for v in vals)), np.int64)
+    want = torch.from_numpy(vals).bfloat16().view(torch.int16).numpy()
+    nan = np.isnan(vals)
+    np.testing.assert_array_equal(got[~nan],
+                                  want[~nan].astype(np.int64) & 0xFFFF)
+    assert ((got[nan] & 0x7F80) == 0x7F80).all() and (got[nan] & 0x7F).all()

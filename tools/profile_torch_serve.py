@@ -5,12 +5,17 @@ Builds ``InpaintEngine(<model>, device="cuda", batch_size=<batch>)`` with
 random weights and random noise (every ``noise_strength`` 0.1), answers one
 request to warm up, then answers ``--reps`` more under ``torch.profiler``
 (CPU and CUDA activities).  Prints one JSON object: the request's wall
-time, the device's busy time and idle share over the profiled window, and
-the device time by kernel group and by the top kernels.  Run from the
-repository root:
+time, the device's busy time and idle share over the profiled window, the
+device time by kernel group and by the top kernels, and the device
+operations (kernels and copies) per request (one generator forward).  Run from the repository root:
 
     python3 tools/profile_torch_serve.py [--model shgan_g512] [--batch 8]
-        [--reps 3] [--out perf_out]
+        [--reps 3] [--k3] [--root DIR] [--out perf_out]
+
+``--k3`` routes the 1024² convs to kernel K3, as the eval stage does;
+``--root`` profiles the ``shgan_torch`` of another checkout (say an earlier
+commit unpacked into a directory), so two versions are profiled by the same
+tool in one run on one card.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 GROUPS = (  # first match wins; matched against the lower-cased kernel name
+    ("noise_bias_act (fused epilogue)", ("noise_bias_act",)),
     ("upfirdn2d (K2)", ("upfirdn2d",)),
     ("philox_normal (K1)", ("philox_normal",)),
     ("convolution", ("conv", "xmma", "implicit", "gemm", "cutlass", "sm90",
@@ -60,13 +66,23 @@ def main():
     ap.add_argument("--model", default="shgan_g512")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--k3", action="store_true",
+                    help="route the 1024² convs to kernel K3")
+    ap.add_argument("--root", default=None,
+                    help="checkout whose shgan_torch is profiled")
     ap.add_argument("--out", default="perf_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 2
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
     from torch.profiler import ProfilerActivity, profile
+    import shgan_torch
+    from shgan_torch.ops import conv1024
     from shgan_torch.serve import InpaintEngine
+    if args.k3:
+        conv1024.set_conv1024_impl("pallas")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -92,12 +108,13 @@ def main():
             engine.inpaint(imgs, masks, start_index=args.batch * i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
+    kernels, ops = {}, 0
     for evt in prof.key_averages():
         us = device_us(evt)
         if us > 0 and getattr(evt, "device_type", None) is not None \
                 and "cuda" in str(evt.device_type).lower():
             kernels[evt.key] = kernels.get(evt.key, 0.0) + us
+            ops += evt.count
     busy_ms = sum(kernels.values()) / 1e3
     groups = {}
     for k, us in kernels.items():
@@ -107,10 +124,13 @@ def main():
     result = {
         "card": smi, "model": args.model, "batch": args.batch,
         "reps": args.reps, "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+        "package": os.path.dirname(os.path.abspath(shgan_torch.__file__)),
+        "k3": conv1024.conv1024_impl() == "pallas",
         "request_wall_ms": wall_ms / args.reps,
         "device_busy_ms_per_request": busy_ms / args.reps,
         "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
         "images_per_s": args.batch * args.reps / (wall_ms / 1e3),
+        "device_ops_per_request": ops / args.reps,
         "group_ms_per_request": dict(sorted(groups.items(),
                                             key=lambda kv: -kv[1])),
         "top_kernels_ms_per_request": [(k[:120], us / 1e3 / args.reps)
