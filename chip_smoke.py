@@ -47,8 +47,24 @@ Phases, each printing one JSON line:
    forwards timed;
 7. the CLI: ``python -m shgan_torch.main --experiment
    shgan_synthetic256_eval --debug --eval 0`` exits 0 with a result.json;
-8. the kernels line ``{"kernels": [...]}``;
-9. last line: ``{"ok": true, "device": {...}}``.
+8. training path: K2's backward at every K2 call of a ``shgan_g256``
+   forward and a ``comodgan_d256`` forward at batch 8, and its second order
+   (K2 again), against autograd of the plain version; the epilogue's grad
+   kernel at every synthesis layer of ``shgan_g256`` (full mode at batch 8,
+   mask-only at 4), its noise against K1's bit for bit; then
+   ``shgan_ffhq256_train`` (``shgan_g256`` + ``comodgan_d256`` at full
+   width, batch 8, random weights, the dataset swapped to synthetic 256²)
+   assembled by ``build_config`` and run by the CLI's ``run`` for 6 steps
+   (step 0 with both regularizers, 4 with the path-length penalty),
+   ``SHGAN_TRAIN_TIMING=1``: per-step ms by phase (fenced), images/s over
+   steps 1–5, peak memory, launches per step checked against counts worked
+   out from the modules, finite losses, moved weights, ``pl_mean > 0``;
+   the final snapshot reloaded and one step from it equal to the same step
+   from memory (cuDNN deterministic); one Gmain + Dmain + R1 gradient at
+   batch 2 on the card and on the CPU, TF32 off, each leaf within 1e-3 of
+   its norm;
+9. the kernels line ``{"kernels": [...]}``;
+10. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line.  It needs the repository (``shgan_torch``, ``configs/``) and
@@ -85,6 +101,10 @@ TF32_FLOPS_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bfloat16 tensor cores, dense
 FIR_F32_ATOL = 1e-5
 NOISE_ATOL = 1e-4
+TRAIN_EXPERIMENT = "shgan_ffhq256_train"   # shgan_g256 + comodgan_d256
+TRAIN_BATCH = 8
+TRAIN_STEPS = 6   # step 0 both regularizers, 4 the path length, others main
+PARITY_BATCH = 2
 
 
 def emit(obj):
@@ -606,6 +626,496 @@ def k3_in_place(cfg, g_pth):
     return row
 
 
+
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+
+def train_fir_calls(cfg_g, cfg_d, batch):
+    """Every upfirdn2d call of one generator forward and one discriminator
+    forward at ``batch``: (site, resolution, input shape, up, down, pads,
+    gain).  The discriminator blurs before each strided 3×3 conv (pad 2)
+    and its 1×1 skips downsample (down 2, pad 1)."""
+    calls = [(s, r, shape, up, 1, pads, gain)
+             for s, r, shape, up, pads, gain in fir_calls(cfg_g, batch)]
+    d = cfg_d["args"]
+    ch = lambda r: min(int(d["ch_base"]) // r, int(d["ch_max"]))  # noqa
+    r = int(d["resolution"])
+    while r > 4:
+        calls.append(("d_down_blur", r, (batch, ch(r), r, r), 1, 1,
+                      (2, 2, 2, 2), 1))
+        calls.append(("d_skip_down", r, (batch, ch(r), r, r), 1, 2,
+                      (1, 1, 1, 1), 1))
+        r //= 2
+    return calls
+
+
+def train_sites(G, D):
+    """(K2 calls of the encoder, of the synthesis and of D per forward,
+    synthesis layers), read off the modules: each resampling conv is one K2
+    call, each upsampling synthesis block's skip image one more."""
+    def k2(module):
+        n = 0
+        for m in module.modules():
+            name = type(m).__name__
+            if name == "Conv2dLayer" and (m.up > 1 or m.down > 1):
+                n += 1
+            elif name == "SynthesisLayer" and m.up > 1:
+                n += 1
+            elif name == "CoModSynthesisBlock":
+                n += 1   # upsample2d of the skip image
+        return n
+    layers = sum(type(m).__name__ == "SynthesisLayer" for m in G.modules())
+    return k2(G.encoder), k2(G.synthesis), k2(D), layers
+
+
+def expected_train_launches(n_enc, n_syn, n_d, layers, greg, dreg):
+    """Kernel launches of one train step.  Gmain: G and D forwards, every
+    K2 call and every epilogue differentiated once.  Gpl: a G forward at
+    the shrunk batch; d img / d ws runs the synthesis' K2 calls backwards
+    (n_syn) and the epilogues' grad kernel; the penalty's backward runs
+    those backward calls' own backward (n_syn, K2 again), the encoder's
+    (n_enc), and per epilogue the grad kernel once more plus its two
+    mask-only launches.  Dmain: G under no_grad (the in-place epilogue), D
+    on fakes and reals, each D call differentiated.  R1: D on reals, d D /
+    d real (n_d), and that gradient's backward (2 n_d)."""
+    n_g = n_enc + n_syn
+    want = {"upfirdn2d": (n_g + n_d) + (n_g + 2 * n_d),
+            "upfirdn2d_grad": (n_g + n_d) + 2 * n_d,
+            "philox_normal": 0, "conv3x3_lowch": 0,
+            "noise_bias_act": 2 * layers, "noise_bias_act_grad": layers}
+    if greg:
+        want["upfirdn2d"] += n_g
+        want["upfirdn2d_grad"] += 2 * n_syn + n_enc
+        want["noise_bias_act"] += layers
+        want["noise_bias_act_grad"] += 4 * layers
+    if dreg:
+        want["upfirdn2d"] += n_d
+        want["upfirdn2d_grad"] += 3 * n_d
+    return want
+
+
+def check_fir_grad(fir, calls):
+    """K2's backward (and the backward of that, a K2 forward) at each of
+    ``calls`` against autograd of fir_plain on the same inputs, float32;
+    the backward call timed alone beside autograd of the plain version and
+    the cuDNN call that computes the same gradient."""
+    taps = fir.correlation_taps(fir.setup_filter([1, 3, 3, 1]), gain=1)
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    for site, r, shape, up, down, pads, gain in calls:
+        t = taps * gain
+        ups, downs = (up, up), (down, down)
+        x = torch.randn(shape, generator=gen, device="cuda")
+        y_shape = fir.fir_plain(x[:1, :1], t, ups, downs, pads).shape[2:]
+        dy = torch.randn((shape[0], shape[1]) + tuple(y_shape),
+                         generator=gen, device="cuda")
+        u = torch.randn(shape, generator=gen, device="cuda")
+        outs = {}
+        for name, fn in (("kernel", fir.fir), ("plain", fir.fir_plain)):
+            xr = x.clone().requires_grad_(True)
+            dyr = dy.clone().requires_grad_(True)
+            y = fn(xr, t, ups, downs, pads)
+            dx, = torch.autograd.grad(y, xr, dyr, create_graph=True)
+            ddy, = torch.autograd.grad((dx * u).sum(), dyr)
+            outs[name] = (dx.detach(), ddy, y, xr)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(outs["kernel"][:2], outs["plain"][:2]))
+        if not err <= FIR_F32_ATOL:
+            raise AssertionError(f"K2 backward {site} R={r} {shape}: {err}")
+        flipped = np.ascontiguousarray(t[::-1, ::-1])
+        gp = fir.grad_pads(shape[2], shape[3], t, ups, downs, pads)
+        bwd = lambda: fir.fir_cuda(dy, flipped, downs, ups, gp,  # noqa
+                                   "upfirdn2d_grad")
+        dx = outs["kernel"][0]
+        nbytes = (dy.numel() + dx.numel()) * 4
+        it = iters_for(nbytes)
+        yp, xp = outs["plain"][2], outs["plain"][3]
+        row = {"site": site, "res": r, "shape": list(shape), "up": up,
+               "down": down, "pads": list(pads), "backward_up": down,
+               "backward_down": up, "max_abs_err": err, "iters": it,
+               "ms": graph_ms(bwd, nbytes), "eager_ms": eager_ms(bwd, it),
+               "plain_ms": eager_ms(lambda: torch.autograd.grad(
+                   yp, xp, dy, retain_graph=True), it)}
+        c = shape[1]
+        w = torch.as_tensor(np.array(t), device="cuda")[None, None].expand(
+            c, 1, *t.shape).contiguous()
+        lib = None
+        if up == 1 and len(set(pads)) == 1:   # forward: a strided conv2d
+            lib = lambda: torch.nn.grad.conv2d_input(  # noqa: E731
+                shape, w, dy, stride=down, padding=pads[0], groups=c)
+        elif up == 2 and down == 1 and pads == (2, 1, 2, 1):
+            # forward: the stride-2 transposed conv; its gradient a conv2d
+            wt = w.flip([2, 3]).contiguous()
+            lib = lambda: F.conv2d(dy, wt, stride=2, padding=1,  # noqa
+                                   groups=c)
+        row["library_ms"] = None
+        if lib is not None:
+            lib_err = float((lib() - dx).abs().max())
+            if not lib_err <= FIR_F32_ATOL:
+                raise AssertionError(f"K2 backward yardstick {site}: "
+                                     f"{lib_err}")
+            row["library_ms"] = graph_ms(lib, nbytes)
+        # the backward call: each dx element gathers taps / up² samples
+        bound(row, nbytes, 2 * dx.numel() * (t.size // (down * down)))
+        row["hbm_share"] = row["bytes_ms"] / row["ms"]
+        rows.append(row)
+        del outs, x, dy, u, dx
+        torch.cuda.empty_cache()
+    return rows
+
+
+class k1_noise_in_plain:
+    """Within this block the plain versions draw their noise with K1
+    (``philox_normal_cuda``), bit for bit the fused kernels' noise: a
+    gradient's mask flips where ``pre`` is within the normals' last-ulp
+    differences of 0, so the grad kernel is held to its plain version on
+    the same noise."""
+
+    def __init__(self, nba, noise):
+        self.nba, self.noise = nba, noise
+
+    def __enter__(self):
+        self.orig = self.nba.philox_normal_plain
+        self.nba.philox_normal_plain = (
+            lambda key, n, r, device="cpu":
+            self.noise.philox_normal_cuda(key, n, r, device))
+
+    def __exit__(self, *exc):
+        self.nba.philox_normal_plain = self.orig
+
+
+def check_epilogue_grad(noise, nba, cfg, batch, pl_batch):
+    """The grad kernel at each synthesis layer shape of ``cfg``: its full
+    mode at ``batch`` (the main phases' backward) against its plain
+    version on the same noise, dx within 4 ulp and the sums within 1e-5 of
+    the sum of their terms' magnitudes; its mask-only mode at ``pl_batch``
+    (the path-length penalty's double backward) within 4 ulp; its
+    regenerated noise against K1's bit for bit; timed beside the plain
+    version and autograd of the PyTorch chain on the same inputs."""
+    from shgan_torch.ops.bias_act import parse_activation
+    spec = cfg["args"]["synthesis"]["args"].get(
+        "activation", "lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)")
+    act = nba.epilogue_act(parse_activation(spec))
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(batch + 5)
+    for (r, c), count in sorted(epilogue_layers(cfg).items()):
+        key = noise.noise_key(4321, 2 * r)
+        x = torch.randn((batch, c, r, r), generator=gen, device="cuda")
+        dy = torch.randn((batch, c, r, r), generator=gen, device="cuda")
+        d = torch.rand((batch, c), generator=gen, device="cuda") + 0.5
+        b = torch.randn((c,), generator=gen, device="cuda") * 0.1
+        s = torch.full((), 0.1, device="cuda")
+        kw = dict(dcoefs=d, bias=b, act=act, noise_mode="random",
+                  noise_key=key, strength=s)
+        got = nba.noise_bias_act_grad_cuda(dy, x, **kw)
+        with k1_noise_in_plain(nba, noise):
+            want = nba.noise_bias_act_grad_plain(dy, x, **kw)
+            g = nba.noise_bias_act_mask_plain(dy, x, **kw).double()
+        nu = noise.philox_normal_cuda(key, batch, r, "cuda")[:, None]
+        torch.cuda.synchronize()
+        ulp = 2.0 ** (torch.floor(torch.log2(want[0].abs().clamp_min(
+            1e-30))) - 23)
+        err = float((got[0] - want[0]).abs().max())
+        if not bool(((got[0] - want[0]).abs() <= 4 * ulp).all()):
+            raise AssertionError(f"grad kernel dx R={r} C={c}: {err}")
+        sums_rel = 0.0
+        for a, w_, mag in ((got[1], want[1], (g * x).abs().sum((2, 3))),
+                           (got[2], want[2], g.abs().sum((0, 2, 3))),
+                           (got[3], want[3], (g * nu).abs().sum())):
+            rel = float(((a.double() - w_.double()).abs()
+                         / (mag + 1e-30)).max())
+            sums_rel = max(sums_rel, rel)
+        if not sums_rel <= 1e-5:
+            raise AssertionError(f"grad kernel sums R={r} C={c}: {sums_rel}")
+        # the regenerated noise: mask-only, v = 0, vs = 1, linear, gain 1
+        zero = torch.zeros((batch, c, r, r), device="cuda")
+        nu_k = nba.noise_bias_act_mask_cuda(
+            zero, zero, noise_mode="random", noise_key=key,
+            strength=torch.ones((), device="cuda"),
+            vs=torch.ones((), device="cuda"))
+        if not torch.equal(nu_k, nu.expand_as(nu_k)):
+            raise AssertionError(f"grad kernel's noise != K1 at R={r}")
+        # mask-only at the path-length batch
+        v = dy[:pl_batch].contiguous()
+        kwp = dict(kw, dcoefs=d[:pl_batch].contiguous())
+        m_got = nba.noise_bias_act_mask_cuda(v, x[:pl_batch].contiguous(),
+                                             **kwp)
+        with k1_noise_in_plain(nba, noise):
+            m_want = nba.noise_bias_act_mask_plain(
+                v, x[:pl_batch].contiguous(), **kwp)
+        mu = 2.0 ** (torch.floor(torch.log2(m_want.abs().clamp_min(1e-30)))
+                     - 23)
+        if not bool(((m_got - m_want).abs() <= 4 * mu).all()):
+            raise AssertionError(f"mask-only R={r}: "
+                                 f"{float((m_got - m_want).abs().max())}")
+        nbytes = 3 * x.numel() * 4 + (d.numel() + b.numel() + 1) * 4
+        it = iters_for(nbytes)
+        kern = lambda: nba.noise_bias_act_grad_cuda(dy, x, **kw)  # noqa
+        xr, dr, br, sr = (t.clone().requires_grad_(True) for t in (x, d, b, s))
+        yr = nba.noise_bias_act_plain(xr, dr, br, act, noise_mode="random",
+                                      noise_key=key, strength=sr)
+        lib = lambda: torch.autograd.grad(  # noqa: E731
+            yr, (xr, dr, br, sr), dy, retain_graph=True)
+        row = {"res": r, "channels": c, "batch": batch,
+               "layers_per_forward": count, "max_abs_err": err,
+               "sums_max_rel_err": sums_rel, "noise_equals_k1": True,
+               "iters": it, "ms": graph_ms(kern, nbytes),
+               "eager_ms": eager_ms(kern, it),
+               "plain_ms": eager_ms(lambda: nba.noise_bias_act_grad_plain(
+                   dy, x, **kw), 3),
+               "library_ms": eager_ms(lib, it),
+               "mask_ms": graph_ms(lambda: nba.noise_bias_act_mask_cuda(
+                   v, x[:pl_batch].contiguous(), **kwp), nbytes // 2)}
+        # dy and x read once, dx written once; the normals regenerated
+        # (~65 operations a pixel) and ~12 operations an element
+        bound(row, nbytes, batch * r * r * 65 + x.numel() * 12)
+        row["hbm_share"] = row["bytes_ms"] / row["ms"]
+        rows.append(row)
+        del x, dy, got, want, g, nu, zero, nu_k, v, m_got, m_want, yr
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_config(tmp, steps):
+    """``shgan_ffhq256_train`` through the CLI's config assembly: the model
+    as configured (``shgan_g256`` + ``comodgan_d256``, float32, batch 8),
+    the dataset swapped to synthetic 256² (FFHQ is not on the machine),
+    ``steps`` steps in two ticks, one snapshot at the end."""
+    from shgan_torch.main import build_config
+    nimg = steps * TRAIN_BATCH
+    return build_config(
+        TRAIN_EXPERIMENT, dataset="synthetic256_inpainting",
+        log_root=os.path.join(tmp, "train"),
+        overrides={"train.experiment_id": 0,
+                   "train.total_kimg": nimg / 1000,
+                   "train.kimg_per_tick": nimg / 2000,
+                   "train.snapshot_ticks": 1000})
+
+
+def params_of(module):
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def max_diff(a, b):
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def parity_grads(cfg, dev, seed=0, strength=0.1):
+    """The G gradient of one Gmain and the D gradient of one Dmain + R1 at
+    batch 2 on ``dev``, from weights drawn from ``seed`` with every bias
+    moved by N(0, 0.1) (zero-initialised biases would put the SHU's ReLU
+    kinks on the spectra's exact zeros, the imaginary DC and Nyquist bins,
+    whose sign is each FFT library's rounding) and every noise_strength at
+    ``strength``; the draws from CPU generators.  Returns ({leaf: grad on
+    the CPU}, seconds)."""
+    from shgan_torch.models.registry import get_model
+    from shgan_torch.train import loss as L
+    g = torch.Generator().manual_seed(seed)
+    res = int(cfg["model_g"]["args"]["synthesis"]["args"]["resolution"])
+    z_dim = int(cfg["model_g"]["args"]["mapping"]["args"]["z_dim"])
+    real = (torch.rand(PARITY_BATCH, 3, res, res, generator=g) * 2 - 1).to(dev)
+    mask = (torch.rand(PARITY_BATCH, 1, res, res, generator=g) > 0.5).float()
+    mask = mask.to(dev)
+    z = torch.randn(PARITY_BATCH, z_dim, generator=g).to(dev)
+    G = get_model(cfg["model_g"], seed=seed)
+    D = get_model(cfg["model_d"], seed=seed + 1)
+    gb = torch.Generator().manual_seed(seed + 2)
+    with torch.no_grad():
+        for name, p in list(G.named_parameters()) + list(D.named_parameters()):
+            if name.endswith("noise_strength"):
+                p.fill_(strength)
+            elif name.endswith("bias"):
+                p.add_(torch.randn(p.shape, generator=gb) * 0.1)
+    G, D = G.to(dev), D.to(dev)
+    x_in = torch.cat([mask - 0.5, real * mask], dim=1)
+    t0 = time.perf_counter()
+    D.requires_grad_(False)
+    loss, _ = L.g_main_loss(G, D, x_in, mask, z,
+                            torch.Generator().manual_seed(1), 0.9)
+    loss.backward()
+    D.requires_grad_(True)
+    G.requires_grad_(False)
+    loss_d, _ = L.d_main_loss(G, D, x_in, mask, real, z,
+                              torch.Generator().manual_seed(2), 0.9)
+    loss_r1, _ = L.d_r1_loss(D, mask, real)
+    (loss_d + loss_r1).backward()
+    grads = {**{"G." + k: p.grad.detach().cpu()
+                for k, p in G.named_parameters() if p.grad is not None},
+             **{"D." + k: p.grad.detach().cpu()
+                for k, p in D.named_parameters()}}
+    return grads, time.perf_counter() - t0
+
+
+def rel_errs(a, b):
+    """[(|a - b| / |b|, leaf)] over the leaves, the worst first."""
+    if set(a) != set(b):
+        raise AssertionError(f"gradient leaves differ: {set(a) ^ set(b)}")
+    return sorted(((float((a[k] - v).norm()) / max(float(v.norm()), 1e-12),
+                    k) for k, v in b.items()), reverse=True)
+
+
+# Gradient leaves whose card and CPU values differ by design beyond float32
+# rounding: a noise_strength's gradient is the sum over its layer of g·ν,
+# which cancels, and the two devices draw ν by different code (K1's libm
+# normals, the plain version's torch normals, last-ulp apart); the SHU's
+# spectral conv sums over the spectrum of cuFFT's or the CPU FFT's output.
+PARITY_LOOSE = ("noise_strength", "encoder.shu.")
+PARITY_TOL, PARITY_LOOSE_TOL = 1e-3, 1e-2
+
+
+def train_parity(cfg, seed=0):
+    """One Gmain, Dmain and R1 gradient at batch 2 on the card and on the
+    CPU (the plain versions), the same weights and draws, TF32 off, every
+    noise_strength at its initial 0: each gradient leaf's difference within
+    1e-3 of its norm, the PARITY_LOOSE leaves within 1e-2.  A second card
+    run with cuDNN's autotuner on (other convolution algorithms, so other
+    summation orders) gives each leaf's float32 spread on one device, for
+    the record."""
+    card, card_s = parity_grads(cfg, "cuda", seed, strength=0.0)
+    cpu, cpu_s = parity_grads(cfg, "cpu", seed, strength=0.0)
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        card2, _ = parity_grads(cfg, "cuda", seed, strength=0.0)
+    finally:
+        torch.backends.cudnn.benchmark = prev
+    rel = rel_errs(card, cpu)
+    spread = dict((k, e) for e, k in rel_errs(card2, card))
+    loose = [(e, k) for e, k in rel if any(t in k for t in PARITY_LOOSE)]
+    tight = [(e, k) for e, k in rel if not any(t in k for t in PARITY_LOOSE)]
+    row = {"phase": "train_parity", "batch": PARITY_BATCH, "tf32": False,
+           "noise_strength": 0.0, "leaves": len(cpu),
+           "worst_rel_err": tight[0][0], "worst_leaf": tight[0][1],
+           "worst_5": [(e, k, spread[k]) for e, k in tight[:5]],
+           "loose_leaves": len(loose),
+           "loose_worst_5": [(e, k, spread[k]) for e, k in loose[:5]],
+           "median_rel_err": rel[len(rel) // 2][0],
+           "median_card_spread": sorted(spread.values())[len(spread) // 2],
+           "cuda_s": card_s, "cpu_s": cpu_s}
+    emit(row)
+    if not (tight[0][0] <= PARITY_TOL and loose[0][0] <= PARITY_LOOSE_TOL):
+        raise AssertionError(f"train card vs CPU: {tight[0]}, {loose[0]}")
+    return row
+
+
+def train_path(tmp, cli, build):
+    """The training path as the CLI runs it (``main.run`` of the assembled
+    config), fenced per phase, with launch counts per step; then the
+    snapshot reloaded and one step from it against the same step from
+    memory (cuDNN deterministic)."""
+    from shgan_torch.checkpoint.train_state import load_train_state
+    from shgan_torch.data.datasets import get_dataset
+    from shgan_torch.data.formatters import get_formatter
+    from shgan_torch.data.pipeline import TrainPipeline
+    from shgan_torch.data.transforms import wrap_formatter
+    from shgan_torch.models.registry import get_model
+    from shgan_torch.runtime.stages import step_generator
+    from shgan_torch.train import TrainConfig, TrainStep
+    cfg = train_config(tmp, TRAIN_STEPS)
+    per_step = []
+
+    def on_step(i, metrics):
+        per_step.append(dict(build.launches))
+        build.reset_launches()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    os.environ["SHGAN_TRAIN_TIMING"] = "1"
+    build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rv = cli.run(cfg, on_step=on_step)
+    finally:
+        del os.environ["SHGAN_TRAIN_TIMING"]
+    stage_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step = rv["step"]
+    tc = step.cfg
+    sites = train_sites(step.G, step.D)
+    for i, got in enumerate(per_step):
+        want = expected_train_launches(*sites, i % tc.g_reg_interval == 0,
+                                       i % tc.d_reg_interval == 0)
+        if got != want:
+            raise AssertionError(f"train step {i} launches {got}, "
+                                 f"expected {want}")
+    if len(per_step) != TRAIN_STEPS or step.step != TRAIN_STEPS:
+        raise AssertionError(f"{len(per_step)} steps run")
+    ticks = rv["ticks"]
+    for t in ticks:
+        for k in ("loss_g", "loss_d", "pl_mean", "r1_penalty"):
+            if not math.isfinite(t[k]):
+                raise AssertionError(f"tick {t['tick']}: {k} = {t[k]}")
+    if not float(step.pl_mean) > 0:
+        raise AssertionError(f"pl_mean {float(step.pl_mean)}")
+    init = get_model(cfg["model_g"], seed=0).state_dict()
+    moved = max(float((v.cpu() - init[k]).abs().max())
+                for k, v in step.G.state_dict().items()
+                if k.endswith("weight"))
+    if not moved > 0:
+        raise AssertionError("G's weights did not move")
+    timing = rv["timing"]
+    phases = timing["phase_s"]
+    row = {"phase": "train_path", "experiment": TRAIN_EXPERIMENT,
+           "model_g": cfg["model_g"].get("name"),
+           "model_d": cfg["model_d"].get("name"),
+           "dataset": cfg["train"]["dataset"]["name"], "batch": TRAIN_BATCH,
+           "steps": TRAIN_STEPS, "regs": [
+               ("G" if i % tc.g_reg_interval == 0 else "")
+               + ("D" if i % tc.d_reg_interval == 0 else "")
+               for i in range(TRAIN_STEPS)],
+           "step_ms": [s * 1e3 for s in timing["step_s"]],
+           "phase_ms": [{k: v * 1e3 for k, v in p.items()} for p in phases],
+           "images_per_s_steps_1_5": TRAIN_BATCH * (TRAIN_STEPS - 1)
+           / sum(timing["step_s"][1:]),
+           "peak_mem_gib": peak_gib, "stage_s": stage_s,
+           "launches_per_step": per_step, "sites": dict(zip(
+               ("k2_encoder", "k2_synthesis", "k2_discriminator",
+                "synthesis_layers"), sites)),
+           "ticks": ticks, "pl_mean": float(step.pl_mean),
+           "max_weight_move": moved, "fenced": True}
+    emit(row)
+
+    # the snapshot, reloaded; one step from it and from memory
+    snap = os.path.join(cfg["train"]["log_dir"], "weight",
+                        "network-snapshot-000000")
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        fresh = TrainStep(get_model(cfg["model_g"], seed=9).cuda(),
+                          get_model(cfg["model_d"], seed=9).cuda(), tc)
+        load_train_state(snap, fresh)
+        if fresh.step != step.step:
+            raise AssertionError(f"snapshot step {fresh.step}")
+        ds = cfg["train"]["dataset"]
+        pipe = TrainPipeline(get_dataset(ds), wrap_formatter(
+            get_formatter(ds["formatter"]), ds.get("transforms")),
+            TRAIN_BATCH, device="cuda", num_threads=0, start=step.step)
+        real, mask = next(iter(pipe))
+        outs = []
+        for st in (step, fresh):
+            st.timing = False
+            st(real, mask, step_generator(0, st.step), 0.999, True, True)
+            outs.append((params_of(st.G), params_of(st.D),
+                         params_of(st.G_ema), float(st.pl_mean)))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            prev
+    diffs = [max_diff(a, b) for a, b in zip(outs[0][:3], outs[1][:3])]
+    resume = {"phase": "train_resume", "snapshot": os.path.basename(snap),
+              "step": step.step, "max_abs_diff_G_D_Gema": diffs,
+              "pl_mean": [outs[0][3], outs[1][3]]}
+    emit(resume)
+    if any(diffs) or outs[0][3] != outs[1][3]:
+        raise AssertionError(f"resumed step differs: {resume}")
+    del fresh, step, rv
+    torch.cuda.empty_cache()
+    return row, cfg
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="perf_out",
@@ -757,8 +1267,10 @@ def main():
     per_fwd_noise = sum(layers.values())
     # every synthesis layer's epilogue is one fused launch; K1 itself is
     # off the main path
-    want_serve = {"upfirdn2d": 3 * per_fwd_fir, "philox_normal": 0,
-                  "conv3x3_lowch": 0, "noise_bias_act": 3 * per_fwd_noise}
+    want_serve = {"upfirdn2d": 3 * per_fwd_fir, "upfirdn2d_grad": 0,
+                  "philox_normal": 0, "conv3x3_lowch": 0,
+                  "noise_bias_act": 3 * per_fwd_noise,
+                  "noise_bias_act_grad": 0}
     if launches != want_serve:
         raise AssertionError(f"launch counts {launches}, expected "
                              f"{want_serve}")
@@ -845,8 +1357,9 @@ def main():
         n_batches = EVAL_IMAGES // EVAL_BATCH
         want = {"conv3x3_lowch": 2 * n_batches,
                 "upfirdn2d": len(calls_1024) * n_batches,
-                "philox_normal": 0,
-                "noise_bias_act": sum(layers_1024.values()) * n_batches}
+                "upfirdn2d_grad": 0, "philox_normal": 0,
+                "noise_bias_act": sum(layers_1024.values()) * n_batches,
+                "noise_bias_act_grad": 0}
         if eval_launches != want:
             raise AssertionError(f"eval launch counts {eval_launches}, "
                                  f"expected {want}")
@@ -909,11 +1422,49 @@ def main():
             cli_result = json.load(f)
         emit({"phase": "cli", "argv": r.args[1:], "exit": r.returncode,
               "result": cli_result, "wall_s": time.perf_counter() - t0})
+
+        # ---- 8. the training path at shgan_g256 + comodgan_d256 -------------
+        torch.backends.cudnn.allow_tf32 = False
+        tcfg = train_config(tmp, TRAIN_STEPS)
+        g256 = tcfg["model_g"]
+        tcalls = train_fir_calls(g256, tcfg["model_d"], TRAIN_BATCH)
+        fir_grad_rows = check_fir_grad(fir, tcalls)
+        for site in ("enc_down_blur", "syn_up_fir", "img_upsample",
+                     "d_down_blur", "d_skip_down"):
+            rows = [r for r in fir_grad_rows if r["site"] == site]
+            emit({"phase": "kernel_check", "kernel": "upfirdn2d_backward",
+                  "site": site, "batch": TRAIN_BATCH,
+                  **{k: [r[k] for r in rows]
+                     for k in ("res", "ms", "eager_ms", "bound_ms",
+                               "hbm_share", "plain_ms", "library_ms")},
+                  "max_abs_err": max(r["max_abs_err"] for r in rows)})
+        epi_grad_rows = check_epilogue_grad(noise, nba, g256, TRAIN_BATCH,
+                                            TRAIN_BATCH // 2)
+        emit({"phase": "kernel_check", "kernel": "noise_bias_act_grad",
+              "batch": TRAIN_BATCH,
+              **{k: [r[k] for r in epi_grad_rows]
+                 for k in ("res", "channels", "layers_per_forward", "ms",
+                           "eager_ms", "bound_ms", "hbm_share", "plain_ms",
+                           "library_ms", "mask_ms")},
+              "max_abs_err": max(r["max_abs_err"] for r in epi_grad_rows),
+              "sums_max_rel_err": max(r["sums_max_rel_err"]
+                                      for r in epi_grad_rows),
+              "noise_equals_k1": True})
+        detail.update(fir_grad=fir_grad_rows, noise_bias_act_grad=epi_grad_rows)
+        # the path with PyTorch's defaults (cuDNN may use TF32), as served
+        torch.backends.cudnn.allow_tf32 = True
+        train_row, tcfg = train_path(tmp, cli, build)
+        train_launches = {k: sum(s[k] for s in train_row["launches_per_step"])
+                          for k in train_row["launches_per_step"][0]}
+        torch.backends.cudnn.allow_tf32 = False
+        parity_row = train_parity(tcfg)
+        detail.update(train_path=train_row, train_parity=parity_row)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- 8. the kernels line -------------------------------------------------
-    detail.update(eval_launches=eval_launches, k3_in_place=in_place)
+    # ---- 9. the kernels line -------------------------------------------------
+    detail.update(eval_launches=eval_launches, k3_in_place=in_place,
+                  train_launches=train_launches)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke_detail.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
@@ -922,6 +1473,7 @@ def main():
     wsum = lambda rows, k: sum(r[k] * r.get("layers_per_forward", 1)  # noqa
                                for r in rows)
     k3 = conv_rows[0]   # [EVAL_BATCH, 32, 1024, 1024], float32
+    fgr, egr = fir_grad_rows, epi_grad_rows
     emit({"kernels": [
         {"name": "upfirdn2d", "route": "cuda",
          "source": "shgan_torch/csrc/upfirdn2d.cu",
@@ -929,6 +1481,7 @@ def main():
          "replaces_function": "_pallas_fir",
          "launches": launches["upfirdn2d"],
          "launches_eval_path": eval_launches["upfirdn2d"],
+         "launches_train_path": train_launches["upfirdn2d"],
          "max_abs_err": max(r["max_abs_err"] for r in fr + fir_1024),
          "ms": wsum(fr, "ms"), "eager_ms": wsum(fr, "eager_ms"),
          "bf16_ms": wsum(fr, "bf16_ms"),
@@ -945,6 +1498,7 @@ def main():
          "replaces_function": "_pallas_normal",
          "launches": launches["philox_normal"],
          "launches_eval_path": eval_launches["philox_normal"],
+         "launches_train_path": train_launches["philox_normal"],
          "max_abs_err": max(r["max_abs_err"] for r in nr + noise_1024),
          "ms": wsum(nr, "ms"), "eager_ms": wsum(nr, "eager_ms"),
          "plain_ms": wsum(nr, "plain_ms"),
@@ -962,6 +1516,7 @@ def main():
                               "consumed its noise",
          "launches": launches["noise_bias_act"],
          "launches_eval_path": eval_launches["noise_bias_act"],
+         "launches_train_path": train_launches["noise_bias_act"],
          "max_abs_err": max(r["max_abs_err"] for r in er + epi_1024),
          "ms": wsum(er, "ms"), "eager_ms": wsum(er, "eager_ms"),
          "bf16_ms": wsum(er, "bf16_ms"),
@@ -986,6 +1541,7 @@ def main():
          "replaces": "shgan_tpu/ops/conv1024.py:101",
          "replaces_function": "conv3x3_lowch",
          "launches": eval_launches["conv3x3_lowch"],
+         "launches_train_path": train_launches["conv3x3_lowch"],
          "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
          "ms": 2 * k3["ms"], "eager_ms": 2 * k3["eager_ms"],
          "plain_ms": 2 * k3["plain_ms"],
@@ -1003,10 +1559,56 @@ def main():
                   "floor_3xtf32_ms: three TF32 products a multiply-add; "
                   "bf16_*: in bfloat16); "
                   f"launches over the {MODEL_1024} eval path"},
+        {"name": "upfirdn2d_backward", "route": "cuda",
+         "source": "shgan_torch/csrc/upfirdn2d.cu",
+         "replaces": "shgan_tpu/ops/fir_pallas.py:150",
+         "replaces_function": "the custom VJP of _pallas_fir (_make_op's "
+                              "bwd, XLA on the TPU)",
+         "launches": train_launches["upfirdn2d_grad"],
+         "max_abs_err": max(r["max_abs_err"] for r in fgr),
+         "ms": sum(r["ms"] for r in fgr),
+         "eager_ms": sum(r["eager_ms"] for r in fgr),
+         "plain_ms": sum(r["plain_ms"] for r in fgr),
+         "bound_ms": sum(r["bound_ms"] for r in fgr),
+         "bound_by": bound_by(fgr),
+         "hbm_share": sum(r["bytes_ms"] for r in fgr)
+         / sum(r["ms"] for r in fgr),
+         "library_ms": (None if any(r["library_ms"] is None for r in fgr)
+                        else sum(r["library_ms"] for r in fgr)),
+         "scope": f"the backward of each of the {len(fgr)} K2 calls of one "
+                  f"{g256['name']} forward and one {tcfg['model_d']['name']} "
+                  f"forward at batch {TRAIN_BATCH}, float32 (kernel K2 on "
+                  "the cotangent: reversed taps, up and down swapped); "
+                  "plain_ms: autograd of fir_plain's backward; library_ms: "
+                  "the cuDNN call computing the same gradient; launches: "
+                  f"K2's derivative calls over the {TRAIN_STEPS}-step train "
+                  "path (backward and second order)"},
+        {"name": "noise_bias_act_grad", "route": "cuda",
+         "source": "shgan_torch/csrc/noise_bias_act.cu",
+         "replaces": "shgan_tpu/ops/noise.py:68",
+         "replaces_function": "JAX autodiff of the chain after "
+                              "_pallas_normal (the noise has no gradient)",
+         "launches": train_launches["noise_bias_act_grad"],
+         "max_abs_err": max(r["max_abs_err"] for r in egr),
+         "sums_max_rel_err": max(r["sums_max_rel_err"] for r in egr),
+         "ms": wsum(egr, "ms"), "eager_ms": wsum(egr, "eager_ms"),
+         "mask_ms": wsum(egr, "mask_ms"),
+         "plain_ms": wsum(egr, "plain_ms"),
+         "bound_ms": wsum(egr, "bound_ms"), "bound_by": bound_by(egr),
+         "hbm_share": wsum(egr, "bytes_ms") / wsum(egr, "ms"),
+         "library_ms": wsum(egr, "library_ms"),
+         "scope": f"all {sum(r['layers_per_forward'] for r in egr)} "
+                  f"synthesis layers of one {g256['name']} backward at batch "
+                  f"{TRAIN_BATCH}, random noise, float32, the full mode "
+                  f"(mask_ms: the mask-only mode at batch {TRAIN_BATCH // 2}"
+                  "); library_ms: autograd of the PyTorch chain "
+                  "(noise_bias_act_plain) on the same inputs, eager; "
+                  f"launches over the {TRAIN_STEPS}-step train path"},
     ], "wall_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
+
 
 if __name__ == "__main__":
     sys.exit(main())

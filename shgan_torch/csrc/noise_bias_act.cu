@@ -1,5 +1,7 @@
 // The fused epilogue of every synthesis layer: per-layer noise, demodulation,
-// bias and lrelu_agc in one pass over the conv output, in place.
+// bias and lrelu_agc in one pass over the conv output, in place (serving,
+// eval) or into a new tensor (training, which keeps x for the backward); and
+// its gradient kernel (below).
 //
 // Replaces, on the main path, the TPU kernel shgan_tpu/ops/noise.py:68-110
 // (_pallas_normal) together with the chain that consumed its output: the
@@ -77,9 +79,11 @@ __device__ __forceinline__ void store(uint16_t* p, const float* v) {
   }
 }
 
+// x and y may be the same tensor: each thread reads its elements before it
+// writes them, so neither pointer is __restrict__.
 template <typename T, int CPT>
 __global__ void __launch_bounds__(shgan::nba::kThreads)
-    noise_bias_act_kernel(T* __restrict__ x, int c, long long plane, long long calls,
+    noise_bias_act_kernel(const T* x, T* y, int c, long long plane, long long calls,
                           const float* __restrict__ dcoef, const float* __restrict__ bias,
                           const float* __restrict__ strength,
                           const float* __restrict__ noise_const, int mode, uint32_t k0,
@@ -119,43 +123,44 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
     const long long p = static_cast<long long>(row) * c + ch;
     const float d = dcoef != nullptr ? dcoef[p] : 1.0f;
     const float b = bias != nullptr ? bias[ch] : -0.0f;
-    T* base = x + p * plane + 2 * q0;
+    const long long off = p * plane + 2 * q0;
     float v[2][V];
-    load<V>(base, v[0]);
-    load<V>(base + half, v[1]);
+    load<V>(x + off, v[0]);
+    load<V>(x + off + half, v[1]);
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int e = 0; e < V; ++e) v[h][e] = shgan::nba::apply(v[h][e], d, nz[h][e], b, act);
-    store<V>(base, v[0]);
-    store<V>(base + half, v[1]);
+    store<V>(y + off, v[0]);
+    store<V>(y + off + half, v[1]);
   }
 }
 
 template <typename T, int CPT>
-void launch(void* x, int n, int c, int res, const float* dcoef, const float* bias,
-            const float* strength, const float* noise_const, int mode, uint32_t k0,
-            uint32_t k1, Act act, cudaStream_t stream) {
+void launch(const void* x, void* y, int n, int c, int res, const float* dcoef,
+            const float* bias, const float* strength, const float* noise_const, int mode,
+            uint32_t k0, uint32_t k1, Act act, cudaStream_t stream) {
   const Launch L = shgan::nba::plan(n, c, res, CPT, 0);
   const long long plane = static_cast<long long>(res) * res;
   const dim3 grid(static_cast<unsigned int>(L.tiles), static_cast<unsigned int>(n),
                   static_cast<unsigned int>(L.chunks));
   const dim3 block(L.bt, L.bc);
   noise_bias_act_kernel<T, CPT><<<grid, block, 0, stream>>>(
-      static_cast<T*>(x), c, plane, plane / 4, dcoef, bias, strength, noise_const, mode, k0,
-      k1, act, L);
+      static_cast<const T*>(x), static_cast<T*>(y), c, plane, plane / 4, dcoef, bias,
+      strength, noise_const, mode, k0, k1, act, L);
 }
 
 }  // namespace
 
 // x: contiguous [n, c, res, res] float32 (bf16 == 0) or bfloat16 (bf16 == 1)
-// on the current device, updated in place; res even, x 2-element aligned (and
-// noise_const 8-byte aligned).  dcoef float32 [n, c] or null (no
+// on the current device; the result goes to y, of the same layout (y == x
+// updates x in place); res even, x and y 2-element aligned (and noise_const
+// 8-byte aligned).  dcoef float32 [n, c] or null (no
 // demodulation); bias float32 [c] or null; mode 0 none, 1 random (Philox key
 // k0, k1), 2 const (noise_const float32 [res, res]); strength: a float32 on
 // the device, read for modes 1 and 2.  clamp +inf for none; alpha 1 for a
 // linear activation.  Returns cudaGetLastError() after the launch.
-extern "C" int shgan_noise_bias_act(void* x, int bf16, int n, int c, int res,
+extern "C" int shgan_noise_bias_act(const void* x, void* y, int bf16, int n, int c, int res,
                                     const float* dcoef, const float* bias,
                                     const float* strength, const float* noise_const, int mode,
                                     unsigned int k0, unsigned int k1, float alpha, float gain,
@@ -164,18 +169,227 @@ extern "C" int shgan_noise_bias_act(void* x, int bf16, int n, int c, int res,
   const Act act{alpha, gain, clamp};
   const uintptr_t vec_bytes = bf16 ? 8 : 16;
   const bool vec = res % 4 == 0 && reinterpret_cast<uintptr_t>(x) % vec_bytes == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % vec_bytes == 0 &&
                    reinterpret_cast<uintptr_t>(noise_const) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     if (vec) {
-      launch<uint16_t, 2>(x, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, act, s);
+      launch<uint16_t, 2>(x, y, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, act, s);
     } else {
-      launch<uint16_t, 1>(x, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, act, s);
+      launch<uint16_t, 1>(x, y, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, act, s);
     }
   } else if (vec) {
-    launch<float, 2>(x, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, act, s);
+    launch<float, 2>(x, y, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, act, s);
   } else {
-    launch<float, 1>(x, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, act, s);
+    launch<float, 1>(x, y, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, act, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the gradient --------------------------------------------------------
+//
+// noise_bias_act_grad: the backward of the epilogue, which kernel K1's TPU
+// original never had (its noise carries no gradient, nor does it here).  Per
+// element, with pre = x * dcoef + nu * strength + bias recomputed with the
+// forward's roundings and nu regenerated in registers (shgan::noise_quad,
+// bit for bit K1's), g = dy * act'(pre) (noise_bias_act.cuh: act_grad).  The
+// full mode writes dx = g * dcoef and reduces dd[n, c] = sum_hw g * x,
+// db[c] = sum_{n,hw} g and ds = sum g * nu; the mask-only mode (the double
+// backward) writes act'(pre) * (v + vs * nu) and reduces nothing.
+//
+// Bound on the card: bytes.  dy and x are read once and dx written once (12
+// bytes an element; mask-only the same), the sums are small beside them,
+// the normals ~65 operations a pixel as in the forward.  Design: the
+// forward's 16-byte accesses in both plane halves; a block per chunk of one
+// plane's Philox calls (enough blocks to fill the card at every resolution),
+// so dcoef, bias and the plane's sums stay in registers; the sums reduced
+// in a fixed order (noise_bias_act.cuh), never with float atomics.
+namespace {
+
+using shgan::nba::GradLaunch;
+
+template <int CPT, bool MASK_ONLY>
+__global__ void __launch_bounds__(shgan::nba::kThreads)
+    noise_bias_act_grad_kernel(const float* __restrict__ dy, const float* __restrict__ x,
+                               float* __restrict__ out, int c, long long plane, long long calls,
+                               const float* __restrict__ dcoef, const float* __restrict__ bias,
+                               const float* __restrict__ strength,
+                               const float* __restrict__ noise_const, int mode, uint32_t k0,
+                               uint32_t k1, Act act, const float* __restrict__ vs, GradLaunch G,
+                               float* __restrict__ work) {
+  constexpr int V = 2 * CPT;
+  __shared__ float sums[3][shgan::nba::kThreads];
+  const long long p = blockIdx.x;  // plane n * c + ch
+  const int row = static_cast<int>(p / c);
+  const int ch = static_cast<int>(p % c);
+  const int t = threadIdx.x;
+  const long long half = plane / 2;
+  const long long qa = static_cast<long long>(blockIdx.y) * G.calls_per_block;
+  const long long qb = qa + G.calls_per_block < calls ? qa + G.calls_per_block : calls;
+  const bool has_d = dcoef != nullptr;
+  const float d = has_d ? dcoef[p] : 1.0f;
+  const float b = bias != nullptr ? bias[ch] : -0.0f;
+  const float s = mode != shgan::nba::kNoiseNone ? *strength : 0.0f;
+  const bool has_vs = vs != nullptr;
+  const float vsv = has_vs ? *vs : 0.0f;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (long long q = qa + static_cast<long long>(t) * CPT; q < qb;
+       q += static_cast<long long>(blockDim.x) * CPT) {
+    float nu[2][V];
+    if (mode == shgan::nba::kNoiseRandom) {
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        shgan::noise_quad(static_cast<uint32_t>(q + j), static_cast<uint32_t>(row), k0, k1,
+                          &nu[0][2 * j], &nu[1][2 * j]);
+      }
+    } else if (mode == shgan::nba::kNoiseConst) {
+      load<V>(noise_const + 2 * q, nu[0]);
+      load<V>(noise_const + half + 2 * q, nu[1]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) nu[0][e] = nu[1][e] = 0.0f;
+    }
+    const long long off = p * plane + 2 * q;
+    float gv[2][V], xv[2][V];
+    load<V>(dy + off, gv[0]);
+    load<V>(dy + off + half, gv[1]);
+    load<V>(x + off, xv[0]);
+    load<V>(x + off + half, xv[1]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float nz = mode != shgan::nba::kNoiseNone ? shgan::nba::mul_rn(nu[h][e], s)
+                                                        : -0.0f;
+        gv[h][e] = MASK_ONLY ? shgan::nba::mask_element(gv[h][e], vsv, has_vs, xv[h][e], d,
+                                                        nu[h][e], nz, b, act)
+                             : shgan::nba::grad_element(gv[h][e], xv[h][e], d, has_d,
+                                                        nu[h][e], nz, b, act, acc);
+      }
+    store<V>(out + off, gv[0]);
+    store<V>(out + off + half, gv[1]);
+  }
+  if (MASK_ONLY) return;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) sums[k][t] = acc[k];
+  __syncthreads();
+  for (int h = blockDim.x / 2; h > 0; h /= 2) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) shgan::nba::tree_add(sums[k], t, h);
+    __syncthreads();
+  }
+  if (t == 0) {
+    const long long planes = static_cast<long long>(gridDim.x);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) work[(k * planes + p) * G.chunks + blockIdx.y] = sums[k][0];
+  }
+}
+
+// Each plane's partials over its chunks, in chunk order: dd[p] final, the
+// plane's db and ds sums into pw[p] and pw[planes + p].
+__global__ void grad_finish_planes(const float* __restrict__ work, long long planes, int chunks,
+                                   float* __restrict__ dd, float* __restrict__ pw) {
+  const long long p = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (p >= planes) return;
+  float acc[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    acc[k] = 0.0f;
+    for (int j = 0; j < chunks; ++j)
+      acc[k] = shgan::nba::add_rn(acc[k], work[(k * planes + p) * chunks + j]);
+  }
+  dd[p] = acc[0];
+  pw[p] = acc[1];
+  pw[planes + p] = acc[2];
+}
+
+// db[ch] over the batch rows in order (blocks before the last); ds over the
+// planes (the last block: strided sums, then the fixed tree).
+__global__ void grad_finish_sums(const float* __restrict__ pw, int n, int c,
+                                 float* __restrict__ db, float* __restrict__ ds) {
+  const int t = threadIdx.x;
+  const long long planes = static_cast<long long>(n) * c;
+  if (blockIdx.x + 1 < gridDim.x) {
+    const int ch = blockIdx.x * blockDim.x + t;
+    if (ch >= c) return;
+    float acc = 0.0f;
+    for (int r = 0; r < n; ++r) acc = shgan::nba::add_rn(acc, pw[static_cast<long long>(r) * c + ch]);
+    db[ch] = acc;
+    return;
+  }
+  __shared__ float sums[shgan::nba::kThreads];
+  float acc = 0.0f;
+  for (long long p = t; p < planes; p += blockDim.x) acc = shgan::nba::add_rn(acc, pw[planes + p]);
+  sums[t] = acc;
+  __syncthreads();
+  for (int h = blockDim.x / 2; h > 0; h /= 2) {
+    shgan::nba::tree_add(sums, t, h);
+    __syncthreads();
+  }
+  if (t == 0) ds[0] = sums[0];
+}
+
+template <int CPT>
+void launch_grad(const float* dy, const float* x, float* out, int n, int c, int res,
+                 const float* dcoef, const float* bias, const float* strength,
+                 const float* noise_const, int mode, uint32_t k0, uint32_t k1, Act act,
+                 bool mask_only, const float* vs, float* work, cudaStream_t stream) {
+  const GradLaunch G = shgan::nba::grad_plan(n, c, res, CPT);
+  const long long plane = static_cast<long long>(res) * res;
+  const dim3 grid(static_cast<unsigned int>(static_cast<long long>(n) * c),
+                  static_cast<unsigned int>(G.chunks));
+  if (mask_only) {
+    noise_bias_act_grad_kernel<CPT, true><<<grid, G.threads, 0, stream>>>(
+        dy, x, out, c, plane, plane / 4, dcoef, bias, strength, noise_const, mode, k0, k1,
+        act, vs, G, work);
+  } else {
+    noise_bias_act_grad_kernel<CPT, false><<<grid, G.threads, 0, stream>>>(
+        dy, x, out, c, plane, plane / 4, dcoef, bias, strength, noise_const, mode, k0, k1,
+        act, vs, G, work);
+  }
+}
+
+}  // namespace
+
+// The epilogue's gradient at the conv output x [n, c, res, res] float32 (the
+// forward's input), for the forward's dcoef, bias, strength, noise_const,
+// mode, key and activation (as in shgan_noise_bias_act).  Full mode
+// (mask_only == 0): dy is the cotangent of y; writes out = dx, dd [n, c],
+// db [c] and ds [1] (every pointer set; vs unused).  Mask-only mode: dy is v;
+// writes out = act'(pre) * (v + vs * nu) (vs a float32 on the device, or
+// null for none), nothing else.  work: float32 of grad_work_floats(n, c,
+// res) elements (full mode).  dy, x, out contiguous, res even, 8-byte
+// aligned.  Returns cudaGetLastError() after the launches.
+extern "C" int shgan_noise_bias_act_grad(const float* dy, const float* x, float* out, int n,
+                                         int c, int res, const float* dcoef, const float* bias,
+                                         const float* strength, const float* noise_const,
+                                         int mode, unsigned int k0, unsigned int k1, float alpha,
+                                         float gain, float clamp, int mask_only, const float* vs,
+                                         float* dd, float* db, float* ds, float* work,
+                                         void* stream) {
+  if (n == 0 || c == 0) return static_cast<int>(cudaSuccess);
+  const Act act{alpha, gain, clamp};
+  const bool vec = res % 4 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(noise_const) % 16 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    launch_grad<2>(dy, x, out, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, act,
+                   mask_only != 0, vs, work, s);
+  } else {
+    launch_grad<1>(dy, x, out, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, act,
+                   mask_only != 0, vs, work, s);
+  }
+  if (!mask_only) {
+    const long long planes = static_cast<long long>(n) * c;
+    const int chunks = shgan::nba::grad_chunks(n, c, res);
+    float* pw = work + 3 * planes * chunks;
+    const int threads = shgan::nba::kThreads;
+    grad_finish_planes<<<static_cast<unsigned int>(shgan::nba::cdiv(planes, threads)), threads,
+                         0, s>>>(work, planes, chunks, dd, pw);
+    grad_finish_sums<<<static_cast<unsigned int>(shgan::nba::cdiv(c, threads) + 1), threads, 0,
+                       s>>>(pw, n, c, db, ds);
   }
   return static_cast<int>(cudaGetLastError());
 }

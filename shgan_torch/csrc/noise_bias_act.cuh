@@ -157,5 +157,96 @@ SHGAN_HD int channel(const Launch& L, int bz, int ty, int k, int c) {
   return ch < c ? static_cast<int>(ch) : -1;
 }
 
+// ---- the gradient (noise_bias_act_grad in noise_bias_act.cu) ---------------
+//
+// With pre = x * dcoef + noise * strength + bias, the cotangent of pre is
+// g = dy * act'(pre): the activation's gain, times alpha where pre < 0, and
+// 0 where a finite clamp is active (or y is NaN), in the order autograd of
+// the plain chain takes it (clamp's mask, then * gain, then * alpha; a
+// linear layer has no clamp and alpha 1).  pre is recomputed with the
+// forward's roundings, so the mask is the forward's own.
+SHGAN_HD float act_grad(float dy, float x, float dcoef, float noise_term, float bias, Act a) {
+  const float pre = add_rn(fma_rn(x, dcoef, noise_term), bias);
+  if (a.clamp <= 3.40282347e38f) {
+    float y = pre >= 0.0f ? pre : mul_rn(pre, a.alpha);
+    y = mul_rn(y, a.gain);
+    if (!(y >= -a.clamp && y <= a.clamp)) return 0.0f;
+  }
+  const float g = mul_rn(dy, a.gain);
+  return pre >= 0.0f ? g : mul_rn(g, a.alpha);
+}
+
+// One element of the full mode: dx = g * dcoef written, and the three
+// sums carried in acc: dd += g * x, db += g, ds += g * nu (nu the raw normal,
+// noise_term = nu * strength).
+SHGAN_HD float grad_element(float dy, float x, float dcoef, bool has_dcoef, float nu,
+                            float noise_term, float bias, Act a, float* acc) {
+  const float g = act_grad(dy, x, dcoef, noise_term, bias, a);
+  acc[0] = fma_rn(g, x, acc[0]);
+  acc[1] = add_rn(acc[1], g);
+  acc[2] = fma_rn(g, nu, acc[2]);
+  return has_dcoef ? mul_rn(g, dcoef) : g;
+}
+
+// One element of the mask-only mode (the double backward): act'(pre) times
+// v + vs * nu, with no sums.
+SHGAN_HD float mask_element(float v, float vs, bool has_vs, float x, float dcoef, float nu,
+                            float noise_term, float bias, Act a) {
+  const float u = has_vs ? add_rn(v, mul_rn(vs, nu)) : v;
+  return act_grad(u, x, dcoef, noise_term, bias, a);
+}
+
+// The grad launch: a block per (plane, chunk of its Philox calls); grid x
+// the N*C planes, grid y `chunks` blocks a plane, the fewest that give
+// kGradTargetBlocks blocks (at most one per 2 * kThreads calls).  A chunk is
+// an even run of calls_per_block calls, so a thread that owns 2 calls keeps
+// them together; thread t walks calls first + t * cpt, stepping threads *
+// cpt.  A thread carries its three sums in the order it meets its elements;
+// the block combines them with a fixed tree (tree_add) and writes one
+// partial per (sum, plane, chunk).  Two small kernels finish in a fixed
+// order: each plane's partials over its chunks (dd[n, c] final), then db[c]
+// over n and ds over the planes.  No float atomics: the sums are the same
+// bits on every run.
+constexpr long long kGradTargetBlocks = 1024;
+
+struct GradLaunch {
+  int threads;                // block threads: the fewest warps (power of 2) covering a chunk
+  int chunks;                 // blocks a plane (grid y)
+  long long calls_per_block;  // Philox calls a block covers, even
+};
+
+SHGAN_HD int grad_chunks(int n, int c, int res) {
+  const long long planes = static_cast<long long>(n) * c;
+  const long long calls = static_cast<long long>(res) * res / 4;
+  long long k = cdiv(kGradTargetBlocks, planes);
+  const long long kmax = cdiv(calls, 2LL * kThreads);
+  if (k > kmax) k = kmax;
+  return k < 1 ? 1 : static_cast<int>(k);
+}
+
+SHGAN_HD GradLaunch grad_plan(int n, int c, int res, int cpt) {
+  GradLaunch G;
+  G.chunks = grad_chunks(n, c, res);
+  const long long calls = static_cast<long long>(res) * res / 4;
+  long long cpb = cdiv(calls, G.chunks);
+  cpb += cpb & 1;
+  G.calls_per_block = cpb;
+  G.threads = 32;
+  while (G.threads < kThreads && static_cast<long long>(G.threads) * cpt < cpb) G.threads *= 2;
+  return G;
+}
+
+// Floats of the grad kernel's work buffer: the partials (3 x planes x
+// chunks) and the per-plane sums of db and ds (2 x planes).
+SHGAN_HD long long grad_work_floats(int n, int c, int res) {
+  const long long planes = static_cast<long long>(n) * c;
+  return 3 * planes * grad_chunks(n, c, res) + 2 * planes;
+}
+
+// One level of the block's fixed tree: s[t] += s[t + half] for t < half.
+SHGAN_HD void tree_add(float* s, int t, int half) {
+  if (t < half) s[t] = add_rn(s[t], s[t + half]);
+}
+
 }  // namespace nba
 }  // namespace shgan

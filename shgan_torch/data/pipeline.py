@@ -1,6 +1,6 @@
-"""Host-side eval pipeline with parallel background prefetch (port of
-``_Prefetcher`` and ``EvalPipeline`` of ``shgan_tpu/data/pipeline.py``,
-single process).
+"""Host-side eval and train pipelines with parallel background prefetch
+(port of ``_Prefetcher``, ``EvalPipeline`` and ``TrainPipeline`` of
+``shgan_tpu/data/pipeline.py``, single process).
 
 A thread pool builds whole batches concurrently (PIL decode and numpy
 release the GIL), results are yielded in order, and each batch is copied to
@@ -26,6 +26,15 @@ def default_num_threads(cap=8):
     except AttributeError:  # non-Linux
         n = os.cpu_count() or 1
     return max(1, min(n, cap))
+
+
+def _to_device(arr, device):
+    """numpy → a tensor on ``device``; to a CUDA device through pinned
+    memory, without blocking."""
+    t = torch.from_numpy(arr)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 class _Prefetcher:
@@ -89,16 +98,54 @@ class EvalPipeline:
 
     def _worker_batch(self, b):
         real, mask, valid, uids = self.shard.get_batch(b)
-        return (self._to_device(real), self._to_device(mask), valid, uids)
-
-    def _to_device(self, arr):
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return (_to_device(real, self.device), _to_device(mask, self.device),
+                valid, uids)
 
     def __len__(self):
         return len(self.shard)
 
     def __iter__(self):
         return iter(self.prefetch)
+
+
+class TrainPipeline:
+    """Infinite shuffled pipeline: epoch ``e`` shuffles with seed
+    ``seed + e`` and drops the last partial batch.  Yields ``(real, mask)``
+    as torch tensors on ``device`` (numpy arrays when ``device`` is None),
+    copied as in :class:`EvalPipeline`.  ``start`` skips that many batches
+    of the stream (a resumed run continues where its snapshot was taken)."""
+
+    def __init__(self, dataset, formatter, batch_size, device=None, depth=4,
+                 seed=0, num_threads=None, start=0):
+        self.dataset = dataset
+        self.formatter = formatter
+        self.batch_size = batch_size
+        self.device = None if device is None else torch.device(device)
+        self.depth = depth
+        self.seed = seed
+        self.num_threads = num_threads
+        self.start = start
+
+    def __iter__(self):
+        epoch, skip = 0, self.start
+        while True:
+            shard = DataShard(self.dataset, self.formatter, self.batch_size,
+                              shuffle=True, seed=self.seed + epoch,
+                              extend=False, drop_last=True, epoch=epoch)
+            if len(shard) == 0:
+                raise ValueError(f"dataset of {len(self.dataset)} holds no "
+                                 f"batch of {self.batch_size}")
+
+            first = min(skip, len(shard))
+            skip -= first
+
+            def make(b, shard=shard, first=first):
+                real, mask, _valid, _uids = shard.get_batch(first + b)
+                if self.device is None:
+                    return real, mask
+                return (_to_device(real, self.device),
+                        _to_device(mask, self.device))
+            yield from _Prefetcher(make, len(shard) - first,
+                                   depth=self.depth,
+                                   num_threads=self.num_threads)
+            epoch += 1

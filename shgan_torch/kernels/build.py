@@ -35,8 +35,11 @@ _F = ctypes.c_float
 # C entry points: library name -> {symbol: argtypes}
 ENTRY_POINTS = {
     "noise": {"shgan_philox_normal": (_P, _I, _I, _U, _U, _P)},
-    "noise_bias_act": {"shgan_noise_bias_act": (_P,) + (_I,) * 4 + (_P,) * 4
-                       + (_I, _U, _U, _F, _F, _F, _P)},
+    "noise_bias_act": {
+        "shgan_noise_bias_act": (_P, _P) + (_I,) * 4 + (_P,) * 4
+        + (_I, _U, _U, _F, _F, _F, _P),
+        "shgan_noise_bias_act_grad": (_P,) * 3 + (_I,) * 3 + (_P,) * 4
+        + (_I, _U, _U, _F, _F, _F, _I) + (_P,) * 6},
     "upfirdn2d": {"shgan_upfirdn2d": (_P, _P, _I, _LL) + (_I,) * 10
                   + (_P, _I, _I, _P)},
     "conv3x3_lowch": {"shgan_conv3x3_lowch": (_P, _P, _P) + (_I,) * 6
@@ -45,8 +48,11 @@ ENTRY_POINTS = {
 
 # Launch counts of the kernel wrappers: each wrapper adds one where it
 # launches its kernel, and nowhere else.
-launches = {"upfirdn2d": 0, "philox_normal": 0, "conv3x3_lowch": 0,
-            "noise_bias_act": 0}
+# K2's derivative calls (backward and higher orders) count apart from its
+# forward calls; the epilogue's grad kernel counts in both of its modes.
+launches = {"upfirdn2d": 0, "upfirdn2d_grad": 0, "philox_normal": 0,
+            "conv3x3_lowch": 0, "noise_bias_act": 0,
+            "noise_bias_act_grad": 0}
 
 
 def reset_launches():

@@ -1,16 +1,21 @@
-"""Command line of the port: the eval stage, with the eval flags of the JAX
-package's ``main.py``::
+"""Command line of the port: the eval and train stages, with the flags of
+the JAX package's ``main.py``::
 
     python -m shgan_torch.main --experiment shgan_synthetic256_eval \\
         [--debug] [--eval ID] [--seed N] [--pretrained path.pth] \\
         [--eval_tag TAG] [--model NAME] [--dataset NAME] [--pick UID ...] \\
         [--demo] [--gpu 0] [--device cpu]
+    python -m shgan_torch.main --experiment smoke_train [--trainonly] \\
+        [--resume_path SNAPSHOT [--resume_itern KIMG]] [--device cpu]
+    python -m shgan_torch.main --resume_path RUN_DIR   # continue that run
 
-It runs on the CUDA device unless ``--device cpu`` is given.  Training
-(``--resume_path``, ``--trainonly``, experiments without an eval section)
-comes with the training slice and raises.  Logs go to
-``<SHGAN_LOG_ROOT or env.log_root_dir>/<model>_<dataset>/<id>/<eval_tag>/``
-with ``eval.log``, the solved ``config.yaml`` and ``result.json``.
+An experiment with a train section trains unless ``--eval ID`` or
+``--demo`` asks for its eval section.  It runs on the CUDA device unless
+``--device cpu`` is given.  Logs go to
+``<SHGAN_LOG_ROOT or env.log_root_dir>/<model>_<dataset>/<id>/<tag>/``
+(``<tag>`` the eval tag, or ``train``) with ``eval.log`` or ``train.log``
+and the solved ``config.yaml``; eval writes ``result.json``, training
+``stats.jsonl`` and ``weight/network-snapshot-<kimg>/``.
 """
 
 from __future__ import annotations
@@ -24,10 +29,9 @@ import time
 import yaml
 
 from .runtime.config import (apply_debug_shrink, dataset_cfg_bank,
-                             experiment_cfg_bank, model_cfg_bank)
+                             experiment_cfg_bank, load_resume_run,
+                             model_cfg_bank)
 from .runtime.logging import print_log, set_log_file
-
-TRAINING_LATER = "training comes with the training slice"
 
 
 def get_args(argv=None):
@@ -60,19 +64,35 @@ def get_args(argv=None):
                    help="'cpu' runs the kernels' plain versions; default "
                         "the CUDA device")
     p.add_argument("--resume_path", type=str, default=None,
-                   help=TRAINING_LATER)
-    p.add_argument("--trainonly", action="store_true", help=TRAINING_LATER)
+                   help="a training snapshot to resume; alone, a run dir "
+                        "whose config.yaml is re-read and continued")
+    p.add_argument("--resume_itern", type=int, default=None,
+                   help="the snapshot's kimg (picks it; sets the progress)")
+    p.add_argument("--trainonly", action="store_true",
+                   help="drop the eval section")
     return p.parse_args(argv)
+
+
+def _set(cfg, dotted, value):
+    *path, last = dotted.split(".")
+    node = cfg
+    for k in path:
+        node = node[k]
+    node[last] = value
 
 
 def build_config(experiment, debug=False, eval_id=None, seed=None,
                  pretrained=None, eval_tag=None, model=None, dataset=None,
-                 pick=None, demo=False, gpu=None, log_root=None):
-    """The solved eval config of ``experiment`` with the CLI's overrides
-    applied, and its log dir set (and created):
-    ``<log_root>/<model>_<dataset>/<eval id>/<eval tag>``.  ``log_root``
-    defaults to ``SHGAN_LOG_ROOT``, else the config's ``env.log_root_dir``.
-    """
+                 pick=None, demo=False, gpu=None, log_root=None,
+                 trainonly=False, resume_path=None, resume_itern=None,
+                 overrides=None):
+    """The solved config of ``experiment`` with the CLI's overrides
+    applied, for its eval section (``eval_id``/``demo`` given, or no train
+    section) or else its train section, and that section's log dir set
+    (and created): ``<log_root>/<model>_<dataset>/<id>/<eval tag or
+    "train">``.  ``log_root`` defaults to ``SHGAN_LOG_ROOT``, else the
+    config's ``env.log_root_dir``.  ``overrides`` maps dotted keys
+    (``"train.total_kimg"``) to values, applied last."""
     cfg = experiment_cfg_bank()(experiment)
     if model is not None:
         cfg["model_g"] = model_cfg_bank()(model)
@@ -82,14 +102,23 @@ def build_config(experiment, debug=False, eval_id=None, seed=None,
         for sec in ("train", "eval"):
             if cfg.get(sec) is not None:
                 cfg[sec]["dataset"] = copy.deepcopy(ds)
-    if cfg.get("eval") is None or (cfg.get("train") is not None
-                                   and eval_id is None and not demo):
-        raise NotImplementedError(
-            f"experiment [{experiment}] trains: {TRAINING_LATER} (pass "
-            "--eval ID to evaluate an experiment that has an eval section)")
-    if pick is not None:
+    if trainonly:
+        cfg.pop("eval", None)
+    is_eval = eval_id is not None or demo or cfg.get("train") is None
+    section = "eval" if is_eval else "train"
+    if cfg.get(section) is None:
+        raise SystemExit(f"experiment [{experiment}] has no {section} "
+                         "section to run")
+    cfg.pop("train" if is_eval else "eval", None)
+    if resume_path is not None:
+        if is_eval:
+            raise SystemExit(f"--resume_path given but experiment "
+                             f"[{experiment}] has no train section to run")
+        cfg["train"]["resume_path"] = resume_path
+        if resume_itern is not None:
+            cfg["train"]["resume_itern"] = resume_itern
+    if pick is not None and is_eval:
         cfg["eval"]["dataset"]["pick"] = list(pick)
-    cfg.pop("train", None)
     if eval_id is not None:
         cfg["eval"]["experiment_id"] = eval_id
     if seed is not None:
@@ -98,6 +127,10 @@ def build_config(experiment, debug=False, eval_id=None, seed=None,
         cfg["env"]["mesh_devices"] = len(gpu)
     if debug:
         cfg = apply_debug_shrink(cfg)
+    for flag, val in (("--pretrained", pretrained), ("--eval_tag", eval_tag)):
+        if val is not None and not is_eval:
+            raise SystemExit(f"{flag} needs an eval run; [{experiment}] "
+                             "trains")
     if pretrained is not None:
         cfg["eval"]["pretrained_pth"] = pretrained
     if eval_tag is not None:
@@ -105,18 +138,21 @@ def build_config(experiment, debug=False, eval_id=None, seed=None,
     if demo:
         cfg["eval"]["output_sample_images"] = True
         cfg["eval"]["demo_only"] = True
+    for k, v in (overrides or {}).items():
+        _set(cfg, k, v)
 
-    expid = cfg["eval"].get("experiment_id")
+    sec = cfg[section]
+    expid = sec.get("experiment_id")
     if expid is None:  # 0 is a legitimate id (--eval 0)
         expid = int(time.time() * 100)
     model_sym = cfg.get("model", {}).get("symbol", "model")
-    ds_name = cfg["eval"]["dataset"].get("name", "dataset")
-    tag = cfg["eval"].get("eval_tag", "eval")
+    ds_name = sec["dataset"].get("name", "dataset")
+    tag = sec.get("eval_tag", "eval") if is_eval else "train"
     log_root = (log_root or os.environ.get("SHGAN_LOG_ROOT")
                 or cfg["env"].get("log_root_dir", "log"))
     log_dir = osp.join(log_root, f"{model_sym}_{ds_name}", str(expid), tag)
     os.makedirs(log_dir, exist_ok=True)
-    cfg["eval"]["log_dir"] = log_dir
+    sec["log_dir"] = log_dir
     return cfg
 
 
@@ -128,35 +164,63 @@ def _plain(obj):
     return obj
 
 
-def run(cfg, device=None):
+def run(cfg, device=None, **stage_kw):
     """Tee the log into the run's log dir, dump the solved config and run
-    the eval stage; returns its result."""
-    from .runtime.stages import eval_stage
-    log_dir = cfg["eval"]["log_dir"]
-    set_log_file(osp.join(log_dir, "eval.log"))
+    the train stage (a config with a train section) or the eval stage;
+    returns its result."""
+    from .runtime.stages import eval_stage, train_stage
+    section = "train" if cfg.get("train") is not None else "eval"
+    log_dir = cfg[section]["log_dir"]
+    set_log_file(osp.join(log_dir, f"{section}.log"))
     try:
         with open(osp.join(log_dir, "config.yaml"), "w") as f:
             yaml.safe_dump(_plain(cfg), f, sort_keys=False)
-        print_log(f"experiment: {cfg.get('name')}  stage: eval")
+        print_log(f"experiment: {cfg.get('name')}  stage: {section}")
         print_log(f"log_dir: {log_dir}")
-        rv = eval_stage()(cfg, device=device)
+        stage = train_stage() if section == "train" else eval_stage()
+        rv = stage(cfg, device=device, **stage_kw)
         print_log("done.")
         return rv
     finally:
         set_log_file(None)
 
 
+def resume_config(resume_path, resume_itern=None, seed=None, gpu=None,
+                  debug=False):
+    """``--resume_path`` alone: the run's own solved ``config.yaml``,
+    continued in its log dir from the snapshot picked
+    (:func:`~.runtime.config.load_resume_run`)."""
+    cfg, snap = load_resume_run(resume_path, resume_itern)
+    if seed is not None:
+        cfg["env"]["rnd_seed"] = seed
+    if gpu is not None:
+        cfg["env"]["mesh_devices"] = len(gpu)
+    if debug:
+        cfg = apply_debug_shrink(cfg)
+    cfg["train"]["resume_path"] = snap
+    if resume_itern is not None:
+        cfg["train"]["resume_itern"] = resume_itern
+    os.makedirs(cfg["train"]["log_dir"], exist_ok=True)
+    return cfg
+
+
 def main(argv=None):
     args = get_args(argv)
-    if args.resume_path is not None or args.trainonly:
-        raise SystemExit(f"--resume_path / --trainonly: {TRAINING_LATER}")
+    if (args.resume_path is not None and args.eval is None
+            and args.experiment is None):
+        cfg = resume_config(args.resume_path, args.resume_itern,
+                            seed=args.seed, gpu=args.gpu, debug=args.debug)
+        return run(cfg, device=args.device)
     if args.experiment is None:
-        raise SystemExit("--experiment is required")
+        raise SystemExit("--experiment is required (or --resume_path to "
+                         "continue a saved run)")
     cfg = build_config(
         args.experiment, debug=args.debug, eval_id=args.eval,
         seed=args.seed, pretrained=args.pretrained or args.ckpt,
         eval_tag=args.eval_tag, model=args.model, dataset=args.dataset,
-        pick=args.pick, demo=args.demo, gpu=args.gpu)
+        pick=args.pick, demo=args.demo, gpu=args.gpu,
+        trainonly=args.trainonly, resume_path=args.resume_path,
+        resume_itern=args.resume_itern)
     return run(cfg, device=args.device)
 
 

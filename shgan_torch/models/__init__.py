@@ -1,3 +1,4 @@
+from .discriminator import DiscrimBlock, DiscrimEpilogue, Discriminator
 from .encoder import Encoder, EncoderBlock, EncoderEpilogue
 from .generator import CoModGANGenerator
 from .infer import composite_forward, z_for_positions

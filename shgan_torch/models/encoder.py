@@ -1,11 +1,12 @@
 """CoModGAN encoder: resolution pyramid down to 4², global code and skip
 features (port of the direct path of ``shgan_tpu/models/encoder.py``).
 
-Serving only: the epilogue's dropout is active only in training
-(``shgan_tpu/models/encoder.py:160``), so the forward here has none.  The
-JAX package builds every block without the residual link; the port has
-none.  Not ported yet (no SH-GAN config uses them): the minibatch-stddev
-layer (``mbstd_c_n > 0``) and the class-conditional mapping (``c_dim``).
+The epilogue's dropout (p = 0.5, kept values scaled by 2) acts only in a
+training forward (``train=True``), drawn from the ``torch.Generator`` the
+caller passes (``shgan_tpu/models/encoder.py:160-163``).  The JAX package
+builds every block without the residual link; the port has none.  Not
+ported yet (no SH-GAN config uses them): the minibatch-stddev layer
+(``mbstd_c_n > 0``) and the class-conditional mapping (``c_dim``).
 """
 
 from __future__ import annotations
@@ -55,8 +56,9 @@ class EncoderEpilogue(nn.Module):
 
     def __init__(self, ic_n, oc_n, resolution=4,
                  activation="lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)",
-                 has_extra_final_layer=True, generator=None):
+                 has_extra_final_layer=True, use_dropout=True, generator=None):
         super().__init__()
+        self.use_dropout = use_dropout
         g = generator
         self.conv = Conv2dLayer(ic_n, ic_n, 3, bias=True,
                                 activation=activation, resample_filter=None,
@@ -66,11 +68,18 @@ class EncoderEpilogue(nn.Module):
         self.out = (Dense(oc_n, oc_n, generator=g) if has_extra_final_layer
                     else None)
 
-    def forward(self, x):
+    def forward(self, x, train=False, generator=None):
         feat = self.conv(x.float())
         x = self.fc(feat.reshape(feat.shape[0], -1))
         if self.out is not None:
             x = self.out(x)
+        if self.use_dropout and train:
+            if generator is None:
+                raise ValueError("encoder dropout in training needs a "
+                                 "torch.Generator")
+            keep = torch.rand(x.shape, generator=generator,
+                              device=generator.device) < 0.5
+            x = torch.where(keep.to(x.device), x * 2.0, torch.zeros_like(x))
         return x, feat
 
 
@@ -87,8 +96,7 @@ class Encoder(nn.Module):
                  mbstd_group_size=4, mbstd_c_n=1, c_dim=None, cmap_dim=None,
                  use_dropout=True, has_extra_final_layer=True, remat=False,
                  fold_above_res=None, generator=None):
-        # remat / fold_above_res are TPU formulations, use_dropout acts only
-        # in training: accepted, not used
+        # remat / fold_above_res are TPU formulations: accepted, not used
         super().__init__()
         if mbstd_c_n > 0 or c_dim or cmap_dim:
             raise NotImplementedError(
@@ -115,13 +123,16 @@ class Encoder(nn.Module):
         hidden_ch = min(ch_base // self.encode_res[-1], ch_max)
         self.b4 = EncoderEpilogue(
             hidden_ch, oc_n, resolution=4, activation=activation,
-            has_extra_final_layer=has_extra_final_layer, generator=g)
+            has_extra_final_layer=has_extra_final_layer,
+            use_dropout=use_dropout, generator=g)
 
-    def forward(self, img):
+    def forward(self, img, train=False, generator=None):
+        """``train`` turns the epilogue's dropout on, drawn from
+        ``generator``."""
         x = None
         feats = {}
         for resi in self.encode_res[:-1]:
             x, feats[resi] = getattr(self, f"b{resi}")(x, img)
             img = None
-        x, feats[4] = self.b4(x)
+        x, feats[4] = self.b4(x, train=train, generator=generator)
         return x, feats

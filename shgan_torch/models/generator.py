@@ -31,6 +31,14 @@ class CoModGANGenerator(nn.Module):
         (``noise_mode='random'``)."""
         ws = self.mapping(z, c, truncation_psi=truncation_psi,
                           truncation_cutoff=truncation_cutoff)
-        x_global, feats = self.encoder(x)
+        return self.forward_ws(x, ws, noise_mode=noise_mode,
+                               noise_seed=noise_seed)
+
+    def forward_ws(self, x, ws, noise_mode="random", noise_seed=None,
+                   train=False, generator=None):
+        """Encoder and synthesis for styles ``ws`` [N, num_ws, w_dim] the
+        caller made (the training losses mix them); ``train`` turns the
+        encoder's dropout on, drawn from ``generator``."""
+        x_global, feats = self.encoder(x, train=train, generator=generator)
         return self.synthesis(x_global, feats, ws, noise_mode=noise_mode,
                               noise_seed=noise_seed)

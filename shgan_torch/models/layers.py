@@ -120,7 +120,10 @@ class SynthesisLayer(nn.Module):
     ``layer_id`` keys this layer's random noise: with ``noise_mode='random'``
     the noise is K1's Philox stream of ``noise_key(noise_seed, layer_id)``.
     Everything after the conv (demodulation, noise, bias, activation) runs
-    as one :func:`noise_bias_act` call: one kernel launch on the card."""
+    as one :func:`noise_bias_act` call: one kernel launch on the card, and
+    with grad mode on, a differentiable one (its backward the grad kernel).
+    ``noise_const`` is a buffer (the JAX step's ``_BUFFER_NAMES``): the
+    optimizer leaves it alone and the EMA copies it."""
 
     def __init__(self, in_channels, out_channels, kernel_size, w_dim,
                  resolution, bias=True,
@@ -145,8 +148,8 @@ class SynthesisLayer(nn.Module):
         self.affine = Dense(w_dim, in_channels, bias=True, bias_init=1.0,
                             generator=generator)
         if use_noise:
-            self.noise_const = nn.Parameter(
-                randn((resolution, resolution), generator))
+            self.register_buffer("noise_const",
+                                 randn((resolution, resolution), generator))
             self.noise_strength = nn.Parameter(torch.zeros(()))
 
     def forward(self, x, w, gain=1.0, noise_mode="random", noise_seed=None):

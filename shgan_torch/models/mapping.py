@@ -1,8 +1,9 @@
 """StyleGAN2 mapping network (port of ``shgan_tpu/models/mapping.py``):
 equalized-LR dense layers with lr multiplier 0.01, input 2nd-moment
 normalization, the ``w_avg`` buffer with the truncation trick, broadcast to
-``num_ws``.  Serving only: the ``w_avg`` EMA update comes with training.
-The class-conditional embedding (``c_dim > 0``) is not ported yet: no
+``num_ws``.  The ``w_avg`` EMA update is returned (``update_w_avg=True``),
+not applied: the train step chains it through its phases as the JAX step
+does.  The class-conditional embedding (``c_dim > 0``) is not ported yet: no
 SH-GAN config uses it."""
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ class Mapping(nn.Module):
         self.w_dim = w_dim
         self.num_ws = num_ws
         self.num_layers = num_layers
+        self.w_avg_beta = w_avg_beta
 
         if layer_features is None:
             layer_features = w_dim
@@ -40,12 +42,21 @@ class Mapping(nn.Module):
         else:
             self.w_avg = None
 
-    def forward(self, z, c=None, truncation_psi=1.0, truncation_cutoff=None):
+    def forward(self, z, c=None, truncation_psi=1.0, truncation_cutoff=None,
+                update_w_avg=False):
         """``ws`` [N, num_ws, w_dim] (or [N, w_dim] when num_ws is None);
-        ``c`` is accepted for the reference signature and unused."""
+        ``c`` is accepted for the reference signature and unused.  With
+        ``update_w_avg`` returns ``(ws, new_w_avg)``, ``new_w_avg`` the
+        lerp ``x_mean + beta * (w_avg - x_mean)`` of the batch mean
+        (``shgan_tpu/models/mapping.py:76-79``; no gradient)."""
         x = normalize_2nd_moment(z.float())
         for idx in range(self.num_layers):
             x = getattr(self, f"fc{idx}")(x)
+
+        new_w_avg = None
+        if update_w_avg and self.w_avg is not None:
+            x_mean = x.detach().mean(dim=0)
+            new_w_avg = x_mean + self.w_avg_beta * (self.w_avg - x_mean)
 
         if self.num_ws is not None:
             x = x[:, None].repeat(1, self.num_ws, 1)
@@ -60,4 +71,6 @@ class Mapping(nn.Module):
                 head = w_avg + truncation_psi * (
                     x[:, :truncation_cutoff] - w_avg)
                 x = torch.cat([head, x[:, truncation_cutoff:]], dim=1)
+        if update_w_avg:
+            return x, new_w_avg
         return x

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from .discriminator import Discriminator
 from .encoder import Encoder
 from .generator import CoModGANGenerator
 from .mapping import Mapping
@@ -20,6 +21,8 @@ MODEL_REGISTRY = {
     "comodgan_synthesis": CoModSynthesis,
     "comodgan_encoder": Encoder,
     "shgan_encoder": ShganEncoder,
+    "stylegan2_discriminator": Discriminator,
+    "comodgan_discriminator": Discriminator,
 }
 _ASSEMBLIES = {"comodgan_generator": CoModGANGenerator}
 

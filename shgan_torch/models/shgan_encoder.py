@@ -30,8 +30,8 @@ class ShganEncoder(Encoder):
                        gaussian_at_input_res=shu_gaussian_at_input_res,
                        generator=generator)
 
-    def forward(self, img):
-        x, feats = super().forward(img)
+    def forward(self, img, train=False, generator=None):
+        x, feats = super().forward(img, train=train, generator=generator)
         ch = self.shu_channels
         hints = self.shu(feats[self.shu_input_res][:, -ch:])
         for res, hint in hints.items():

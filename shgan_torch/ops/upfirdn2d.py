@@ -15,6 +15,13 @@ launches the hand-written kernel ``csrc/upfirdn2d.cu`` (kernel K2, the port
 of the TPU kernel ``shgan_tpu/ops/fir_pallas.py::_pallas_fir``, widened to
 the whole contract); on a CPU tensor it runs :func:`fir_plain`, the plain
 PyTorch version of the same function.
+
+The gradient (the counterpart of the custom VJP at
+``shgan_tpu/ops/fir_pallas.py:134-159``): upfirdn2d is linear in ``x``, and
+its adjoint is upfirdn2d again with the taps reversed, ``up`` and ``down``
+swapped and the pads of :func:`grad_pads`.  :class:`_Fir` applies itself to
+the cotangent, so the backward, the double backward (R1, path length) and
+any higher order are kernel K2 too.
 """
 
 from __future__ import annotations
@@ -134,17 +141,16 @@ def fir_plain(x, taps, up=(1, 1), down=(1, 1), pads=(0, 0, 0, 0)):
     return y.to(dtype)
 
 
-def fir_cuda(x, taps, up=(1, 1), down=(1, 1), pads=(0, 0, 0, 0)):
-    """Launch kernel K2 (``csrc/upfirdn2d.cu``) on a CUDA tensor."""
+def fir_cuda(x, taps, up=(1, 1), down=(1, 1), pads=(0, 0, 0, 0),
+             counter="upfirdn2d"):
+    """Launch kernel K2 (``csrc/upfirdn2d.cu``) on a CUDA tensor; the launch
+    counts under ``counter`` (``"upfirdn2d_grad"`` for a derivative)."""
     if not x.is_cuda:
         raise ValueError("fir_cuda needs a CUDA tensor")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"upfirdn2d kernel takes float32/bfloat16, got {x.dtype}")
     if x.ndim != 4 or not x.is_contiguous():
         raise ValueError("upfirdn2d kernel needs a contiguous NCHW tensor")
-    if x.requires_grad:
-        raise RuntimeError("the upfirdn2d kernel has no backward yet; run "
-                           "under torch.inference_mode()")
     upx, upy = up
     downx, downy = down
     padx0, padx1, pady0, pady1 = pads
@@ -165,18 +171,59 @@ def fir_cuda(x, taps, up=(1, 1), down=(1, 1), pads=(0, 0, 0, 0)):
         ow, upx, upy, downx, downy, padx0, pady0,
         t.ctypes.data_as(ctypes.c_void_p), fh, fw)
     _kb.check(rc, "upfirdn2d kernel")
-    _kb.launches["upfirdn2d"] += 1
+    _kb.launches[counter] += 1
     return y
+
+
+def _fir_any(x, taps, up, down, pads, counter):
+    if x.is_cuda:
+        return fir_cuda(x, taps, up, down, pads, counter)
+    if x.device.type != "cpu":
+        raise ValueError(f"upfirdn2d runs on CUDA or the CPU, not {x.device}")
+    return fir_plain(x, taps, up, down, pads)
+
+
+def grad_pads(h, w, taps, up, down, pads):
+    """The pads of the adjoint call: for an input ``h x w`` and the forward's
+    taps, factors and pads, the call on the cotangent with reversed taps and
+    ``up``/``down`` swapped that gives back an ``h x w`` gradient."""
+    fh, fw = taps.shape
+    upx, upy = up
+    downx, downy = down
+    px0, px1, py0, py1 = pads
+    oh = out_size(h, upy, downy, py0, py1, fh)
+    ow = out_size(w, upx, downx, px0, px1, fw)
+    return (fw - px0 - 1, w * upx - ow * downx + px0 - upx + 1,
+            fh - py0 - 1, h * upy - oh * downy + py0 - upy + 1)
+
+
+class _Fir(torch.autograd.Function):
+    """upfirdn2d with a gradient: the forward is K2 (or the plain version on
+    the CPU); the backward is this Function on the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, taps, up, down, pads, counter):
+        ctx.meta = (taps, up, down, pads, x.shape[2], x.shape[3])
+        return _fir_any(x, taps, up, down, pads, counter)
+
+    @staticmethod
+    def backward(ctx, dy):
+        taps, up, down, pads, h, w = ctx.meta
+        flipped = np.ascontiguousarray(taps[::-1, ::-1])
+        dx = _Fir.apply(dy.contiguous(), flipped, down, up,
+                        grad_pads(h, w, taps, up, down, pads),
+                        "upfirdn2d_grad")
+        return dx, None, None, None, None, None
 
 
 def fir(x, taps, up=(1, 1), down=(1, 1), pads=(0, 0, 0, 0)):
     """upfirdn2d with 2D correlation taps: kernel K2 on a CUDA tensor (or
-    raise), the plain version on a CPU tensor."""
-    if x.is_cuda:
-        return fir_cuda(x, taps, up, down, pads)
-    if x.device.type != "cpu":
-        raise ValueError(f"upfirdn2d runs on CUDA or the CPU, not {x.device}")
-    return fir_plain(x, taps, up, down, pads)
+    raise), the plain version on a CPU tensor; differentiable where ``x``
+    needs a gradient."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Fir.apply(x, taps, tuple(up), tuple(down), tuple(pads),
+                          "upfirdn2d")
+    return _fir_any(x, taps, up, down, pads, "upfirdn2d")
 
 
 def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):

@@ -1,5 +1,5 @@
-"""Config banks (port of ``shgan_tpu/runtime/config.py``, without the
-training-resume reader).
+"""Config banks and the training-resume reader (port of
+``shgan_tpu/runtime/config.py``).
 
 Reads the repository's ``configs/{model,dataset,experiment}/*.yaml`` as
 data, with the same semantics: ``super_cfg`` single inheritance (``args``
@@ -14,6 +14,7 @@ from __future__ import annotations
 import copy
 import glob
 import os.path as osp
+import re
 
 import yaml
 
@@ -188,6 +189,47 @@ class experiment_cfg_bank(_Bank):
         banks = self.banks()
         cfg = cfg_solve(cfg, cfg, banks)
         return cfg_solve(cfg, cfg, banks)  # twice so SEARCH sees expansions
+
+
+def load_resume_run(resume_path, resume_itern=None):
+    """Reconstruct a training run from its dumped ``config.yaml``:
+    ``resume_path`` may be the run's log dir (the one holding
+    ``config.yaml``), its ``weight/`` dir or a snapshot dir inside it.  The
+    snapshot picked is the one of ``resume_itern`` (kimg), else the one
+    named, else the latest ``network-snapshot-<kimg>``.  The run continues
+    in the dir pointed at.  Returns ``(cfg, snapshot_path)``."""
+    rp = osp.abspath(resume_path)
+    run_dir = None
+    for cand in (rp, osp.dirname(rp), osp.dirname(osp.dirname(rp))):
+        if osp.isfile(osp.join(cand, "config.yaml")):
+            run_dir = cand
+            break
+    if run_dir is None:
+        raise FileNotFoundError(
+            f"no config.yaml at or above {resume_path!r}: --resume_path "
+            "must point into a run dir whose launch dumped its config")
+    with open(osp.join(run_dir, "config.yaml")) as f:
+        cfg = Config.wrap(yaml.safe_load(f))
+    if cfg.get("train") is None:
+        raise ValueError(f"{run_dir}/config.yaml has no train section")
+    cfg["train"]["log_dir"] = run_dir
+    weight_dir = osp.join(run_dir, "weight")
+    if resume_itern is not None:
+        snap = osp.join(weight_dir,
+                        "network-snapshot-{:06d}".format(resume_itern))
+        if not osp.exists(snap):
+            raise FileNotFoundError(snap)
+    elif rp != run_dir and osp.basename(rp).startswith("network-snapshot"):
+        snap = rp
+    else:
+        snaps = sorted(
+            p for p in glob.glob(osp.join(weight_dir, "network-snapshot-*"))
+            if re.fullmatch(r"network-snapshot-\d+", osp.basename(p)))
+        if not snaps:
+            raise FileNotFoundError(f"no network-snapshot-* under "
+                                    f"{weight_dir}")
+        snap = snaps[-1]
+    return cfg, snap
 
 
 def apply_debug_shrink(cfg):

@@ -1,18 +1,23 @@
-"""The eval stage: FID / PSNR / SSIM evaluation of an inpainting generator on
-one device (port of the generator path of ``eval_stage`` and its helpers in
-``shgan_tpu/runtime/stages.py``).
+"""The eval and train stages on one device (port of ``eval_stage``,
+``train_stage`` and their helpers in ``shgan_tpu/runtime/stages.py``).
 
-Call stack: ``python -m shgan_torch.main`` → :class:`eval_stage` → the host
+Eval: ``python -m shgan_torch.main`` → :class:`eval_stage` → the host
 pipeline (:mod:`..data.pipeline`) → ``models/infer.composite_forward`` →
 the evaluators (Inception → FID, PSNR, SSIM) → ``result.json``.
 
+Train: ``python -m shgan_torch.main`` → :class:`train_stage` →
+``TrainPipeline`` → :class:`~..train.TrainStep` (Gmain [+ Gpl], Dmain
+[+ R1], Adam, G-EMA) → snapshots (:mod:`..checkpoint.train_state`).
+
 Still to port: the pre-generated (loadgen) eval path, the device image bank,
-the ``.pkl`` snapshot load, multi-device eval and the generator-in-the-loop
-metrics; each raises where the config asks for it.
+the ``.pkl`` snapshot load, multi-device eval and train, the
+generator-in-the-loop metrics, and in training the nested eval, the image
+grids and the profiler hook; each raises where the config asks for it.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import os.path as osp
 import timeit
@@ -21,9 +26,10 @@ import numpy as np
 import torch
 
 from ..checkpoint.convert import load_pth
+from ..checkpoint.train_state import load_train_state, save_train_state
 from ..data.datasets import get_dataset
 from ..data.formatters import get_formatter
-from ..data.pipeline import EvalPipeline
+from ..data.pipeline import EvalPipeline, TrainPipeline
 from ..data.rng import derive_seed
 from ..data.transforms import wrap_formatter
 from ..eval import get_evaluator
@@ -31,7 +37,10 @@ from ..models.infer import composite_forward, z_for_positions
 from ..models.registry import get_model
 from ..ops import conv1024
 from ..serve import BATCH_NOISE_SALT, resolve_device
+from ..train import TrainConfig, TrainStep, compute_ema_beta
 from .logging import print_log
+
+TRAIN_SALT = 0x7A11  # epoch slot of derive_seed for a train step's draws
 
 
 def build_generator(cfg_model, pretrained_pth=None, strict=True, seed=0):
@@ -288,3 +297,129 @@ class eval_stage:
             print_log(f"debug: evaluator asset missing ({e}); "
                       "falling back to [psnr, ssim]")
             return get_evaluator([{"type": "psnr"}, {"type": "ssim"}])
+
+
+def step_generator(seed, step):
+    """The CPU ``torch.Generator`` of train step ``step``'s random draws
+    (z, style mixing, dropout, noise seeds, path-length noise): a function
+    of (seed, step) alone, so a resumed run draws what the uninterrupted
+    run would have, on any device."""
+    return torch.Generator().manual_seed(derive_seed(seed, step, TRAIN_SALT))
+
+
+def snapshot_name(cur_nimg):
+    return "network-snapshot-{:06d}".format(cur_nimg // 1000)
+
+
+class train_stage:
+    """The StyleGAN2/CoModGAN training loop on one device."""
+
+    def __call__(self, cfg, device=None, on_step=None):
+        """Run the train section of ``cfg``.  ``device`` as in
+        :class:`eval_stage`.  ``on_step(step_i, metrics)``, if given, is
+        called after each step with its metrics on the device.
+        ``SHGAN_TRAIN_TIMING=1`` fences each phase of each step with a
+        synchronize and returns the per-step split.  Returns ``{"step": the
+        TrainStep, "ticks": [per-tick metric means], "timing": {...}}``."""
+        cfgt = cfg["train"]
+        cfge = cfg.get("env") or {}
+        seed = cfge.get("rnd_seed", 0) or 0
+        log_dir = cfgt.get("log_dir") or "log/train"
+        for key in ("eval_every_kimg", "profile_dir"):
+            if cfgt.get(key):
+                raise NotImplementedError(
+                    f"train.{key}: the nested eval and the profiler hook "
+                    "come with a later slice")
+        n_dev = cfge.get("mesh_devices") or 1
+        batch_size = cfgt.get("batch_size") or (
+            cfgt["batch_size_per_gpu"] * n_dev)
+        dev = resolve_device(device if device is not None
+                             else cfge.get("device"))
+        print_log(f"device: {dev}, train batch: {batch_size}"
+                  + (f" (the global batch of {n_dev} devices on one)"
+                     if n_dev > 1 else ""))
+
+        dataset = get_dataset(cfgt["dataset"],
+                              fallback_synthetic=cfge.get("debug", False))
+        formatter = wrap_formatter(get_formatter(cfgt["dataset"]["formatter"]),
+                                   cfgt["dataset"].get("transforms"))
+        # remat is a TPU formulation: the models accept and ignore it
+        G = get_model(cfg["model_g"], seed=seed).to(dev)
+        D = get_model(cfg["model_d"], seed=derive_seed(seed, 1)).to(dev)
+        tc = TrainConfig(**(cfgt.get("loss_kwargs") or {}))
+        step = TrainStep(G, D, tc)
+
+        total_nimg = cfgt.get("total_kimg", 25000) * 1000
+        kimg_per_tick = cfgt.get("kimg_per_tick", 4)
+        snapshot_ticks = cfgt.get("snapshot_ticks", 50)
+        cur_nimg, cur_tick = 0, 0
+        resume_path = cfgt.get("resume_path")
+        if resume_path:
+            load_train_state(resume_path, step)
+            # resume_itern is in kimg (it names the snapshot picked);
+            # without it, progress comes from the restored step counter
+            if cfgt.get("resume_itern") is not None:
+                cur_nimg = int(cfgt["resume_itern"]) * 1000
+            else:
+                cur_nimg = step.step * batch_size
+            print_log(f"resumed from {resume_path} at step {step.step}, "
+                      f"{cur_nimg / 1e3:.3f} kimg")
+        tick_start = cur_nimg
+
+        pipe = TrainPipeline(dataset, formatter, batch_size, device=dev,
+                             seed=seed, num_threads=_num_workers(cfgt),
+                             start=cur_nimg // batch_size)
+        step.timing = os.environ.get("SHGAN_TRAIN_TIMING") == "1"
+        timing = {"step_s": [], "phase_s": [], "global_batch": batch_size}
+        ticks, pending = [], []
+        os.makedirs(log_dir, exist_ok=True)
+        t_tick = t_prev = timeit.default_timer()
+        it = iter(pipe)
+        while cur_nimg < total_nimg:
+            real, mask = next(it)
+            step_i = cur_nimg // batch_size
+            metrics = step(real, mask, step_generator(seed, step_i),
+                           compute_ema_beta(tc, batch_size, cur_nimg),
+                           do_greg=step_i % tc.g_reg_interval == 0,
+                           do_dreg=step_i % tc.d_reg_interval == 0)
+            if on_step is not None:
+                on_step(step_i, metrics)
+            # metrics stay on the device: one readback a tick
+            pending.append(metrics)
+            cur_nimg += batch_size
+            now = timeit.default_timer()
+            timing["step_s"].append(now - t_prev)
+            t_prev = now
+            if step.timing:
+                timing["phase_s"].append(dict(step.phase_s))
+            if (cur_nimg >= tick_start + kimg_per_tick * 1000
+                    or cur_nimg >= total_nimg):
+                keys = sorted(pending[0])
+                vals = torch.stack([torch.stack([m[k].float() for k in keys])
+                                    for m in pending]).mean(0).tolist()
+                means = dict(zip(keys, vals))
+                pending.clear()
+                dt = timeit.default_timer() - t_tick
+                t_tick = timeit.default_timer()
+                print_log("tick {:<5d} kimg {:<8.3f} sec/kimg {:<7.2f} "
+                          "loss_g {:.3f} loss_d {:.3f}".format(
+                              cur_tick, cur_nimg / 1e3,
+                              dt / max(cur_nimg - tick_start, 1) * 1e3,
+                              means["loss_g"], means["loss_d"]))
+                ticks.append(dict(means, kimg=cur_nimg / 1e3, tick=cur_tick))
+                with open(osp.join(log_dir, "stats.jsonl"), "a") as f:
+                    f.write(json.dumps(ticks[-1]) + "\n")
+                tick_start = cur_nimg
+                cur_tick += 1
+                if cur_tick % snapshot_ticks == 0:
+                    self.save_snapshot(step, log_dir, cur_nimg)
+                t_prev = timeit.default_timer()   # step_s: the steps alone
+        self.save_snapshot(step, log_dir, cur_nimg)
+        return {"step": step, "ticks": ticks, "timing": timing}
+
+    @staticmethod
+    def save_snapshot(step, log_dir, cur_nimg):
+        path = osp.join(log_dir, "weight", snapshot_name(cur_nimg))
+        save_train_state(path, step)
+        print_log(f"saved snapshot {path}")
+        return path

@@ -121,21 +121,135 @@ def test_noise_kernel_matches_plain(cuda, res):
 
 
 def test_wrappers_count_launches_and_refuse_grad(cuda):
+    """Each wrapper counts its launches; K2 and the epilogue take tensors
+    that need a gradient (K2's derivatives count apart, the epilogue's
+    backward is its grad kernel); the in-place epilogue launch and K3 still
+    refuse them."""
     build.reset_launches()
     x = torch.randn(1, 2, 8, 8, device=cuda)
     fir_mod.upfirdn2d(x, fir_mod.setup_filter([1, 3, 3, 1]), padding=1)
     noise.random_noise(0, 8, 2, 8, cuda)
     nba.noise_bias_act(torch.zeros(1, 2, 8, 8, device=cuda))
-    assert build.launches == {"upfirdn2d": 1, "philox_normal": 1,
-                              "conv3x3_lowch": 0, "noise_bias_act": 1}
-    with pytest.raises(RuntimeError, match="forward-only"):
-        nba.noise_bias_act(torch.zeros(1, 2, 8, 8, device=cuda,
-                                       requires_grad=True))
-    assert build.launches["noise_bias_act"] == 1
+    assert build.launches == {"upfirdn2d": 1, "upfirdn2d_grad": 0,
+                              "philox_normal": 1, "conv3x3_lowch": 0,
+                              "noise_bias_act": 1, "noise_bias_act_grad": 0}
+    xg = torch.zeros(1, 2, 8, 8, device=cuda, requires_grad=True)
+    y = nba.noise_bias_act(xg)
+    assert y.data_ptr() != xg.data_ptr()
+    y.sum().backward()
+    assert build.launches["noise_bias_act"] == 2
+    assert build.launches["noise_bias_act_grad"] == 1
+    with pytest.raises(RuntimeError, match="in-place"):
+        nba.noise_bias_act_cuda(xg)
+    y = fir_mod.upfirdn2d(x.requires_grad_(), fir_mod.setup_filter([1, 3]))
+    y.sum().backward()
+    assert build.launches["upfirdn2d"] == 2
+    assert build.launches["upfirdn2d_grad"] == 1
     with pytest.raises(RuntimeError):
-        fir_mod.upfirdn2d(x.requires_grad_(), fir_mod.setup_filter([1, 3]))
+        conv1024.conv3x3_lowch(torch.zeros(1, 4, 8, 8, device=cuda,
+                                           requires_grad=True),
+                               torch.zeros(4, 4, 3, 3, device=cuda))
 
 
+@pytest.mark.parametrize("shape,up,down,pads,gain", FIR_CASES)
+def test_upfirdn2d_backward_matches_autograd_of_plain(cuda, shape, up, down,
+                                                      pads, gain):
+    """K2's backward and an R1-shaped second order (|d s/dx|² differentiated
+    once more) against autograd of fir_plain on the card, float32, 1e-5."""
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(shape, generator=g).to(cuda)
+    taps = fir_mod.correlation_taps(fir_mod.setup_filter([1, 3, 3, 1]),
+                                    gain=gain)
+    args = (taps, (up, up), (down, down), pads)
+
+    def run(fn):
+        xa = x.clone().requires_grad_(True)
+        y = fn(xa, *args)
+        w = torch.randn(y.shape, generator=g.manual_seed(2)).to(cuda)
+        d1, = torch.autograd.grad((w * torch.tanh(y)).sum(), xa,
+                                  create_graph=True)
+        d2, = torch.autograd.grad(d1.square().sum(), xa)
+        return d1.detach(), d2
+
+    build.reset_launches()
+    got = run(fir_mod.fir)
+    assert build.launches["upfirdn2d"] == 1
+    assert build.launches["upfirdn2d_grad"] == 3
+    for a, b in zip(got, run(fir_mod.fir_plain)):
+        scale = max(float(b.abs().max()), 1.0)
+        assert float((a - b).abs().max()) <= 1e-5 * scale
+
+
+GRAD_SHAPES = [(4, 512), (8, 64), (16, 7), (64, 33), (256, 4), (6, 3)]
+
+
+@pytest.mark.parametrize("mode", ["random", "const", "none"])
+@pytest.mark.parametrize("res,c", GRAD_SHAPES)
+def test_noise_bias_act_grad_kernel_matches_plain(cuda, mode, res, c):
+    """The grad kernel's full mode against its plain version on the card:
+    dx within 4 ulp (plus the noise term where the normals are drawn), the
+    sums within 1e-5 of the sum of their terms' magnitudes."""
+    spec, gain = NBA_ACTS[(res + c) % 3]
+    n = 2
+    x, dcoefs, bias, const, strength = _nba_inputs(cuda, torch.float32, n,
+                                                   c, res, seed=res + c)
+    x = x.nan_to_num()
+    dy = torch.randn(x.shape, device=cuda)
+    act = nba.epilogue_act(parse_activation(spec), gain)
+    kw = dict(dcoefs=dcoefs, bias=bias, act=act, noise_mode=mode,
+              noise_key=noise.noise_key(5, 2 * res), noise_const=const,
+              strength=strength)
+    build.reset_launches()
+    got = nba.noise_bias_act_grad_cuda(dy, x, **kw)
+    torch.cuda.synchronize()
+    assert build.launches["noise_bias_act_grad"] == 1
+    want = nba.noise_bias_act_grad_plain(dy, x, **kw)
+    e = torch.floor(torch.log2(want[0].abs().clamp_min(1e-30)))
+    tol = 4 * 2.0 ** (e - 23)
+    assert ((got[0] - want[0]).abs() <= tol).all()
+    g = nba.noise_bias_act_mask_plain(dy, x, **kw).double()
+    nu = nba._noise_plain(x, mode, kw["noise_key"], const)
+    terms = [(got[1], (g * x).abs().sum((2, 3)), want[1]),
+             (got[2], g.abs().sum((0, 2, 3)), want[2])]
+    if mode != "none":
+        terms.append((got[3], (g * nu).abs().sum(), want[3]))
+    else:
+        assert got[3] is None
+    for a, mag, b in terms:
+        assert ((a.double() - b.double()).abs() <= 1e-5 * mag + 1e-30).all()
+
+
+@pytest.mark.parametrize("mode", ["random", "const", "none"])
+def test_noise_bias_act_double_backward_matches_autograd_of_plain(cuda,
+                                                                  mode):
+    """The differentiable epilogue on the card, first and second order (the
+    grad kernel in both modes) against autograd of noise_bias_act_plain on
+    the same device."""
+    n, c, res = 2, 6, 16
+    x, dcoefs, bias, const, strength = _nba_inputs(cuda, torch.float32, n,
+                                                   c, res, seed=7)
+    x = x.nan_to_num()
+    act = nba.epilogue_act(parse_activation(NBA_ACTS[1][0]), 1.0)
+    v = torch.randn(x.shape, device=cuda)
+    u = [torch.randn(t.shape, device=cuda) for t in (x, dcoefs, bias)]
+
+    def run(fn):
+        ins = [t.clone().requires_grad_(True)
+               for t in (x, dcoefs, bias, strength, v)]
+        y = fn(ins[0], ins[1], ins[2], act, noise_mode=mode,
+               noise_key=noise.noise_key(5, 32), noise_const=const,
+               strength=ins[3])
+        gs = torch.autograd.grad(y, ins[:3], ins[4], create_graph=True)
+        f = sum((a * b).sum() for a, b in zip(gs, u))
+        return [t.detach() for t in gs] + list(torch.autograd.grad(
+            f, [ins[0], ins[1], ins[4]]))
+
+    build.reset_launches()
+    got = run(nba.noise_bias_act)
+    assert build.launches["noise_bias_act_grad"] == 3
+    for a, b in zip(got, run(nba.noise_bias_act_plain)):
+        scale = max(float(b.abs().max()), 1.0)
+        assert float((a - b).abs().max()) <= 1e-5 * scale
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,c,o,h,w", [
     (2, 32, 32, 64, 64), (1, 32, 32, 33, 70), (1, 5, 3, 13, 21),

@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from shgan_torch.ops import noise
-from shgan_torch.ops.bias_act import parse_activation
+from shgan_torch.ops import noise_bias_act as nba_mod
+from shgan_torch.ops.bias_act import lrelu_agc, parse_activation
 from shgan_torch.ops.conv1024 import conv3x3_lowch_plain
 from shgan_torch.ops.noise_bias_act import epilogue_act, noise_bias_act_plain
 from shgan_torch.ops.upfirdn2d import (correlation_taps, fir_plain, out_size,
@@ -141,6 +142,111 @@ static void nba_run() {
   for (int h : hits)
     if (h != 1) std::abort();
   for (float v : y) std::printf("%u\n", bits(v));
+}
+
+// nbagrad cpt n c res mode k0 k1 alpha gain clamp hd hb s mask_only hvs vs
+//     dcoef[n*c]... bias[c]... const[res*res]... x[...]... dy[...]...
+// -> noise_bias_act_grad emulated block by block as the kernel runs it
+// (grad_plan's blocks and thread strides, each thread's sums in its order,
+// the fixed tree, the two finishing passes): out's bits, then the raw
+// normal each element used (per row and pixel; channels that disagree
+// abort), then dd[n*c], db[c] and ds's bits (full mode).
+static void nbagrad_run() {
+  int cpt, n, c, res, mode, hd, hb, mo, hvs;
+  unsigned k0, k1;
+  float s, vs;
+  nba::Act act;
+  std::scanf("%d %d %d %d %d %u %u %f %f %f %d %d %f %d %d %f", &cpt, &n, &c, &res, &mode, &k0,
+             &k1, &act.alpha, &act.gain, &act.clamp, &hd, &hb, &s, &mo, &hvs, &vs);
+  const long long plane = (long long)res * res, half = plane / 2, calls = plane / 4;
+  const long long planes = (long long)n * c;
+  std::vector<float> dcoef(planes), bias(c), cst(plane), x(planes * plane), dy(x.size());
+  for (float& v : dcoef) std::scanf("%f", &v);
+  for (float& v : bias) std::scanf("%f", &v);
+  for (float& v : cst) std::scanf("%f", &v);
+  for (float& v : x) std::scanf("%f", &v);
+  for (float& v : dy) std::scanf("%f", &v);
+  std::vector<float> out(x.size()), nus((size_t)n * plane);
+  std::vector<int> hits(x.size(), 0), seen(nus.size(), 0);
+  const nba::GradLaunch G = nba::grad_plan(n, c, res, cpt);
+  const int chunks = nba::grad_chunks(n, c, res);
+  if (chunks != G.chunks) std::abort();
+  std::vector<float> work(nba::grad_work_floats(n, c, res));
+  const int V = 2 * cpt;
+  for (long long p = 0; p < planes; ++p)
+    for (int by = 0; by < G.chunks; ++by) {
+      const int row = (int)(p / c), ch = (int)(p % c);
+      const long long qa = (long long)by * G.calls_per_block;
+      const long long qb = qa + G.calls_per_block < calls ? qa + G.calls_per_block : calls;
+      const float d = hd ? dcoef[p] : 1.0f, b = hb ? bias[ch] : -0.0f;
+      const float sv = mode != nba::kNoiseNone ? s : 0.0f;
+      std::vector<float> sums[3];
+      for (auto& v : sums) v.assign(G.threads, 0.0f);
+      for (int t = 0; t < G.threads; ++t) {
+        float acc[3] = {0.0f, 0.0f, 0.0f};
+        for (long long q = qa + (long long)t * cpt; q < qb; q += (long long)G.threads * cpt) {
+          float nu[2][4];
+          for (int e = 0; e < V; ++e) nu[0][e] = nu[1][e] = 0.0f;
+          if (mode == nba::kNoiseRandom)
+            for (int j = 0; j < cpt; ++j)
+              shgan::noise_quad((unsigned)(q + j), (unsigned)row, k0, k1, &nu[0][2 * j],
+                                &nu[1][2 * j]);
+          if (mode == nba::kNoiseConst)
+            for (int e = 0; e < V; ++e) {
+              nu[0][e] = cst[2 * q + e];
+              nu[1][e] = cst[half + 2 * q + e];
+            }
+          for (int h = 0; h < 2; ++h)
+            for (int e = 0; e < V; ++e) {
+              const long long pix = h * half + 2 * q + e, at = p * plane + pix;
+              const float nz = mode != nba::kNoiseNone ? nba::mul_rn(nu[h][e], sv) : -0.0f;
+              out[at] = mo ? nba::mask_element(dy[at], vs, hvs != 0, x[at], d, nu[h][e], nz, b, act)
+                           : nba::grad_element(dy[at], x[at], d, hd != 0, nu[h][e], nz, b, act,
+                                               acc);
+              if (hits[at]++) std::abort();
+              const size_t rp = (size_t)row * plane + pix;
+              if (seen[rp]++ && bits(nus[rp]) != bits(nu[h][e])) std::abort();
+              nus[rp] = nu[h][e];
+            }
+        }
+        for (int k = 0; k < 3; ++k) sums[k][t] = acc[k];
+      }
+      for (int hh = G.threads / 2; hh > 0; hh /= 2)
+        for (int k = 0; k < 3; ++k)
+          for (int t = 0; t < hh; ++t) nba::tree_add(sums[k].data(), t, hh);
+      for (int k = 0; k < 3; ++k) work[(k * planes + p) * G.chunks + by] = sums[k][0];
+    }
+  for (int h : hits)
+    if (h != 1) std::abort();
+  for (float v : out) std::printf("%u\n", bits(v));
+  for (float v : nus) std::printf("%u\n", bits(v));
+  if (mo) return;
+  // grad_finish_planes, then grad_finish_sums (db per channel over the rows;
+  // ds: kThreads strided sums, then the tree)
+  float* pw = work.data() + 3 * planes * chunks;
+  std::vector<float> dd(planes);
+  for (long long p = 0; p < planes; ++p) {
+    float acc[3];
+    for (int k = 0; k < 3; ++k) {
+      acc[k] = 0.0f;
+      for (int j = 0; j < chunks; ++j) acc[k] = nba::add_rn(acc[k], work[(k * planes + p) * chunks + j]);
+    }
+    dd[p] = acc[0];
+    pw[p] = acc[1];
+    pw[planes + p] = acc[2];
+  }
+  for (float v : dd) std::printf("%u\n", bits(v));
+  for (int ch = 0; ch < c; ++ch) {
+    float acc = 0.0f;
+    for (int r = 0; r < n; ++r) acc = nba::add_rn(acc, pw[(long long)r * c + ch]);
+    std::printf("%u\n", bits(acc));
+  }
+  std::vector<float> st(nba::kThreads, 0.0f);
+  for (int t = 0; t < nba::kThreads; ++t)
+    for (long long p = t; p < planes; p += nba::kThreads) st[t] = nba::add_rn(st[t], pw[planes + p]);
+  for (int hh = nba::kThreads / 2; hh > 0; hh /= 2)
+    for (int t = 0; t < hh; ++t) nba::tree_add(st.data(), t, hh);
+  std::printf("%u\n", bits(st[0]));
 }
 
 // what the tensor core multiplies for a .tf32 operand: its top 19 bits
@@ -423,6 +529,9 @@ static void tile() {
 //   nbamap n c res cpt per          -> the fused epilogue's launch and coverage
 //   nba ...                         -> the fused epilogue emulated (nba_run)
 //   nbaop alpha gain clamp m x d nz b (m times) -> m results' float32 bits
+//   nbagrad ...                     -> the grad kernel emulated (nbagrad_run)
+//   nbagradop alpha gain clamp m dy x d nz b (m times) -> act'(pre) * dy bits
+//   nbagradplan n c res cpt         -> the grad kernel's launch rule
 //   bf16 m v...                     -> the bf16 bits of m floats
 int main() {
   char cmd[16];
@@ -446,6 +555,23 @@ int main() {
         std::scanf("%f %f %f %f", &x, &d, &nz, &b);
         std::printf("%u\n", bits(nba::apply(x, d, nz, b, a)));
       }
+    } else if (c == "nbagrad") {
+      nbagrad_run();
+    } else if (c == "nbagradop") {
+      nba::Act a;
+      int m;
+      std::scanf("%f %f %f %d", &a.alpha, &a.gain, &a.clamp, &m);
+      for (int i = 0; i < m; ++i) {
+        float dy, x, d, nz, b;
+        std::scanf("%f %f %f %f %f", &dy, &x, &d, &nz, &b);
+        std::printf("%u\n", bits(nba::act_grad(dy, x, d, nz, b, a)));
+      }
+    } else if (c == "nbagradplan") {
+      int n, ch, res, cpt;
+      std::scanf("%d %d %d %d", &n, &ch, &res, &cpt);
+      const nba::GradLaunch G = nba::grad_plan(n, ch, res, cpt);
+      std::printf("%d %d %lld %lld\n", G.threads, G.chunks, G.calls_per_block,
+                  nba::grad_work_floats(n, ch, res));
     } else if (c == "bf16") {
       int m;
       std::scanf("%d", &m);
@@ -925,3 +1051,178 @@ def test_noise_bias_act_bf16_rounding_matches_torch(harness):
     np.testing.assert_array_equal(got[~nan],
                                   want[~nan].astype(np.int64) & 0xFFFF)
     assert ((got[nan] & 0x7F80) == 0x7F80).all() and (got[nan] & 0x7F).all()
+
+
+# ---------------------------------------------------------------------------
+# the epilogue's gradient kernel (noise_bias_act_grad)
+# ---------------------------------------------------------------------------
+
+GRAD_SPECIALS = NBA_SPECIALS + [2.0, 2.0000002, -10.0, -10.000001]
+
+
+def _act_grad_numpy(dy, x, d, nz, b, alpha, gain, clamp):
+    """act'(pre) * dy as autograd of the plain chain takes it: the clamp's
+    mask (NaN outside), then * gain, then * alpha where pre < 0 (or NaN)."""
+    f32 = np.float32
+    with np.errstate(invalid="ignore", over="ignore"):
+        pre = x * d + nz + b
+        g = dy * f32(gain)
+        g = np.where(pre >= 0, g, g * f32(alpha))
+        if np.isfinite(clamp):
+            y = np.where(pre >= 0, pre, pre * f32(alpha)) * f32(gain)
+            g = np.where((y >= -f32(clamp)) & (y <= f32(clamp)), g, f32(0))
+    return g.astype(np.float32)
+
+
+@pytest.mark.parametrize("alpha,gain,clamp", [
+    (0.2, 2 ** 0.5, 256 * 0.7), (0.2, 1.0, np.inf), (1.0, 0.5, np.inf),
+    (0.2, 2.0, 4.0), (0.0, 3.0, 1.0)])
+def test_noise_bias_act_grad_element_math_matches_numpy(harness, alpha, gain,
+                                                        clamp):
+    """The mask at ±0, NaN and the clamp's edges (y == ±clamp passes, the
+    next float does not), bit for bit against numpy, and against autograd
+    of the port's lrelu_agc."""
+    cases = [(dy, x, d, nz, b) for dy in (1.0, -0.75, np.nan)
+             for x in GRAD_SPECIALS for d in (1.0, -0.5, 2.0, np.nan)
+             for nz in (-0.0, 0.0, 0.7) for b in (-0.0, 0.3)]
+    arr = np.array(cases, np.float32)
+    got = np.array(harness(
+        f"nbagradop {_f(alpha)} {_f(gain)} {_f(clamp)} {len(cases)} "
+        + " ".join(_f(v) for v in arr.ravel())), np.uint64).astype(
+        np.uint32).view(np.float32)
+    dy, x, d, nz, b = arr.T
+    want = _act_grad_numpy(dy, x, d, nz, b, alpha, gain, clamp)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_array_equal(got[ok].view(np.uint32),
+                                  want[ok].view(np.uint32))
+    # autograd of the plain activation, on the pre-activations numpy made
+    with np.errstate(invalid="ignore", over="ignore"):
+        pre = torch.from_numpy(x * d + nz + b).requires_grad_(True)
+    y = lrelu_agc(pre, alpha, gain=gain,
+                  clamp=None if np.isinf(clamp) else clamp)
+    ag, = torch.autograd.grad(y, pre, torch.from_numpy(dy))
+    ag = ag.numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ag))
+    # values, not bits: autograd adds the where's two branches, which can
+    # turn a -0 gradient into +0
+    np.testing.assert_array_equal(got[ok], ag[ok])
+
+
+@pytest.mark.parametrize("n,c,res,cpt", [(1, 1, 4, 2), (2, 3, 8, 1),
+                                         (8, 512, 4, 2), (8, 256, 64, 2),
+                                         (4, 32, 256, 2), (1, 2, 1024, 2),
+                                         (3, 5, 6, 1)])
+def test_noise_bias_act_grad_launch_rule(harness, n, c, res, cpt):
+    """Blocks of a plane cover its calls once in even runs; threads a power
+    of two from a warp to kThreads; the work buffer's size agrees with the
+    wrapper's."""
+    threads, chunks, cpb, work = (int(v) for v in harness(
+        f"nbagradplan {n} {c} {res} {cpt}"))
+    calls = res * res // 4
+    assert threads in (32, 64, 128, 256)
+    assert chunks >= 1 and chunks * cpb >= calls and cpb % 2 == 0
+    assert (chunks - 1) * cpb < calls
+    assert chunks <= max(1, -(-1024 // (n * c)))
+    assert work == nba_mod.grad_work_floats(n, c, res)
+
+
+GRAD_CASES = [
+    # (mode, act index in NBA_ACTS, has_d, has_b, cpt, n, c, res)
+    ("random", 2, True, True, 2, 2, 3, 8),
+    ("random", 1, True, False, 1, 1, 2, 6),
+    ("const", 2, True, True, 2, 2, 5, 8),
+    ("const", 0, False, True, 1, 2, 2, 4),
+    ("none", 2, True, True, 2, 3, 4, 4),
+    ("none", 1, False, False, 1, 1, 3, 8),
+    ("random", 2, True, True, 2, 2, 2, 64),
+]
+
+
+def _grad_case(harness, mode, act_i, has_d, has_b, cpt, n, c, res,
+               mask_only=False, vs=None):
+    spec, gain, _, _ = NBA_ACTS[act_i]
+    rng = np.random.RandomState(n * 31 + c * 7 + res)
+    x = (rng.randn(n, c, res, res) * 150).astype(np.float32)
+    x.flat[1], x.flat[2] = -0.0, 0.0
+    dy = rng.randn(n, c, res, res).astype(np.float32)
+    dcoef = (rng.rand(n, c) + 0.5).astype(np.float32)
+    bias = (rng.randn(c) * 0.1).astype(np.float32)
+    cst = rng.randn(res, res).astype(np.float32)
+    s = np.float32(0.3)
+    key = noise.noise_key(3, 2 * res)
+    alpha, g, clamp = epilogue_act(parse_activation(spec), gain)
+    head = (f"nbagrad {cpt} {n} {c} {res} "
+            f"{['none', 'random', 'const'].index(mode)} {key[0]} {key[1]} "
+            f"{_f(1.0 if alpha is None else alpha)} {_f(g)} "
+            f"{'inf' if clamp is None else _f(clamp)} {int(has_d)} "
+            f"{int(has_b)} {_f(s)} {int(mask_only)} {int(vs is not None)} "
+            f"{_f(0.0 if vs is None else vs)}")
+    vals = " ".join(_f(v) for v in np.concatenate(
+        [dcoef.ravel(), bias, cst.ravel(), x.ravel(), dy.ravel()]))
+    out = np.array(harness(f"{head} {vals}"), np.uint64).astype(
+        np.uint32).view(np.float32)
+    kw = dict(dcoefs=torch.from_numpy(dcoef) if has_d else None,
+              bias=torch.from_numpy(bias) if has_b else None,
+              act=(alpha, g, clamp), noise_mode=mode, noise_key=key,
+              noise_const=torch.from_numpy(cst), strength=torch.tensor(s))
+    return out, x, dy, cst, key, kw
+
+
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_noise_bias_act_grad_emulation_matches_plain(harness, case):
+    """The grad kernel's blocks and threads emulated on the host: dx bit for
+    bit the plain version's where the noise is not drawn (libm-vs-torch
+    normals otherwise); the noise each element used is K1's own bits (the
+    `noise` command) or the const plane; the sums, in the kernel's fixed
+    order, within 1e-5 of the sum of their terms' magnitudes."""
+    mode, _, has_d, has_b, cpt, n, c, res = case
+    out, x, dy, cst, key, kw = _grad_case(harness, *case)
+    plane = res * res
+    size = n * c * plane
+    dx, nus = out[:size].reshape(n, c, res, res), out[size:size + n * plane]
+    dd, db, ds = (out[size + n * plane:size + n * plane + n * c],
+                  out[-1 - c:-1], out[-1])
+    want = nba_mod.noise_bias_act_grad_plain(
+        torch.from_numpy(dy), torch.from_numpy(x), **kw)
+    if mode == "random":
+        k1 = np.array(harness(f"noise {key[0]} {key[1]} {n} {res}"),
+                      np.float32)
+        np.testing.assert_array_equal(nus.view(np.uint32), k1.view(np.uint32))
+        np.testing.assert_allclose(dx, want[0].numpy(), rtol=1e-6, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(dx.view(np.uint32),
+                                      want[0].numpy().view(np.uint32))
+        ref = cst.ravel() if mode == "const" else np.zeros(plane, np.float32)
+        np.testing.assert_array_equal(nus, np.tile(ref, n))
+    g = nba_mod.noise_bias_act_mask_plain(torch.from_numpy(dy),
+                                          torch.from_numpy(x),
+                                          **kw).numpy().astype(np.float64)
+    nu = nus.reshape(n, 1, res, res).astype(np.float64)
+    for got, terms, axes in ((dd, g * x, (2, 3)), (db, g, (0, 2, 3)),
+                             (np.array([ds]), g * nu, None)):
+        ref = terms.sum(axis=axes)
+        mag = np.abs(terms).sum(axis=axes)
+        assert (np.abs(got - np.ravel(ref)) <= 1e-5 * np.ravel(mag)
+                + 1e-30).all()
+
+
+@pytest.mark.parametrize("vs", [None, 0.6])
+@pytest.mark.parametrize("mode", ["random", "const", "none"])
+def test_noise_bias_act_grad_mask_mode_matches_plain(harness, mode, vs):
+    """The mask-only mode (the double backward): act'(pre) * (v + vs * nu),
+    no sums."""
+    case = (mode, 2, True, True, 2, 2, 3, 8)
+    out, x, v, cst, key, kw = _grad_case(harness, *case, mask_only=True,
+                                         vs=vs)
+    n, c, res = case[5:]
+    got = out[:n * c * res * res].reshape(n, c, res, res)
+    assert out.size == n * c * res * res + n * res * res
+    want = nba_mod.noise_bias_act_mask_plain(
+        torch.from_numpy(v), torch.from_numpy(x),
+        vs=None if vs is None else torch.tensor(np.float32(vs)), **kw).numpy()
+    if mode == "random" and vs is not None:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))

@@ -177,11 +177,18 @@ def test_cli_debug_eval_writes_result(tmp_path):
 
 
 def test_cli_refuses_training(tmp_path):
-    with pytest.raises(NotImplementedError, match="training slice"):
-        build_config("shgan_ffhq256_train", log_root=str(tmp_path))
+    """Training an experiment without a train section, or what the train
+    stage does not do yet (nested eval), is refused."""
+    cfg = build_config("shgan_ffhq256_train", log_root=str(tmp_path))
+    assert "eval" not in cfg and cfg["train"]["log_dir"].endswith("train")
     r = _cli(["--experiment", "shgan_synthetic256_eval", "--resume_path",
               "x"], tmp_path)
-    assert r.returncode != 0 and "training slice" in r.stderr
+    assert r.returncode != 0 and "no train section" in r.stderr
+    cfg = build_config("smoke_train", log_root=str(tmp_path),
+                       overrides={"train.eval_every_kimg": 1})
+    from shgan_torch.runtime.stages import train_stage
+    with pytest.raises(NotImplementedError, match="later slice"):
+        train_stage()(cfg, device="cpu")
 
 
 def test_build_config_applies_overrides(tmp_path):
