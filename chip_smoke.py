@@ -23,7 +23,10 @@ Phases, each printing one JSON line:
    shape of a ``shgan_g512`` forward at batch 8 and at the 1024² layers of
    a ``shgan_g1024`` forward at batch 4, float32 and bfloat16, its noise
    held to K1's bit for bit, beside the unfused path (K1 plus the
-   PyTorch chain) on the same inputs;
+   PyTorch chain) on the same inputs; K2 at the discriminator's calls of
+   the training path (``comodgan_d256`` at batch 8: the blurs and the 1×1
+   skips' down = 2, the resampling tiles), float32 and bf16, beside cuDNN's
+   stride-2 depthwise ``conv2d``;
 3. serving path: ``InpaintEngine("shgan_g512", device="cuda",
    batch_size=8)`` with random noise (every ``noise_strength`` set to 0.1
    so the noise reaches the image) answers requests of 8, 8 and 3 rows;
@@ -58,7 +61,11 @@ Phases, each printing one JSON line:
    (step 0 with both regularizers, 4 with the path-length penalty),
    ``SHGAN_TRAIN_TIMING=1``: per-step ms by phase (fenced), images/s over
    steps 1–5, peak memory, launches per step checked against counts worked
-   out from the modules, finite losses, moved weights, ``pl_mean > 0``;
+   out from the modules (the counts set to 0 as each step starts and read
+   as it ends), G_ema's image grids (``demo/fakes_init.png`` and the final
+   one) with their own launches (three forwards each, none between the
+   steps), ``stats.jsonl`` a record a tick keyed by ``step``, finite
+   losses, moved weights, ``pl_mean > 0``;
    the final snapshot reloaded and one step from it equal to the same step
    from memory (cuDNN deterministic); one Gmain + Dmain + R1 gradient at
    batch 2 on the card and on the CPU, TF32 off, each leaf within 1e-3 of
@@ -102,12 +109,21 @@ BF16_FLOPS_PER_S = 989e12   # H100 SXM bfloat16 tensor cores, dense
 FIR_F32_ATOL = 1e-5
 NOISE_ATOL = 1e-4
 TRAIN_EXPERIMENT = "shgan_ffhq256_train"   # shgan_g256 + comodgan_d256
+TRAIN_G, TRAIN_D = "shgan_g256", "comodgan_d256"
 TRAIN_BATCH = 8
 TRAIN_STEPS = 6   # step 0 both regularizers, 4 the path length, others main
+GRID_FORWARDS = 3   # an 8 x 6 image grid in forwards of 16 (draw_demo_grid)
 PARITY_BATCH = 2
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries ``at_s``, the seconds since the
+    script started, so a slow phase shows where its time went."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -170,7 +186,7 @@ def iters_for(nbytes):
 
 def fir_calls(cfg, batch):
     """Every upfirdn2d call of one generator forward at ``batch``: (site,
-    resolution, input shape, up, pads, gain).  Taps are [1,3,3,1]."""
+    resolution, input shape, up, down, pads, gain).  Taps are [1,3,3,1]."""
     enc, syn = cfg["args"]["encoder"]["args"], cfg["args"]["synthesis"]["args"]
     res = int(enc["resolution"])
     ch = lambda base, r: min(int(base) // r, int(enc["ch_max"]))  # noqa: E731
@@ -178,16 +194,16 @@ def fir_calls(cfg, batch):
     r = res
     while r > 4:   # encoder conv1 (down=2): blur with pad 2, then stride 2
         calls.append(("enc_down_blur", r, (batch, ch(enc["ch_base"], r), r, r),
-                      1, (2, 2, 2, 2), 1))
+                      1, 1, (2, 2, 2, 2), 1))
         r //= 2
     r = 8
     while r <= res:
         c = min(int(syn["ch_base"]) // r, int(syn["ch_max"]))
         # synthesis conv0 (up=2): transposed conv to R+1, FIR with pad 1
-        calls.append(("syn_up_fir", r, (batch, c, r + 1, r + 1), 1,
+        calls.append(("syn_up_fir", r, (batch, c, r + 1, r + 1), 1, 1,
                       (1, 1, 1, 1), 4))
         # skip-image upsample2d: up=2, pads (2, 1)
-        calls.append(("img_upsample", r, (batch, 3, r // 2, r // 2), 2,
+        calls.append(("img_upsample", r, (batch, 3, r // 2, r // 2), 2, 1,
                       (2, 1, 2, 1), 4))
         r *= 2
     return calls
@@ -225,14 +241,14 @@ def bf16_ulp(v):
 
 def check_fir(fir, calls, dtype_list, cpu_plain=True):
     """K2 against its plain version at each of ``calls`` (``fir_calls``
-    rows)."""
+    or ``train_fir_calls`` rows)."""
     taps = fir.correlation_taps(fir.setup_filter([1, 3, 3, 1]), gain=1)
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(calls[0][2][0])
-    for site, r, shape, up, pads, gain in calls:
+    for site, r, shape, up, down, pads, gain in calls:
         t = taps * gain
         x = torch.randn(shape, generator=gen, device="cuda")
-        ups, downs = (up, up), (1, 1)
+        ups, downs = (up, up), (down, down)
         y = fir.fir_cuda(x, t, ups, downs, pads)
         want = fir.fir_plain(x, t, ups, downs, pads)
         torch.cuda.synchronize()
@@ -240,7 +256,7 @@ def check_fir(fir, calls, dtype_list, cpu_plain=True):
         if not err <= FIR_F32_ATOL:
             raise AssertionError(f"K2 f32 {site} R={r} {shape}: {err}")
         row = {"site": site, "res": r, "shape": list(shape), "up": up,
-               "pads": list(pads), "max_abs_err": err,
+               "down": down, "pads": list(pads), "max_abs_err": err,
                "out_shape": list(y.shape)}
         nbytes = (x.numel() + y.numel()) * 4
         row["iters"] = iters_for(nbytes)
@@ -253,8 +269,9 @@ def check_fir(fir, calls, dtype_list, cpu_plain=True):
         c = shape[1]
         w = torch.as_tensor(np.array(t), device="cuda")[None, None].expand(
             c, 1, *t.shape).contiguous()
-        if up == 1:
-            lib = lambda: F.conv2d(x, w, padding=pads[0], groups=c)  # noqa
+        if up == 1:   # (down = 2: a stride-2 depthwise conv)
+            lib = lambda: F.conv2d(x, w, stride=down, padding=pads[0],  # noqa
+                                   groups=c)
         else:   # zero-insert + pad (2, 1) + taps == stride-2 transposed conv
             wt = w.flip([2, 3]).contiguous()
             lib = lambda: F.conv_transpose2d(x, wt, stride=2, padding=1,  # noqa
@@ -637,8 +654,7 @@ def train_fir_calls(cfg_g, cfg_d, batch):
     forward at ``batch``: (site, resolution, input shape, up, down, pads,
     gain).  The discriminator blurs before each strided 3×3 conv (pad 2)
     and its 1×1 skips downsample (down 2, pad 1)."""
-    calls = [(s, r, shape, up, 1, pads, gain)
-             for s, r, shape, up, pads, gain in fir_calls(cfg_g, batch)]
+    calls = fir_calls(cfg_g, batch)
     d = cfg_d["args"]
     ch = lambda r: min(int(d["ch_base"]) // r, int(d["ch_max"]))  # noqa
     r = int(d["resolution"])
@@ -743,9 +759,14 @@ def check_fir_grad(fir, calls):
         w = torch.as_tensor(np.array(t), device="cuda")[None, None].expand(
             c, 1, *t.shape).contiguous()
         lib = None
-        if up == 1 and len(set(pads)) == 1:   # forward: a strided conv2d
+        if up == 1 and down == 2 and pads == (1, 1, 1, 1):
+            # forward: a stride-2 conv2d; its gradient the stride-2
+            # transposed conv
+            lib = lambda: F.conv_transpose2d(dy, w, stride=2,  # noqa: E731
+                                             padding=1, groups=c)
+        elif up == 1 and len(set(pads)) == 1:   # forward: a stride-1 conv2d
             lib = lambda: torch.nn.grad.conv2d_input(  # noqa: E731
-                shape, w, dy, stride=down, padding=pads[0], groups=c)
+                shape, w, dy, padding=pads[0], groups=c)
         elif up == 2 and down == 1 and pads == (2, 1, 2, 1):
             # forward: the stride-2 transposed conv; its gradient a conv2d
             wt = w.flip([2, 3]).contiguous()
@@ -1015,7 +1036,14 @@ def train_path(tmp, cli, build):
     from shgan_torch.runtime.stages import step_generator
     from shgan_torch.train import TrainConfig, TrainStep
     cfg = train_config(tmp, TRAIN_STEPS)
-    per_step = []
+    # launches in each step, and outside the steps (before step 0, between
+    # steps, after the last): the counts are set to 0 as each step starts
+    # and read as it ends
+    per_step, outside = [], []
+
+    def on_step_start(i):
+        outside.append(dict(build.launches))
+        build.reset_launches()
 
     def on_step(i, metrics):
         per_step.append(dict(build.launches))
@@ -1027,9 +1055,10 @@ def train_path(tmp, cli, build):
     build.reset_launches()
     t0 = time.perf_counter()
     try:
-        rv = cli.run(cfg, on_step=on_step)
+        rv = cli.run(cfg, on_step=on_step, on_step_start=on_step_start)
     finally:
         del os.environ["SHGAN_TRAIN_TIMING"]
+    outside.append(dict(build.launches))
     stage_s = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     step = rv["step"]
@@ -1043,6 +1072,27 @@ def train_path(tmp, cli, build):
                                  f"expected {want}")
     if len(per_step) != TRAIN_STEPS or step.step != TRAIN_STEPS:
         raise AssertionError(f"{len(per_step)} steps run")
+    # G_ema's image grids: fakes_init.png before step 0 and the final
+    # fakes000000.png after the last step (no image tick in between), each
+    # GRID_FORWARDS forwards of G without a gradient, nothing else
+    demo = os.path.join(cfg["train"]["log_dir"], "demo")
+    grids = sorted(f for f in os.listdir(demo) if f.startswith("fakes")
+                   and not f.endswith("_combined.png"))
+    if grids != ["fakes000000.png", "fakes_init.png"]:
+        raise AssertionError(f"training grids {grids}")
+    fwd = {k: 0 for k in build.launches}
+    fwd.update(upfirdn2d=GRID_FORWARDS * (sites[0] + sites[1]),
+               noise_bias_act=GRID_FORWARDS * sites[3])
+    none = {k: 0 for k in build.launches}
+    want = [fwd] + [none] * (TRAIN_STEPS - 1) + [fwd]
+    if outside != want:
+        raise AssertionError(f"launches outside the steps {outside}, "
+                             f"expected {want}")
+    stats = [json.loads(line) for line in open(os.path.join(
+        cfg["train"]["log_dir"], "stats.jsonl"))]
+    if [r["step"] for r in stats] != [TRAIN_STEPS * TRAIN_BATCH // 2,
+                                      TRAIN_STEPS * TRAIN_BATCH]:
+        raise AssertionError(f"stats.jsonl steps {[r['step'] for r in stats]}")
     ticks = rv["ticks"]
     for t in ticks:
         for k in ("loss_g", "loss_d", "pl_mean", "r1_penalty"):
@@ -1071,7 +1121,9 @@ def train_path(tmp, cli, build):
            "images_per_s_steps_1_5": TRAIN_BATCH * (TRAIN_STEPS - 1)
            / sum(timing["step_s"][1:]),
            "peak_mem_gib": peak_gib, "stage_s": stage_s,
-           "launches_per_step": per_step, "sites": dict(zip(
+           "launches_per_step": per_step,
+           "launches_per_grid": fwd, "grids": grids,
+           "stats_jsonl_keys": sorted(stats[0]), "sites": dict(zip(
                ("k2_encoder", "k2_synthesis", "k2_discriminator",
                 "synthesis_layers"), sites)),
            "ticks": ticks, "pl_mean": float(step.pl_mean),
@@ -1236,8 +1288,28 @@ def main():
     conv_rows = check_conv3(conv1024, conv_resample)
     for row in conv_rows:
         emit({"phase": "kernel_check", "kernel": "conv3x3_lowch", **row})
+    # K2 at the discriminator's calls of the training path (comodgan_d256,
+    # batch 8): the blur before each strided conv and the 1x1 skips'
+    # down = 2, the resampling tiles' main caller
+    d_calls = [c for c in train_fir_calls(
+        model_cfg_bank()(TRAIN_G), model_cfg_bank()(TRAIN_D), TRAIN_BATCH)
+        if c[0].startswith("d_")]
+    fir_d = check_fir(fir, d_calls, (torch.float32, torch.bfloat16),
+                      cpu_plain=False)
+    for site in ("d_down_blur", "d_skip_down"):
+        rows = [r for r in fir_d if r["site"] == site]
+        emit({"phase": "kernel_check", "kernel": "upfirdn2d",
+              "model": TRAIN_D, "site": site, "batch": TRAIN_BATCH,
+              "down": rows[0]["down"],
+              **{k: [r[k] for r in rows]
+                 for k in ("res", "ms", "eager_ms", "bound_ms", "hbm_share",
+                           "bf16_ms", "bf16_hbm_share", "plain_ms",
+                           "library_ms")},
+              "max_abs_err": max(r["max_abs_err"] for r in rows),
+              "bf16_max_abs_err": max(r["bf16_max_abs_err"] for r in rows)})
     detail.update(fir_1024=fir_1024, noise_1024=noise_1024,
-                  noise_bias_act_1024=epi_1024, conv3x3_lowch=conv_rows)
+                  noise_bias_act_1024=epi_1024, conv3x3_lowch=conv_rows,
+                  fir_d=fir_d)
 
     # ---- 3. the main path ------------------------------------------------
     # PyTorch's defaults for serving: cuDNN may use TF32 for float32 convs
@@ -1474,6 +1546,22 @@ def main():
                                for r in rows)
     k3 = conv_rows[0]   # [EVAL_BATCH, 32, 1024, 1024], float32
     fgr, egr = fir_grad_rows, epi_grad_rows
+    # K2's resampling calls (up = 2 or down = 2): D's skips at the train
+    # batch, the skip-image upsample of the serving forward, and the
+    # backwards of the training path's calls that resample
+    dsk = [r for r in fir_d if r["site"] == "d_skip_down"]
+    ups = [r for r in fr if r["up"] == 2]
+    rsg = [r for r in fgr if 2 in (r["up"], r["down"])]
+
+    def resampling(prefix, rows, bf16=True):
+        ms = sum(r["ms"] for r in rows)
+        out = {f"{prefix}_ms": ms,
+               f"{prefix}_bound_ms": sum(r["bound_ms"] for r in rows),
+               f"{prefix}_hbm_share": sum(r["bytes_ms"] for r in rows) / ms,
+               f"{prefix}_library_ms": sum(r["library_ms"] for r in rows)}
+        if bf16:
+            out[f"{prefix}_bf16_ms"] = sum(r["bf16_ms"] for r in rows)
+        return out
     emit({"kernels": [
         {"name": "upfirdn2d", "route": "cuda",
          "source": "shgan_torch/csrc/upfirdn2d.cu",
@@ -1488,8 +1576,14 @@ def main():
          "plain_ms": wsum(fr, "plain_ms"),
          "bound_ms": wsum(fr, "bound_ms"), "bound_by": bound_by(fr),
          "library_ms": wsum(fr, "library_ms"),
+         **resampling("d_skip", dsk), **resampling("img_upsample", ups),
          "scope": f"all {len(fr)} calls of one {MODEL} forward at batch "
                   f"{SERVE_BATCH}, float32 (bf16_ms: in bfloat16); "
+                  f"d_skip_*: the {len(dsk)} 1x1 skips (down = 2) of one "
+                  f"{TRAIN_D} forward at batch {TRAIN_BATCH}, library_ms "
+                  "cuDNN's stride-2 depthwise conv2d; img_upsample_*: the "
+                  f"{len(ups)} skip-image upsamples (up = 2) of the {MODEL} "
+                  "forward, library_ms cuDNN's stride-2 conv_transpose2d; "
                   "launches over the serving path "
                   f"(and over the {MODEL_1024} eval path)"},
         {"name": "philox_normal", "route": "cuda",
@@ -1575,12 +1669,15 @@ def main():
          / sum(r["ms"] for r in fgr),
          "library_ms": (None if any(r["library_ms"] is None for r in fgr)
                         else sum(r["library_ms"] for r in fgr)),
+         **resampling("resample", rsg, bf16=False),
          "scope": f"the backward of each of the {len(fgr)} K2 calls of one "
                   f"{g256['name']} forward and one {tcfg['model_d']['name']} "
                   f"forward at batch {TRAIN_BATCH}, float32 (kernel K2 on "
                   "the cotangent: reversed taps, up and down swapped); "
                   "plain_ms: autograd of fir_plain's backward; library_ms: "
-                  "the cuDNN call computing the same gradient; launches: "
+                  "the cuDNN call computing the same gradient; resample_*: "
+                  f"the {len(rsg)} backwards that resample (up = 2 or "
+                  "down = 2); launches: "
                   f"K2's derivative calls over the {TRAIN_STEPS}-step train "
                   "path (backward and second order)"},
         {"name": "noise_bias_act_grad", "route": "cuda",

@@ -30,8 +30,20 @@
 //   outputs in registers, reading each staged row once per strip, two values
 //   at a time.  Other taps up to 8x8 take the same staging with a plain loop
 //   over the taps.
-// * other factors: one thread per output element; the taps that meet a
-//   sample are found with shifts and masks (up is 1 or 2).
+// * down = 2 or up = 2 (D's 1x1 skips and their backward, the skip-image
+//   upsample and its backward, R1's second order): the same persistent
+//   grid, work items, 16-byte staging from the chunk boundary and register
+//   prefetch, with each mode's windows (upfirdn2d.cuh).  down = 2 stages
+//   each row split by parity, so a thread's stride-2 taps are consecutive
+//   words, and slides a 4-row window two rows an output down a strip of 4
+//   outputs; up = 2 is polyphase: a thread computes 2 x 2 quads (one output
+//   of each phase, each from its own 2 x 2 subset of the taps) from a 3 x 3
+//   input neighbourhood and writes each output row of two quads with one
+//   16-byte (8-byte bf16) store.  The traffic is the same as the stride-1
+//   path's: one read of the input, one write of the output.
+// * anything else (up = down = 2, one axis only, a tensor off 16-byte
+//   alignment): one thread per output element; the taps that meet a sample
+//   are found with shifts and masks (up is 1 or 2).  fir_route picks.
 // The taps ride in the kernel's parameter space.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,6 +67,7 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2
 struct TileArgs {
   long long planes;
   int items, h, w, out_h, out_w, padx0, pady0, fh, fw, tiles_x, tiles_y;
+  int vec_store;  // up = 2: output rows take 16-byte (8-byte bf16) stores
 };
 
 // A 16-byte chunk as float: 4 float32 or 8 bfloat16.
@@ -70,6 +83,31 @@ __device__ __forceinline__ void chunk_floats(const uint4& d, float (&f)[8]) {
   for (int i = 0; i < 4; ++i) {
     f[2 * i] = __uint_as_float(w[i] << 16);
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// N consecutive staged values from float index p: pairs from an even index
+// (8-byte aligned), a single value where one is left over.
+template <int N>
+__device__ __forceinline__ void staged_values(const float* win, int p, float (&v)[N]) {
+  const float* src = win + p;
+  if ((p & 1) == 0) {
+#pragma unroll
+    for (int j = 0; j + 1 < N; j += 2) {
+      const float2 t = *reinterpret_cast<const float2*>(src + j);
+      v[j] = t.x;
+      v[j + 1] = t.y;
+    }
+    if (N % 2) v[N - 1] = src[N - 1];
+  } else {
+    v[0] = src[0];
+#pragma unroll
+    for (int j = 1; j + 1 < N; j += 2) {
+      const float2 t = *reinterpret_cast<const float2*>(src + j);
+      v[j] = t.x;
+      v[j + 1] = t.y;
+    }
+    if (N % 2 == 0) v[N - 1] = src[N - 1];
   }
 }
 
@@ -173,31 +211,8 @@ __global__ void __launch_bounds__(shgan::kFirThreads)
     auto pos = [=](int r, int c) { return fir_staged_pos(r, c, kRowF, s0, a.w, kVec); };
     float out[kStrip][kCols];
     if constexpr (K > 0) {
-      // N values of staged row r from window column c: pairs from an even
-      // float index (8-byte aligned), a single value where one is left over
-      auto row = [&](int r, int c, auto& v) {
-        constexpr int N = sizeof(v) / sizeof(float);
-        const int p = pos(r, c);
-        const float* src = win + p;
-        if ((p & 1) == 0) {
-#pragma unroll
-          for (int j = 0; j + 1 < N; j += 2) {
-            const float2 t = *reinterpret_cast<const float2*>(src + j);
-            v[j] = t.x;
-            v[j + 1] = t.y;
-          }
-          if (N % 2) v[N - 1] = src[N - 1];
-        } else {
-          v[0] = src[0];
-#pragma unroll
-          for (int j = 1; j + 1 < N; j += 2) {
-            const float2 t = *reinterpret_cast<const float2*>(src + j);
-            v[j] = t.x;
-            v[j + 1] = t.y;
-          }
-          if (N % 2 == 0) v[N - 1] = src[N - 1];
-        }
-      };
+      // the values of staged row r from window column c
+      auto row = [&](int r, int c, auto& v) { staged_values(win, pos(r, c), v); };
       fir_strip_fixed<K, K>(row, taps.v, ts * kStrip, tc, out);
     } else {
       auto at = [&](int r, int c) { return win[pos(r, c)]; };
@@ -211,6 +226,206 @@ __global__ void __launch_bounds__(shgan::kFirThreads)
       store(dst, out[r][0]);
       if (both) store(dst + 1, out[r][1]);
       dst += a.out_w;
+    }
+  };
+
+  // The chunks of the next item are loaded into registers while the staged
+  // item computes.
+  uint4 d[kRoles];
+  int col[kRoles];
+  Item cur = item_at(blockIdx.x);
+  if (cur.idx < 0) return;
+  load(d, col, cur);
+  stage(d, col, cur);
+  __syncthreads();
+  while (true) {
+    const Item nxt = item_at(cur.idx + static_cast<int>(gridDim.x));
+    if (nxt.idx >= 0) load(d, col, nxt);
+    compute(cur);
+    if (nxt.idx < 0) break;
+    __syncthreads();  // every thread is done with cur's windows
+    stage(d, col, nxt);
+    __syncthreads();
+    cur = nxt;
+  }
+}
+
+// Four outputs of one row: one 16-byte (float32) or 8-byte (bf16) store.
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// The resampling paths: UP = false is down = 2, UP = true is up = 2 (the
+// other factor 1); G x G output tiles (ResampleMode); K = 4: the unrolled
+// 4x4 code (fir_resample_fixed), K = 0: any fh, fw <= kMaxTaps.  Blocks an
+// SM (tools/k2_bounds_bench.py): three (at most 85 registers a thread) for
+// up = 2 and down = 2's 32² tiles, whose float32 calls on 64²-256² planes
+// ran 11-13 % faster than at the compiler's 119 registers and two blocks;
+// two for down = 2's small tiles, whose calls ran 7-8 % slower with three.
+template <typename T, bool UP, int G, int K>
+__global__ void __launch_bounds__(shgan::kFirThreads, (UP || G == 32) ? 3 : 2)
+    upfirdn2d_resample_kernel(const T* __restrict__ x, T* __restrict__ y, TileArgs a,
+                              Taps taps) {
+  using namespace shgan;
+  using M = ResampleMode<UP, G>;
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kTaps = K > 0 ? K : kMaxTaps;
+  constexpr int kRows = fir_resample_extent(UP, G, kTaps);  // staged rows, at most
+  constexpr int kRowF = fir_chunks(fir_resample_extent(UP, G, kTaps), kVec) * kVec;
+  constexpr int kHalf = kRowF / 2;  // down = 2: the odd positions' half of a row
+  constexpr int kRoles = (M::kPlanes * kRows * (kRowF / kVec) + kFirThreads - 1) / kFirThreads;
+  static_assert(K == 0 || K == 4, "the unrolled code is 4x4");
+  __shared__ __align__(16) float tile[M::kPlanes * kRows * kRowF];
+  // staged rows, and chunks a staged row, of a tile that is not clipped
+  const int th = fir_resample_window(UP, 0, G, G, a.fh, a.pady0);
+  const int nch = fir_chunks(fir_resample_window(UP, 0, G, G, a.fw, a.padx0), kVec);
+  const int roles = M::kPlanes * th * nch;
+  const long long in_plane = static_cast<long long>(a.h) * a.w;
+  const long long out_plane = static_cast<long long>(a.out_h) * a.out_w;
+  // staging roles, packed k << 20 | iy << 10 | q (-1: none), as in
+  // upfirdn2d_tile_kernel
+  int role[kRoles];
+#pragma unroll
+  for (int i = 0; i < kRoles; ++i) {
+    const int j = threadIdx.x + i * kFirThreads;
+    int k, iy, q;
+    fir_stage_role(j, th, nch, &k, &iy, &q);
+    role[i] = j < roles ? (k << 20) | (iy << 10) | q : -1;
+  }
+  int tk, ts, tc;
+  if constexpr (UP) {
+    fir_up_thread(threadIdx.x, G, &tk, &ts, &tc);
+  } else {
+    fir_down_thread(threadIdx.x, G, &tk, &ts, &tc);
+  }
+
+  // An item: index (-1: none), plane group, tile origin, staged window
+  // (extent, and the input sample of its element (0, 0)).
+  struct Item {
+    int idx, g, ty0, tx0, th, tw, iy0, ix0;
+  };
+  auto item_at = [&](int idx) {
+    Item it{-1, 0, 0, 0, 0, 0, 0, 0};
+    if (idx < 0 || idx >= a.items) return it;
+    it.idx = idx;
+    fir_item(idx, a.tiles_x, a.tiles_y, G, G, &it.g, &it.ty0, &it.tx0);
+    it.th = fir_resample_window(UP, it.ty0, a.out_h, G, a.fh, a.pady0);
+    it.tw = fir_resample_window(UP, it.tx0, a.out_w, G, a.fw, a.padx0);
+    it.iy0 = fir_resample_start(UP, it.ty0, a.pady0);
+    it.ix0 = fir_resample_start(UP, it.tx0, a.padx0);
+    return it;
+  };
+  // Flat index of window element (iy, 0) of plane slot k of item `it`.
+  auto row_start = [&](const Item& it, int k, int iy) {
+    const long long plane = static_cast<long long>(it.g) * M::kPlanes + k;
+    return plane * in_plane + static_cast<long long>(it.iy0 + iy) * a.w + it.ix0;
+  };
+  auto load = [&](uint4 (&d)[kRoles], int (&col)[kRoles], const Item& it) {
+#pragma unroll
+    for (int i = 0; i < kRoles; ++i) {
+      d[i] = make_uint4(0, 0, 0, 0);
+      col[i] = INT_MAX;
+      const int iy = (role[i] >> 10) & 1023;
+      if (role[i] < 0 || iy >= it.th) continue;
+      const int k = role[i] >> 20, q = role[i] & 1023, sy = it.iy0 + iy;
+      const long long start = row_start(it, k, iy);
+      col[i] = fir_chunk_col(start, q, kVec);
+      if (static_cast<long long>(it.g) * M::kPlanes + k >= a.planes || sy < 0 || sy >= a.h ||
+          !fir_chunk_needed(col[i], kVec, it.ix0, a.w, it.tw))
+        continue;
+      d[i] = __ldg(reinterpret_cast<const uint4*>(x + fir_chunk_at(start, q, kVec)));
+    }
+  };
+  // Store the chunks of item `it` into its staged rows: as they come (up =
+  // 2), or split by parity (down = 2: the even elements of chunk q at float
+  // q * kVec / 2 of the row's first half, the odd ones of its second).
+  auto stage = [&](const uint4 (&d)[kRoles], const int (&col)[kRoles], const Item& it) {
+#pragma unroll
+    for (int i = 0; i < kRoles; ++i) {
+      if (col[i] >= it.tw) continue;
+      float f[kVec];
+      chunk_floats(d[i], f);
+      if (!fir_chunk_in_row(col[i], kVec, it.ix0, a.w)) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          if (!fir_col_in_row(col[i] + e, it.ix0, a.w)) f[e] = 0.0f;
+      }
+      float* row = tile + ((role[i] >> 20) * kRows + ((role[i] >> 10) & 1023)) * kRowF;
+      const int q = role[i] & 1023;
+      if constexpr (UP) {
+        float4* dst = reinterpret_cast<float4*>(row + q * kVec);
+#pragma unroll
+        for (int v = 0; v < kVec / 4; ++v)
+          dst[v] = make_float4(f[4 * v], f[4 * v + 1], f[4 * v + 2], f[4 * v + 3]);
+      } else if constexpr (kVec == 4) {
+        *reinterpret_cast<float2*>(row + q * 2) = make_float2(f[0], f[2]);
+        *reinterpret_cast<float2*>(row + kHalf + q * 2) = make_float2(f[1], f[3]);
+      } else {
+        *reinterpret_cast<float4*>(row + q * 4) = make_float4(f[0], f[2], f[4], f[6]);
+        *reinterpret_cast<float4*>(row + kHalf + q * 4) = make_float4(f[1], f[3], f[5], f[7]);
+      }
+    }
+  };
+  const float* win = tile + tk * kRows * kRowF;
+  // This thread's outputs of the staged item `it`.
+  auto compute = [&](const Item& it) {
+    const long long plane = static_cast<long long>(it.g) * M::kPlanes + tk;
+    if (plane >= a.planes) return;
+    const int s0 = fir_row_shift(row_start(it, tk, 0), kVec);
+    if constexpr (UP) {
+      const int ox0 = it.tx0 + 2 * tc, oy0 = it.ty0 + 2 * kUpStrip * ts;
+      if (ox0 >= a.out_w || oy0 >= a.out_h) return;
+      auto pos = [=](int r, int c) { return fir_staged_pos(r, c, kRowF, s0, a.w, kVec); };
+      float out[kUpStrip][2][kUpOut];
+      if constexpr (K > 0) {
+        auto row = [&](int r, float (&v)[kUpQuads + 2]) { staged_values(win, pos(r, tc), v); };
+        fir_up_quads_fixed4(row, taps.v, kUpStrip * ts, out);
+      } else {
+        auto at = [&](int r, int c) { return win[pos(r, c)]; };
+        fir_up_quads(at, taps.v, a.fh, a.fw, a.padx0, a.pady0, kUpStrip * ts, tc, out);
+      }
+      const bool whole = a.vec_store && ox0 + kUpOut <= a.out_w;
+#pragma unroll
+      for (int r = 0; r < 2 * kUpStrip; ++r) {
+        if (oy0 + r >= a.out_h) break;
+        T* dst = y + plane * out_plane + static_cast<long long>(oy0 + r) * a.out_w + ox0;
+        const float(&v)[kUpOut] = out[r / 2][r % 2];
+        if (whole) {
+          store4(dst, v);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kUpOut; ++e)
+            if (ox0 + e < a.out_w) store(dst + e, v[e]);
+        }
+      }
+    } else {
+      const int ox = it.tx0 + tc, oy0 = it.ty0 + kDownStrip * ts;
+      if (ox >= a.out_w || oy0 >= a.out_h) return;
+      float out[kDownStrip];
+      if constexpr (K > 0) {
+        auto row = [&](int r, float (&v)[K]) {
+          fir_down_row(win, r, tc, kRowF, s0, a.w, kVec, v);
+        };
+        fir_down_strip_fixed<K, K>(row, taps.v, 2 * kDownStrip * ts, out);
+      } else {
+        auto at = [&](int r, int c) {
+          return win[fir_split_pos(r, c, kRowF, s0, a.w, kVec)];
+        };
+        fir_down_strip(at, taps.v, a.fh, a.fw, 2 * kDownStrip * ts, tc, out);
+      }
+      T* dst = y + plane * out_plane + static_cast<long long>(oy0) * a.out_w + ox;
+#pragma unroll
+      for (int r = 0; r < kDownStrip; ++r) {
+        if (oy0 + r >= a.out_h) break;
+        store(dst, out[r]);
+        dst += a.out_w;
+      }
     }
   };
 
@@ -254,6 +469,20 @@ __global__ void upfirdn2d_kernel(const T* __restrict__ x, T* __restrict__ y, int
   }
 }
 
+// A grid of one wave for kernel `fn`: as many blocks as the card holds at
+// once (per_sm: its blocks per SM, found once), or fewer.
+cudaError_t one_wave(const void* fn, int& per_sm, int items, unsigned int* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && per_sm == 0)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, shgan::kFirThreads, 0);
+  if (e != cudaSuccess) return e;
+  const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  *grid = static_cast<unsigned int>(items < cap ? items : cap);
+  return cudaSuccess;
+}
+
 template <typename T, int GW, int GH>
 cudaError_t launch_tile(const T* x, T* y, long long planes, int h, int w, int out_h, int out_w,
                         int padx0, int pady0, const Taps& t, int fh, int fw, cudaStream_t s) {
@@ -266,21 +495,40 @@ cudaError_t launch_tile(const T* x, T* y, long long planes, int h, int w, int ou
   const bool k4 = fh == 4 && fw == 4;
   const void* fn = k4 ? reinterpret_cast<const void*>(upfirdn2d_tile_kernel<T, GW, GH, 4>)
                       : reinterpret_cast<const void*>(upfirdn2d_tile_kernel<T, GW, GH, 0>);
-  // one wave: as many blocks as the card holds at once, or fewer
   static int blocks_per_sm[2] = {0, 0};  // of this instantiation: 4x4 taps, other taps
-  int& per_sm = blocks_per_sm[k4 ? 0 : 1];
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess && per_sm == 0)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, shgan::kFirThreads, 0);
+  unsigned int grid = 0;
+  const cudaError_t e = one_wave(fn, blocks_per_sm[k4 ? 0 : 1], a.items, &grid);
   if (e != cudaSuccess) return e;
-  const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  const unsigned int grid = static_cast<unsigned int>(a.items < cap ? a.items : cap);
   if (k4) {
     upfirdn2d_tile_kernel<T, GW, GH, 4><<<grid, shgan::kFirThreads, 0, s>>>(x, y, a, t);
   } else {
     upfirdn2d_tile_kernel<T, GW, GH, 0><<<grid, shgan::kFirThreads, 0, s>>>(x, y, a, t);
+  }
+  return cudaSuccess;
+}
+
+template <typename T, bool UP, int G>
+cudaError_t launch_resample(const T* x, T* y, long long planes, int h, int w, int out_h,
+                            int out_w, int padx0, int pady0, const Taps& t, int fh, int fw,
+                            cudaStream_t s) {
+  using M = shgan::ResampleMode<UP, G>;
+  TileArgs a{planes, 0, h, w, out_h, out_w, padx0, pady0, fh, fw, (out_w + G - 1) / G,
+             (out_h + G - 1) / G,
+             out_w % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0};
+  const long long items = (planes + M::kPlanes - 1) / M::kPlanes * a.tiles_x * a.tiles_y;
+  if (items > INT_MAX) return cudaErrorInvalidValue;
+  a.items = static_cast<int>(items);
+  const bool k4 = shgan::fir_resample_fixed(UP, fh, fw, padx0, pady0);
+  const void* fn = k4 ? reinterpret_cast<const void*>(upfirdn2d_resample_kernel<T, UP, G, 4>)
+                      : reinterpret_cast<const void*>(upfirdn2d_resample_kernel<T, UP, G, 0>);
+  static int blocks_per_sm[2] = {0, 0};  // of this instantiation: 4x4 taps, other taps
+  unsigned int grid = 0;
+  const cudaError_t e = one_wave(fn, blocks_per_sm[k4 ? 0 : 1], a.items, &grid);
+  if (e != cudaSuccess) return e;
+  if (k4) {
+    upfirdn2d_resample_kernel<T, UP, G, 4><<<grid, shgan::kFirThreads, 0, s>>>(x, y, a, t);
+  } else {
+    upfirdn2d_resample_kernel<T, UP, G, 0><<<grid, shgan::kFirThreads, 0, s>>>(x, y, a, t);
   }
   return cudaSuccess;
 }
@@ -291,20 +539,45 @@ cudaError_t launch(const void* x, void* y, long long planes, int h, int w, int o
                    int fh, int fw, cudaStream_t s) {
   const T* xin = static_cast<const T*>(x);
   T* yout = static_cast<T*>(y);
-  // the tiled path's 16-byte loads need a 16-byte aligned tensor
-  if (upx == 1 && upy == 1 && downx == 1 && downy == 1 &&
-      reinterpret_cast<uintptr_t>(x) % 16 == 0) {
-    switch (shgan::fir_tile_mode(out_h, out_w, fh, fw)) {
-      case 0:
-        return launch_tile<T, 64, 64>(xin, yout, planes, h, w, out_h, out_w, padx0, pady0, t,
-                                      fh, fw, s);
-      case 1:
-        return launch_tile<T, 32, 32>(xin, yout, planes, h, w, out_h, out_w, padx0, pady0, t,
-                                      fh, fw, s);
-      default:
-        return launch_tile<T, 16, 16>(xin, yout, planes, h, w, out_h, out_w, padx0, pady0, t,
-                                      fh, fw, s);
-    }
+  switch (shgan::fir_route(upx, upy, downx, downy, reinterpret_cast<uintptr_t>(x) % 16 == 0)) {
+    case shgan::kRouteTile:
+      switch (shgan::fir_tile_mode(out_h, out_w, fh, fw)) {
+        case 0:
+          return launch_tile<T, 64, 64>(xin, yout, planes, h, w, out_h, out_w, padx0, pady0, t,
+                                        fh, fw, s);
+        case 1:
+          return launch_tile<T, 32, 32>(xin, yout, planes, h, w, out_h, out_w, padx0, pady0, t,
+                                        fh, fw, s);
+        default:
+          return launch_tile<T, 16, 16>(xin, yout, planes, h, w, out_h, out_w, padx0, pady0, t,
+                                        fh, fw, s);
+      }
+    case shgan::kRouteDown2:
+      switch (shgan::fir_resample_mode(false, out_h, out_w, fh, fw, padx0, pady0)) {
+        case 0:
+          return launch_resample<T, false, 32>(xin, yout, planes, h, w, out_h, out_w, padx0,
+                                               pady0, t, fh, fw, s);
+        case 1:
+          return launch_resample<T, false, 16>(xin, yout, planes, h, w, out_h, out_w, padx0,
+                                               pady0, t, fh, fw, s);
+        default:
+          return launch_resample<T, false, 8>(xin, yout, planes, h, w, out_h, out_w, padx0,
+                                              pady0, t, fh, fw, s);
+      }
+    case shgan::kRouteUp2:
+      switch (shgan::fir_resample_mode(true, out_h, out_w, fh, fw, padx0, pady0)) {
+        case 0:
+          return launch_resample<T, true, 64>(xin, yout, planes, h, w, out_h, out_w, padx0,
+                                              pady0, t, fh, fw, s);
+        case 1:
+          return launch_resample<T, true, 32>(xin, yout, planes, h, w, out_h, out_w, padx0,
+                                              pady0, t, fh, fw, s);
+        default:
+          return launch_resample<T, true, 16>(xin, yout, planes, h, w, out_h, out_w, padx0,
+                                              pady0, t, fh, fw, s);
+      }
+    default:
+      break;
   }
   const unsigned int gz = static_cast<unsigned int>(planes < 65535 ? planes : 65535);
   const dim3 block(shgan::kBlockW, shgan::kBlockH);

@@ -248,4 +248,274 @@ SHGAN_HD void fir_strip(const At& at, const float* taps, int fh, int fw, int r0,
     }
 }
 
+// ---- Tiled resampling paths (down = 2 or up = 2, the other factor 1) -----
+//
+// The same persistent grid, work items, 16-byte chunk staging and register
+// prefetch as the stride-1 path above; what differs is the window an output
+// tile stages and how the threads read it.
+//
+// down = 2: output (oy, ox) reads input rows 2 * oy - pady0 + i and columns
+// 2 * ox - padx0 + j.  An output tile GW x GH stages a (2 GH + fh - 2) x
+// (2 GW + fw - 2) window.  Each staged row is stored split by the parity of
+// its staged position (fir_split_pos): the even positions, then the odd
+// ones, each half row_e / 2 floats.  A thread owns one output column and a
+// strip of kDownStrip output rows; the two taps of one parity in a row are
+// then consecutive words of one half, and neighbouring threads read
+// neighbouring words (no bank conflicts).  Consecutive output rows share
+// fh - 2 of their staged rows, so the strip slides down two rows at a time.
+//
+// up = 2 (polyphase): along one axis, output o = o0 + 2 a + p (o0 even,
+// phase p in {0, 1}) takes the taps t = t_p + 2 m, t_p = (pad0 - p) mod 2,
+// which meet input samples o0 / 2 - floor(pad0 / 2) + a + r_p + m
+// (fir_up_phase).  An output tile stages a (GH / 2 + reach_y) x (GW / 2 +
+// reach_x) input window, reach = max_p (r_p + n_p - 1) (fir_up_reach).  A
+// thread owns kUpQuads adjacent quads (2 x 2 outputs, one of each phase) on
+// each of kUpStrip quad rows: with 4x4 taps and even pads, a quad reads a
+// 3 x 3 input neighbourhood, each phase its own 2 x 2 subset of the taps
+// (fir_up_quads_fixed4), and each output row of the thread's quads is
+// 2 * kUpQuads consecutive outputs, written with one 16-byte (float32) or
+// 8-byte (bf16) store.
+//
+// Modes (fir_resample_mode): square output tiles of side fir_resample_g,
+// one plane, four or sixteen planes an item.
+constexpr int kRouteGeneric = 0;  // upfirdn2d_kernel: one thread an output
+constexpr int kRouteTile = 1;     // up = down = 1
+constexpr int kRouteDown2 = 2;    // down = 2, up = 1
+constexpr int kRouteUp2 = 3;      // up = 2, down = 1
+
+// The kernel a call takes.  The tiled paths' 16-byte loads need a 16-byte
+// aligned tensor; other factor pairs (up = down = 2, or one axis only) take
+// the generic kernel.
+SHGAN_HD int fir_route(int upx, int upy, int downx, int downy, bool aligned16) {
+  if (!aligned16) return kRouteGeneric;
+  if (upx == 1 && upy == 1 && downx == 1 && downy == 1) return kRouteTile;
+  if (upx == 1 && upy == 1 && downx == 2 && downy == 2) return kRouteDown2;
+  if (upx == 2 && upy == 2 && downx == 1 && downy == 1) return kRouteUp2;
+  return kRouteGeneric;
+}
+
+constexpr int kDownStrip = 4;  // output rows of a thread (one column), down = 2
+constexpr int kUpStrip = 2;    // quad rows of a thread, up = 2
+constexpr int kUpQuads = 2;    // adjacent quads of a thread, up = 2
+
+// Output tile side of mode m: 32, 16, 8 (down = 2); 64, 32, 16 (up = 2).
+SHGAN_HD constexpr int fir_resample_g(bool up, int m) { return (up ? 64 : 32) >> m; }
+
+template <bool UP, int G>
+struct ResampleMode {
+  static constexpr int kGroupThreads =
+      UP ? (G / (2 * kUpQuads)) * (G / (2 * kUpStrip)) : G * (G / kDownStrip);
+  static constexpr int kPlanes = kFirThreads / kGroupThreads;
+  static_assert(kPlanes * kGroupThreads == kFirThreads, "whole groups");
+};
+
+// The taps of phase p (up = 2) along one axis with pad0 and `taps` taps:
+// first tap t, its input offset r in the staged window (in quads), count n.
+SHGAN_HD void fir_up_phase(int pad0, int p, int taps, int* t, int* r, int* n) {
+  *t = (pad0 - p) & 1;
+  *r = (p - pad0 + *t) / 2 + static_cast<int>(floor_div(pad0, 2));  // exact
+  *n = (taps - *t + 1) >> 1;
+}
+
+// Staged input samples beyond a tile's quads along one axis (up = 2).
+SHGAN_HD int fir_up_reach(int pad0, int taps) {
+  int reach = 0;
+  for (int p = 0; p < 2; ++p) {
+    int t, r, n;
+    fir_up_phase(pad0, p, taps, &t, &r, &n);
+    if (r + n - 1 > reach) reach = r + n - 1;
+  }
+  return reach;
+}
+
+// Input sample of staged window element 0 of the tile at output o0, and the
+// window's extent for the tile's outputs [o0, min(o0 + g, out)): clipped to
+// them, as fir_window is.
+SHGAN_HD int fir_resample_start(bool up, int o0, int pad0) {
+  return up ? o0 / 2 - static_cast<int>(floor_div(pad0, 2)) : 2 * o0 - pad0;
+}
+SHGAN_HD int fir_resample_window(bool up, int o0, int out, int g, int taps, int pad0) {
+  const int n = out - o0 < g ? out - o0 : g;
+  return up ? (n + 1) / 2 + fir_up_reach(pad0, taps) : 2 * n + taps - 2;
+}
+// The most a tile of side g stages along one axis, for taps up to `taps`.
+SHGAN_HD constexpr int fir_resample_extent(bool up, int g, int taps) {
+  return up ? g / 2 + (taps + 1) / 2 : 2 * g + taps - 2;
+}
+
+// The mode that stages the fewest input elements for one out_h x out_w
+// plane plus a fixed cost per item (kFirItemCost staged elements, shared
+// among the item's planes); the larger tile on a tie.
+SHGAN_HD int fir_resample_mode(bool up, int out_h, int out_w, int fh, int fw, int padx0,
+                               int pady0) {
+  int best = 0;
+  long long best_cost = -1;
+  for (int m = 0; m < kFirModes; ++m) {
+    const int g = fir_resample_g(up, m), ty = (out_h + g - 1) / g, tx = (out_w + g - 1) / g;
+    const int planes = kFirThreads / (up ? (g / (2 * kUpQuads)) * (g / (2 * kUpStrip))
+                                          : g * (g / kDownStrip));
+    long long rows = 0, cols = 0;
+    for (int i = 0; i < ty; ++i) rows += fir_resample_window(up, i * g, out_h, g, fh, pady0);
+    for (int i = 0; i < tx; ++i) cols += fir_resample_window(up, i * g, out_w, g, fw, padx0);
+    const long long cost = rows * cols + static_cast<long long>(ty) * tx * kFirItemCost / planes;
+    if (best_cost < 0 || cost < best_cost) {
+      best = m;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// Whether a resampling call takes the unrolled 4x4 code; other taps (up to
+// kMaxTaps), and up = 2 with an odd pad0 (its phases take other tap
+// subsets), take the general tap loop of the same kernel.
+SHGAN_HD bool fir_resample_fixed(bool up, int fh, int fw, int padx0, int pady0) {
+  return fh == 4 && fw == 4 && (!up || ((padx0 & 1) == 0 && (pady0 & 1) == 0));
+}
+
+// Thread t -> plane slot k, strip s, column c (down = 2: the output column;
+// up = 2: the first of its kUpQuads quad columns).
+SHGAN_HD void fir_down_thread(int t, int g, int* k, int* s, int* c) {
+  const int group = g * (g / kDownStrip);
+  *k = t / group;
+  const int r = t - *k * group;
+  *s = r / g;
+  *c = r - *s * g;
+}
+SHGAN_HD void fir_up_thread(int t, int g, int* k, int* s, int* c) {
+  const int pairs = g / (2 * kUpQuads), group = pairs * (g / (2 * kUpStrip));
+  *k = t / group;
+  const int r = t - *k * group;
+  *s = r / pairs;
+  *c = (r - *s * pairs) * kUpQuads;
+}
+
+// down = 2: index of window element (r, c) in a plane's staged rows of
+// row_e floats each, split by parity: the element's staged position p = c +
+// the row's shift (as in fir_staged_pos) goes to half p & 1 at p >> 1.
+SHGAN_HD int fir_split_pos(int r, int c, int row_e, int s0, int w, int vec) {
+  const int p = c + ((s0 + r * (w & (vec - 1))) & (vec - 1));
+  return r * row_e + (p & 1) * (row_e >> 1) + (p >> 1);
+}
+// Where element e of staged chunk q lands in its split row.
+SHGAN_HD int fir_split_chunk(int q, int e, int row_e, int vec) {
+  return (e & 1) * (row_e >> 1) + ((q * vec + e) >> 1);
+}
+// v[j] = window(r, 2 c + j), j < FW, from the split rows at `win`: the even
+// j from one half, the odd j from the other (which is which: the parity of
+// the row's shift), each at consecutive words.
+template <int FW>
+SHGAN_HD void fir_down_row(const float* win, int r, int c, int row_e, int s0, int w, int vec,
+                           float (&v)[FW]) {
+  const int sh = (s0 + r * (w & (vec - 1))) & (vec - 1), pi = sh & 1;
+  const float* base = win + r * row_e + c + (sh >> 1);
+  const float* ev = base + pi * (row_e >> 1);
+  const float* od = base + (1 - pi) * (row_e >> 1) + pi;
+  SHGAN_UNROLL
+  for (int j = 0; j < FW; ++j) v[j] = (j & 1) ? od[j >> 1] : ev[j >> 1];
+}
+
+// down = 2, fixed FH x FW taps: the thread's kDownStrip outputs, out[r] =
+// sum_{i,j} taps[i][j] * window(r0 + 2 r + i, 2 c + j).  The strip slides
+// an FH-row window down two staged rows an output; `row(r, v)` fills v[0..FW)
+// with window(r, 2 c .. 2 c + FW).
+template <int FH, int FW, typename Row>
+SHGAN_HD void fir_down_strip_fixed(const Row& row, const float* taps, int r0,
+                                   float (&out)[kDownStrip]) {
+  static_assert(FH >= 2, "the window slides two rows an output");
+  float win[FH][FW];
+  SHGAN_UNROLL
+  for (int i = 0; i < FH - 2; ++i) row(r0 + i, win[i]);
+  SHGAN_UNROLL
+  for (int r = 0; r < kDownStrip; ++r) {
+    row(r0 + 2 * r + FH - 2, win[FH - 2]);
+    row(r0 + 2 * r + FH - 1, win[FH - 1]);
+    float acc = 0.0f;
+    SHGAN_UNROLL
+    for (int i = 0; i < FH; ++i)
+      SHGAN_UNROLL
+      for (int j = 0; j < FW; ++j) acc += taps[i * FW + j] * win[i][j];
+    out[r] = acc;
+    SHGAN_UNROLL
+    for (int i = 0; i < FH - 2; ++i)
+      SHGAN_UNROLL
+      for (int j = 0; j < FW; ++j) win[i][j] = win[i + 2][j];
+  }
+}
+
+// down = 2, any fh, fw: `at(r, c)` reads one staged value.
+template <typename At>
+SHGAN_HD void fir_down_strip(const At& at, const float* taps, int fh, int fw, int r0, int c,
+                             float (&out)[kDownStrip]) {
+  for (int r = 0; r < kDownStrip; ++r) {
+    float acc = 0.0f;
+    for (int i = 0; i < fh; ++i)
+      for (int j = 0; j < fw; ++j) acc += taps[i * fw + j] * at(r0 + 2 * r + i, 2 * c + j);
+    out[r] = acc;
+  }
+}
+
+// up = 2: out[a][py][2 q + px] is output (2 (a0 + a) + py, 2 (c + q) + px) of
+// the tile, from staged window elements (a0 + a + r_py + m, c + q + r_px +
+// m') times taps (t_py + 2 m, t_px + 2 m').
+constexpr int kUpOut = 2 * kUpQuads;  // outputs of a thread's quads in a row
+
+// Fixed 4x4 taps with even pads: t = (0, 1) and r = (0, 1) on both axes, so
+// a quad row reads three staged rows and the window slides one staged row a
+// quad row; `row(r, v)` fills v[0..kUpQuads + 2) with window(r, c ..).
+template <typename Row>
+SHGAN_HD void fir_up_quads_fixed4(const Row& row, const float* taps, int a0,
+                                  float (&out)[kUpStrip][2][kUpOut]) {
+  constexpr int N = kUpQuads + 2;
+  float win[3][N];
+  row(a0, win[0]);
+  row(a0 + 1, win[1]);
+  SHGAN_UNROLL
+  for (int a = 0; a < kUpStrip; ++a) {
+    row(a0 + a + 2, win[2]);
+    SHGAN_UNROLL
+    for (int py = 0; py < 2; ++py)
+      SHGAN_UNROLL
+      for (int q = 0; q < kUpQuads; ++q)
+        SHGAN_UNROLL
+        for (int px = 0; px < 2; ++px) {
+          float acc = 0.0f;
+          SHGAN_UNROLL
+          for (int m = 0; m < 2; ++m)
+            SHGAN_UNROLL
+            for (int n = 0; n < 2; ++n)
+              acc += taps[(py + 2 * m) * 4 + px + 2 * n] * win[py + m][q + px + n];
+          out[a][py][2 * q + px] = acc;
+        }
+    SHGAN_UNROLL
+    for (int j = 0; j < N; ++j) {
+      win[0][j] = win[1][j];
+      win[1][j] = win[2][j];
+    }
+  }
+}
+
+// Any fh, fw and pads: `at(r, c)` reads one staged value.
+template <typename At>
+SHGAN_HD void fir_up_quads(const At& at, const float* taps, int fh, int fw, int padx0,
+                           int pady0, int a0, int c, float (&out)[kUpStrip][2][kUpOut]) {
+  for (int py = 0; py < 2; ++py) {
+    int ty, ry, ny;
+    fir_up_phase(pady0, py, fh, &ty, &ry, &ny);
+    for (int px = 0; px < 2; ++px) {
+      int tx, rx, nx;
+      fir_up_phase(padx0, px, fw, &tx, &rx, &nx);
+      for (int a = 0; a < kUpStrip; ++a)
+        for (int q = 0; q < kUpQuads; ++q) {
+          float acc = 0.0f;
+          for (int m = 0; m < ny; ++m)
+            for (int n = 0; n < nx; ++n)
+              acc += taps[(ty + 2 * m) * fw + tx + 2 * n] *
+                     at(a0 + a + ry + m, c + q + rx + n);
+          out[a][py][2 * q + px] = acc;
+        }
+    }
+  }
+}
+
 }  // namespace shgan

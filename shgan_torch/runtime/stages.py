@@ -11,13 +11,12 @@ Train: ``python -m shgan_torch.main`` → :class:`train_stage` →
 
 Still to port: the pre-generated (loadgen) eval path, the device image bank,
 the ``.pkl`` snapshot load, multi-device eval and train, the
-generator-in-the-loop metrics, and in training the nested eval, the image
-grids and the profiler hook; each raises where the config asks for it.
+generator-in-the-loop metrics, and in training the nested eval and the
+profiler hook; each raises where the config asks for it.
 """
 
 from __future__ import annotations
 
-import json
 import os
 import os.path as osp
 import timeit
@@ -38,7 +37,7 @@ from ..models.registry import get_model
 from ..ops import conv1024
 from ..serve import BATCH_NOISE_SALT, resolve_device
 from ..train import TrainConfig, TrainStep, compute_ema_beta
-from .logging import print_log
+from .logging import ScalarLogger, print_log
 
 TRAIN_SALT = 0x7A11  # epoch slot of derive_seed for a train step's draws
 
@@ -314,13 +313,16 @@ def snapshot_name(cur_nimg):
 class train_stage:
     """The StyleGAN2/CoModGAN training loop on one device."""
 
-    def __call__(self, cfg, device=None, on_step=None):
+    def __call__(self, cfg, device=None, on_step=None, on_step_start=None):
         """Run the train section of ``cfg``.  ``device`` as in
-        :class:`eval_stage`.  ``on_step(step_i, metrics)``, if given, is
-        called after each step with its metrics on the device.
-        ``SHGAN_TRAIN_TIMING=1`` fences each phase of each step with a
-        synchronize and returns the per-step split.  Returns ``{"step": the
-        TrainStep, "ticks": [per-tick metric means], "timing": {...}}``."""
+        :class:`eval_stage`.  ``on_step_start(step_i)`` and ``on_step(step_i,
+        metrics)``, if given, are called just before and just after each
+        step (``metrics`` on the device); the snapshots and image grids fall
+        between them.  ``SHGAN_TRAIN_TIMING=1`` fences each phase of each
+        step with a synchronize and returns the per-step split.  Returns
+        ``{"step": the TrainStep, "ticks": [per-tick metric means, with
+        "kimg" and "tick"], "timing": {...}}``; ``stats.jsonl`` holds a
+        ``ScalarLogger`` record a tick."""
         cfgt = cfg["train"]
         cfge = cfg.get("env") or {}
         seed = cfge.get("rnd_seed", 0) or 0
@@ -352,6 +354,9 @@ class train_stage:
         total_nimg = cfgt.get("total_kimg", 25000) * 1000
         kimg_per_tick = cfgt.get("kimg_per_tick", 4)
         snapshot_ticks = cfgt.get("snapshot_ticks", 50)
+        # G_ema's image grids (fakes_init.png, then fakes<kimg>.png every
+        # image_ticks ticks and at the end); 0/None: none
+        image_ticks = cfgt.get("image_snapshot_ticks", snapshot_ticks)
         cur_nimg, cur_tick = 0, 0
         resume_path = cfgt.get("resume_path")
         if resume_path:
@@ -372,49 +377,69 @@ class train_stage:
         step.timing = os.environ.get("SHGAN_TRAIN_TIMING") == "1"
         timing = {"step_s": [], "phase_s": [], "global_batch": batch_size}
         ticks, pending = [], []
-        os.makedirs(log_dir, exist_ok=True)
-        t_tick = t_prev = timeit.default_timer()
-        it = iter(pipe)
-        while cur_nimg < total_nimg:
-            real, mask = next(it)
-            step_i = cur_nimg // batch_size
-            metrics = step(real, mask, step_generator(seed, step_i),
-                           compute_ema_beta(tc, batch_size, cur_nimg),
-                           do_greg=step_i % tc.g_reg_interval == 0,
-                           do_dreg=step_i % tc.d_reg_interval == 0)
-            if on_step is not None:
-                on_step(step_i, metrics)
-            # metrics stay on the device: one readback a tick
-            pending.append(metrics)
-            cur_nimg += batch_size
-            now = timeit.default_timer()
-            timing["step_s"].append(now - t_prev)
-            t_prev = now
-            if step.timing:
-                timing["phase_s"].append(dict(step.phase_s))
-            if (cur_nimg >= tick_start + kimg_per_tick * 1000
-                    or cur_nimg >= total_nimg):
-                keys = sorted(pending[0])
-                vals = torch.stack([torch.stack([m[k].float() for k in keys])
-                                    for m in pending]).mean(0).tolist()
-                means = dict(zip(keys, vals))
-                pending.clear()
-                dt = timeit.default_timer() - t_tick
-                t_tick = timeit.default_timer()
-                print_log("tick {:<5d} kimg {:<8.3f} sec/kimg {:<7.2f} "
-                          "loss_g {:.3f} loss_d {:.3f}".format(
-                              cur_tick, cur_nimg / 1e3,
-                              dt / max(cur_nimg - tick_start, 1) * 1e3,
-                              means["loss_g"], means["loss_d"]))
-                ticks.append(dict(means, kimg=cur_nimg / 1e3, tick=cur_tick))
-                with open(osp.join(log_dir, "stats.jsonl"), "a") as f:
-                    f.write(json.dumps(ticks[-1]) + "\n")
-                tick_start = cur_nimg
-                cur_tick += 1
-                if cur_tick % snapshot_ticks == 0:
-                    self.save_snapshot(step, log_dir, cur_nimg)
-                t_prev = timeit.default_timer()   # step_s: the steps alone
+        logger = ScalarLogger(log_dir,
+                              tensorboard=cfgt.get("log_tensorboard", False))
+
+        def grid(filename):
+            draw_demo_grid(step.G_ema, dataset, formatter, log_dir, dev,
+                           subfolder="demo", filename=filename)
+
+        if image_ticks:
+            grid("fakes_init.png")
+        try:
+            t_tick = t_prev = timeit.default_timer()
+            it = iter(pipe)
+            while cur_nimg < total_nimg:
+                real, mask = next(it)
+                step_i = cur_nimg // batch_size
+                if on_step_start is not None:
+                    on_step_start(step_i)
+                metrics = step(real, mask, step_generator(seed, step_i),
+                               compute_ema_beta(tc, batch_size, cur_nimg),
+                               do_greg=step_i % tc.g_reg_interval == 0,
+                               do_dreg=step_i % tc.d_reg_interval == 0)
+                if on_step is not None:
+                    on_step(step_i, metrics)
+                # metrics stay on the device: one readback a tick
+                pending.append(metrics)
+                cur_nimg += batch_size
+                now = timeit.default_timer()
+                timing["step_s"].append(now - t_prev)
+                t_prev = now
+                if step.timing:
+                    timing["phase_s"].append(dict(step.phase_s))
+                if (cur_nimg >= tick_start + kimg_per_tick * 1000
+                        or cur_nimg >= total_nimg):
+                    # one readback for the tick's steps
+                    keys = sorted(pending[0])
+                    vals = torch.stack([
+                        torch.stack([m[k].float() for k in keys])
+                        for m in pending]).tolist()
+                    pending.clear()
+                    for v in vals:
+                        logger.accumulate(dict(zip(keys, v)))
+                    means = logger.flush(cur_nimg)
+                    dt = timeit.default_timer() - t_tick
+                    t_tick = timeit.default_timer()
+                    print_log("tick {:<5d} kimg {:<8.3f} sec/kimg {:<7.2f} "
+                              "loss_g {:.3f} loss_d {:.3f}".format(
+                                  cur_tick, cur_nimg / 1e3,
+                                  dt / max(cur_nimg - tick_start, 1) * 1e3,
+                                  means["loss_g"], means["loss_d"]))
+                    ticks.append(dict(means, kimg=cur_nimg / 1e3,
+                                      tick=cur_tick))
+                    tick_start = cur_nimg
+                    cur_tick += 1
+                    if cur_tick % snapshot_ticks == 0:
+                        self.save_snapshot(step, log_dir, cur_nimg)
+                    if image_ticks and cur_tick % image_ticks == 0:
+                        grid("fakes{:06d}.png".format(cur_nimg // 1000))
+                    t_prev = timeit.default_timer()   # step_s: the steps alone
+        finally:
+            logger.close()
         self.save_snapshot(step, log_dir, cur_nimg)
+        if image_ticks:
+            grid("fakes{:06d}.png".format(cur_nimg // 1000))
         return {"step": step, "ticks": ticks, "timing": timing}
 
     @staticmethod

@@ -59,8 +59,33 @@ FIR_CASES = [
 ]
 
 
+# the resampling tiles (down = 2, up = 2): D's 1x1 skips of comodgan_d256
+# at every resolution with its channel counts (batch 2), down = 2, and
+# their backward, up = 2 on the skips' outputs; the skip-image upsample at
+# 256² out; odd sizes and signed pads
+RESAMPLE_CASES = [
+    ((2, 128, 256, 256), 1, 2, (1, 1, 1, 1), 1),
+    ((2, 256, 128, 128), 1, 2, (1, 1, 1, 1), 1),
+    ((2, 512, 64, 64), 1, 2, (1, 1, 1, 1), 1),
+    ((2, 512, 32, 32), 1, 2, (1, 1, 1, 1), 1),
+    ((2, 512, 16, 16), 1, 2, (1, 1, 1, 1), 1),
+    ((2, 512, 8, 8), 1, 2, (1, 1, 1, 1), 1),
+    ((2, 128, 128, 128), 2, 1, (2, 1, 2, 1), 4),
+    ((2, 256, 64, 64), 2, 1, (2, 1, 2, 1), 4),
+    ((2, 512, 32, 32), 2, 1, (2, 1, 2, 1), 4),
+    ((2, 512, 16, 16), 2, 1, (2, 1, 2, 1), 4),
+    ((2, 512, 8, 8), 2, 1, (2, 1, 2, 1), 4),
+    ((2, 512, 4, 4), 2, 1, (2, 1, 2, 1), 4),
+    ((8, 3, 128, 128), 2, 1, (2, 1, 2, 1), 4),
+    ((3, 7, 37, 29), 1, 2, (-1, 2, 3, -2), 1),
+    ((3, 7, 19, 13), 2, 1, (2, 1, 2, 1), 4),
+    ((2, 5, 45, 67), 2, 1, (0, 2, -2, 1), 4),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,up,down,pads,gain", FIR_CASES)
+@pytest.mark.parametrize("shape,up,down,pads,gain",
+                         FIR_CASES + RESAMPLE_CASES)
 def test_upfirdn2d_kernel_matches_plain(cuda, dtype, shape, up, down, pads,
                                         gain):
     g = torch.Generator().manual_seed(0)
@@ -82,15 +107,25 @@ def test_upfirdn2d_kernel_matches_plain(cuda, dtype, shape, up, down, pads,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,taps,pads,offset", [
-    ((2, 3, 21, 37), (3, 5), (-1, 2, 2, 0), 0),
-    ((2, 9, 13, 13), (8, 8), (3, 4, 4, 3), 0),
-    ((1, 2, 70, 67), (8, 8), (1, 2, 3, 0), 0),
-    ((2, 5, 17, 19), (4, 4), (1, 1, 1, 1), 1),   # 4 bytes off 16: generic
-    ((2, 4, 40, 70), (4, 4), (2, 1, 1, 2), 0),   # 4x4, random taps
+@pytest.mark.parametrize("shape,taps,pads,offset,up,down", [
+    ((2, 3, 21, 37), (3, 5), (-1, 2, 2, 0), 0, 1, 1),
+    ((2, 9, 13, 13), (8, 8), (3, 4, 4, 3), 0, 1, 1),
+    ((1, 2, 70, 67), (8, 8), (1, 2, 3, 0), 0, 1, 1),
+    ((2, 5, 17, 19), (4, 4), (1, 1, 1, 1), 1, 1, 1),   # 4 bytes off 16
+    ((2, 4, 40, 70), (4, 4), (2, 1, 1, 2), 0, 1, 1),   # 4x4, random taps
+    # the resampling tiles' general tap loop (other taps; up = 2 with an
+    # odd pad), and resampling calls off 16-byte alignment (generic)
+    ((2, 3, 35, 33), (3, 5), (2, 1, 0, 3), 0, 1, 2),
+    ((2, 9, 40, 23), (8, 8), (3, 4, 4, 3), 0, 1, 2),
+    ((2, 3, 17, 9), (3, 5), (-2, 3, 0, -1), 0, 2, 1),
+    ((2, 4, 11, 30), (4, 4), (1, 2, 3, 0), 0, 2, 1),
+    ((1, 2, 33, 40), (8, 8), (4, 3, 3, 4), 0, 2, 1),
+    ((2, 64, 32, 32), (4, 4), (1, 1, 1, 1), 1, 1, 2),
+    ((2, 64, 16, 16), (4, 4), (2, 1, 2, 1), 1, 2, 1),
 ])
-def test_upfirdn2d_kernel_other_taps(cuda, dtype, shape, taps, pads, offset):
-    """The tiled path with taps other than the main path's, and a tensor
+def test_upfirdn2d_kernel_other_taps(cuda, dtype, shape, taps, pads, offset,
+                                     up, down):
+    """The tiled paths with taps other than the main path's, and a tensor
     that starts off the 16-byte alignment its loads need (the generic
     kernel takes it)."""
     g = torch.Generator().manual_seed(2)
@@ -99,8 +134,9 @@ def test_upfirdn2d_kernel_other_taps(cuda, dtype, shape, taps, pads, offset):
     flat = torch.randn(n + offset, generator=g).to(cuda, dtype)
     x = flat[offset:].view(shape)
     assert (x.data_ptr() % 16 != 0) == bool(offset)
-    got = fir_mod.fir_cuda(x, t, (1, 1), (1, 1), pads)
-    want = fir_mod.fir_plain(x.float(), t, (1, 1), (1, 1), pads)
+    f, d = (up, up), (down, down)
+    got = fir_mod.fir_cuda(x, t, f, d, pads)
+    want = fir_mod.fir_plain(x.float(), t, f, d, pads)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
     if dtype == torch.float32:
@@ -151,7 +187,8 @@ def test_wrappers_count_launches_and_refuse_grad(cuda):
                                torch.zeros(4, 4, 3, 3, device=cuda))
 
 
-@pytest.mark.parametrize("shape,up,down,pads,gain", FIR_CASES)
+@pytest.mark.parametrize("shape,up,down,pads,gain",
+                         FIR_CASES + RESAMPLE_CASES)
 def test_upfirdn2d_backward_matches_autograd_of_plain(cuda, shape, up, down,
                                                       pads, gain):
     """K2's backward and an R1-shaped second order (|d s/dx|² differentiated

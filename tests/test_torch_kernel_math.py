@@ -513,6 +513,143 @@ static void tile() {
   }
 }
 
+// K2's resampling paths (down = 2, up = 2) emulated item by item, as
+// run_tile: the mode's work items, the chunk staging (split by parity for
+// down = 2), each thread's strip or quads, through the header's functions.
+// Staged words never written hold NaN; an output written twice aborts.
+template <bool UP, int G>
+static void run_resample(int vec, int planes, int h, int w, int px0, int py0, int fh, int fw,
+                         const std::vector<float>& taps, const std::vector<float>& x, int oh,
+                         int ow) {
+  using M = shgan::ResampleMode<UP, G>;
+  const bool fixed = shgan::fir_resample_fixed(UP, fh, fw, px0, py0);
+  const int max_taps = fixed ? 4 : shgan::kMaxTaps;
+  const int rows = shgan::fir_resample_extent(UP, G, max_taps);
+  const int row_f = shgan::fir_chunks(shgan::fir_resample_extent(UP, G, max_taps), vec) * vec;
+  const int tiles_x = (ow + G - 1) / G, tiles_y = (oh + G - 1) / G;
+  const int groups = (planes + M::kPlanes - 1) / M::kPlanes;
+  const int th = shgan::fir_resample_window(UP, 0, G, G, fh, py0);
+  const int nch = shgan::fir_chunks(shgan::fir_resample_window(UP, 0, G, G, fw, px0), vec);
+  if (th > rows || nch * vec > row_f) std::abort();
+  const long long total = (long long)planes * h * w;
+  const long long granules = (total + vec - 1) / vec * vec;
+  std::vector<float> y((long long)planes * oh * ow, -1e30f);
+  std::vector<float> buf(M::kPlanes * rows * row_f);
+  auto put = [&](long long plane, int oy, int ox, float v) {
+    float& dst = y[(plane * oh + oy) * ow + ox];
+    if (dst != -1e30f) std::abort();
+    dst = v;
+  };
+  for (int item = 0; item < groups * tiles_x * tiles_y; ++item) {
+    int g, ty0, tx0;
+    shgan::fir_item(item, tiles_x, tiles_y, G, G, &g, &ty0, &tx0);
+    std::fill(buf.begin(), buf.end(), std::nanf(""));
+    const int th_i = shgan::fir_resample_window(UP, ty0, oh, G, fh, py0);
+    const int tw_i = shgan::fir_resample_window(UP, tx0, ow, G, fw, px0);
+    const int iy0 = shgan::fir_resample_start(UP, ty0, py0);
+    const int ix0 = shgan::fir_resample_start(UP, tx0, px0);
+    auto row_start = [&](int k, int iy) {
+      return (((long long)g * M::kPlanes + k) * h + iy0 + iy) * w + ix0;
+    };
+    for (int j = 0; j < M::kPlanes * th * nch; ++j) {
+      int k, iy, q;
+      shgan::fir_stage_role(j, th, nch, &k, &iy, &q);
+      if (iy >= th_i) continue;
+      const long long plane = (long long)g * M::kPlanes + k;
+      const int sy = iy0 + iy;
+      const long long start = row_start(k, iy);
+      const long long at = shgan::fir_chunk_at(start, q, vec);
+      const int cc0 = shgan::fir_chunk_col(start, q, vec);
+      if (cc0 >= tw_i) continue;
+      float v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+      if (plane < planes && sy >= 0 && sy < h && shgan::fir_chunk_needed(cc0, vec, ix0, w, tw_i)) {
+        if (at < 0 || at + vec > granules || at % vec != 0) std::abort();
+        for (int e = 0; e < vec; ++e) v[e] = at + e < total ? x[at + e] : std::nanf("");
+        if (!shgan::fir_chunk_in_row(cc0, vec, ix0, w))
+          for (int e = 0; e < vec; ++e)
+            if (!shgan::fir_col_in_row(cc0 + e, ix0, w)) v[e] = 0.0f;
+      }
+      float* row = &buf[(k * rows + iy) * row_f];
+      for (int e = 0; e < vec; ++e)
+        row[UP ? q * vec + e : shgan::fir_split_chunk(q, e, row_f, vec)] = v[e];
+    }
+    for (int t = 0; t < shgan::kFirThreads; ++t) {
+      int k, s, c;
+      if (UP) shgan::fir_up_thread(t, G, &k, &s, &c);
+      else shgan::fir_down_thread(t, G, &k, &s, &c);
+      const long long plane = (long long)g * M::kPlanes + k;
+      const float* win = &buf[k * rows * row_f];
+      const int s0 = shgan::fir_row_shift(row_start(k, 0), vec);
+      if (plane >= planes) continue;
+      if (UP) {
+        const int ox0 = tx0 + 2 * c, oy0 = ty0 + 2 * shgan::kUpStrip * s;
+        if (ox0 >= ow || oy0 >= oh) continue;
+        auto at = [&](int r, int cc) {
+          return win[shgan::fir_staged_pos(r, cc, row_f, s0, w, vec)];
+        };
+        float out[shgan::kUpStrip][2][shgan::kUpOut];
+        if (fixed) {
+          auto row = [&](int r, float (&v)[shgan::kUpQuads + 2]) {
+            for (int j = 0; j < shgan::kUpQuads + 2; ++j) v[j] = at(r, c + j);
+          };
+          shgan::fir_up_quads_fixed4(row, taps.data(), shgan::kUpStrip * s, out);
+        } else {
+          shgan::fir_up_quads(at, taps.data(), fh, fw, px0, py0, shgan::kUpStrip * s, c, out);
+        }
+        for (int r = 0; r < 2 * shgan::kUpStrip && oy0 + r < oh; ++r)
+          for (int e = 0; e < shgan::kUpOut; ++e)
+            if (ox0 + e < ow) put(plane, oy0 + r, ox0 + e, out[r / 2][r % 2][e]);
+      } else {
+        const int ox = tx0 + c, oy0 = ty0 + shgan::kDownStrip * s;
+        if (ox >= ow || oy0 >= oh) continue;
+        float out[shgan::kDownStrip];
+        if (fixed) {
+          auto row = [&](int r, float (&v)[4]) {
+            shgan::fir_down_row(win, r, c, row_f, s0, w, vec, v);
+          };
+          shgan::fir_down_strip_fixed<4, 4>(row, taps.data(), 2 * shgan::kDownStrip * s, out);
+        } else {
+          auto at = [&](int r, int cc) {
+            return win[shgan::fir_split_pos(r, cc, row_f, s0, w, vec)];
+          };
+          shgan::fir_down_strip(at, taps.data(), fh, fw, 2 * shgan::kDownStrip * s, c, out);
+        }
+        for (int r = 0; r < shgan::kDownStrip && oy0 + r < oh; ++r) put(plane, oy0 + r, ox, out[r]);
+      }
+    }
+  }
+  for (float v : y) std::printf("%.9g\n", v);
+}
+
+// resample up vec planes h w px0 px1 py0 py1 fh fw taps... x... -> mode,
+// out_h, out_w, then the outputs of every plane (up: 1 = up 2, 0 = down 2)
+static void resample() {
+  int up, vec, planes, h, w, px0, px1, py0, py1, fh, fw;
+  std::scanf("%d %d %d %d %d %d %d %d %d %d %d", &up, &vec, &planes, &h, &w, &px0, &px1, &py0,
+             &py1, &fh, &fw);
+  std::vector<float> taps(fh * fw), x((long)planes * h * w);
+  for (float& t : taps) std::scanf("%f", &t);
+  for (float& v : x) std::scanf("%f", &v);
+  const int f = up ? 2 : 1, d = up ? 1 : 2;
+  const int oh = shgan::upfirdn_out_size(h, f, d, py0, py1, fh);
+  const int ow = shgan::upfirdn_out_size(w, f, d, px0, px1, fw);
+  const int mode = shgan::fir_resample_mode(up, oh, ow, fh, fw, px0, py0);
+  std::printf("%d %d %d\n", mode, oh, ow);
+  if (up) {
+    switch (mode) {
+      case 0: run_resample<true, 64>(vec, planes, h, w, px0, py0, fh, fw, taps, x, oh, ow); break;
+      case 1: run_resample<true, 32>(vec, planes, h, w, px0, py0, fh, fw, taps, x, oh, ow); break;
+      default: run_resample<true, 16>(vec, planes, h, w, px0, py0, fh, fw, taps, x, oh, ow);
+    }
+  } else {
+    switch (mode) {
+      case 0: run_resample<false, 32>(vec, planes, h, w, px0, py0, fh, fw, taps, x, oh, ow); break;
+      case 1: run_resample<false, 16>(vec, planes, h, w, px0, py0, fh, fw, taps, x, oh, ow); break;
+      default: run_resample<false, 8>(vec, planes, h, w, px0, py0, fh, fw, taps, x, oh, ow);
+    }
+  }
+}
+
 // Reads commands from stdin, one per line:
 //   philox k0 k1 c0 c1 c2 c3        -> 4 words
 //   noise k0 k1 batch res           -> batch*res*res floats, kernel layout
@@ -521,6 +658,14 @@ static void tile() {
 //   tile vec planes h w px0 px1 py0 py1 fh fw taps... x...
 //                                   -> the tiled kernel's outputs (up = down = 1)
 //   tilemode out_h out_w fh fw      -> its tile mode
+//   resample up vec planes h w px0 px1 py0 py1 fh fw taps... x...
+//                                   -> the resampling kernel's mode, out_h,
+//                                      out_w and outputs (up 1: up = 2, 0:
+//                                      down = 2)
+//   route upx upy downx downy aligned fh fw px0 py0
+//                                   -> the kernel a call takes (fir_route),
+//                                      and whether a resampling call takes
+//                                      the unrolled 4x4 code
 //   conv3 bf n c o h w weights... x... -> K3 emulated (bf: 0 float32, 1 bf16)
 //   tf32dot K a... b...             -> 3xTF32 and single-TF32 dot products
 //   tf32 v                          -> TF32 high part and residual of v, both
@@ -636,6 +781,15 @@ int main() {
       std::printf("%.9g %.9g %u %u %.9g %.9g\n", h, l, bits(h), bits(l), ha, la);
     } else if (c == "tile") {
       tile();
+    } else if (c == "resample") {
+      resample();
+    } else if (c == "route") {
+      int upx, upy, dx, dy, aligned, fh, fw, px0, py0;
+      std::scanf("%d %d %d %d %d %d %d %d %d", &upx, &upy, &dx, &dy, &aligned, &fh, &fw, &px0,
+                 &py0);
+      const int route = shgan::fir_route(upx, upy, dx, dy, aligned != 0);
+      std::printf("%d %d\n", route,
+                  (int)shgan::fir_resample_fixed(route == shgan::kRouteUp2, fh, fw, px0, py0));
     } else if (c == "tilemode") {
       int oh, ow, fh, fw;
       std::scanf("%d %d %d %d", &oh, &ow, &fh, &fw);
@@ -807,6 +961,130 @@ def test_upfirdn_tiled_header_matches_plain(harness, planes, h, w, pads,
 @pytest.mark.parametrize("h,w,up,down,pads,taps", FIR_CASES)
 def test_upfirdn_header_matches_plain(harness, h, w, up, down, pads, taps):
     _run_fir(harness, h, w, up, down, pads, taps)
+
+
+RESAMPLE_CASES = [
+    # (up, planes, h, w, pads x0 x1 y0 y1, taps); up False: down = 2.
+    # D's 1x1 skips at every comodgan_d256 resolution (down = 2, pads 1; a
+    # few planes each, partial plane groups in the 4- and 16-plane modes),
+    # then their backward (up = 2, grad_pads (2, 1, 2, 1)) on the skips'
+    # outputs; the skip-image upsample (up = 2) of 3 channels, whose
+    # backward is the down = 2 call of the skips
+    (False, 1, 256, 256, (1, 1, 1, 1), (4, 4)),
+    (False, 2, 128, 128, (1, 1, 1, 1), (4, 4)),
+    (False, 3, 64, 64, (1, 1, 1, 1), (4, 4)),
+    (False, 5, 32, 32, (1, 1, 1, 1), (4, 4)),
+    (False, 9, 16, 16, (1, 1, 1, 1), (4, 4)),
+    (False, 17, 8, 8, (1, 1, 1, 1), (4, 4)),
+    (True, 1, 128, 128, (2, 1, 2, 1), (4, 4)),
+    (True, 2, 64, 64, (2, 1, 2, 1), (4, 4)),
+    (True, 3, 32, 32, (2, 1, 2, 1), (4, 4)),
+    (True, 5, 16, 16, (2, 1, 2, 1), (4, 4)),
+    (True, 9, 8, 8, (2, 1, 2, 1), (4, 4)),
+    (True, 17, 4, 4, (2, 1, 2, 1), (4, 4)),
+    (True, 3, 2, 2, (2, 1, 2, 1), (4, 4)),
+    # odd H and W (rows whose chunks start at another offset, and another
+    # parity, in each row), signed pads, several tiles with ragged edges
+    (False, 2, 37, 29, (1, 1, 1, 1), (4, 4)),
+    (False, 3, 21, 75, (-1, 2, 3, -2), (4, 4)),
+    (False, 1, 131, 69, (2, 1, 1, 2), (4, 4)),
+    (True, 2, 19, 13, (2, 1, 2, 1), (4, 4)),
+    (True, 1, 45, 67, (0, 2, -2, 1), (4, 4)),
+    # other taps, and up = 2 with an odd pad: the general tap loop
+    (False, 2, 35, 33, (2, 1, 0, 3), (3, 5)),
+    (False, 2, 40, 23, (3, 4, 4, 3), (8, 8)),
+    (False, 3, 9, 10, (0, 0, 0, 0), (1, 1)),
+    (True, 3, 11, 30, (1, 2, 3, 0), (4, 4)),
+    (True, 2, 15, 14, (-1, 2, -3, 2), (4, 4)),
+    (True, 2, 17, 9, (-2, 3, 0, -1), (3, 5)),
+    (True, 1, 33, 40, (4, 3, 3, 4), (8, 8)),
+    (True, 2, 20, 21, (0, 0, 0, 0), (1, 1)),
+]
+
+
+@pytest.mark.parametrize("vec", [4, 8])   # 16-byte chunks: float32, bf16
+@pytest.mark.parametrize("up,planes,h,w,pads,taps", RESAMPLE_CASES)
+def test_upfirdn_resample_header_matches_plain(harness, up, planes, h, w,
+                                               pads, taps, vec):
+    """K2's down = 2 and up = 2 paths emulated thread by thread (tile mode,
+    parity-split staging, the down = 2 strip, the up = 2 polyphase quads)
+    against fir_plain: every output written once, from staged words only
+    (the staging is NaN until written)."""
+    t, x = _fir_inputs(planes * 1000 + h * 31 + w, taps, (planes, h, w))
+    if taps == (4, 4) and (planes + h) % 2:   # the main path's taps
+        t = correlation_taps(setup_filter([1, 3, 3, 1]), gain=4 if up else 1)
+    cmd = " ".join(map(str, (int(up), vec, planes, h, w) + pads + taps))
+    vals = " ".join(f"{v:.9g}" for v in np.concatenate([t.ravel(),
+                                                        x.ravel()]))
+    out = harness(f"resample {cmd} {vals}")
+    oh, ow = int(out[1]), int(out[2])
+    f = (2, 2) if up else (1, 1)
+    d = (1, 1) if up else (2, 2)
+    got = np.array(out[3:], np.float32).reshape(planes, oh, ow)
+    want = fir_plain(torch.from_numpy(x)[None], t, f, d, pads)[0].numpy()
+    assert got.shape == want.shape
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("up,out,mode", [
+    (False, 128, 0), (False, 64, 0), (False, 32, 0), (False, 16, 1),
+    (False, 8, 2), (False, 4, 2), (True, 256, 0), (True, 128, 0),
+    (True, 64, 0), (True, 32, 1), (True, 16, 2), (True, 8, 2)])
+def test_upfirdn_resample_mode_stages_least(harness, up, out, mode):
+    """The tile mode of a 4x4-tap resampling call on an out x out plane (D's
+    skips and their backward): the fewest staged input elements plus a fixed
+    cost per item, as for the stride-1 path."""
+    h = out // 2 if up else 2 * out
+    pads = (2, 1, 2, 1) if up else (1, 1, 1, 1)
+    x = " ".join(["0"] * (h * h))
+    got = harness(f"resample {int(up)} 4 1 {h} {h} "
+                  + " ".join(map(str, pads)) + " 4 4 " + " ".join(["0"] * 16)
+                  + f" {x}")
+    assert (int(got[0]), int(got[1])) == (mode, out)
+
+
+def _route(harness, up, down, pads, taps, aligned=True):
+    r = harness(f"route {up[0]} {up[1]} {down[0]} {down[1]} {int(aligned)} "
+                f"{taps[0]} {taps[1]} {pads[0]} {pads[2]}")
+    return int(r[0]), bool(int(r[1]))
+
+
+def test_upfirdn_route_sends_the_main_paths_resampling_to_the_tiles(harness):
+    """fir_route on every K2 call of one shgan_g256 + comodgan_d256 forward
+    at batch 8 (chip_smoke.py's list) and on each call's backward (taps
+    reversed, factors swapped, grad_pads): stride 1 takes the stride-1
+    tiles, down = 2 and up = 2 the resampling tiles with the unrolled 4x4
+    code; an unaligned tensor and up = down = 2 take the generic kernel."""
+    import importlib
+    import sys
+
+    from shgan_torch.ops.upfirdn2d import grad_pads
+    from shgan_torch.runtime.config import model_cfg_bank
+    from test_torch_models import REPO
+
+    sys.path.insert(0, REPO)
+    smoke = importlib.import_module("chip_smoke")
+    bank = model_cfg_bank()
+    calls = smoke.train_fir_calls(bank("shgan_g256"), bank("comodgan_d256"),
+                                  8)
+    taps = correlation_taps(setup_filter([1, 3, 3, 1]))
+    want = {1: 1, 2: 3}   # up factor -> route (kRouteTile, kRouteUp2)
+    seen = set()
+    for _site, _r, shape, up, down, pads, _gain in calls:
+        ups, downs = (up, up), (down, down)
+        bwd = grad_pads(shape[2], shape[3], taps, ups, downs, pads)
+        for u, d, p in ((ups, downs, pads), (downs, ups, bwd)):
+            route, fixed = _route(harness, u, d, p, taps.shape)
+            assert route == (2 if d == (2, 2) else want[u[0]]), (u, d, p)
+            assert fixed or route == 1
+            seen.add(route)
+    assert seen == {1, 2, 3}
+    assert _route(harness, (2, 2), (1, 1), (2, 1, 2, 1), (4, 4),
+                  aligned=False)[0] == 0
+    assert _route(harness, (2, 2), (2, 2), (2, 2, 2, 2), (4, 4))[0] == 0
+    assert _route(harness, (2, 1), (1, 1), (2, 1, 0, 0), (4, 1))[0] == 0
+    assert _route(harness, (2, 2), (1, 1), (1, 2, 2, 1), (4, 4)) == (3, False)
 
 
 CONV3_CASES = [

@@ -176,21 +176,13 @@ def test_cli_flags_for_training(tmp_path):
         build_config("smoke_train", log_root=str(tmp_path), eval_tag="t")
 
 
-@pytest.mark.parametrize("res", [32, 64])
-def test_chip_smoke_launch_rule_counts_a_step(res, monkeypatch):
-    """The launch counts chip_smoke.py checks on the card, worked out from
-    the modules, against the calls a train step makes, counted here where
-    each kernel's wrapper would launch it: K2 forward and derivative calls
-    apart, the epilogue and its grad kernel (both modes)."""
+def _count_launches(monkeypatch):
+    """Counts of the calls where each kernel's wrapper would launch it on
+    the card (K2 forward and derivative calls apart, the epilogue and its
+    grad kernel in both modes), kept in the dict returned."""
     import importlib
 
-    sys.path.insert(0, REPO)
-    smoke = importlib.import_module("chip_smoke")
-    from shgan_torch.models import get_model
     from shgan_torch.ops import noise_bias_act as nba
-    from shgan_torch.train import TrainConfig, TrainStep
-    from test_torch_models import tiny_cfg
-    from test_torch_train_ops import tiny_d_cfg
     fir = importlib.import_module("shgan_torch.ops.upfirdn2d")
     counts = {}
     fir_any, on = fir._fir_any, nba._on
@@ -210,6 +202,23 @@ def test_chip_smoke_launch_rule_counts_a_step(res, monkeypatch):
         return run
     monkeypatch.setattr(fir, "_fir_any", counted_fir)
     monkeypatch.setattr(nba, "_on", counted_on)
+    return counts
+
+
+@pytest.mark.parametrize("res", [32, 64])
+def test_chip_smoke_launch_rule_counts_a_step(res, monkeypatch):
+    """The launch counts chip_smoke.py checks on the card, worked out from
+    the modules, against the calls a train step makes, counted here where
+    each kernel's wrapper would launch it."""
+    import importlib
+
+    sys.path.insert(0, REPO)
+    smoke = importlib.import_module("chip_smoke")
+    from shgan_torch.models import get_model
+    from shgan_torch.train import TrainConfig, TrainStep
+    from test_torch_models import tiny_cfg
+    from test_torch_train_ops import tiny_d_cfg
+    counts = _count_launches(monkeypatch)
     G, D = get_model(tiny_cfg(res)), get_model(tiny_d_cfg(res))
     step = TrainStep(G, D, TrainConfig())
     sites = smoke.train_sites(G, D)
@@ -225,3 +234,41 @@ def test_chip_smoke_launch_rule_counts_a_step(res, monkeypatch):
     # the K2 call list the script checks has the modules' K2 call count
     calls = smoke.train_fir_calls(tiny_cfg(res), tiny_d_cfg(res), 8)
     assert len(calls) == sites[0] + sites[1] + sites[2]
+
+
+def test_chip_smoke_counts_the_grids_apart(tmp_path, monkeypatch):
+    """As chip_smoke.py counts a training run: the counts set to 0 as each
+    step starts (``on_step_start``) and read as it ends (``on_step``), so a
+    step holds its own launches and G_ema's image grids (before step 0, at
+    the image tick after step 1, after the last step) hold
+    ``GRID_FORWARDS`` G forwards each, outside the steps."""
+    import importlib
+
+    sys.path.insert(0, REPO)
+    smoke = importlib.import_module("chip_smoke")
+    counts = _count_launches(monkeypatch)
+    per_step, outside = [], []
+
+    def on_step_start(i):
+        outside.append(dict(counts))
+        counts.clear()
+
+    def on_step(i, metrics):
+        per_step.append(dict(counts))
+        counts.clear()
+
+    cfg = build_config("smoke_train", log_root=str(tmp_path),
+                       overrides={"train.experiment_id": 0,
+                                  "train.total_kimg": 0.024})
+    rv = run(cfg, device="cpu", on_step=on_step, on_step_start=on_step_start)
+    outside.append(dict(counts))
+    step = rv["step"]
+    sites = smoke.train_sites(step.G, step.D)
+    tc = step.cfg
+    for i, got in enumerate(per_step):
+        want = smoke.expected_train_launches(
+            *sites, i % tc.g_reg_interval == 0, i % tc.d_reg_interval == 0)
+        assert got == {k: v for k, v in want.items() if v}, i
+    grid = {"upfirdn2d": smoke.GRID_FORWARDS * (sites[0] + sites[1]),
+            "noise_bias_act": smoke.GRID_FORWARDS * sites[3]}
+    assert outside == [grid, {}, grid, grid]

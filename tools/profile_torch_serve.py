@@ -16,7 +16,8 @@ a random batch of ``--batch`` 256² images.
 
 Prints one JSON object: the request's (or step's) wall time, the device's
 busy time and idle share over the profiled window, the device time by
-kernel group and by the top kernels, and the device operations (kernels and
+kernel group (K2 also by path: stride-1 tiles, resampling tiles, generic)
+and by the top kernels, and the device operations (kernels and
 copies) per request or step.  Run from the repository root:
 
     python3 tools/profile_torch_serve.py [--model shgan_g512] [--batch 8]
@@ -173,6 +174,15 @@ def main():
     for k, us in kernels.items():
         g = group_of(k)
         groups[g] = groups.get(g, 0.0) + us / 1e3 / args.reps
+    # K2 by path: the stride-1 tiles, the resampling tiles, the generic
+    # one-thread-an-output kernel
+    k2 = {}
+    for k, us in kernels.items():
+        if group_of(k) == "upfirdn2d (K2)":
+            path = next((p for p in ("upfirdn2d_tile_kernel",
+                                     "upfirdn2d_resample_kernel")
+                         if p in k), "upfirdn2d_kernel")
+            k2[path] = k2.get(path, 0.0) + us / 1e3 / args.reps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     per = "step" if args.train else "request"
     result = {
@@ -187,6 +197,7 @@ def main():
         f"device_ops_per_{per}": ops / args.reps,
         f"group_ms_per_{per}": dict(sorted(groups.items(),
                                            key=lambda kv: -kv[1])),
+        f"k2_ms_per_{per}_by_path": k2,
         f"top_kernels_ms_per_{per}": [(k[:120], us / 1e3 / args.reps)
                                       for k, us in top],
     }
