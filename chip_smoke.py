@@ -70,8 +70,23 @@ Phases, each printing one JSON line:
    from memory (cuDNN deterministic); one Gmain + Dmain + R1 gradient at
    batch 2 on the card and on the CPU, TF32 off, each leaf within 1e-3 of
    its norm;
-9. the kernels line ``{"kernels": [...]}``;
-10. last line: ``{"ok": true, "device": {...}}``.
+9. the published eval protocol: ``shgan_ffhq256_fullmetrics_eval``
+   assembled by ``build_config`` and run by ``run`` as configured
+   (full-width ``shgan_g256`` with random weights from a ``.pth``, batch
+   16, random noise; fid + kid + pr + is on one Inception pass a batch,
+   ppl2_wend with 2000 samples on vgg16, lpips alex, psnr, ssim) on 256
+   FFHQ-named 256² PNGs in ``data/ffhq/ffhq256x256.zip``, random Inception,
+   AlexNet, VGG16 and LPIPS-lin weights in their released layouts reached
+   through the environment variables; every metric finite, K2's launches
+   by route and the epilogue's exact over the 16 stream forwards and the
+   PPL forwards (K1 alone, K3 and the derivative kernels none); PPL's
+   distance exactly 0 at ε = 0 with the noise on; the run again with the
+   real-feature cache (fid, kid, pr within 1e-4 of their values); the
+   pre-generated protocol (``--evalnog_path``, each real flipped) in
+   process with no kernel launch, and through ``python -m
+   shgan_torch.main`` in a subprocess;
+10. the kernels line ``{"kernels": [...]}``;
+11. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line.  It needs the repository (``shgan_torch``, ``configs/``) and
@@ -1168,6 +1183,343 @@ def train_path(tmp, cli, build):
     return row, cfg
 
 
+# ---------------------------------------------------------------------------
+# the published eval protocol: shgan_ffhq256_fullmetrics_eval
+# ---------------------------------------------------------------------------
+
+FULL_EXPERIMENT = "shgan_ffhq256_fullmetrics_eval"
+FULL_G = "shgan_g256"
+FULL_IMAGES = 256     # FFHQ-named PNGs in data/ffhq/ffhq256x256.zip
+FULL_RES = 256
+PREGEN_IMAGES = 64    # the in-process pregen run's images
+CACHED_RTOL = 1e-4    # fid, kid, pr with the real-feature cache vs without
+LPIPS_ENV = ("SHGAN_TPU_ALEXNET", "SHGAN_TPU_LPIPS_LIN", "SHGAN_TPU_VGG16",
+             "SHGAN_TPU_LPIPS_LIN_VGG")
+
+
+def ffhq_zip(root, n, res, seed=0):
+    """``<root>/data/ffhq/ffhq256x256.zip``: ``n`` smooth random RGB
+    images named as FFHQ's (``00000.png`` …) from a numpy seed; returns the
+    directory holding the zip and the images as uint8 HWC."""
+    from PIL import Image
+    import io
+    import zipfile
+    d = os.path.join(root, "data", "ffhq")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    imgs = []
+    with zipfile.ZipFile(os.path.join(d, "ffhq256x256.zip"), "w") as z:
+        for i in range(n):
+            low = torch.from_numpy(rng.rand(1, 3, 8, 8).astype(np.float32))
+            img = F.interpolate(low, size=(res, res), mode="bicubic",
+                                align_corners=False)[0].numpy()
+            img = img + 0.05 * rng.randn(3, res, res).astype(np.float32)
+            img = np.rint(np.clip(img, 0, 1) * 255).astype(np.uint8)
+            imgs.append(img.transpose(1, 2, 0))
+            buf = io.BytesIO()
+            Image.fromarray(imgs[-1]).save(buf, format="PNG")
+            z.writestr(f"{i:05d}.png", buf.getvalue())
+    return d, imgs
+
+
+def lpips_weight_files(tmp, seed=0):
+    """Random AlexNet, VGG16 and both LPIPS-lin ``.pth`` files in
+    torchvision's and lpips' key layouts; → {environment variable: path}."""
+    from shgan_torch.eval import lpips
+    out = {}
+    for net, params, (bvar, lvar) in (
+            ("alex", lpips.random_lpips_params(seed), LPIPS_ENV[:2]),
+            ("vgg16", lpips.random_vgg16_lpips_params(seed), LPIPS_ENV[2:])):
+        backbone, lin = lpips.torchvision_state_dicts(params, net)
+        out[bvar] = os.path.join(tmp, f"{net}_backbone.pth")
+        out[lvar] = os.path.join(tmp, f"{net}_lin.pth")
+        torch.save(backbone, out[bvar])
+        torch.save(lin, out[lvar])
+    return out
+
+
+def fullmetrics_config(tmp, g_pth, data_root, log_sub, evaluators=None):
+    """``shgan_ffhq256_fullmetrics_eval`` through the CLI's config assembly
+    as configured (``shgan_g256``, batch 16, random noise, fid + kid + pr +
+    is, ppl2_wend with 2000 samples in w space at ε 1e-4 on vgg16, lpips
+    alex, psnr, ssim), the dataset root pointed at ``data_root`` and the
+    real-feature cache under ``tmp``."""
+    from shgan_torch.main import build_config
+    cfg = build_config(FULL_EXPERIMENT, eval_id=0, pretrained=g_pth,
+                       log_root=os.path.join(tmp, log_sub))
+    ev = cfg["eval"]
+    ev["dataset"]["root_dir"] = data_root
+    ev["log_display"] = FULL_IMAGES
+    evs = ev["evaluator"]
+    if evaluators is not None:
+        evs = [e for e in evs if e["type"] in evaluators]
+    for e in evs:
+        if e["type"] in ("fid", "kid", "pr", "is"):
+            e["args"] = dict(e.get("args") or {},
+                             cache_dir=os.path.join(tmp, "cache"))
+    ev["evaluator"] = evs
+    return cfg
+
+
+def fullmetrics_launches(g_cfg, batch, images, ppl_samples, ppl_batch):
+    """The launches of a fullmetrics eval, worked out from the modules:
+    ``images / batch`` stream forwards, then ``ppl_samples / ppl_batch``
+    PPL batches of one encoder and two synthesis passes each; K2's by route
+    (``stride1``: up = down = 1, ``up2``: the skip-image upsample) and the
+    fused epilogue's."""
+    calls = fir_calls(g_cfg, batch)
+    per_fwd = {"stride1": sum(c[3] == 1 for c in calls),
+               "up2": sum(c[3] == 2 for c in calls)}
+    per_enc = sum(c[0] == "enc_down_blur" for c in calls)
+    layers = sum(noise_layers(g_cfg).values())
+    n_batches = -(-images // batch)
+    ppl_batches = -(-ppl_samples // ppl_batch)
+    return {"stream_forwards": n_batches, "ppl_batches": ppl_batches,
+            "upfirdn2d_per_forward": per_fwd, "upfirdn2d_encoder": per_enc,
+            "noise_bias_act_per_forward": layers,
+            "upfirdn2d_by_route": {
+                "stride1": n_batches * per_fwd["stride1"] + ppl_batches
+                * (per_enc + 2 * (per_fwd["stride1"] - per_enc)),
+                "up2": (n_batches + 2 * ppl_batches) * per_fwd["up2"],
+                "other": 0},
+            "noise_bias_act": (n_batches + 2 * ppl_batches) * layers}
+
+
+def fir_route_tally(fir):
+    """Wrap K2's launch function so each launch is tallied by its route
+    (up = down = 1: the stride-1 tiles; up = 2: the resampling tiles; any
+    other: the generic kernel) beside the wrapper's own count; → (tally,
+    undo)."""
+    tally = {"stride1": 0, "up2": 0, "other": 0}
+    orig = fir.fir_cuda
+
+    def counted(x, taps, up=(1, 1), down=(1, 1), pads=(0, 0, 0, 0),
+                counter="upfirdn2d"):
+        key = ("stride1" if tuple(up) == tuple(down) == (1, 1) else
+               "up2" if tuple(up) == (2, 2) and tuple(down) == (1, 1)
+               else "other")
+        tally[key] += 1
+        return orig(x, taps, up, down, pads, counter)
+
+    fir.fir_cuda = counted
+    return tally, lambda: setattr(fir, "fir_cuda", orig)
+
+
+def fullmetrics_path(tmp, cli, build, fir, inc_pth):
+    """The published eval protocol on the card: the fullmetrics experiment
+    at full-width ``shgan_g256`` on an FFHQ-format zip, with launch counts
+    by route over the stream and the PPL forwards; PPL's noise at ε = 0;
+    the run again with the real-feature cache; the pre-generated protocol
+    in process and through the CLI."""
+    from PIL import Image
+    from shgan_torch.eval.lpips import (lpips_params_to,
+                                        random_vgg16_lpips_params)
+    from shgan_torch.eval.ppl import make_ppl_sampler
+    from shgan_torch.runtime.stages import build_generator
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "fullmetrics")
+    os.makedirs(work)
+    data_root, reals = ffhq_zip(work, FULL_IMAGES, FULL_RES)
+    g_pth = os.path.join(work, f"{FULL_G}_random.pth")
+    random_weights(FULL_G, g_pth)
+    env = dict(lpips_weight_files(work), SHGAN_TPU_INCEPTION=inc_pth)
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        cfg = fullmetrics_config(work, g_pth, data_root, "log")
+        ev = cfg["eval"]
+        batch = ev["batch_size_per_gpu"]
+        ppl_cfg = next(e["args"] for e in ev["evaluator"]
+                       if e["type"] == "ppl")
+        g_cfg = cfg["model_g"]
+        rule = fullmetrics_launches(g_cfg, batch, FULL_IMAGES,
+                                    ppl_cfg["num_samples"],
+                                    ppl_cfg["batch_size"])
+        want_route = rule["upfirdn2d_by_route"]
+        want = {k: 0 for k in build.launches}
+        want.update(upfirdn2d=sum(want_route.values()),
+                    noise_bias_act=rule["noise_bias_act"])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tally, undo = fir_route_tally(fir)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rv = cli.run(cfg)
+        finally:
+            undo()
+        run_s = time.perf_counter() - t0
+        launches = dict(build.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        if launches != want or tally != want_route:
+            raise AssertionError(f"fullmetrics launches {launches} by route "
+                                 f"{tally}, expected {want} by route "
+                                 f"{want_route}")
+        with open(os.path.join(ev["log_dir"], "result.json")) as f:
+            result = json.load(f)
+        metrics = {"fid": result["fid"]["fid"], "kid": result["kid"]["kid"],
+                   "precision": result["pr"]["precision"],
+                   "recall": result["pr"]["recall"],
+                   "is_mean": result["is"]["is_mean"],
+                   "is_std": result["is"]["is_std"],
+                   "ppl": result["ppl"]["ppl"],
+                   "lpips": result["lpips"]["lpips"],
+                   "psnr": result["psnr"]["psnr"],
+                   "ssim": result["ssim"]["ssim"]}
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"fullmetrics result.json: {metrics}")
+        timing = rv["timing"]
+        stream_s = sum(timing["batch_s"][1:]) + timing["drain_s"]
+
+        # PPL's two images share their noise: at ε = 0 the distance is 0
+        G = build_generator(g_cfg, g_pth).to("cuda").eval()
+        G.requires_grad_(False)
+        gen = torch.Generator().manual_seed(5)
+        real = torch.from_numpy(np.stack(reals[:batch]).transpose(0, 3, 1, 2)
+                                ).float().cuda() / 127.5 - 1
+        mask = (torch.rand(batch, 1, FULL_RES, FULL_RES, generator=gen)
+                > 0.3).float().cuda()
+        x = torch.cat([mask - 0.5, real * mask], dim=1)
+        z = torch.randn(2 * batch, G.z_dim, generator=gen).cuda()
+        zero = torch.zeros(batch, device="cuda")
+        lp = lpips_params_to(random_vgg16_lpips_params(0), "cuda")
+        d0 = make_ppl_sampler(G, lp, 0.0, "w", "end", False,
+                              net="vgg16").distance(x, z[:batch], z[batch:],
+                                                    zero, 77)
+        d_step = make_ppl_sampler(G, lp, ppl_cfg["epsilon"], "w", "end",
+                                  False, net="vgg16")(
+            x, z[:batch], z[batch:], zero, 77)
+        if not torch.equal(d0, torch.zeros_like(d0)):
+            raise AssertionError(f"PPL at eps 0: {d0.tolist()}")
+        if not (torch.isfinite(d_step).all() and (d_step > 0).all()):
+            raise AssertionError(f"PPL at eps {ppl_cfg['epsilon']}: "
+                                 f"{d_step.tolist()}")
+        del G
+
+        # again, the real features from the cache the first run wrote, with
+        # SHGAN_EVAL_TIMING=1: each batch's pipe wait, generator (fenced)
+        # and metrics
+        cache = os.path.join(work, "cache")
+        if not os.listdir(cache):
+            raise AssertionError("no real-feature cache written")
+        ccfg = fullmetrics_config(work, g_pth, data_root, "log_cached",
+                                  evaluators=("fid", "kid", "pr", "is"))
+        os.environ["SHGAN_EVAL_TIMING"] = "1"
+        t0 = time.perf_counter()
+        try:
+            crv = cli.run(ccfg)
+        finally:
+            del os.environ["SHGAN_EVAL_TIMING"]
+        cached_s = time.perf_counter() - t0
+        split = crv["timing"]["phase_s"][1:]
+        cached = {"fid": crv["eval_rv"]["fid"], "kid": crv["eval_rv"]["kid"],
+                  "precision": crv["eval_rv"]["pr"]["precision"],
+                  "recall": crv["eval_rv"]["pr"]["recall"]}
+        cached_diff = {k: abs(cached[k] - metrics[k]) for k in cached}
+        if not all(cached_diff[k] <= CACHED_RTOL * abs(metrics[k])
+                   for k in cached):
+            raise AssertionError(f"cached run: {cached} against {metrics}")
+
+        # the pre-generated protocol: each real flipped left to right
+        gen_dir = os.path.join(work, "gen")
+        os.makedirs(gen_dir)
+        for i, img in enumerate(reals):
+            Image.fromarray(np.ascontiguousarray(img[:, ::-1])).save(
+                os.path.join(gen_dir, f"{i:05d}.png"))
+        from shgan_torch.main import build_config
+        pcfg = build_config("shgan_ffhq256_eval", eval_id=0,
+                            pretrained=g_pth, evalnog_path=gen_dir,
+                            log_root=os.path.join(work, "log_pregen"))
+        pev = pcfg["eval"]
+        pev["dataset"]["root_dir"] = data_root
+        pev["dataset"]["try_sample"] = PREGEN_IMAGES
+        pev["evaluator"] = [
+            dict(e, args=dict(e.get("args") or {},
+                              cache_dir=os.path.join(work, "cache_pregen")))
+            for e in pev["evaluator"]] + [
+            {"type": "psnr", "args": {"for_dataset": None, "rgb_range": 1}},
+            {"type": "ssim", "args": {"window_size": 11}}]
+        build.reset_launches()
+        t0 = time.perf_counter()
+        prv = cli.run(pcfg)["eval_rv"]
+        pregen_s = time.perf_counter() - t0
+        pregen_launches = dict(build.launches)
+        pregen = {"fid": prv["fid"], "psnr": prv["psnr"],
+                  "ssim": prv["ssim"]}
+        if (any(pregen_launches.values())
+                or pcfg["eval"]["dataset"]["type"] != "ffhqzip_loadgen"
+                or not all(math.isfinite(v) for v in pregen.values())):
+            raise AssertionError(f"pregen: {pregen}, launches "
+                                 f"{pregen_launches}")
+
+        # the same protocol through the command line, data under the cwd
+        cli_env = dict(os.environ, SHGAN_LOG_ROOT=os.path.join(work, "cli"),
+                       PYTHONPATH=os.pathsep.join(
+                           [os.path.dirname(os.path.abspath(__file__))]
+                           + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "shgan_torch.main", "--experiment",
+             "shgan_ffhq256_eval", "--eval", "0", "--evalnog_path", gen_dir,
+             "--pretrained", g_pth], cwd=work, env=cli_env,
+            capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"CLI --evalnog_path exit {r.returncode}:\n"
+                                 f"{r.stdout}\n{r.stderr}")
+        res_json = os.path.join(work, "cli", "shgan_ffhqzip_val256_inpainting",
+                                "0", "shgan_ffhq256", "result.json")
+        with open(res_json) as f:
+            cli_fid = json.load(f)["fid"]["fid"]
+        if not math.isfinite(cli_fid):
+            raise AssertionError(f"CLI --evalnog_path fid {cli_fid}")
+        cli_s = time.perf_counter() - t0
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    row = {"phase": "fullmetrics_path", "experiment": FULL_EXPERIMENT,
+           "model": g_cfg.get("name"), "images": FULL_IMAGES,
+           "batch": batch, "resolution": FULL_RES, "noise_mode": "random",
+           "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+           "evaluators": [e["type"] for e in ev["evaluator"]],
+           "ppl": {k: ppl_cfg[k] for k in ("num_samples", "epsilon", "space",
+                                           "sampling", "batch_size")},
+           "ppl_net": "vgg16", "metrics": metrics,
+           "launches": launches, "k2_launches_by_route": tally,
+           "expected": rule,
+           "stream_images_per_s": batch * (rule["stream_forwards"] - 1)
+           / stream_s,
+           "images_timed": batch * (rule["stream_forwards"] - 1),
+           "batch_s": timing["batch_s"], "drain_s": timing["drain_s"],
+           "ppl_s": timing["generator_metrics_s"],
+           "ppl_samples_per_s": ppl_cfg["num_samples"]
+           / timing["generator_metrics_s"],
+           "run_s": run_s, "peak_mem_gib": peak_gib,
+           "ppl_eps0_distance": d0.tolist(),
+           "ppl_step_distance": d_step.tolist(),
+           "cached": cached, "cached_abs_diff": cached_diff,
+           "cached_rtol": CACHED_RTOL,
+           "cached_fenced_images_per_s": batch * (rule["stream_forwards"] - 1)
+           / (sum(crv["timing"]["batch_s"][1:]) + crv["timing"]["drain_s"]),
+           "cached_fenced_phase_mean_s": {
+               k: float(np.mean([p[k] for p in split]))
+               for k in ("pipe_wait_s", "gen_s", "metrics_s")},
+           "cached_run_s": cached_s,
+           "pregen": pregen, "pregen_images": PREGEN_IMAGES,
+           "pregen_launches": pregen_launches, "pregen_s": pregen_s,
+           "cli_evalnog": {"argv": r.args[1:], "exit": r.returncode,
+                           "fid": cli_fid, "images": FULL_IMAGES,
+                           "wall_s": cli_s},
+           "wall_s": time.perf_counter() - t_phase}
+    emit(row)
+    torch.cuda.empty_cache()
+    return row
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="perf_out",
@@ -1531,12 +1883,20 @@ def main():
         torch.backends.cudnn.allow_tf32 = False
         parity_row = train_parity(tcfg)
         detail.update(train_path=train_row, train_parity=parity_row)
+
+        # ---- 9. the published eval protocol at shgan_g256 --------------------
+        # (PyTorch's defaults, as a user runs it: cuDNN may use TF32)
+        torch.backends.cudnn.allow_tf32 = True
+        full_row = fullmetrics_path(tmp, cli, build, fir, inc_pth)
+        full_launches = full_row["launches"]
+        detail.update(fullmetrics_path=full_row)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- 9. the kernels line -------------------------------------------------
+    # ---- 10. the kernels line ------------------------------------------------
     detail.update(eval_launches=eval_launches, k3_in_place=in_place,
-                  train_launches=train_launches)
+                  train_launches=train_launches,
+                  fullmetrics_launches=full_launches)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke_detail.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
@@ -1570,6 +1930,7 @@ def main():
          "launches": launches["upfirdn2d"],
          "launches_eval_path": eval_launches["upfirdn2d"],
          "launches_train_path": train_launches["upfirdn2d"],
+         "launches_fullmetrics_path": full_launches["upfirdn2d"],
          "max_abs_err": max(r["max_abs_err"] for r in fr + fir_1024),
          "ms": wsum(fr, "ms"), "eager_ms": wsum(fr, "eager_ms"),
          "bf16_ms": wsum(fr, "bf16_ms"),
@@ -1593,6 +1954,7 @@ def main():
          "launches": launches["philox_normal"],
          "launches_eval_path": eval_launches["philox_normal"],
          "launches_train_path": train_launches["philox_normal"],
+         "launches_fullmetrics_path": full_launches["philox_normal"],
          "max_abs_err": max(r["max_abs_err"] for r in nr + noise_1024),
          "ms": wsum(nr, "ms"), "eager_ms": wsum(nr, "eager_ms"),
          "plain_ms": wsum(nr, "plain_ms"),
@@ -1611,6 +1973,7 @@ def main():
          "launches": launches["noise_bias_act"],
          "launches_eval_path": eval_launches["noise_bias_act"],
          "launches_train_path": train_launches["noise_bias_act"],
+         "launches_fullmetrics_path": full_launches["noise_bias_act"],
          "max_abs_err": max(r["max_abs_err"] for r in er + epi_1024),
          "ms": wsum(er, "ms"), "eager_ms": wsum(er, "eager_ms"),
          "bf16_ms": wsum(er, "bf16_ms"),
@@ -1636,6 +1999,7 @@ def main():
          "replaces_function": "conv3x3_lowch",
          "launches": eval_launches["conv3x3_lowch"],
          "launches_train_path": train_launches["conv3x3_lowch"],
+         "launches_fullmetrics_path": full_launches["conv3x3_lowch"],
          "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
          "ms": 2 * k3["ms"], "eager_ms": 2 * k3["eager_ms"],
          "plain_ms": 2 * k3["plain_ms"],
@@ -1659,6 +2023,7 @@ def main():
          "replaces_function": "the custom VJP of _pallas_fir (_make_op's "
                               "bwd, XLA on the TPU)",
          "launches": train_launches["upfirdn2d_grad"],
+         "launches_fullmetrics_path": full_launches["upfirdn2d_grad"],
          "max_abs_err": max(r["max_abs_err"] for r in fgr),
          "ms": sum(r["ms"] for r in fgr),
          "eager_ms": sum(r["eager_ms"] for r in fgr),
@@ -1686,6 +2051,7 @@ def main():
          "replaces_function": "JAX autodiff of the chain after "
                               "_pallas_normal (the noise has no gradient)",
          "launches": train_launches["noise_bias_act_grad"],
+         "launches_fullmetrics_path": full_launches["noise_bias_act_grad"],
          "max_abs_err": max(r["max_abs_err"] for r in egr),
          "sums_max_rel_err": max(r["sums_max_rel_err"] for r in egr),
          "ms": wsum(egr, "ms"), "eager_ms": wsum(egr, "eager_ms"),

@@ -1,7 +1,7 @@
 """Element-transform registry: composable element → element stages in front
 of a formatter, configured as ``dataset: {transforms: [{type, args}, ...]}``
-(port of ``shgan_tpu/data/transforms.py``, without the float bicubic resize
-of the training formatter).
+(port of ``shgan_tpu/data/transforms.py``), and the float bicubic resize
+of the ``AdvInpaintingFormatter``.
 """
 
 from __future__ import annotations
@@ -56,6 +56,43 @@ def wrap_formatter(formatter, transforms_cfg):
     def wrapped(el):
         return formatter(t(el))
     return wrapped
+
+
+def _cubic_taps(in_size, out_size):
+    """4-tap cubic-convolution gather indices and weights with
+    ``F.interpolate(mode='bicubic')``'s rules: A = -0.75, the
+    align_corners=False source map, border clamp."""
+    A = -0.75
+    scale = in_size / out_size
+    src = (np.arange(out_size, dtype=np.float64) + 0.5) * scale - 0.5
+    base = np.floor(src).astype(np.int64)
+    t = src - base
+
+    def k(x):
+        x = np.abs(x)
+        return np.where(
+            x <= 1, (A + 2) * x ** 3 - (A + 3) * x ** 2 + 1,
+            np.where(x < 2,
+                     A * x ** 3 - 5 * A * x ** 2 + 8 * A * x - 4 * A, 0.0))
+
+    w = np.stack([k(t + 1), k(t), k(1 - t), k(2 - t)])          # [4, out]
+    idx = np.clip(np.stack([base - 1, base, base + 1, base + 2]),
+                  0, in_size - 1)                               # [4, out]
+    return idx, w.astype(np.float64)
+
+
+def resize_bicubic_float(x_chw, out_h, out_w):
+    """Float bicubic resize of a CHW array with the results of
+    ``F.interpolate(mode='bicubic', align_corners=False)`` (no antialias,
+    no clamp), on the host in float64, returned as float32.  A uint8 PIL
+    round trip would quantize and use PIL's kernel (A = -0.5)."""
+    x = np.asarray(x_chw, np.float64)
+    ih, iw = x.shape[1], x.shape[2]
+    idx_h, w_h = _cubic_taps(ih, out_h)
+    idx_w, w_w = _cubic_taps(iw, out_w)
+    xh = sum(x[:, idx_h[k], :] * w_h[k][None, :, None] for k in range(4))
+    out = sum(xh[:, :, idx_w[k]] * w_w[k][None, None, :] for k in range(4))
+    return out.astype(np.float32)
 
 
 def _to_pil(img_chw01):

@@ -1,6 +1,7 @@
 """Evaluator base, registry and compose (port of the single-process parts of
 ``shgan_tpu/eval/base.py``; the multi-process gathers come with the
-``parallel/`` slice).
+``parallel/`` slice), with the hooks of the metrics that drive the generator
+themselves (PPL: ``needs_generator``, ``run_generator_metrics``).
 
 Evaluators receive whole batches plus a validity mask that marks the rows
 padding the last batch, accumulate per-image values or features, and write
@@ -36,14 +37,17 @@ def get_evaluator(cfg):
 
 def _build(c):
     if c["type"] not in _EVALUATOR_REGISTRY:
-        raise NotImplementedError(
-            f"evaluator {c['type']!r} is not in the port yet; it has "
-            f"{sorted(_EVALUATOR_REGISTRY)}")
+        raise KeyError(f"unknown evaluator {c['type']!r}; the registry has "
+                       f"{sorted(_EVALUATOR_REGISTRY)}")
     return _EVALUATOR_REGISTRY[c["type"]](**dict(c.get("args") or {}))
 
 
 class BaseEvaluator:
     symbol = "base"
+    # metrics that drive the generator themselves (PPL): the eval stage
+    # hands them the masks and calls run_generator_metrics(G, seed) after
+    # the batch stream
+    needs_generator = False
     # False on metrics that read only the device views (fake_dev, real_dev,
     # pred_dev, gt_dev): when no composed metric reads host pixels, the eval
     # stage skips the full-image device→host copy
@@ -57,6 +61,9 @@ class BaseEvaluator:
 
     def set_sample_n(self, n):
         self.sample_n = n
+
+    def run_generator_metrics(self, G, seed=0):
+        pass
 
     @staticmethod
     def _log(msg):
@@ -136,12 +143,21 @@ class ComposeEvaluator:
             e.set_sample_n(n)
 
     @property
+    def needs_generator(self):
+        return any(e.needs_generator for e in self.evaluators)
+
+    @property
     def consumes_host_pixels(self):
         return any(e.consumes_host_pixels for e in self.evaluators)
 
     @property
     def consumes_device_views(self):
         return any(e.consumes_device_views for e in self.evaluators)
+
+    def run_generator_metrics(self, G, seed=0):
+        for i, e in enumerate(self.evaluators):
+            if e.needs_generator:
+                e.run_generator_metrics(G, seed=seed + i)
 
     def drain(self):
         for e in self.evaluators:

@@ -1,10 +1,13 @@
 """Feature-bank evaluators around the shared Inception detector (port of
-``FeatureBankEvaluator`` of ``shgan_tpu/eval/feature_metrics.py``; KID, PR
-and IS come later).
+``shgan_tpu/eval/feature_metrics.py``): the bank every feature metric
+keeps, and KID, improved precision/recall and the inception score.  FID
+(:mod:`.fid`), KID, PR and IS in one compose share one Inception pass a
+batch through the detector's memo.
 
 Real features are cached at ``<cache_dir>/<tag>_<policy>_real_feat.npy``,
-the JAX package's name, so the two packages share caches.  The banks are
-float64, like the reference's.
+the JAX package's name, so the two packages share caches (the first writer
+wins; FID, KID and PR of one compose share a tag).  The banks are float64,
+like the reference's.
 """
 
 from __future__ import annotations
@@ -15,8 +18,10 @@ import os.path as osp
 import numpy as np
 import torch
 
-from .base import BaseEvaluator
+from .base import BaseEvaluator, register_evaluator
 from .detector import get_detector, resolve_resize_policy
+from .stylegan_metrics import (compute_inception_score, compute_kid,
+                               compute_precision_recall)
 
 
 def real_feature_cache_file(cache_dir, tag, resize_policy=None):
@@ -112,3 +117,73 @@ class FeatureBankEvaluator(BaseEvaluator):
         self.data_fake_feat = []
         self.data_fake_probs = []
         self.data_real_feat = []
+
+
+@register_evaluator("kid")
+class KIDEvaluator(FeatureBankEvaluator):
+    """Kernel Inception Distance, the raw MMD (no ×1000)."""
+
+    def __init__(self, num_subsets=100, max_subset_size=1000, kid_seed=0,
+                 **kw):
+        super().__init__(**kw)
+        self.num_subsets = num_subsets
+        self.max_subset_size = max_subset_size
+        self.kid_seed = kid_seed
+
+    def compute(self):
+        fake_feat, real_feat, _ = self._gather()
+        kid = compute_kid(real_feat, fake_feat,
+                          num_subsets=self.num_subsets,
+                          max_subset_size=self.max_subset_size,
+                          seed=self.kid_seed)
+        self.final["kid"] = kid
+        return kid
+
+    def one_line_summary(self):
+        self._log("Evaluator kid: {:.6f}".format(self.final["kid"]))
+
+
+@register_evaluator("pr")
+class PREvaluator(FeatureBankEvaluator):
+    """Improved precision and recall (k-NN manifolds, ``nhood_size``)."""
+
+    def __init__(self, nhood_size=3, **kw):
+        super().__init__(**kw)
+        self.nhood_size = nhood_size
+
+    def compute(self):
+        fake_feat, real_feat, _ = self._gather()
+        precision, recall = compute_precision_recall(
+            real_feat, fake_feat, nhood_size=self.nhood_size)
+        self.final["precision"] = precision
+        self.final["recall"] = recall
+        return {"precision": precision, "recall": recall}
+
+    def one_line_summary(self):
+        self._log("Evaluator pr: precision {:.4f} recall {:.4f}".format(
+            self.final["precision"], self.final["recall"]))
+
+
+@register_evaluator("is")
+class ISEvaluator(FeatureBankEvaluator):
+    """Inception score of the generated images; reads the fake stream only
+    (no real features)."""
+
+    needs_real = False
+    needs_probs = True
+
+    def __init__(self, num_splits=10, **kw):
+        super().__init__(**kw)
+        self.num_splits = num_splits
+
+    def compute(self):
+        _, _, fake_probs = self._gather()
+        mean, std = compute_inception_score(fake_probs,
+                                            num_splits=self.num_splits)
+        self.final["is_mean"] = mean
+        self.final["is_std"] = std
+        return {"is_mean": mean, "is_std": std}
+
+    def one_line_summary(self):
+        self._log("Evaluator is: {:.4f} ± {:.4f}".format(
+            self.final["is_mean"], self.final["is_std"]))

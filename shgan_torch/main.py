@@ -4,13 +4,15 @@ the JAX package's ``main.py``::
     python -m shgan_torch.main --experiment shgan_synthetic256_eval \\
         [--debug] [--eval ID] [--seed N] [--pretrained path.pth] \\
         [--eval_tag TAG] [--model NAME] [--dataset NAME] [--pick UID ...] \\
-        [--demo] [--gpu 0] [--device cpu]
+        [--demo] [--gpu 0] [--device cpu] [--evalnog_path GEN_DIR]
     python -m shgan_torch.main --experiment smoke_train [--trainonly] \\
         [--resume_path SNAPSHOT [--resume_itern KIMG]] [--device cpu]
     python -m shgan_torch.main --resume_path RUN_DIR   # continue that run
 
 An experiment with a train section trains unless ``--eval ID`` or
-``--demo`` asks for its eval section.  It runs on the CUDA device unless
+``--demo`` asks for its eval section.  ``--evalnog_path GEN_DIR`` scores
+the images in ``GEN_DIR`` (``<uid>.png``) against the eval dataset's reals
+with no generator in the loop.  It runs on the CUDA device unless
 ``--device cpu`` is given.  Logs go to
 ``<SHGAN_LOG_ROOT or env.log_root_dir>/<model>_<dataset>/<id>/<tag>/``
 (``<tag>`` the eval tag, or ``train``) with ``eval.log`` or ``train.log``
@@ -70,6 +72,9 @@ def get_args(argv=None):
                    help="the snapshot's kimg (picks it; sets the progress)")
     p.add_argument("--trainonly", action="store_true",
                    help="drop the eval section")
+    p.add_argument("--evalnog_path", type=str, default=None,
+                   help="evaluate pre-generated images from this dir "
+                        "(no generator in the loop)")
     return p.parse_args(argv)
 
 
@@ -81,11 +86,31 @@ def _set(cfg, dotted, value):
     node[last] = value
 
 
+def set_evalnog_path(ds, gen_dir):
+    """The eval dataset dict that pairs ``ds``'s reals with the images in
+    ``gen_dir``: a ``*loadgen`` type gets ``args.gen_dir``; a type with a
+    loadgen form becomes it; any other is wrapped in a ``loadgen`` over
+    it.  ``ds`` is changed in place where it can be; returns the dict."""
+    from .data.datasets import _DATASET_REGISTRY
+    if str(ds.get("type", "")).endswith("loadgen"):
+        ds.setdefault("args", {})["gen_dir"] = gen_dir
+        return ds
+    ds["gen_dir"] = gen_dir
+    loadgen_type = f"{ds['type']}_loadgen"
+    if loadgen_type in _DATASET_REGISTRY:
+        ds["type"] = loadgen_type
+        ds.setdefault("args", {})["gen_dir"] = gen_dir
+        return ds
+    return {"type": "loadgen", "name": ds.get("name"), "gen_dir": gen_dir,
+            "args": {"base": dict(ds), "gen_dir": gen_dir},
+            "formatter": ds.get("formatter")}
+
+
 def build_config(experiment, debug=False, eval_id=None, seed=None,
                  pretrained=None, eval_tag=None, model=None, dataset=None,
                  pick=None, demo=False, gpu=None, log_root=None,
                  trainonly=False, resume_path=None, resume_itern=None,
-                 overrides=None):
+                 evalnog_path=None, overrides=None):
     """The solved config of ``experiment`` with the CLI's overrides
     applied, for its eval section (``eval_id``/``demo`` given, or no train
     section) or else its train section, and that section's log dir set
@@ -127,7 +152,8 @@ def build_config(experiment, debug=False, eval_id=None, seed=None,
         cfg["env"]["mesh_devices"] = len(gpu)
     if debug:
         cfg = apply_debug_shrink(cfg)
-    for flag, val in (("--pretrained", pretrained), ("--eval_tag", eval_tag)):
+    for flag, val in (("--pretrained", pretrained), ("--eval_tag", eval_tag),
+                      ("--evalnog_path", evalnog_path)):
         if val is not None and not is_eval:
             raise SystemExit(f"{flag} needs an eval run; [{experiment}] "
                              "trains")
@@ -135,6 +161,9 @@ def build_config(experiment, debug=False, eval_id=None, seed=None,
         cfg["eval"]["pretrained_pth"] = pretrained
     if eval_tag is not None:
         cfg["eval"]["eval_tag"] = eval_tag
+    if evalnog_path is not None:
+        cfg["eval"]["dataset"] = set_evalnog_path(cfg["eval"]["dataset"],
+                                                  evalnog_path)
     if demo:
         cfg["eval"]["output_sample_images"] = True
         cfg["eval"]["demo_only"] = True
@@ -220,7 +249,7 @@ def main(argv=None):
         eval_tag=args.eval_tag, model=args.model, dataset=args.dataset,
         pick=args.pick, demo=args.demo, gpu=args.gpu,
         trainonly=args.trainonly, resume_path=args.resume_path,
-        resume_itern=args.resume_itern)
+        resume_itern=args.resume_itern, evalnog_path=args.evalnog_path)
     return run(cfg, device=args.device)
 
 

@@ -3,15 +3,18 @@
 
 Eval: ``python -m shgan_torch.main`` → :class:`eval_stage` → the host
 pipeline (:mod:`..data.pipeline`) → ``models/infer.composite_forward`` →
-the evaluators (Inception → FID, PSNR, SSIM) → ``result.json``.
+the evaluators (Inception → FID, KID, PR, IS; LPIPS, PSNR, SSIM) → after
+the stream, the metrics that drive the generator themselves (PPL) →
+``result.json``.  A loadgen dataset (``--evalnog_path``) scores
+pre-generated images instead, with no generator (:meth:`eval_stage.
+_eval_pregen`).
 
 Train: ``python -m shgan_torch.main`` → :class:`train_stage` →
 ``TrainPipeline`` → :class:`~..train.TrainStep` (Gmain [+ Gpl], Dmain
 [+ R1], Adam, G-EMA) → snapshots (:mod:`..checkpoint.train_state`).
 
-Still to port: the pre-generated (loadgen) eval path, the device image bank,
-the ``.pkl`` snapshot load, multi-device eval and train, the
-generator-in-the-loop metrics, and in training the nested eval and the
+Still to port: the device image bank, the ``.pkl`` snapshot load,
+multi-device eval and train, and in training the nested eval and the
 profiler hook; each raises where the config asks for it.
 """
 
@@ -28,7 +31,8 @@ from ..checkpoint.convert import load_pth
 from ..checkpoint.train_state import load_train_state, save_train_state
 from ..data.datasets import get_dataset
 from ..data.formatters import get_formatter
-from ..data.pipeline import EvalPipeline, TrainPipeline
+from ..data.pipeline import (EvalPipeline, TrainPipeline, _Prefetcher,
+                             _to_device)
 from ..data.rng import derive_seed
 from ..data.transforms import wrap_formatter
 from ..eval import get_evaluator
@@ -53,8 +57,8 @@ def build_generator(cfg_model, pretrained_pth=None, strict=True, seed=0):
         raise FileNotFoundError(pretrained_pth)
     if pretrained_pth.endswith(".pkl"):
         raise NotImplementedError(
-            "training-snapshot .pkl loading comes with the training slice; "
-            "pass a released .pth state_dict")
+            "training-snapshot .pkl loading comes with the checkpoint "
+            "slice; pass a released .pth state_dict")
     sd = load_pth(pretrained_pth)
     if strict:
         G.load_state_dict(sd, strict=True)
@@ -183,18 +187,22 @@ class eval_stage:
         print_log(f"device: {dev}, eval batch: {batch_size}")
 
         ds_cfg = cfgv["dataset"]
-        if (str(ds_cfg.get("type", "")).endswith("loadgen")
-                or ds_cfg.get("gen_dir")
-                or (ds_cfg.get("args") or {}).get("gen_dir")):
-            raise NotImplementedError(
-                "eval of pre-generated images (loadgen, --evalnog_path) "
-                "comes with a later slice")
         if cfgv.get("device_image_bank", False):
             raise NotImplementedError(
                 "device_image_bank comes with a later slice")
 
         dataset = get_dataset(ds_cfg, fallback_synthetic=cfge.get("debug",
                                                                   False))
+        if (str(ds_cfg.get("type", "")).endswith("loadgen")
+                or ds_cfg.get("gen_dir")
+                or (ds_cfg.get("args") or {}).get("gen_dir")):
+            # pre-generated images (--evalnog_path): no generator
+            evaluator = self._build_evaluator(cfgv, cfge)
+            rv = self._eval_pregen(dataset, evaluator, batch_size, log_dir,
+                                   dev, log_display=cfgv.get("log_display",
+                                                             10),
+                                   num_threads=_num_workers(cfgv))
+            return {"eval_rv": rv}
         formatter = wrap_formatter(get_formatter(ds_cfg["formatter"]),
                                    ds_cfg.get("transforms"))
         pipe = EvalPipeline(dataset, formatter, batch_size, device=dev,
@@ -250,8 +258,12 @@ class eval_stage:
                 host, dev_views = _views(fake, real)
                 pixels = (host() if needs_np else
                           dict(pred=None, gt=None, fake=None, real=None))
-                evaluator.add_batch(fn=uids, valid=valid, **pixels,
-                                    **(dev_views if needs_dev else {}))
+                # the masks feed only the metrics that drive the generator
+                # (PPL's contexts)
+                evaluator.add_batch(
+                    mask=mask if evaluator.needs_generator else None,
+                    fn=uids, valid=valid, **pixels,
+                    **(dev_views if needs_dev else {}))
                 now = timeit.default_timer()
                 if phase_log:
                     phases.append({"pipe_wait_s": t_b - t_prev,
@@ -266,12 +278,20 @@ class eval_stage:
                     print_log("processed.. {}, Time:{:.2f}s".format(
                         idx + 1, now - t0))
                     t0 = now
+
+            t_loop_end = timeit.default_timer()
+            evaluator.drain()
+            drain_s = timeit.default_timer() - t_loop_end
+            gen_metrics_s = 0.0
+            if evaluator.needs_generator:
+                # the metrics that drive the generator run after the stream
+                t_g = timeit.default_timer()
+                evaluator.run_generator_metrics(G, seed=seed)
+                evaluator.drain()
+                gen_metrics_s = timeit.default_timer() - t_g
         finally:
             conv1024.set_conv1024_impl(prev_conv)
 
-        t_loop_end = timeit.default_timer()
-        evaluator.drain()
-        drain_s = timeit.default_timer() - t_loop_end
         evaluator.set_sample_n(len(dataset))
         rv = evaluator.compute()
         evaluator.one_line_summary()
@@ -279,6 +299,7 @@ class eval_stage:
         evaluator.clear_data()
         # per-batch wall times; batch 0 carries the first-use set-up
         timing = {"batch_s": batch_s, "drain_s": drain_s,
+                  "generator_metrics_s": gen_metrics_s,
                   "global_batch": batch_size, "images": len(dataset)}
         if phase_log:
             timing["phase_s"] = phases
@@ -296,6 +317,48 @@ class eval_stage:
             print_log(f"debug: evaluator asset missing ({e}); "
                       "falling back to [psnr, ssim]")
             return get_evaluator([{"type": "psnr"}, {"type": "ssim"}])
+
+    @staticmethod
+    def _eval_pregen(dataset, evaluator, batch_size, log_dir, device,
+                     log_display=10, num_threads=None):
+        """The metrics over (real, pre-generated) pairs of a loadgen
+        dataset, with no generator: batches decode on the prefetch pool
+        (two PNG decodes an element) and go to ``device`` in the worker;
+        the evaluators read them there as the device views."""
+        t0 = timeit.default_timer()
+        n = len(dataset)
+        needs_np = evaluator.consumes_host_pixels
+        needs_dev = evaluator.consumes_device_views
+
+        def make_batch(b):
+            els = [dataset[i] for i in range(b * batch_size,
+                                             min((b + 1) * batch_size, n))]
+            real = np.stack([e["image"] for e in els])       # [N,3,H,W] 0-1
+            gen = np.stack([e["gen"] for e in els])
+            dev = (_to_device(real, device), _to_device(gen, device))
+            return real, gen, dev, [e["unique_id"] for e in els]
+
+        pf = _Prefetcher(make_batch, -(-n // batch_size),
+                         num_threads=num_threads)
+        for idx, (real, gen, (real_t, gen_t), uids) in enumerate(pf):
+            host = (dict(pred=gen, gt=real, fake=gen * 255.0,
+                         real=real * 255.0) if needs_np else
+                    dict(pred=None, gt=None, fake=None, real=None))
+            dev = (dict(pred_dev=gen_t, gt_dev=real_t,
+                        fake_dev=gen_t * 255.0, real_dev=real_t * 255.0)
+                   if needs_dev else {})
+            evaluator.add_batch(fn=uids, **host, **dev)
+            if idx % log_display == log_display - 1:
+                print_log("processed.. {}, Time:{:.2f}s".format(
+                    idx + 1, timeit.default_timer() - t0))
+                t0 = timeit.default_timer()
+        evaluator.drain()
+        evaluator.set_sample_n(n)
+        rv = evaluator.compute()
+        evaluator.one_line_summary()
+        evaluator.save(log_dir)
+        evaluator.clear_data()
+        return rv
 
 
 def step_generator(seed, step):

@@ -193,7 +193,7 @@ def test_get_dataset_pick_fallback_and_missing(tmp_path):
     assert isinstance(fb, SyntheticDataset) and fb.resolution == 32
     jfb = j_get_dataset(missing, fallback_synthetic=True)
     np.testing.assert_array_equal(fb[3]["image"], jfb[3]["image"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):   # no ffhq256x256.zip there
         get_dataset({"type": "ffhqzip", "root_dir": str(tmp_path)})
 
 

@@ -197,9 +197,10 @@ def test_detector_weight_resolution(tmp_path, monkeypatch):
     assert tdet.get_detector(detector_params=params) is by_params
 
 
-def test_fid_compose_memoizes_and_saves(tmp_path):
+def test_fid_compose_memoizes_and_saves(tmp_path, monkeypatch):
     """FID on fake == real is 0, the detector runs once per tensor, padding
-    rows are dropped, and save merges into result.json."""
+    rows are dropped, and save merges into result.json; LPIPS without its
+    weights raises FileNotFoundError, as in JAX."""
     params = load_inception_params(random_inception_state_dict(2))
     ev = get_evaluator([
         {"type": "fid", "args": {"detector_params": params}},
@@ -231,5 +232,7 @@ def test_fid_compose_memoizes_and_saves(tmp_path):
         saved = json.load(f)
     assert set(saved) == {"lpips", "fid", "psnr", "ssim"}
     assert saved["fid"]["fid"] == pytest.approx(0, abs=1e-6)
-    with pytest.raises(NotImplementedError):
+    for var in ("SHGAN_TPU_ALEXNET", "SHGAN_TPU_LPIPS_LIN"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(FileNotFoundError):
         get_evaluator([{"type": "lpips"}])

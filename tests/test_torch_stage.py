@@ -206,7 +206,8 @@ def test_build_config_applies_overrides(tmp_path):
 
 def test_stage_and_cli_leave_jax_out(tmp_path):
     """A fresh interpreter imports the CLI and the stage and runs a tiny
-    eval on the CPU without importing jax or shgan_tpu."""
+    eval on the CPU without importing jax or shgan_tpu; so do the readers,
+    the LaMa masks, the formatters, KID / PR / IS, LPIPS and PPL."""
     cfg = _stage_cfg(tmp_path, None, None, "iso")
     cfg["eval"]["evaluator"] = [{"type": "psnr"}, {"type": "ssim"}]
     cfg["eval"]["pretrained_pth"] = None
@@ -217,6 +218,23 @@ def test_stage_and_cli_leave_jax_out(tmp_path):
         f"cfg = json.loads({json.dumps(cfg)!r})\n"
         "rv = eval_stage()(cfg, device='cpu')\n"
         "assert set(rv['eval_rv']) == {'psnr', 'ssim'}, rv\n"
+        "import numpy as np\n"
+        "from shgan_torch.data import datasets, formatters, masks\n"
+        "from shgan_torch.eval import (feature_metrics, lpips, ppl,\n"
+        "                              stylegan_metrics)\n"
+        "from shgan_torch.eval.base import get_evaluator\n"
+        "assert masks.lama_generator('medium', 256)(\n"
+        "    np.zeros((3, 256, 256), np.float32)).sum() > 0\n"
+        "for name in sorted(formatters._FORMATTER_REGISTRY):\n"
+        "    if name != 'FixedMaskFormatter':\n"
+        "        formatters.get_formatter(name)\n"
+        "ev = get_evaluator([\n"
+        "    {'type': 'lpips', 'args': {'params': lpips.random_lpips_params()}},\n"
+        "    {'type': 'ppl', 'args': {\n"
+        "        'lpips_params': lpips.random_vgg16_lpips_params()}}])\n"
+        "assert ev.needs_generator and 'ffhqzip' in datasets._DATASET_REGISTRY\n"
+        "assert np.isfinite(stylegan_metrics.compute_kid(\n"
+        "    np.eye(4), np.eye(4)[::-1], 3, 4))\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'shgan_tpu'))\n"
         "print('BAD', bad)\n"
