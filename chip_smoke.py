@@ -85,8 +85,27 @@ Phases, each printing one JSON line:
    pre-generated protocol (``--evalnog_path``, each real flipped) in
    process with no kernel launch, and through ``python -m
    shgan_torch.main`` in a subprocess;
-10. the kernels line ``{"kernels": [...]}``;
-11. last line: ``{"ok": true, "device": {...}}``.
+10. training as configured: ``shgan_ffhq256_train`` assembled by
+    ``build_config`` and run by ``run`` at full width (``shgan_g256`` +
+    ``comodgan_d256``, batch 8, random weights, the configured loss
+    kwargs) on its own ``ffhqzip`` train and val splits of an FFHQ-format
+    zip it writes (64 val and 96 train PNGs), 12 steps in ticks of 3, with
+    ``g_opt`` on a linear warm-up schedule (LR 0 at update 0), ``d_opt``
+    the registry's Adam, a nested FID over the 64 val images every tick
+    (random Inception weights) with ``-best`` snapshots, and the
+    profiler's trace of steps 8–10: both optimizers' LR at every update
+    bit for bit, G unmoved by update 0 and moved by update 1, launches in
+    every step and outside them (two image grids and four nested evals of
+    four ``shgan_g256`` forwards at batch 16, K2 by route), four finite
+    ``eval_fid`` records, the run-local real-feature cache written once and
+    then read (one Inception pass a batch), one ``new best`` line per
+    strict improvement, the trace's ``Gmain`` / ``Dmain`` spans over 3
+    steps and its top device ops; then the best G_ema exported by ``python
+    -m shgan_torch.export_pth``, evaluated strictly (fid, psnr, ssim over
+    the 64 val images) and loaded again from a reference-format ``.pkl``
+    and from the ``.pth`` with equal composites;
+11. the kernels line ``{"kernels": [...]}``;
+12. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line.  It needs the repository (``shgan_torch``, ``configs/``) and
@@ -1520,6 +1539,476 @@ def fullmetrics_path(tmp, cli, build, fir, inc_pth):
     return row
 
 
+# ---------------------------------------------------------------------------
+# training as configured: shgan_ffhq256_train with a schedule, a registry
+# optimizer, the nested FID eval, -best, the profiler; export and reload
+# ---------------------------------------------------------------------------
+
+CONFIG_TRAIN_STEPS = 12       # total_kimg 0.096 at batch 8
+CONFIG_TICK_STEPS = 3         # kimg_per_tick 0.024
+CONFIG_VAL, CONFIG_TRAIN = 64, 96   # FFHQ-format images in the zip
+NESTED_FORWARDS = 4           # 64 nested eval images at batch 16
+WARMUP_STEPS = 4              # g_opt's linear warm-up, 0 -> G_LR
+G_LR = 0.002
+
+
+def ffhq_split_zip(root, res, seed=0):
+    """``<root>/data/ffhq/ffhq256x256.zip`` holding the CoModGAN split as
+    the ``ffhqzip`` reader cuts it (val = the first 10000 uids in sorted
+    order, train the rest): ``CONFIG_VAL`` val images ``00000`` …,
+    ``CONFIG_TRAIN`` train images ``10000`` …, and between them the
+    remaining val names, all one flat gray PNG that no run here decodes;
+    returns the directory holding the zip."""
+    from PIL import Image
+    import io
+    import zipfile
+    d = os.path.join(root, "data", "ffhq")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.RandomState(seed)
+
+    def png(img):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG")
+        return buf.getvalue()
+
+    def image():
+        low = torch.from_numpy(rng.rand(1, 3, 8, 8).astype(np.float32))
+        img = F.interpolate(low, size=(res, res), mode="bicubic",
+                            align_corners=False)[0].numpy()
+        img = img + 0.05 * rng.randn(3, res, res).astype(np.float32)
+        return png(np.rint(np.clip(img, 0, 1) * 255).astype(np.uint8)
+                   .transpose(1, 2, 0))
+
+    gray = png(np.full((res, res, 3), 128, np.uint8))
+    with zipfile.ZipFile(os.path.join(d, "ffhq256x256.zip"), "w") as z:
+        for i in range(10000):
+            z.writestr(f"{i:05d}.png", image() if i < CONFIG_VAL else gray)
+        for i in range(10000, 10000 + CONFIG_TRAIN):
+            z.writestr(f"{i:05d}.png", image())
+    return d
+
+
+def reference_pickle(G, path):
+    """Write ``G`` as the reference's train stage writes a snapshot: a
+    plain pickle of ``{"G": None, "D": None, "G_ema": <module>,
+    "augment_pipe": None}`` with whole torch modules, each of a class named
+    as the reference's model zoo (``lib.model_zoo.comodgan.<class>``)
+    holding the parameters and persistent buffers of ``G``'s module at the
+    same path, on the CPU."""
+    import pickle
+    import types
+    zoo = "lib.model_zoo.comodgan"
+    for name in ("lib", "lib.model_zoo", zoo):
+        sys.modules.setdefault(name, types.ModuleType(name))
+    mod = sys.modules[zoo]
+    keep = set(G.state_dict())
+
+    def mirror(m, prefix):
+        cls_name = type(m).__name__
+        if not hasattr(mod, cls_name):
+            setattr(mod, cls_name, type(cls_name, (torch.nn.Module,),
+                                        {"__module__": zoo,
+                                         "__qualname__": cls_name}))
+        out = getattr(mod, cls_name)()
+        for n, p in m.named_parameters(recurse=False):
+            if prefix + n in keep:
+                out.register_parameter(n, torch.nn.Parameter(
+                    p.detach().cpu().clone(), requires_grad=False))
+        for n, b in m.named_buffers(recurse=False):
+            if prefix + n in keep:
+                out.register_buffer(n, b.detach().cpu().clone())
+        for n, c in m.named_children():
+            out.add_module(n, mirror(c, f"{prefix}{n}."))
+        return out
+
+    with open(path, "wb") as f:
+        pickle.dump({"G": None, "D": None, "G_ema": mirror(G, ""),
+                     "augment_pipe": None}, f)
+    return path
+
+
+def config_train_config(tmp, data_root, inc_pth):
+    """``shgan_ffhq256_train`` through the CLI's config assembly as
+    configured (``shgan_g256`` + ``comodgan_d256``, float32, batch 8, the
+    configured loss kwargs, ``ffhqzip`` train and val datasets), with 12
+    steps in ticks of 3, a snapshot every 2 ticks, a nested FID over 64 val
+    images each tick, ``g_opt`` on a linear warm-up schedule, ``d_opt`` the
+    registry's Adam, and the profiler's trace."""
+    from shgan_torch.main import build_config
+    cfg = build_config(
+        TRAIN_EXPERIMENT, log_root=os.path.join(tmp, "log"),
+        overrides={
+            "train.experiment_id": 0,
+            "train.total_kimg": CONFIG_TRAIN_STEPS * TRAIN_BATCH / 1000,
+            "train.kimg_per_tick": CONFIG_TICK_STEPS * TRAIN_BATCH / 1000,
+            "train.snapshot_ticks": 2,
+            "train.eval_every_kimg": CONFIG_TICK_STEPS * TRAIN_BATCH / 1000,
+            "train.profile_dir": os.path.join(tmp, "profile"),
+            "train.dataset.root_dir": data_root,
+            "eval.dataset.root_dir": data_root,
+            "eval.nested_eval_metric": "fid",
+            "eval.nested_eval_samples": CONFIG_VAL})
+    lk = cfg["train"]["loss_kwargs"]
+    lk["g_opt"] = {"schedule": [
+        {"type": "linear", "args": {"start_lr": 0.0, "end_lr": G_LR,
+                                    "step": WARMUP_STEPS}},
+        {"type": "constant", "args": {"lr": G_LR, "step": 1000}}]}
+    lk["d_opt"] = {"optimizer": {"type": "adam",
+                                 "args": {"betas": [0.0, 0.99]}}}
+    for e in cfg["eval"]["evaluator"]:
+        if e["type"] == "fid":
+            e["args"] = dict(e.get("args") or {}, detector_weights=inc_pth)
+    return cfg
+
+
+def expected_lrs(tc, step_i):
+    """(G's, D's) LR of update ``step_i``, worked out here: the warm-up in
+    float32 as JAX's traced schedule computes it, times the
+    lazy-regularization ratio in float32; D's registry Adam at the
+    default LR times its ratio."""
+    f32 = np.float32
+    rg = f32(tc.g_reg_interval / (tc.g_reg_interval + 1))
+    if step_i < WARMUP_STEPS:
+        s = f32(G_LR) + f32(0.0 - G_LR) * (f32(1) - f32(step_i)
+                                            / f32(WARMUP_STEPS))
+    else:
+        s = f32(G_LR)
+    return float(s * rg), 0.002 * (tc.d_reg_interval
+                                   / (tc.d_reg_interval + 1))
+
+
+def trace_top_ops(path, n=10):
+    """→ (count of each phase span, the ``n`` device ops with the most
+    time, the device ms in all, the device ops in all) of a Chrome trace,
+    counting the device ops whose launch lies inside a phase span."""
+    import bisect
+    from shgan_torch.train import TrainStep
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation"
+             and e.get("name") in TrainStep.PHASES]
+    counts = {k: sum(e.get("cat") == "user_annotation"
+                     and e.get("name") == k for e in events)
+              for k in TrainStep.PHASES}
+    spans.sort()
+    starts = [s for s, _ in spans]
+
+    def inside(ts):
+        i = bisect.bisect_right(starts, ts) - 1
+        return i >= 0 and ts <= spans[i][1]
+
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {}) and inside(e["ts"])}
+    by_name, n_ops = {}, 0
+    for e in events:
+        if (e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                and e.get("args", {}).get("correlation") in launched):
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+            n_ops += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n]
+    return (counts, [{"op": k[:120], "ms": v / 1e3} for k, v in top],
+            sum(by_name.values()) / 1e3, n_ops)
+
+
+def train_config_path(tmp, cli, build, fir, inc_pth):
+    """``shgan_ffhq256_train`` as configured on the card: 12 steps on an
+    FFHQ-format zip, the LRs of every update, launches in and outside every
+    step (the nested evals' K2 calls by route), four nested FIDs with the
+    run-local real-feature cache, the ``-best`` snapshot, the profiler's
+    three-step trace; then the best G_ema exported with ``python -m
+    shgan_torch.export_pth``, evaluated strictly, and loaded again from a
+    reference-format ``.pkl`` and from the ``.pth`` with equal
+    composites."""
+    from shgan_torch.eval import detector
+    from shgan_torch.models.infer import composite_forward
+    from shgan_torch.runtime import stages
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "train_config")
+    os.makedirs(work)
+    data_root = ffhq_split_zip(work, FULL_RES)
+    cfg = config_train_config(work, data_root, inc_pth)
+    log_dir = cfg["train"]["log_dir"]
+    g_cfg = cfg["model_g"]
+    eval_batch = cfg["eval"]["batch_size_per_gpu"]
+    per_fwd = fullmetrics_launches(g_cfg, eval_batch, 0, 0, 1)
+    fwd_k2 = per_fwd["upfirdn2d_per_forward"]
+    layers = per_fwd["noise_bias_act_per_forward"]
+
+    # the TrainStep the stage builds, its LRs and launches around each step
+    seen, lrs, per_step, outside, out_route, inception = [], [], [], [], [], []
+    init = {}
+    moved = {}
+    real_passes = [0]
+
+    class Recorded(stages.TrainStep):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen.append(self)
+
+    orig_run = detector.InceptionDetector._run
+
+    def counted_run(self, x, want_probs):
+        real_passes[0] += 1
+        return orig_run(self, x, want_probs)
+
+    tally, undo = fir_route_tally(fir)
+    cache = os.path.join(log_dir, ".cache")
+    cache_state = []
+
+    def cache_digest():
+        files = sorted(os.listdir(cache)) if os.path.isdir(cache) else []
+        return [(f, os.stat(os.path.join(cache, f)).st_mtime_ns,
+                 hash(open(os.path.join(cache, f), "rb").read()))
+                for f in files]
+
+    def on_step_start(i):
+        outside.append(dict(build.launches))
+        out_route.append(dict(tally))
+        inception.append(real_passes[0])
+        build.reset_launches()
+        tally.update({k: 0 for k in tally})
+        real_passes[0] = 0
+        cache_state.append(cache_digest())
+        if i == 0:
+            init.update({k: v.detach().clone()
+                         for k, v in seen[0].G.named_parameters()})
+
+    def on_step(i, metrics):
+        per_step.append(dict(build.launches))
+        build.reset_launches()
+        tally.update({k: 0 for k in tally})
+        st = seen[0]
+        lrs.append(([g["lr"] for g in st.opt_g.param_groups],
+                    [g["lr"] for g in st.opt_d.param_groups]))
+        if i in (0, 1):
+            moved[i] = max(float((p.detach() - init[k]).abs().max())
+                           for k, p in st.G.named_parameters())
+
+    env = {"SHGAN_TPU_INCEPTION": inc_pth}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    train_step_cls = stages.TrainStep
+    stages.TrainStep = Recorded
+    detector.InceptionDetector._run = counted_run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rv = cli.run(cfg, on_step=on_step, on_step_start=on_step_start)
+        outside.append(dict(build.launches))
+        out_route.append(dict(tally))
+        inception.append(real_passes[0])
+        cache_state.append(cache_digest())
+    finally:
+        undo()
+        stages.TrainStep = train_step_cls
+        detector.InceptionDetector._run = orig_run
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    run_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step = rv["step"]
+    tc = step.cfg
+    n = CONFIG_TRAIN_STEPS
+    checks = {}
+
+    # 12 steps, finite losses, the LR of every update
+    if len(per_step) != n or step.step != n:
+        raise AssertionError(f"{len(per_step)} steps run")
+    for t in rv["ticks"]:
+        for k in ("loss_g", "loss_d"):
+            if not math.isfinite(t[k]):
+                raise AssertionError(f"tick {t['tick']}: {k} = {t[k]}")
+    want_lrs = [expected_lrs(tc, i) for i in range(n)]
+    for i, ((g, d), (wg, wd)) in enumerate(zip(lrs, want_lrs)):
+        if any(v != wg for v in g) or any(v != wd for v in d):
+            raise AssertionError(f"step {i} LRs G {g} D {d}, expected "
+                                 f"{wg} / {wd}")
+    checks["lrs"] = [[g[0], d[0]] for g, d in lrs]
+    if moved[0] != 0 or not moved[1] > 0:
+        raise AssertionError(f"G moved {moved} at steps 0 and 1 (LR 0, "
+                             "then > 0)")
+    emit({"phase": "train_config_check", "check": "lrs_and_losses",
+          "steps": n, "lr_g_d": checks["lrs"], "g_max_move": moved})
+
+    # launches in every step, and outside: grids (3 forwards) and nested
+    # evals (4 forwards) of shgan_g256 at batch 16, nothing else
+    sites = train_sites(step.G, step.D)
+    for i, got in enumerate(per_step):
+        want = expected_train_launches(*sites, i % tc.g_reg_interval == 0,
+                                       i % tc.d_reg_interval == 0)
+        if got != want:
+            raise AssertionError(f"train step {i} launches {got}, "
+                                 f"expected {want}")
+    ticks_at = {CONFIG_TICK_STEPS * (t + 1) for t in range(
+        n // CONFIG_TICK_STEPS)}
+    image_ticks = cfg["train"]["snapshot_ticks"]
+    want_out = []
+    for w in range(n + 1):      # window w: before step w (w = n: the end)
+        evals = int(w in ticks_at)
+        grids = (int(w == 0) + int(w in ticks_at and (w // CONFIG_TICK_STEPS)
+                                   % image_ticks == 0) + int(w == n))
+        fwd = NESTED_FORWARDS * evals + GRID_FORWARDS * grids
+        row = {k: 0 for k in build.launches}
+        row.update(upfirdn2d=fwd * sum(fwd_k2.values()),
+                   noise_bias_act=fwd * layers)
+        want_out.append((row, {"stride1": fwd * fwd_k2["stride1"],
+                               "up2": fwd * fwd_k2["up2"], "other": 0}))
+    got_out = list(zip(outside, out_route))
+    if got_out != want_out:
+        raise AssertionError(f"launches outside the steps {got_out}, "
+                             f"expected {want_out}")
+    emit({"phase": "train_config_check", "check": "launches",
+          "per_step": per_step, "outside_windows": outside,
+          "outside_k2_by_route": out_route,
+          "nested_eval_forwards": NESTED_FORWARDS, "eval_batch": eval_batch})
+
+    # four finite nested FIDs; the real-feature cache written by the first
+    # eval, then read unchanged (one Inception pass a batch, the fakes')
+    stats = [json.loads(line) for line in open(os.path.join(
+        log_dir, "stats.jsonl"))]
+    fids = [r["eval_fid"] for r in stats if "eval_fid" in r]
+    if len(fids) != 4 or not all(math.isfinite(v) for v in fids):
+        raise AssertionError(f"stats.jsonl eval_fid {fids}")
+    eval_windows = sorted(ticks_at)
+    passes = [inception[w] for w in eval_windows]
+    if passes != [2 * NESTED_FORWARDS] + [NESTED_FORWARDS] * 3:
+        raise AssertionError(f"Inception passes per nested eval {passes}")
+    first = cache_state[eval_windows[0]]
+    if (cache_state[eval_windows[0] - 1] or not first
+            or any(cache_state[w] != first for w in eval_windows)):
+        raise AssertionError(f"real-feature cache {cache_state}")
+    emit({"phase": "train_config_check", "check": "nested_fid",
+          "eval_fid": fids, "inception_passes": passes,
+          "cache": [f for f, _, _ in first]})
+
+    # -best: one "new best" line per strict improvement
+    best, n_best = None, 0
+    for v in fids:
+        if best is None or v < best:
+            best, n_best = v, n_best + 1
+    log_lines = open(os.path.join(log_dir, "train.log")).read().splitlines()
+    got_best = sum(line.startswith("new best fid=") for line in log_lines)
+    best_dir = os.path.join(log_dir, "weight", "network-snapshot-best")
+    if got_best != n_best or not os.path.isfile(
+            os.path.join(best_dir, "state.pt")):
+        raise AssertionError(f"{got_best} new-best lines, {n_best} strict "
+                             f"improvements in {fids}")
+    emit({"phase": "train_config_check", "check": "best",
+          "new_best_lines": got_best, "improvements": n_best})
+
+    # the profiler's trace of steps 8-10
+    traces = os.listdir(cfg["train"]["profile_dir"])
+    if traces != ["train_steps000008-000010.json"]:
+        raise AssertionError(f"profiler traces {traces}")
+    span_counts, top_ops, traced_ms, traced_ops = trace_top_ops(
+        os.path.join(cfg["train"]["profile_dir"], traces[0]))
+    if span_counts["Gmain"] != 3 or span_counts["Dmain"] != 3:
+        raise AssertionError(f"trace spans {span_counts}")
+    emit({"phase": "train_config_check", "check": "profile",
+          "trace": traces[0], "spans": span_counts,
+          "device_ms_in_spans": traced_ms, "device_ops_in_spans": traced_ops,
+          "top_device_ops": top_ops})
+
+    # export the best G_ema, evaluate it strictly, reload it through a
+    # reference-format .pkl and through the .pth
+    best_pth = os.path.join(work, "best.pth")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "shgan_torch.export_pth", "--snapshot",
+         best_dir, "--out", best_pth], capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.dirname(os.path.abspath(__file__))]
+            + [p for p in [os.environ.get("PYTHONPATH")] if p])))
+    export_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"export_pth exit {r.returncode}:\n{r.stdout}"
+                             f"\n{r.stderr}")
+    from shgan_torch.main import build_config
+    ecfg = build_config(TRAIN_EXPERIMENT, eval_id=0, pretrained=best_pth,
+                        log_root=os.path.join(work, "log_eval"))
+    ev = ecfg["eval"]
+    ev["dataset"]["root_dir"] = data_root
+    ev["dataset"]["try_sample"] = CONFIG_VAL
+    ev["strict_sd"] = True
+    ev["log_display"] = CONFIG_VAL
+    ev["evaluator"] = [
+        {"type": "fid", "args": {"detector_weights": inc_pth,
+                                 "cache_dir": os.path.join(work, "cache")}},
+        {"type": "psnr", "args": {"for_dataset": None, "rgb_range": 1}},
+        {"type": "ssim", "args": {"window_size": 11}}]
+    t0 = time.perf_counter()
+    erv = cli.run(ecfg)["eval_rv"]
+    eval_s = time.perf_counter() - t0
+    exported = {"fid": erv["fid"], "psnr": erv["psnr"], "ssim": erv["ssim"]}
+    if not all(math.isfinite(v) for v in exported.values()):
+        raise AssertionError(f"exported G_ema's eval: {exported}")
+
+    pkl = reference_pickle(stages.build_generator(g_cfg, best_pth),
+                           os.path.join(work, "network-snapshot-000096.pkl"))
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    t0 = time.perf_counter()
+    try:
+        outs = []
+        gen = torch.Generator().manual_seed(3)
+        real = torch.rand(eval_batch, 3, FULL_RES, FULL_RES,
+                          generator=gen) * 2 - 1
+        mask = (torch.rand(eval_batch, 1, FULL_RES, FULL_RES,
+                           generator=gen) > 0.5).float()
+        z = torch.randn(eval_batch, step.G.z_dim, generator=gen)
+        for path in (pkl, best_pth):
+            G = stages.build_generator(g_cfg, path).cuda().eval()
+            with torch.inference_mode():
+                outs.append(composite_forward(G, real.cuda(), mask.cuda(),
+                                              z.cuda(), noise_mode="const"))
+            del G
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            prev
+    reload_s = time.perf_counter() - t0
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError("the .pkl and .pth composites differ: max "
+                             f"{(outs[0].int() - outs[1].int()).abs().max()}")
+    emit({"phase": "train_config_check", "check": "export_reload",
+          "export_exit": r.returncode, "exported_eval": exported,
+          "pkl_equals_pth": True, "composite_shape": list(outs[0].shape)})
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    step_ms = [s * 1e3 for s in rv["timing"]["step_s"]]
+    traced = set(range(stages.PROFILE_AT, stages.PROFILE_AT + 3))
+    timed = [i for i in range(1, n) if i not in traced]
+    row = {"phase": "train_config_path", "experiment": TRAIN_EXPERIMENT,
+           "card": smi, "model_g": g_cfg.get("name"),
+           "model_d": cfg["model_d"].get("name"),
+           "dataset": cfg["train"]["dataset"]["name"],
+           "eval_dataset": cfg["eval"]["dataset"]["name"],
+           "batch": TRAIN_BATCH, "steps": n,
+           "step_ms": step_ms, "timed_steps": timed,
+           "images_per_s_untraced": TRAIN_BATCH * len(timed)
+           / (sum(step_ms[i] for i in timed) / 1e3),
+           "nested_eval_s": rv["timing"]["nested_eval_s"],
+           "export_s": export_s, "exported_eval_s": eval_s,
+           "reload_s": reload_s, "run_s": run_s, "peak_mem_gib": peak_gib,
+           "eval_fid": fids, "exported_eval": exported,
+           "launches_per_step": per_step, "launches_outside": outside,
+           "wall_s": time.perf_counter() - t_phase}
+    emit(row)
+    del step, rv, seen
+    torch.cuda.empty_cache()
+    return row
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="perf_out",
@@ -1890,13 +2379,23 @@ def main():
         full_row = fullmetrics_path(tmp, cli, build, fir, inc_pth)
         full_launches = full_row["launches"]
         detail.update(fullmetrics_path=full_row)
+
+        # ---- 10. shgan_ffhq256_train as configured ---------------------------
+        # (PyTorch's defaults, as a user trains: cuDNN may use TF32)
+        config_row = train_config_path(tmp, cli, build, fir, inc_pth)
+        config_launches = {
+            k: sum(w[k] for w in config_row["launches_per_step"]
+                   + config_row["launches_outside"])
+            for k in config_row["launches_outside"][0]}
+        detail.update(train_config_path=config_row)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- 10. the kernels line ------------------------------------------------
+    # ---- 11. the kernels line ------------------------------------------------
     detail.update(eval_launches=eval_launches, k3_in_place=in_place,
                   train_launches=train_launches,
-                  fullmetrics_launches=full_launches)
+                  fullmetrics_launches=full_launches,
+                  train_config_launches=config_launches)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke_detail.json"), "w") as f:
         json.dump(detail, f, indent=1, default=str)
@@ -1931,6 +2430,7 @@ def main():
          "launches_eval_path": eval_launches["upfirdn2d"],
          "launches_train_path": train_launches["upfirdn2d"],
          "launches_fullmetrics_path": full_launches["upfirdn2d"],
+         "launches_train_config_path": config_launches["upfirdn2d"],
          "max_abs_err": max(r["max_abs_err"] for r in fr + fir_1024),
          "ms": wsum(fr, "ms"), "eager_ms": wsum(fr, "eager_ms"),
          "bf16_ms": wsum(fr, "bf16_ms"),
@@ -1955,6 +2455,7 @@ def main():
          "launches_eval_path": eval_launches["philox_normal"],
          "launches_train_path": train_launches["philox_normal"],
          "launches_fullmetrics_path": full_launches["philox_normal"],
+         "launches_train_config_path": config_launches["philox_normal"],
          "max_abs_err": max(r["max_abs_err"] for r in nr + noise_1024),
          "ms": wsum(nr, "ms"), "eager_ms": wsum(nr, "eager_ms"),
          "plain_ms": wsum(nr, "plain_ms"),
@@ -1974,6 +2475,7 @@ def main():
          "launches_eval_path": eval_launches["noise_bias_act"],
          "launches_train_path": train_launches["noise_bias_act"],
          "launches_fullmetrics_path": full_launches["noise_bias_act"],
+         "launches_train_config_path": config_launches["noise_bias_act"],
          "max_abs_err": max(r["max_abs_err"] for r in er + epi_1024),
          "ms": wsum(er, "ms"), "eager_ms": wsum(er, "eager_ms"),
          "bf16_ms": wsum(er, "bf16_ms"),
@@ -2000,6 +2502,7 @@ def main():
          "launches": eval_launches["conv3x3_lowch"],
          "launches_train_path": train_launches["conv3x3_lowch"],
          "launches_fullmetrics_path": full_launches["conv3x3_lowch"],
+         "launches_train_config_path": config_launches["conv3x3_lowch"],
          "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
          "ms": 2 * k3["ms"], "eager_ms": 2 * k3["eager_ms"],
          "plain_ms": 2 * k3["plain_ms"],
@@ -2024,6 +2527,7 @@ def main():
                               "bwd, XLA on the TPU)",
          "launches": train_launches["upfirdn2d_grad"],
          "launches_fullmetrics_path": full_launches["upfirdn2d_grad"],
+         "launches_train_config_path": config_launches["upfirdn2d_grad"],
          "max_abs_err": max(r["max_abs_err"] for r in fgr),
          "ms": sum(r["ms"] for r in fgr),
          "eager_ms": sum(r["eager_ms"] for r in fgr),
@@ -2052,6 +2556,8 @@ def main():
                               "_pallas_normal (the noise has no gradient)",
          "launches": train_launches["noise_bias_act_grad"],
          "launches_fullmetrics_path": full_launches["noise_bias_act_grad"],
+         "launches_train_config_path": config_launches[
+             "noise_bias_act_grad"],
          "max_abs_err": max(r["max_abs_err"] for r in egr),
          "sums_max_rel_err": max(r["sums_max_rel_err"] for r in egr),
          "ms": wsum(egr, "ms"), "eager_ms": wsum(egr, "eager_ms"),

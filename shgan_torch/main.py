@@ -6,18 +6,25 @@ the JAX package's ``main.py``::
         [--eval_tag TAG] [--model NAME] [--dataset NAME] [--pick UID ...] \\
         [--demo] [--gpu 0] [--device cpu] [--evalnog_path GEN_DIR]
     python -m shgan_torch.main --experiment smoke_train [--trainonly] \\
-        [--resume_path SNAPSHOT [--resume_itern KIMG]] [--device cpu]
+        [--resume_path SNAPSHOT [--resume_itern KIMG]] [--device cpu] \\
+        [--signature TAG ...] [--dscache] [--port N]
     python -m shgan_torch.main --resume_path RUN_DIR   # continue that run
 
 An experiment with a train section trains unless ``--eval ID`` or
-``--demo`` asks for its eval section.  ``--evalnog_path GEN_DIR`` scores
+``--demo`` asks for its eval section; a training run keeps the eval
+section for its nested eval (``train.eval_every_kimg``).
+``--evalnog_path GEN_DIR`` scores
 the images in ``GEN_DIR`` (``<uid>.png``) against the eval dataset's reals
 with no generator in the loop.  It runs on the CUDA device unless
 ``--device cpu`` is given.  Logs go to
 ``<SHGAN_LOG_ROOT or env.log_root_dir>/<model>_<dataset>/<id>/<tag>/``
 (``<tag>`` the eval tag, or ``train``) with ``eval.log`` or ``train.log``
 and the solved ``config.yaml``; eval writes ``result.json``, training
-``stats.jsonl`` and ``weight/network-snapshot-<kimg>/``.
+``stats.jsonl`` and ``weight/network-snapshot-<kimg>/``.  ``--signature``
+suffixes the run id (``<id>_<sig1>_<sig2>``), ``--dscache`` keeps the
+datasets' decoded elements in memory, ``--port`` is accepted and unused.
+Outside ``--debug`` the run's log dir gets a copy of ``shgan_torch/`` and
+``configs/`` under ``code/`` (``env.code_snapshot: false`` turns it off).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import argparse
 import copy
 import os
 import os.path as osp
+import shutil
 import time
 
 import yaml
@@ -75,6 +83,12 @@ def get_args(argv=None):
     p.add_argument("--evalnog_path", type=str, default=None,
                    help="evaluate pre-generated images from this dir "
                         "(no generator in the loop)")
+    p.add_argument("--signature", nargs="+", type=str, default=None,
+                   help="suffixes of the run id")
+    p.add_argument("--dscache", action="store_true",
+                   help="keep the datasets' decoded elements in memory")
+    p.add_argument("--port", type=int, default=None,
+                   help="accepted for the JAX CLI's flags; unused")
     return p.parse_args(argv)
 
 
@@ -110,12 +124,16 @@ def build_config(experiment, debug=False, eval_id=None, seed=None,
                  pretrained=None, eval_tag=None, model=None, dataset=None,
                  pick=None, demo=False, gpu=None, log_root=None,
                  trainonly=False, resume_path=None, resume_itern=None,
-                 evalnog_path=None, overrides=None):
+                 evalnog_path=None, signature=None, dscache=False,
+                 overrides=None):
     """The solved config of ``experiment`` with the CLI's overrides
     applied, for its eval section (``eval_id``/``demo`` given, or no train
     section) or else its train section, and that section's log dir set
     (and created): ``<log_root>/<model>_<dataset>/<id>/<eval tag or
-    "train">``.  ``log_root`` defaults to ``SHGAN_LOG_ROOT``, else the
+    "train">``, ``<id>`` suffixed with each of ``signature``.  An eval run
+    drops the train section; a training run keeps the eval section (the
+    nested eval reads it).  ``dscache`` sets ``cache: true`` on both
+    sections' datasets.  ``log_root`` defaults to ``SHGAN_LOG_ROOT``, else the
     config's ``env.log_root_dir``.  ``overrides`` maps dotted keys
     (``"train.total_kimg"``) to values, applied last."""
     cfg = experiment_cfg_bank()(experiment)
@@ -134,7 +152,8 @@ def build_config(experiment, debug=False, eval_id=None, seed=None,
     if cfg.get(section) is None:
         raise SystemExit(f"experiment [{experiment}] has no {section} "
                          "section to run")
-    cfg.pop("train" if is_eval else "eval", None)
+    if is_eval:
+        cfg.pop("train", None)
     if resume_path is not None:
         if is_eval:
             raise SystemExit(f"--resume_path given but experiment "
@@ -167,6 +186,10 @@ def build_config(experiment, debug=False, eval_id=None, seed=None,
     if demo:
         cfg["eval"]["output_sample_images"] = True
         cfg["eval"]["demo_only"] = True
+    if dscache:
+        for sec in ("train", "eval"):
+            if cfg.get(sec) and cfg[sec].get("dataset") is not None:
+                cfg[sec]["dataset"]["cache"] = True
     for k, v in (overrides or {}).items():
         _set(cfg, k, v)
 
@@ -174,6 +197,8 @@ def build_config(experiment, debug=False, eval_id=None, seed=None,
     expid = sec.get("experiment_id")
     if expid is None:  # 0 is a legitimate id (--eval 0)
         expid = int(time.time() * 100)
+    if signature:
+        expid = f"{expid}_{'_'.join(signature)}"
     model_sym = cfg.get("model", {}).get("symbol", "model")
     ds_name = sec["dataset"].get("name", "dataset")
     tag = sec.get("eval_tag", "eval") if is_eval else "train"
@@ -191,6 +216,18 @@ def _plain(obj):
     if isinstance(obj, (list, tuple)):
         return [_plain(v) for v in obj]
     return obj
+
+
+def snapshot_code(log_dir):
+    """Copy ``shgan_torch/`` and ``configs/`` into ``<log_dir>/code`` (once
+    a run dir), so a run keeps the code it ran."""
+    dst = osp.join(log_dir, "code")
+    if osp.exists(dst):
+        return
+    root = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    for item in ("shgan_torch", "configs"):
+        shutil.copytree(osp.join(root, item), osp.join(dst, item),
+                        ignore=shutil.ignore_patterns("__pycache__"))
 
 
 def run(cfg, device=None, **stage_kw):
@@ -249,7 +286,11 @@ def main(argv=None):
         eval_tag=args.eval_tag, model=args.model, dataset=args.dataset,
         pick=args.pick, demo=args.demo, gpu=args.gpu,
         trainonly=args.trainonly, resume_path=args.resume_path,
-        resume_itern=args.resume_itern, evalnog_path=args.evalnog_path)
+        resume_itern=args.resume_itern, evalnog_path=args.evalnog_path,
+        signature=args.signature, dscache=args.dscache)
+    if not args.debug and cfg["env"].get("code_snapshot", True):
+        section = "train" if cfg.get("train") is not None else "eval"
+        snapshot_code(cfg[section]["log_dir"])
     return run(cfg, device=args.device)
 
 

@@ -29,10 +29,17 @@ def composite_forward(G, real, mask, z, noise_mode="random", noise_seed=None):
         real = real.float() / 127.5 - 1.0
     if mask.dtype != torch.float32:
         mask = mask.float()
+    return composite(G, real, mask, z, noise_mode, noise_seed).to(
+        torch.uint8)
+
+
+def composite(G, real, mask, z, noise_mode="random", noise_seed=None):
+    """The composite of float ``real`` [-1, 1] and ``mask`` before the
+    uint8 cast: ``clip(out * 127.5 + 127.5, 0, 255)`` in float."""
     x = torch.cat([mask - 0.5, real * mask], dim=1)
     img = G(x, z, noise_mode=noise_mode, noise_seed=noise_seed)
     combined = real * mask + img * (1 - mask)
-    return torch.clamp(combined * 127.5 + 127.5, 0, 255).to(torch.uint8)
+    return torch.clamp(combined * 127.5 + 127.5, 0, 255)
 
 
 def z_for_positions(seed, z_dim, positions):

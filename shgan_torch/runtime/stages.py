@@ -11,15 +11,18 @@ _eval_pregen`).
 
 Train: ``python -m shgan_torch.main`` → :class:`train_stage` →
 ``TrainPipeline`` → :class:`~..train.TrainStep` (Gmain [+ Gpl], Dmain
-[+ R1], Adam, G-EMA) → snapshots (:mod:`..checkpoint.train_state`).
+[+ R1], the optimizers with their LR schedules, G-EMA) → snapshots
+(:mod:`..checkpoint.train_state`), with G_ema's image grids, the nested
+eval and its ``-best`` snapshot (:func:`make_nested_eval`) and a profiler
+trace of three steps.
 
-Still to port: the device image bank, the ``.pkl`` snapshot load,
-multi-device eval and train, and in training the nested eval and the
-profiler hook; each raises where the config asks for it.
+Still to port: the device image bank and multi-device eval and train;
+each raises where the config asks for it.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import os.path as osp
 import timeit
@@ -27,7 +30,9 @@ import timeit
 import numpy as np
 import torch
 
-from ..checkpoint.convert import load_pth
+from ..checkpoint.convert import load_pth, params_from_jax
+from ..checkpoint.snapshot import (load_network_snapshot,
+                                   tf_params_to_torch_state_dict)
 from ..checkpoint.train_state import load_train_state, save_train_state
 from ..data.datasets import get_dataset
 from ..data.formatters import get_formatter
@@ -36,42 +41,63 @@ from ..data.pipeline import (EvalPipeline, TrainPipeline, _Prefetcher,
 from ..data.rng import derive_seed
 from ..data.transforms import wrap_formatter
 from ..eval import get_evaluator
-from ..models.infer import composite_forward, z_for_positions
+from ..models.infer import composite, composite_forward, z_for_positions
 from ..models.registry import get_model
 from ..ops import conv1024
 from ..serve import BATCH_NOISE_SALT, resolve_device
 from ..train import TrainConfig, TrainStep, compute_ema_beta
+from ..train.loss import noise_seed as draw_noise_seed
 from .logging import ScalarLogger, print_log
 
 TRAIN_SALT = 0x7A11  # epoch slot of derive_seed for a train step's draws
+NESTED_EVAL_METRICS = ("psnr", "ssim", "fid")
+PROFILE_AT = 8     # the profiler records steps PROFILE_AT .. PROFILE_AT + 2
 
 
-def build_generator(cfg_model, pretrained_pth=None, strict=True, seed=0):
+def build_generator(cfg_model, pretrained_pth=None, strict=True, seed=0,
+                    snapshot_key="G_ema"):
     """The generator of ``cfg_model`` with weights drawn from ``seed``,
-    optionally overwritten from a released ``.pth`` state_dict: all of them
-    (``strict``), or those whose names the model has (non-strict merge)."""
+    optionally overwritten from a released ``.pth`` state_dict (all of them
+    with ``strict``, else those whose names the model has), or from the
+    ``snapshot_key`` network of a reference training snapshot ``.pkl``
+    (always a non-strict merge, as the reference's
+    ``copy_params_and_buffers(require_all=False)``; a legacy TF pickle's
+    variables go through the TF → torch remap first)."""
     G = get_model(cfg_model, seed=seed)
     if pretrained_pth is None:
         return G
     if not osp.isfile(pretrained_pth):
         raise FileNotFoundError(pretrained_pth)
     if pretrained_pth.endswith(".pkl"):
-        raise NotImplementedError(
-            "training-snapshot .pkl loading comes with the checkpoint "
-            "slice; pass a released .pth state_dict")
-    sd = load_pth(pretrained_pth)
-    if strict:
-        G.load_state_dict(sd, strict=True)
+        data, is_tf = load_network_snapshot(pretrained_pth)
+        sd = data.get(snapshot_key)
+        if sd is None:
+            raise KeyError(f"{pretrained_pth} holds no {snapshot_key}")
+        if is_tf:
+            sd, unmatched = tf_params_to_torch_state_dict(sd)
+            if unmatched:
+                print_log(f"TF pickle: {len(unmatched)} unmatched "
+                          f"variables (first: {unmatched[:4]})")
+        _load_weights(G, params_from_jax(sd), strict=False)
     else:
-        own = G.state_dict()
-        for k, v in sd.items():
-            if k in own and tuple(v.shape) != tuple(own[k].shape):
-                raise ValueError(f"checkpoint {k}: shape {tuple(v.shape)}, "
-                                 f"model {tuple(own[k].shape)}")
-        G.load_state_dict({k: v for k, v in sd.items() if k in own},
-                          strict=False)
+        _load_weights(G, load_pth(pretrained_pth), strict)
     print_log(f"Load from [{pretrained_pth}] strict_sd [{strict}]")
     return G
+
+
+def _load_weights(G, sd, strict):
+    """All of ``sd`` into ``G`` (``strict``), or the entries whose names
+    ``G`` has; shapes must match either way."""
+    if strict:
+        G.load_state_dict(sd, strict=True)
+        return
+    own = G.state_dict()
+    for k, v in sd.items():
+        if k in own and tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"checkpoint {k}: shape {tuple(v.shape)}, "
+                             f"model {tuple(own[k].shape)}")
+    G.load_state_dict({k: v for k, v in sd.items() if k in own},
+                      strict=False)
 
 
 def save_image_grid(images, path, drange=(-1, 1), grid_size=(8, 6)):
@@ -373,6 +399,156 @@ def snapshot_name(cur_nimg):
     return "network-snapshot-{:06d}".format(cur_nimg // 1000)
 
 
+def next_eval_nimg(cur_nimg, eval_every_kimg):
+    """The first multiple of the eval interval strictly above ``cur_nimg``:
+    at the start, after a resume, and after each nested eval (a tick that
+    crosses several intervals runs one eval)."""
+    step_n = eval_every_kimg * 1000
+    return (cur_nimg // step_n + 1) * step_n
+
+
+def is_improvement(value, best, higher_better):
+    """A strict improvement of ``value`` over ``best`` in the metric's
+    direction (any value improves on ``None``)."""
+    return best is None or (value != best and (value > best)
+                            == higher_better)
+
+
+def nested_eval_views(fake, real, host=False):
+    """The evaluator views of one nested eval batch, the JAX package's
+    formulas: ``pred = fake / 255``, ``gt = (real + 1) / 2``, ``fake``,
+    ``real * 127.5 + 127.5``, as device views, and as numpy host views
+    with ``host``."""
+    dev = {"pred_dev": fake / 255.0, "gt_dev": (real + 1) / 2,
+           "fake_dev": fake, "real_dev": real * 127.5 + 127.5}
+    views = dict(dev)
+    for k, v in dev.items():
+        views[k[:-4]] = v.cpu().numpy() if host else None
+    return views
+
+
+def make_nested_eval(cfg, G, device):
+    """G_ema → ``(metric, value, higher_better)`` over the first
+    ``eval.nested_eval_samples`` (default 64) images of the eval dataset
+    (JAX ``train_stage._make_nested_eval``).  ``nested_eval_metric`` is
+    ``psnr`` (the default), ``ssim`` or ``fid``; ``fid`` takes the eval
+    section's fid args with a run-local real-feature cache
+    (``<log_dir>/.cache``, tag ``nested<samples>``: the subset is fixed, so
+    the first eval writes the real features and the later ones read them),
+    and falls back to ``psnr`` when the detector weights are missing.  The
+    scored images are quantized with ``rint`` for fid.
+
+    Each eval draws z and the noise seeds from a CPU ``torch.Generator``
+    seeded with ``env.rnd_seed + 12345``, and nothing from the train steps'
+    generators; the JAX package draws them from ``jax.random`` with the
+    same seed, so the two packages' draws differ by design."""
+    cfgv = copy.deepcopy(cfg["eval"])
+    cfge = cfg.get("env") or {}
+    samples = cfgv.get("nested_eval_samples", 64)
+    if cfgv.get("dataset") is not None:
+        cfgv["dataset"]["try_sample"] = samples
+    dataset = get_dataset(cfgv["dataset"],
+                          fallback_synthetic=cfge.get("debug", False))
+    formatter = wrap_formatter(get_formatter(cfgv["dataset"]["formatter"]),
+                               cfgv["dataset"].get("transforms"))
+    batch_size = cfgv.get("batch_size") or (
+        cfgv.get("batch_size_per_gpu", 4) * (cfge.get("mesh_devices") or 1))
+    pipe = EvalPipeline(dataset, formatter, batch_size, device=device,
+                        num_threads=_num_workers(cfgv))
+    metric = cfgv.get("nested_eval_metric", "psnr")
+    # scalar metrics only: is / pr return dicts and PPL drives the
+    # generator itself; fail at build time, not at the first eval tick
+    if metric not in NESTED_EVAL_METRICS:
+        raise ValueError(
+            f"nested_eval_metric [{metric}] unsupported — the in-train"
+            f" nested eval runs scalar metrics only "
+            f"{NESTED_EVAL_METRICS}; run the full evaluator compose via the"
+            " eval stage instead")
+    fid_args = None
+    if metric == "fid":
+        fid_args = {}
+        for e in cfgv.get("evaluator") or []:
+            if isinstance(e, dict) and e.get("type") == "fid":
+                fid_args = dict(e.get("args") or {})
+        fid_args.update(
+            sample_real_n=None, sample_fake_n=None,
+            dsstat_cachefile_tag=f"nested{samples}",
+            cache_dir=osp.join(cfg["train"].get("log_dir") or "log/train",
+                               ".cache"))
+        try:
+            get_evaluator([{"type": "fid", "args": fid_args}])
+        except FileNotFoundError as e:
+            print_log(f"nested eval: fid detector unavailable ({e}) — "
+                      "falling back to psnr")
+            metric, fid_args = "psnr", None
+    higher_better = metric != "fid"   # psnr and ssim up, fid down
+    seed = (cfge.get("rnd_seed", 0) or 0) + 12345
+
+    def run(G_ema):
+        evaluator = get_evaluator(
+            [{"type": "fid", "args": fid_args}] if fid_args is not None
+            else [{"type": metric}])
+        gen = torch.Generator().manual_seed(seed)
+        with torch.inference_mode():
+            for real, mask, valid, uids in pipe:
+                z = torch.randn(real.shape[0], G.z_dim, generator=gen)
+                fake = composite(G_ema, real, mask, z.to(device), "random",
+                                 draw_noise_seed(gen))
+                if fid_args is not None:
+                    fake = torch.round(fake)   # the protocol's uint8 values
+                evaluator.add_batch(fn=uids, valid=valid, **nested_eval_views(
+                    fake, real, evaluator.consumes_host_pixels))
+        evaluator.drain()
+        evaluator.set_sample_n(len(dataset))
+        rv = evaluator.compute()
+        evaluator.clear_data()
+        return metric, float(rv[metric]), higher_better
+
+    return run
+
+
+class _StepProfiler:
+    """``torch.profiler`` over the steps ``PROFILE_AT`` to ``PROFILE_AT +
+    2`` of a run (counted from its first step), CPU and, on a CUDA
+    device, CUDA activity, without shapes or stacks; one Chrome trace is
+    written into ``profile_dir``."""
+
+    def __init__(self, profile_dir, device):
+        self.dir, self.device = profile_dir, device
+        self.prof, self.first = None, None
+
+    def before(self, count, step_i):
+        if count != PROFILE_AT:
+            return
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=acts, record_shapes=False,
+                            with_stack=False)
+        self.prof.__enter__()
+        self.first = step_i
+
+    def after(self, count, step_i):
+        if self.prof is None or count != PROFILE_AT + 2:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.__exit__(None, None, None)
+        os.makedirs(self.dir, exist_ok=True)
+        path = osp.join(self.dir,
+                        f"train_steps{self.first:06d}-{step_i:06d}.json")
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        print_log(f"wrote profiler trace to {path}")
+
+    def close(self):
+        """Stop a trace that a run too short to reach its end left open."""
+        if self.prof is not None:
+            self.prof.__exit__(None, None, None)
+            self.prof = None
+
+
 class train_stage:
     """The StyleGAN2/CoModGAN training loop on one device."""
 
@@ -380,21 +556,21 @@ class train_stage:
         """Run the train section of ``cfg``.  ``device`` as in
         :class:`eval_stage`.  ``on_step_start(step_i)`` and ``on_step(step_i,
         metrics)``, if given, are called just before and just after each
-        step (``metrics`` on the device); the snapshots and image grids fall
-        between them.  ``SHGAN_TRAIN_TIMING=1`` fences each phase of each
-        step with a synchronize and returns the per-step split.  Returns
-        ``{"step": the TrainStep, "ticks": [per-tick metric means, with
-        "kimg" and "tick"], "timing": {...}}``; ``stats.jsonl`` holds a
+        step (``metrics`` on the device); the snapshots, image grids and
+        nested evals fall between them.  ``SHGAN_TRAIN_TIMING=1`` fences
+        each phase of each step with a synchronize and returns the per-step
+        split.  ``train.eval_every_kimg`` runs :func:`make_nested_eval` at
+        the first tick past each interval; its ``eval_<metric>`` joins that
+        tick's record, and each strict improvement writes
+        ``weight/network-snapshot-best``.  ``train.profile_dir`` (or
+        ``SHGAN_PROFILE_DIR``) traces three steps there.  Returns ``{"step":
+        the TrainStep, "ticks": [per-tick metric means, with "kimg" and
+        "tick"], "timing": {...}}``; ``stats.jsonl`` holds a
         ``ScalarLogger`` record a tick."""
         cfgt = cfg["train"]
         cfge = cfg.get("env") or {}
         seed = cfge.get("rnd_seed", 0) or 0
         log_dir = cfgt.get("log_dir") or "log/train"
-        for key in ("eval_every_kimg", "profile_dir"):
-            if cfgt.get(key):
-                raise NotImplementedError(
-                    f"train.{key}: the nested eval and the profiler hook "
-                    "come with a later slice")
         n_dev = cfge.get("mesh_devices") or 1
         batch_size = cfgt.get("batch_size") or (
             cfgt["batch_size_per_gpu"] * n_dev)
@@ -434,11 +610,24 @@ class train_stage:
                       f"{cur_nimg / 1e3:.3f} kimg")
         tick_start = cur_nimg
 
+        profile_dir = (cfgt.get("profile_dir")
+                       or os.environ.get("SHGAN_PROFILE_DIR"))
+        profiler = _StepProfiler(profile_dir, dev) if profile_dir else None
+        eval_every = cfgt.get("eval_every_kimg")
+        nested_eval = None
+        if eval_every and cfg.get("eval"):
+            nested_eval = make_nested_eval(cfg, G, dev)
+        # best_metric starts anew after a resume, as in the JAX package
+        best_metric, next_eval = None, None
+        if eval_every:
+            next_eval = next_eval_nimg(cur_nimg, eval_every)
+
         pipe = TrainPipeline(dataset, formatter, batch_size, device=dev,
                              seed=seed, num_threads=_num_workers(cfgt),
                              start=cur_nimg // batch_size)
         step.timing = os.environ.get("SHGAN_TRAIN_TIMING") == "1"
-        timing = {"step_s": [], "phase_s": [], "global_batch": batch_size}
+        timing = {"step_s": [], "phase_s": [], "global_batch": batch_size,
+                  "nested_eval_s": []}
         ticks, pending = [], []
         logger = ScalarLogger(log_dir,
                               tensorboard=cfgt.get("log_tensorboard", False))
@@ -452,9 +641,12 @@ class train_stage:
         try:
             t_tick = t_prev = timeit.default_timer()
             it = iter(pipe)
+            count = 0
             while cur_nimg < total_nimg:
                 real, mask = next(it)
                 step_i = cur_nimg // batch_size
+                if profiler is not None:
+                    profiler.before(count, step_i)
                 if on_step_start is not None:
                     on_step_start(step_i)
                 metrics = step(real, mask, step_generator(seed, step_i),
@@ -463,6 +655,9 @@ class train_stage:
                                do_dreg=step_i % tc.d_reg_interval == 0)
                 if on_step is not None:
                     on_step(step_i, metrics)
+                if profiler is not None:
+                    profiler.after(count, step_i)
+                count += 1
                 # metrics stay on the device: one readback a tick
                 pending.append(metrics)
                 cur_nimg += batch_size
@@ -481,6 +676,20 @@ class train_stage:
                     pending.clear()
                     for v in vals:
                         logger.accumulate(dict(zip(keys, v)))
+                    if nested_eval is not None and cur_nimg >= next_eval:
+                        next_eval = next_eval_nimg(cur_nimg, eval_every)
+                        t_eval = timeit.default_timer()
+                        name, value, higher_better = nested_eval(step.G_ema)
+                        timing["nested_eval_s"].append(
+                            timeit.default_timer() - t_eval)
+                        logger.accumulate({f"eval_{name}": value})
+                        print_log(f"nested eval @ {cur_nimg / 1e3:.3f} kimg:"
+                                  f" {name}={value:.4f}")
+                        if is_improvement(value, best_metric, higher_better):
+                            best_metric = value
+                            self.save_snapshot(step, log_dir, cur_nimg,
+                                               tag="best")
+                            print_log(f"new best {name}={value:.4f}")
                     means = logger.flush(cur_nimg)
                     dt = timeit.default_timer() - t_tick
                     t_tick = timeit.default_timer()
@@ -500,14 +709,19 @@ class train_stage:
                     t_prev = timeit.default_timer()   # step_s: the steps alone
         finally:
             logger.close()
+            if profiler is not None:
+                profiler.close()
         self.save_snapshot(step, log_dir, cur_nimg)
         if image_ticks:
             grid("fakes{:06d}.png".format(cur_nimg // 1000))
         return {"step": step, "ticks": ticks, "timing": timing}
 
     @staticmethod
-    def save_snapshot(step, log_dir, cur_nimg):
-        path = osp.join(log_dir, "weight", snapshot_name(cur_nimg))
+    def save_snapshot(step, log_dir, cur_nimg, tag=None):
+        """``weight/network-snapshot-<kimg>``, or ``-<tag>``."""
+        name = (f"network-snapshot-{tag}" if tag
+                else snapshot_name(cur_nimg))
+        path = osp.join(log_dir, "weight", name)
         save_train_state(path, step)
         print_log(f"saved snapshot {path}")
         return path

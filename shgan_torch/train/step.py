@@ -1,6 +1,7 @@
-"""The training step: Gmain [+ Gpl] then Dmain [+ R1], two Adam optimizers
-with lazy-regularization scaling, the NaN scrub, G-EMA (port of
-``shgan_tpu/train/step.py:45-362``, on one device).
+"""The training step: Gmain [+ Gpl] then Dmain [+ R1], two optimizers
+with lazy-regularization scaling (Adam by default, or one of the registry
+of :mod:`.schedules`, with an optional LR schedule), the NaN scrub, G-EMA
+(port of ``shgan_tpu/train/step.py:45-362``, on one device).
 
   * every step:        Gmain + Dmain
   * g_reg_interval:    + Gpl (path length), loss scaled by the interval
@@ -12,7 +13,10 @@ one gradient of the summed loss does) and a phase's frozen network keeps
 phase none of G.  ``noise_const`` and ``w_avg`` are buffers: the optimizer
 never sees them and the EMA copies them.  ``w_avg`` chains through Gmain ->
 Gpl -> Dmain as in the JAX step (``step.py:186-198, 232-268, 300-308``),
-grad-accumulation rounds included.
+grad-accumulation rounds included.  Each phase runs inside a
+``torch.profiler.record_function`` span named after it (``Gmain``,
+``Gpl``, ``Dmain``, ``R1``, ``opt_ema``), so a profiler trace splits a
+step by phase.
 """
 
 from __future__ import annotations
@@ -21,14 +25,15 @@ import copy
 import time
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
+from torch.profiler import record_function
 
 from . import loss as L
+from .schedules import get_optimizer, get_scheduler
 
 # the JAX step's _BUFFER_NAMES: the EMA copies them, the optimizer skips them
 BUFFER_NAMES = ("noise_const", "w_avg")
-LATER = ("learning-rate schedules and custom optimizers "
-         "(shgan_tpu/train/schedules.py) come with a later slice of the port")
 
 
 @dataclass
@@ -59,17 +64,39 @@ def freeze_buffers(module):
 
 def make_optimizer(params, lr=0.002, betas=(0.0, 0.99), eps=1e-8,
                    reg_interval=None, optimizer=None, schedule=None):
-    """Adam with lazy-regularization scaling: ``lr * r`` and ``betas ** r``,
-    ``r = I / (I + 1)``.  PyTorch's Adam divides by ``sqrt(v_hat) + eps`` as
-    optax's ``scale_by_adam`` does."""
-    if optimizer is not None or schedule is not None:
-        raise NotImplementedError(LATER)
+    """The optimizer of one network, with lazy-regularization scaling
+    ``r = I / (I + 1)`` (JAX ``step.py:74-111``).
+
+    The LR of update ``k`` (``opt.lr_at(k)``, optax's count: 0 at the first
+    update) is ``lr * r``, or with ``schedule`` (a list of ``{"type",
+    "args"}`` segments; ``lr`` is then ignored) ``schedule(k) * r`` in
+    float32.  ``optimizer`` (``{"type", "args"}``) picks one of the
+    registry of :mod:`.schedules` with its own args as they are; without
+    it, Adam with ``betas ** r``.  PyTorch's Adam divides by ``sqrt(v_hat)
+    + eps`` as optax's ``scale_by_adam`` does."""
     r = 1.0
     if reg_interval is not None:
         r = reg_interval / (reg_interval + 1)
-    return torch.optim.Adam(params, lr=lr * r,
-                            betas=tuple(float(b) ** r for b in betas),
-                            eps=eps)
+    if schedule is not None:
+        base, r32 = get_scheduler(schedule), np.float32(r)
+        lr_at = lambda count: base(count) * r32  # noqa: E731
+    else:
+        lr_at = lr * r
+    if optimizer is not None:
+        return get_optimizer(optimizer, params, lr_at)
+    return get_optimizer(
+        {"type": "adam", "args": {
+            "betas": tuple(float(b) ** r for b in betas), "eps": eps}},
+        params, lr_at)
+
+
+def optimizer_step(opt, count):
+    """Update ``count`` of ``opt``: every param group's LR set to
+    ``opt.lr_at(count)``, then ``opt.step()``."""
+    lr = opt.lr_at(count)
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
 
 
 @torch.no_grad()
@@ -106,8 +133,11 @@ def compute_ema_beta(cfg, batch_size, cur_nimg):
 
 class TrainStep:
     """The state (G, D, G_ema, both optimizers, ``pl_mean``, ``step``) and
-    the step over it.  ``timing=True`` fences each phase with a synchronize
-    and records its seconds in ``phase_s``."""
+    the step over it.  ``step`` counts the steps taken, one update of each
+    optimizer a step, so it is both optimizers' update count: update
+    ``step`` runs at ``opt.lr_at(step)``, and a resumed state carries it.
+    ``timing=True`` fences each phase with a synchronize and records its
+    seconds in ``phase_s``."""
 
     PHASES = ("Gmain", "Gpl", "Dmain", "R1", "opt_ema")
 
@@ -171,41 +201,44 @@ class TrainStep:
         pl_mean = self.pl_mean
         for r in range(A):
             sl = slice(r * nm, (r + 1) * nm)
-            z = self._draw(given, "z1", r, nm, zs, gen, dev)
-            loss, aux = L.g_main_loss(G, D, x_in[sl], mask[sl], z, gen,
-                                      cfg.style_mixing_prob)
-            (loss / A).backward()
+            with record_function("Gmain"):
+                z = self._draw(given, "z1", r, nm, zs, gen, dev)
+                loss, aux = L.g_main_loss(G, D, x_in[sl], mask[sl], z, gen,
+                                          cfg.style_mixing_prob)
+                (loss / A).backward()
             mains.append(loss.detach())
             scores.append(aux["scores_fake"])
             main_was.append(aux["w_avg"])
             t = self._mark("Gmain", t)
             if do_greg:
-                z2 = self._draw(given, "z2", r, nm, zs, gen, dev)
-                pl_noise = None
-                if given is not None and "pl_noise" in given:
-                    k = max(nm // cfg.pl_batch_shrink, 1)
-                    pl_noise = given["pl_noise"][r * k:(r + 1) * k].to(dev)
-                loss_pl, pl_mean, pl_len, pl_wa = L.g_pl_loss(
-                    G, x_in[sl], z2, gen, pl_mean, pl_decay=cfg.pl_decay,
-                    pl_weight=cfg.pl_weight,
-                    pl_batch_shrink=cfg.pl_batch_shrink,
-                    style_mixing_prob=cfg.style_mixing_prob,
-                    pl_noise=pl_noise)
-                (loss_pl * (cfg.g_reg_interval / A)).backward()
+                with record_function("Gpl"):
+                    z2 = self._draw(given, "z2", r, nm, zs, gen, dev)
+                    pl_noise = None
+                    if given is not None and "pl_noise" in given:
+                        k = max(nm // cfg.pl_batch_shrink, 1)
+                        pl_noise = given["pl_noise"][
+                            r * k:(r + 1) * k].to(dev)
+                    loss_pl, pl_mean, pl_len, pl_wa = L.g_pl_loss(
+                        G, x_in[sl], z2, gen, pl_mean,
+                        pl_decay=cfg.pl_decay, pl_weight=cfg.pl_weight,
+                        pl_batch_shrink=cfg.pl_batch_shrink,
+                        style_mixing_prob=cfg.style_mixing_prob,
+                        pl_noise=pl_noise)
+                    (loss_pl * (cfg.g_reg_interval / A)).backward()
                 pl_lens.append(pl_len)
                 pl_was.append(pl_wa)
                 t = self._mark("Gpl", t)
-        params_g = freeze_buffers(G)
-        nan_scrub(params_g)
-        self.opt_g.step()
-        self.opt_g.zero_grad(set_to_none=True)
-        if self.w_beta is not None:
-            # all Gmain rounds fold first, then the Gpl rounds, each a lerp
-            # from the stale pre-step w0
-            wa = w0
-            for aux_wa in main_was + pl_was:
-                wa = aux_wa + self.w_beta * (wa - w0)
-            G.mapping.w_avg.copy_(wa)
+        with record_function("opt_ema"):
+            nan_scrub(freeze_buffers(G))
+            optimizer_step(self.opt_g, self.step)
+            self.opt_g.zero_grad(set_to_none=True)
+            if self.w_beta is not None:
+                # all Gmain rounds fold first, then the Gpl rounds, each a
+                # lerp from the stale pre-step w0
+                wa = w0
+                for aux_wa in main_was + pl_was:
+                    wa = aux_wa + self.w_beta * (wa - w0)
+                G.mapping.w_avg.copy_(wa)
         t = self._mark("opt_ema", t)
         metrics = {"loss_g": torch.stack(mains).mean(),
                    "pl_mean": pl_mean,
@@ -221,10 +254,11 @@ class TrainStep:
         d_mains, s_real, s_fake, r1s = [], [], [], []
         for r in range(A):
             sl = slice(r * nm, (r + 1) * nm)
-            z = self._draw(given, "z3", r, nm, zs, gen, dev)
-            loss, aux = L.d_main_loss(G, D, x_in[sl], mask[sl], real[sl], z,
-                                      gen, cfg.style_mixing_prob)
-            (loss / A).backward()
+            with record_function("Dmain"):
+                z = self._draw(given, "z3", r, nm, zs, gen, dev)
+                loss, aux = L.d_main_loss(G, D, x_in[sl], mask[sl], real[sl],
+                                          z, gen, cfg.style_mixing_prob)
+                (loss / A).backward()
             d_mains.append(loss.detach())
             s_real.append(aux["scores_real"])
             s_fake.append(aux["scores_fake"])
@@ -232,19 +266,20 @@ class TrainStep:
                 wad = aux["w_avg"] + self.w_beta * (wad - w0d)
             t = self._mark("Dmain", t)
             if do_dreg:
-                loss_r1, r1 = L.d_r1_loss(D, mask[sl], real[sl],
-                                          r1_gamma=cfg.r1_gamma)
-                (loss_r1 * (cfg.d_reg_interval / A)).backward()
+                with record_function("R1"):
+                    loss_r1, r1 = L.d_r1_loss(D, mask[sl], real[sl],
+                                              r1_gamma=cfg.r1_gamma)
+                    (loss_r1 * (cfg.d_reg_interval / A)).backward()
                 r1s.append(r1)
                 t = self._mark("R1", t)
-        params_d = freeze_buffers(D)
-        nan_scrub(params_d)
-        self.opt_d.step()
-        self.opt_d.zero_grad(set_to_none=True)
-        G.requires_grad_(True)
-        if self.w_beta is not None:
-            G.mapping.w_avg.copy_(wad)
-        ema_update(self.G_ema, G, ema_beta)
+        with record_function("opt_ema"):
+            nan_scrub(freeze_buffers(D))
+            optimizer_step(self.opt_d, self.step)
+            self.opt_d.zero_grad(set_to_none=True)
+            G.requires_grad_(True)
+            if self.w_beta is not None:
+                G.mapping.w_avg.copy_(wad)
+            ema_update(self.G_ema, G, ema_beta)
         self.pl_mean = pl_mean
         self.step += 1
         self._mark("opt_ema", t)

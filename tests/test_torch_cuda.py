@@ -464,3 +464,48 @@ def test_synthesis_layer_card_matches_cpu(cuda, up, mode):
     assert build.launches["noise_bias_act"] == 1
     assert build.launches["philox_normal"] == 0
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_device_timeit_times_cuda_with_events(cuda):
+    """``device_timeit`` on a CUDA result times the calls with CUDA events
+    (a positive mean that covers the queued work), and on a CPU result
+    with the host clock."""
+    from shgan_torch.utils import device_timeit
+    x = torch.randn(2048, 2048, device=cuda)
+    t = device_timeit(lambda a: a @ a, x, iters=4, warmup=1)
+    assert 0 < t < 10
+    assert device_timeit(lambda a: a + 1, torch.ones(8), iters=2) > 0
+
+
+@pytest.mark.parametrize("optimizer", [
+    {"type": "adam", "args": {"betas": [0.0, 0.99], "weight_decay": 0.01}},
+    {"type": "sgd", "args": {"momentum": 0.9, "nesterov": True}}])
+def test_scheduled_optimizer_on_card_equals_cpu(cuda, optimizer):
+    """A registry optimizer with a warm-up schedule steps CUDA parameters as
+    it steps the same CPU parameters (the NaN scrub included), each update
+    at the same LR: within 1e-6 relative after five updates."""
+    from shgan_torch.train import make_optimizer, nan_scrub, optimizer_step
+    sched = [{"type": "linear", "args": {"start_lr": 0.0, "end_lr": 2e-3,
+                                         "step": 3}},
+             {"type": "constant", "args": {"lr": 2e-3, "step": 10}}]
+    g = torch.Generator().manual_seed(0)
+    init = [torch.randn(64, 33, generator=g), torch.randn(7, generator=g)]
+    runs = {}
+    for dev in ("cpu", cuda):
+        ps = [torch.nn.Parameter(t.clone().to(dev)) for t in init]
+        opt = make_optimizer(ps, reg_interval=4, optimizer=optimizer,
+                             schedule=sched)
+        gg = torch.Generator().manual_seed(1)
+        for k in range(5):
+            for p in ps:
+                p.grad = torch.randn(p.shape, generator=gg).to(dev)
+            ps[0].grad[0, :3] = torch.tensor([float("nan"), float("inf"),
+                                              -float("inf")])
+            nan_scrub(ps)
+            optimizer_step(opt, k)
+        runs[str(dev)] = ([p.detach().cpu() for p in ps],
+                          [grp["lr"] for grp in opt.param_groups])
+    (cpu_p, cpu_lr), (card_p, card_lr) = runs["cpu"], runs[str(cuda)]
+    assert cpu_lr == card_lr
+    for a, b in zip(card_p, cpu_p):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)

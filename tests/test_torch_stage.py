@@ -177,17 +177,21 @@ def test_cli_debug_eval_writes_result(tmp_path):
 
 
 def test_cli_refuses_training(tmp_path):
-    """Training an experiment without a train section, or what the train
-    stage does not do yet (nested eval), is refused."""
+    """Training an experiment without a train section, or a nested eval
+    the train stage does not run (``is``), is refused; a training config
+    keeps its eval section for the nested eval."""
     cfg = build_config("shgan_ffhq256_train", log_root=str(tmp_path))
-    assert "eval" not in cfg and cfg["train"]["log_dir"].endswith("train")
+    assert cfg["eval"]["dataset"]["name"] == "ffhqzip_val256_inpainting"
+    assert cfg["train"]["log_dir"].endswith("train")
     r = _cli(["--experiment", "shgan_synthetic256_eval", "--resume_path",
               "x"], tmp_path)
     assert r.returncode != 0 and "no train section" in r.stderr
     cfg = build_config("smoke_train", log_root=str(tmp_path),
                        overrides={"train.eval_every_kimg": 1})
+    cfg["eval"] = {"dataset": cfg["train"]["dataset"],
+                   "nested_eval_metric": "is"}
     from shgan_torch.runtime.stages import train_stage
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="unsupported"):
         train_stage()(cfg, device="cpu")
 
 

@@ -273,10 +273,12 @@ def test_ema_update_and_beta_match_jax(models):
 
 
 def test_schedules_and_custom_optimizers_raise():
+    """A schedule segment without its args and an optimizer the registry
+    lacks (JAX's has no ``adamw`` either) raise when built."""
     p = [torch.nn.Parameter(torch.zeros(2))]
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(KeyError, match="args"):
         TS.make_optimizer(p, schedule=[{"type": "constant"}])
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(KeyError, match="adamw"):
         TS.make_optimizer(p, optimizer={"type": "adamw"})
 
 

@@ -163,7 +163,8 @@ def test_cli_flags_for_training(tmp_path):
     cfg = build_config("shgan_ffhq256_train", log_root=str(tmp_path),
                        dataset="synthetic256_inpainting",
                        resume_path="w", resume_itern=3)
-    assert "eval" not in cfg and cfg["train"]["resume_itern"] == 3
+    assert cfg["eval"]["dataset"]["type"] == "synthetic"   # kept, swapped
+    assert cfg["train"]["resume_itern"] == 3
     assert cfg["train"]["dataset"]["type"] == "synthetic"
     assert cfg["train"]["log_dir"].endswith(osp.join("train"))
     cfg = build_config("shgan_ffhq256_train", log_root=str(tmp_path),
