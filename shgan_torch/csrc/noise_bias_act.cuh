@@ -178,7 +178,11 @@ SHGAN_HD float act_grad(float dy, float x, float dcoef, float noise_term, float 
 
 // One element of the full mode: dx = g * dcoef written, and the three
 // sums carried in acc: dd += g * x, db += g, ds += g * nu (nu the raw normal,
-// noise_term = nu * strength).
+// noise_term = nu * strength).  With bf16 I/O, dy and x arrive widened to
+// float32 (from_bf16, exact), this arithmetic runs unchanged, and the result
+// is rounded once by to_bf16 at the store: dx is the float32 kernel's dx on
+// the same values, rounded to nearest even; the sums are the float32
+// kernel's sums of the widened inputs, bit for bit.
 SHGAN_HD float grad_element(float dy, float x, float dcoef, bool has_dcoef, float nu,
                             float noise_term, float bias, Act a, float* acc) {
   const float g = act_grad(dy, x, dcoef, noise_term, bias, a);
@@ -196,40 +200,65 @@ SHGAN_HD float mask_element(float v, float vs, bool has_vs, float x, float dcoef
   return act_grad(u, x, dcoef, noise_term, bias, a);
 }
 
-// The grad launch: a block per (plane, chunk of its Philox calls); grid x
-// the N*C planes, grid y `chunks` blocks a plane, the fewest that give
-// kGradTargetBlocks blocks (at most one per 2 * kThreads calls).  A chunk is
-// an even run of calls_per_block calls, so a thread that owns 2 calls keeps
-// them together; thread t walks calls first + t * cpt, stepping threads *
-// cpt.  A thread carries its three sums in the order it meets its elements;
-// the block combines them with a fixed tree (tree_add) and writes one
-// partial per (sum, plane, chunk).  Two small kernels finish in a fixed
-// order: each plane's partials over its chunks (dd[n, c] final), then db[c]
-// over n and ds over the planes.  No float atomics: the sums are the same
-// bits on every run.
+// The grad launch: a block per (row n, group of `group` consecutive
+// channels, chunk of the plane's Philox calls); grid x the N * groups
+// channel groups, grid y `chunks` blocks a group.  A thread draws the
+// normals of its calls once and walks the group's channels with them, so
+// the noise is regenerated once per pixel and group, not once per element
+// (Philox and Box-Muller cost ~40 operations an element otherwise, more
+// than the element's own work: the kernel was held by them).  `group` is
+// the largest power of two up to kGradGroup that leaves kGradTargetBlocks
+// blocks at the most chunks a plane takes (one per 2 * kThreads calls);
+// `chunks` the fewest that give kGradTargetBlocks blocks.  A chunk is a run
+// of calls_per_block calls, a multiple of max(cpt, 2), so a thread that
+// owns cpt calls (2 in float32, 4 in bf16: 16-byte accesses either way)
+// keeps them together; thread t walks calls first + t * cpt, stepping
+// threads * cpt.  A thread carries three sums for each channel of its group
+// in the order it meets that channel's elements; the block combines each
+// channel's with a fixed tree (tree_add) and writes one partial per (sum,
+// plane, chunk).  Two small kernels finish in a fixed order: each plane's
+// partials over its chunks (dd[n, c] final), then db[c] over n and ds over
+// the planes.  No float atomics: the sums are the same bits on every run.
 constexpr long long kGradTargetBlocks = 1024;
+constexpr int kGradGroup = 8;
 
 struct GradLaunch {
   int threads;                // block threads: the fewest warps (power of 2) covering a chunk
-  int chunks;                 // blocks a plane (grid y)
-  long long calls_per_block;  // Philox calls a block covers, even
+  int group;                  // channels a block walks
+  int groups;                 // channel groups of a row: cdiv(c, group)
+  int chunks;                 // blocks a channel group (grid y)
+  long long calls_per_block;  // Philox calls a block covers, a multiple of max(cpt, 2)
 };
 
-SHGAN_HD int grad_chunks(int n, int c, int res) {
-  const long long planes = static_cast<long long>(n) * c;
+SHGAN_HD long long grad_max_chunks(int res) {
   const long long calls = static_cast<long long>(res) * res / 4;
-  long long k = cdiv(kGradTargetBlocks, planes);
   const long long kmax = cdiv(calls, 2LL * kThreads);
+  return kmax < 1 ? 1 : kmax;
+}
+
+SHGAN_HD int grad_group(int n, int c, int res) {
+  const long long kmax = grad_max_chunks(res);
+  int g = kGradGroup;
+  while (g > 1 && static_cast<long long>(n) * cdiv(c, g) * kmax < kGradTargetBlocks) g /= 2;
+  return g;
+}
+
+SHGAN_HD int grad_chunks(int n, int c, int res) {
+  const long long blocks = static_cast<long long>(n) * cdiv(c, grad_group(n, c, res));
+  long long k = cdiv(kGradTargetBlocks, blocks);
+  const long long kmax = grad_max_chunks(res);
   if (k > kmax) k = kmax;
   return k < 1 ? 1 : static_cast<int>(k);
 }
 
 SHGAN_HD GradLaunch grad_plan(int n, int c, int res, int cpt) {
   GradLaunch G;
+  G.group = grad_group(n, c, res);
+  G.groups = static_cast<int>(cdiv(c, G.group));
   G.chunks = grad_chunks(n, c, res);
   const long long calls = static_cast<long long>(res) * res / 4;
-  long long cpb = cdiv(calls, G.chunks);
-  cpb += cpb & 1;
+  const long long mult = cpt > 2 ? cpt : 2;
+  const long long cpb = cdiv(cdiv(calls, G.chunks), mult) * mult;
   G.calls_per_block = cpb;
   G.threads = 32;
   while (G.threads < kThreads && static_cast<long long>(G.threads) * cpt < cpb) G.threads *= 2;

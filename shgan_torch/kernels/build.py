@@ -38,7 +38,7 @@ ENTRY_POINTS = {
     "noise_bias_act": {
         "shgan_noise_bias_act": (_P, _P) + (_I,) * 4 + (_P,) * 4
         + (_I, _U, _U, _F, _F, _F, _P),
-        "shgan_noise_bias_act_grad": (_P,) * 3 + (_I,) * 3 + (_P,) * 4
+        "shgan_noise_bias_act_grad": (_P,) * 3 + (_I,) * 4 + (_P,) * 4
         + (_I, _U, _U, _F, _F, _F, _I) + (_P,) * 6},
     "upfirdn2d": {"shgan_upfirdn2d": (_P, _P, _I, _LL) + (_I,) * 10
                   + (_P, _I, _I, _P)},

@@ -5,8 +5,11 @@ is the same network with a 4-channel input (mask - 0.5 || RGB).
 
 Blocks are attributes ``b{res}`` so parameter names read
 ``b256.conv0.weight`` as in the JAX package.  ``remat`` is a TPU
-formulation: accepted, not used.  The class-conditional mapping
-(``c_dim > 0``) is not ported: no SH-GAN config uses it.
+formulation: accepted, not used.  A class-conditional D (``c_dim > 0``)
+maps the label to ``cmap`` with a ``mapping`` network (``z_dim`` 0); as in
+the JAX package its epilogue is built without ``cmap_dim``, so the logits
+do not read ``cmap`` (an epilogue built with ``cmap_dim`` projects onto
+it).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch.nn as nn
 
 from ..ops.minibatch_std import minibatch_std
 from .layers import Conv2dLayer, Dense
+from .mapping import Mapping
 
 
 class DiscrimBlock(nn.Module):
@@ -59,13 +63,16 @@ class DiscrimBlock(nn.Module):
 
 
 class DiscrimEpilogue(nn.Module):
-    """mbstd -> conv -> fc -> out."""
+    """mbstd -> conv -> fc -> out; with ``cmap_dim`` the output is
+    ``cmap_dim`` wide and projected onto ``cmap``."""
 
-    def __init__(self, ic_n, resolution=4, mbstd_group_size=4, mbstd_c_n=1,
+    def __init__(self, ic_n, resolution=4, cmap_dim=None, mbstd_group_size=4,
+                 mbstd_c_n=1,
                  activation="lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)",
                  generator=None):
         super().__init__()
         g = generator
+        self.cmap_dim = cmap_dim
         self.mbstd_group_size = mbstd_group_size
         self.mbstd_c_n = mbstd_c_n
         self.conv = Conv2dLayer(ic_n + mbstd_c_n, ic_n, 3, bias=True,
@@ -73,15 +80,19 @@ class DiscrimEpilogue(nn.Module):
                                 generator=g)
         self.fc = Dense(ic_n * resolution ** 2, ic_n, activation=activation,
                         generator=g)
-        self.out = Dense(ic_n, 1, generator=g)
+        self.out = Dense(ic_n, 1 if cmap_dim is None else cmap_dim,
+                         generator=g)
 
-    def forward(self, x):
+    def forward(self, x, cmap=None):
         x = x.float()
         if self.mbstd_c_n > 0:
             x = minibatch_std(x, self.mbstd_group_size, self.mbstd_c_n)
         x = self.conv(x)
         x = self.fc(x.reshape(x.shape[0], -1))
-        return self.out(x)
+        x = self.out(x)
+        if self.cmap_dim is not None:
+            x = (x * cmap).sum(dim=1, keepdim=True) / np.sqrt(self.cmap_dim)
+        return x
 
 
 class Discriminator(nn.Module):
@@ -93,9 +104,6 @@ class Discriminator(nn.Module):
                  mbstd_group_size=4, mbstd_c_n=1, c_dim=None, cmap_dim=None,
                  remat=False, generator=None):
         super().__init__()
-        if c_dim or cmap_dim:
-            raise NotImplementedError(
-                "the class-conditional discriminator is not ported yet")
         log2res = int(np.log2(resolution))
         if 2 ** log2res != resolution:
             raise ValueError(resolution)
@@ -113,16 +121,21 @@ class Discriminator(nn.Module):
                 ch_i, ch_i, ch_j, rgb_n=ic_n if idx == 0 else None,
                 resample_filter=resample_filter, activation=activation,
                 reslink=True, use_fp16=use_fp16, generator=g))
+        self.mapping = (Mapping(z_dim=0, c_dim=c_dim, w_dim=cmap_dim,
+                                num_ws=None, w_avg_beta=None, generator=g)
+                        if c_dim is not None and c_dim > 0 else None)
         hidden_ch = min(ch_base // self.encode_res[-1], ch_max)
-        self.b4 = DiscrimEpilogue(hidden_ch, resolution=4,
+        self.b4 = DiscrimEpilogue(hidden_ch, resolution=4, cmap_dim=None,
                                   mbstd_group_size=mbstd_group_size,
                                   mbstd_c_n=mbstd_c_n, activation=activation,
                                   generator=g)
 
     def forward(self, img, c=None):
-        """``c`` is accepted for the reference signature and unused."""
+        """Logits [N, 1]; ``c`` [N, c_dim] feeds the label mapping of a
+        class-conditional D."""
         x = None
         for resi in self.encode_res[:-1]:
             x = getattr(self, f"b{resi}")(x, img)
             img = None
-        return self.b4(x)
+        cmap = self.mapping(None, c) if self.mapping is not None else None
+        return self.b4(x, cmap)

@@ -4,9 +4,11 @@ features (port of the direct path of ``shgan_tpu/models/encoder.py``).
 The epilogue's dropout (p = 0.5, kept values scaled by 2) acts only in a
 training forward (``train=True``), drawn from the ``torch.Generator`` the
 caller passes (``shgan_tpu/models/encoder.py:160-163``).  The JAX package
-builds every block without the residual link; the port has none.  Not
-ported yet (no SH-GAN config uses them): the minibatch-stddev layer
-(``mbstd_c_n > 0``) and the class-conditional mapping (``c_dim``).
+builds every block without the residual link; the port has none.  With
+``mbstd_c_n > 0`` the epilogue appends the minibatch-stddev channels
+before its conv; with ``c_dim > 0`` a ``mapping`` network (``z_dim`` 0)
+maps the label to ``cmap``, which the epilogue, built without
+``cmap_dim`` as in the JAX package, does not read.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops.minibatch_std import minibatch_std
 from .layers import Conv2dLayer, Dense
+from .mapping import Mapping
 
 
 class EncoderBlock(nn.Module):
@@ -54,13 +58,17 @@ class EncoderBlock(nn.Module):
 class EncoderEpilogue(nn.Module):
     """4² epilogue producing the global co-modulation code."""
 
-    def __init__(self, ic_n, oc_n, resolution=4,
+    def __init__(self, ic_n, oc_n, resolution=4, cmap_dim=None,
+                 mbstd_group_size=4, mbstd_c_n=1,
                  activation="lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)",
                  has_extra_final_layer=True, use_dropout=True, generator=None):
         super().__init__()
         self.use_dropout = use_dropout
+        self.cmap_dim = cmap_dim
+        self.mbstd_group_size = mbstd_group_size
+        self.mbstd_c_n = mbstd_c_n
         g = generator
-        self.conv = Conv2dLayer(ic_n, ic_n, 3, bias=True,
+        self.conv = Conv2dLayer(ic_n + mbstd_c_n, ic_n, 3, bias=True,
                                 activation=activation, resample_filter=None,
                                 generator=g)
         self.fc = Dense(ic_n * resolution ** 2, oc_n, activation=activation,
@@ -68,8 +76,11 @@ class EncoderEpilogue(nn.Module):
         self.out = (Dense(oc_n, oc_n, generator=g) if has_extra_final_layer
                     else None)
 
-    def forward(self, x, train=False, generator=None):
-        feat = self.conv(x.float())
+    def forward(self, x, cmap=None, train=False, generator=None):
+        x = x.float()
+        if self.mbstd_c_n > 0:
+            x = minibatch_std(x, self.mbstd_group_size, self.mbstd_c_n)
+        feat = self.conv(x)
         x = self.fc(feat.reshape(feat.shape[0], -1))
         if self.out is not None:
             x = self.out(x)
@@ -80,6 +91,8 @@ class EncoderEpilogue(nn.Module):
             keep = torch.rand(x.shape, generator=generator,
                               device=generator.device) < 0.5
             x = torch.where(keep.to(x.device), x * 2.0, torch.zeros_like(x))
+        if self.cmap_dim is not None:
+            x = (x * cmap).sum(dim=1, keepdim=True) / np.sqrt(self.cmap_dim)
         return x, feat
 
 
@@ -98,10 +111,6 @@ class Encoder(nn.Module):
                  fold_above_res=None, generator=None):
         # remat / fold_above_res are TPU formulations: accepted, not used
         super().__init__()
-        if mbstd_c_n > 0 or c_dim or cmap_dim:
-            raise NotImplementedError(
-                "minibatch stddev and class-conditional encoders are not "
-                "ported yet")
         log2res = int(np.log2(resolution))
         if 2 ** log2res != resolution:
             raise ValueError(resolution)
@@ -120,19 +129,25 @@ class Encoder(nn.Module):
                 ch_i, ch_i, ch_j, rgb_n=ic_n if idx == 0 else None,
                 resample_filter=resample_filter, activation=activation,
                 use_fp16=use_fp16, generator=g))
+        self.mapping = (Mapping(z_dim=0, c_dim=c_dim, w_dim=cmap_dim,
+                                num_ws=None, w_avg_beta=None, generator=g)
+                        if c_dim is not None and c_dim > 0 else None)
         hidden_ch = min(ch_base // self.encode_res[-1], ch_max)
         self.b4 = EncoderEpilogue(
-            hidden_ch, oc_n, resolution=4, activation=activation,
+            hidden_ch, oc_n, resolution=4, cmap_dim=None,
+            mbstd_group_size=mbstd_group_size, mbstd_c_n=mbstd_c_n,
+            activation=activation,
             has_extra_final_layer=has_extra_final_layer,
             use_dropout=use_dropout, generator=g)
 
-    def forward(self, img, train=False, generator=None):
+    def forward(self, img, c=None, train=False, generator=None):
         """``train`` turns the epilogue's dropout on, drawn from
-        ``generator``."""
+        ``generator``; ``c`` feeds the label mapping where there is one."""
         x = None
         feats = {}
         for resi in self.encode_res[:-1]:
             x, feats[resi] = getattr(self, f"b{resi}")(x, img)
             img = None
-        x, feats[4] = self.b4(x, train=train, generator=generator)
+        cmap = self.mapping(None, c) if self.mapping is not None else None
+        x, feats[4] = self.b4(x, cmap, train=train, generator=generator)
         return x, feats

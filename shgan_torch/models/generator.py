@@ -1,10 +1,35 @@
-"""CoModGAN generator: mapping → encoder → co-modulated synthesis (port of
-``CoModGANGenerator`` in ``shgan_tpu/models/generator.py``, direct path;
-the folded-layout matching is a TPU formulation and is not ported)."""
+"""Generator assemblies (port of ``shgan_tpu/models/generator.py``, direct
+path; the folded-layout matching is a TPU formulation and is not ported):
+StyleGAN2 (mapping → synthesis) and CoModGAN (mapping → encoder →
+co-modulated synthesis)."""
 
 from __future__ import annotations
 
 import torch.nn as nn
+
+
+class StyleGANGenerator(nn.Module):
+    """Unconditional StyleGAN2: ``img = synthesis(mapping(z, c))``."""
+
+    def __init__(self, mapping, synthesis):
+        super().__init__()
+        if synthesis.num_ws != mapping.num_ws:
+            raise ValueError((synthesis.num_ws, mapping.num_ws))
+        self.mapping = mapping
+        self.synthesis = synthesis
+        self.num_ws = mapping.num_ws
+        self.z_dim = mapping.z_dim
+        self.c_dim = mapping.c_dim
+        self.w_dim = mapping.w_dim
+        self.img_resolution = synthesis.resolution
+        self.img_channels = synthesis.rgb_n
+
+    def forward(self, z, c=None, truncation_psi=1.0, truncation_cutoff=None,
+                noise_mode="random", noise_seed=None):
+        ws = self.mapping(z, c, truncation_psi=truncation_psi,
+                          truncation_cutoff=truncation_cutoff)
+        return self.synthesis(ws, noise_mode=noise_mode,
+                              noise_seed=noise_seed)
 
 
 class CoModGANGenerator(nn.Module):

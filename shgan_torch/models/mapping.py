@@ -3,8 +3,9 @@ equalized-LR dense layers with lr multiplier 0.01, input 2nd-moment
 normalization, the ``w_avg`` buffer with the truncation trick, broadcast to
 ``num_ws``.  The ``w_avg`` EMA update is returned (``update_w_avg=True``),
 not applied: the train step chains it through its phases as the JAX step
-does.  The class-conditional embedding (``c_dim > 0``) is not ported yet: no
-SH-GAN config uses it."""
+does.  With ``c_dim > 0`` the class label goes through the ``embed`` dense
+layer and its own 2nd-moment normalization and joins z (or stands alone
+with ``z_dim == 0``, the discriminator's and encoder's label mapping)."""
 
 from __future__ import annotations
 
@@ -20,8 +21,6 @@ class Mapping(nn.Module):
                  activation="lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)",
                  lr_multiplier=0.01, w_avg_beta=0.995, generator=None):
         super().__init__()
-        if c_dim:
-            raise NotImplementedError("c_dim > 0 is not ported yet")
         self.z_dim = z_dim
         self.c_dim = c_dim
         self.w_dim = w_dim
@@ -29,9 +28,16 @@ class Mapping(nn.Module):
         self.num_layers = num_layers
         self.w_avg_beta = w_avg_beta
 
+        if embed_features is None:
+            embed_features = w_dim
+        if c_dim == 0:
+            embed_features = 0
         if layer_features is None:
             layer_features = w_dim
-        features = [z_dim] + [layer_features] * (num_layers - 1) + [w_dim]
+        features = ([z_dim + embed_features]
+                    + [layer_features] * (num_layers - 1) + [w_dim])
+        self.embed = (Dense(c_dim, embed_features, generator=generator)
+                      if c_dim > 0 else None)
         for idx in range(num_layers):
             setattr(self, f"fc{idx}",
                     Dense(features[idx], features[idx + 1],
@@ -44,12 +50,19 @@ class Mapping(nn.Module):
 
     def forward(self, z, c=None, truncation_psi=1.0, truncation_cutoff=None,
                 update_w_avg=False):
-        """``ws`` [N, num_ws, w_dim] (or [N, w_dim] when num_ws is None);
-        ``c`` is accepted for the reference signature and unused.  With
-        ``update_w_avg`` returns ``(ws, new_w_avg)``, ``new_w_avg`` the
-        lerp ``x_mean + beta * (w_avg - x_mean)`` of the batch mean
-        (``shgan_tpu/models/mapping.py:76-79``; no gradient)."""
-        x = normalize_2nd_moment(z.float())
+        """``ws`` [N, num_ws, w_dim] (or [N, w_dim] when num_ws is None)
+        from ``z`` [N, z_dim] and, with ``c_dim > 0``, the label ``c`` [N,
+        c_dim].  With ``update_w_avg`` returns ``(ws, new_w_avg)``,
+        ``new_w_avg`` the lerp ``x_mean + beta * (w_avg - x_mean)`` of the
+        batch mean (``shgan_tpu/models/mapping.py:76-79``; no gradient)."""
+        x = None
+        if self.z_dim > 0:
+            x = normalize_2nd_moment(z.float())
+        if self.c_dim > 0:
+            if c is None:
+                raise ValueError(f"a mapping with c_dim {self.c_dim} needs c")
+            y = normalize_2nd_moment(self.embed(c.float()))
+            x = torch.cat([x, y], dim=1) if x is not None else y
         for idx in range(self.num_layers):
             x = getattr(self, f"fc{idx}")(x)
 

@@ -10,21 +10,24 @@ import torch
 
 from .discriminator import Discriminator
 from .encoder import Encoder
-from .generator import CoModGANGenerator
+from .generator import CoModGANGenerator, StyleGANGenerator
 from .mapping import Mapping
 from .shgan_encoder import ShganEncoder
-from .synthesis import CoModSynthesis
+from .synthesis import CoModSynthesis, CoModSynthesisPlur, StyleGANSynthesis
 
 MODEL_REGISTRY = {
     "stylegan2_mapping": Mapping,
     "comodgan_mapping": Mapping,
+    "stylegan2_synthesis": StyleGANSynthesis,
     "comodgan_synthesis": CoModSynthesis,
+    "comodgan_synthesis_plur": CoModSynthesisPlur,
     "comodgan_encoder": Encoder,
     "shgan_encoder": ShganEncoder,
     "stylegan2_discriminator": Discriminator,
     "comodgan_discriminator": Discriminator,
 }
-_ASSEMBLIES = {"comodgan_generator": CoModGANGenerator}
+_ASSEMBLIES = {"stylegan2_generator": StyleGANGenerator,
+               "comodgan_generator": CoModGANGenerator}
 
 
 def _is_model_cfg(v):

@@ -28,7 +28,10 @@ grad kernel, regenerating ``nu``; its double backward (the path-length
 penalty) is the grad kernel in a mask-only mode, ``act'(pre) * v``
 (:func:`noise_bias_act_mask_cuda`), and tensor products and sums.  The plain
 versions :func:`noise_bias_act_grad_plain` and
-:func:`noise_bias_act_mask_plain` compute the same in PyTorch.
+:func:`noise_bias_act_mask_plain` compute the same in PyTorch.  Both modes
+take float32 or bfloat16 ``x`` and cotangent (a bf16 block of a training
+run): a bf16 pair is widened to float32, the float32 arithmetic runs on it
+and the tensor result is rounded once to bf16; the sums stay float32.
 
 The activation is a tuple ``(alpha, gain, clamp)``: :func:`epilogue_act`
 parses a layer's spec at its runtime gain (``alpha`` None is linear, ``clamp``
@@ -182,25 +185,28 @@ def noise_bias_act_cuda(x, dcoefs=None, bias=None, act=LINEAR,
 
 def grad_work_floats(n, c, res):
     """Floats of the grad kernel's work buffer (noise_bias_act.cuh:
-    grad_work_floats, the same rule)."""
-    planes = n * c
-    calls = res * res // 4
-    k = max(min(-(-1024 // planes), -(-calls // 512)), 1)
-    return 3 * planes * k + 2 * planes
+    grad_group, grad_chunks and grad_work_floats, the same rules)."""
+    kmax = max(-(-(res * res // 4) // 512), 1)
+    group = 8
+    while group > 1 and n * -(-c // group) * kmax < 1024:
+        group //= 2
+    k = max(min(-(-1024 // (n * -(-c // group))), kmax), 1)
+    return 3 * n * c * k + 2 * n * c
 
 
 def _grad_launch(v, x, dcoefs, bias, act, noise_mode, noise_key, noise_const,
                  strength, mask_only, vs=None):
     what = "noise_bias_act_grad kernel"
     _check(x, noise_mode, noise_key, noise_const, strength)
-    if x.dtype != torch.float32 or v.dtype != torch.float32:
-        raise TypeError(f"{what} takes float32, got {v.dtype} / {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or v.dtype != x.dtype:
+        raise TypeError(f"{what} takes a float32 or bfloat16 x and a "
+                        f"cotangent of its type, got {v.dtype} / {x.dtype}")
     _, (mode, k0, k1), ptrs = _kernel_args(
         x, dcoefs, bias, noise_mode, noise_key, noise_const, strength, what)
     if (v.shape != x.shape or v.device != x.device or not v.is_contiguous()
-            or v.data_ptr() % 8):
+            or v.data_ptr() % (2 * v.element_size())):
         raise ValueError(f"{what}: the cotangent must be a contiguous, "
-                         f"8-byte aligned tensor like x")
+                         f"2-element aligned tensor like x")
     if vs is not None and (vs.shape != () or vs.dtype != torch.float32
                            or vs.device != x.device):
         raise ValueError(f"{what}: vs must be a float32 scalar on {x.device}")
@@ -214,7 +220,8 @@ def _grad_launch(v, x, dcoefs, bias, act, noise_mode, noise_key, noise_const,
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = _kb.launch(
         _kb.library("noise_bias_act").shgan_noise_bias_act_grad, x.device,
-        v.data_ptr(), x.data_ptr(), out.data_ptr(), n, c, r, *ptrs, mode, k0,
+        v.data_ptr(), x.data_ptr(), out.data_ptr(),
+        0 if x.dtype == torch.float32 else 1, n, c, r, *ptrs, mode, k0,
         k1, *_act_args(act), int(mask_only), ptr(vs), *map(ptr, sums))
     _kb.check(rc, what)
     _kb.launches["noise_bias_act_grad"] += 1
@@ -257,8 +264,13 @@ def noise_bias_act_mask_plain(v, x, dcoefs=None, bias=None, act=LINEAR,
                               noise_mode="none", noise_key=None,
                               noise_const=None, strength=None, vs=None):
     """Plain version of the mask-only mode: ``act'(pre) * (v + vs * nu)``,
-    in the order autograd of the plain chain takes it."""
+    in the order autograd of the plain chain takes it; a bf16 ``v`` and
+    ``x`` are widened to float32 and the result rounded once to bf16."""
     _check(x, noise_mode, noise_key, noise_const, strength)
+    if x.dtype != torch.float32:
+        return noise_bias_act_mask_plain(
+            v.float(), x.float(), dcoefs, bias, act, noise_mode, noise_key,
+            noise_const, strength, vs).to(x.dtype)
     nu = _noise_plain(x, noise_mode, noise_key, noise_const)
     if vs is not None and nu is not None:
         v = v + vs * nu
@@ -280,7 +292,14 @@ def noise_bias_act_mask_plain(v, x, dcoefs=None, bias=None, act=LINEAR,
 def noise_bias_act_grad_plain(dy, x, dcoefs=None, bias=None, act=LINEAR,
                               noise_mode="none", noise_key=None,
                               noise_const=None, strength=None):
-    """Plain version of the grad kernel's full mode."""
+    """Plain version of the grad kernel's full mode; for a bf16 ``dy`` and
+    ``x``, the float32 version on the widened pair with dx rounded once to
+    bf16 (the sums stay float32)."""
+    if x.dtype != torch.float32:
+        dx, *sums = noise_bias_act_grad_plain(
+            dy.float(), x.float(), dcoefs, bias, act, noise_mode, noise_key,
+            noise_const, strength)
+        return (dx.to(x.dtype), *sums)
     g = noise_bias_act_mask_plain(dy, x, dcoefs, bias, act, noise_mode,
                                   noise_key, noise_const, strength)
     nu = _noise_plain(x, noise_mode, noise_key, noise_const)
@@ -302,14 +321,12 @@ def _on(x, cuda_fn, plain_fn):
 
 class _Epilogue(torch.autograd.Function):
     """The epilogue with a gradient: the forward writes a new tensor and
-    keeps ``x`` (not the noise); the backward is :class:`_EpilogueGrad`."""
+    keeps ``x`` (not the noise); the backward is :class:`_EpilogueGrad`.
+    ``x`` is float32 or bfloat16; the kernels raise on any other type."""
 
     @staticmethod
     def forward(ctx, x, dcoefs, bias, strength, noise_const, spec):
         act, noise_mode, noise_key = spec
-        if x.is_cuda and x.dtype != torch.float32:
-            raise TypeError(f"the differentiable epilogue takes float32 on "
-                            f"the card, got {x.dtype}")
         kw = dict(dcoefs=dcoefs, bias=bias, act=act, noise_mode=noise_mode,
                   noise_key=noise_key, noise_const=noise_const,
                   strength=strength)
@@ -366,7 +383,10 @@ class _EpilogueGrad(torch.autograd.Function):
             v = t if v is None else v + t
         if gds is not None and v is None:
             v = torch.zeros_like(x)
-        g_dy = None if v is None else mask(v.contiguous(), x, vs=gds, **kw)
+        # v is float32 where a float32 factor met a bf16 one: the mask
+        # takes it in x's type, as autograd of the bf16 chain would hold it
+        g_dy = None if v is None else mask(v.to(x.dtype).contiguous(), x,
+                                           vs=gds, **kw)
         # d/dx = gdd * g and d/d dcoefs = sum_hw gdx * g, g = dy * act'(pre);
         # the bias and strength enter g only through the piecewise-constant
         # act': their second derivatives are 0
@@ -374,9 +394,9 @@ class _EpilogueGrad(torch.autograd.Function):
         if gdd is not None or (gdx is not None and dcoefs is not None):
             g = mask(dy, x, **kw)
             if gdd is not None:
-                g_x = gdd[:, :, None, None] * g
+                g_x = (gdd[:, :, None, None] * g).to(x.dtype)
             if gdx is not None and dcoefs is not None:
-                g_d = (gdx * g).sum((2, 3))
+                g_d = (gdx.float() * g.float()).sum((2, 3))
         return g_dy, g_x, g_d, None, None, None, None
 
 

@@ -1,5 +1,7 @@
 """Batch inference engine: serving of an inpainting generator on one device
-(port of ``shgan_tpu/serve.py``; multi-device serving comes later).
+(port of ``shgan_tpu/serve.py``; multi-device serving comes later), and
+:func:`generate_to_dir`, which writes an eval dataset's composites as
+``<uid>.png`` for the ``--evalnog_path`` protocol.
 
 * **fixed batch shapes** — requests run in chunks of ``batch_size``; a
   ragged tail pads up to the smallest latency bucket that fits and the
@@ -8,7 +10,9 @@
   device (``models/infer.py``), so the readback is 1 byte per pixel; uint8
   images travel to the device as uint8;
 * **asynchronous window** — ``inpaint_stream`` keeps up to ``window``
-  batches queued on the device before it reads one back.
+  batches queued on the device before it reads one back;
+* **bf16** — ``bf16=True`` runs the blocks above 16² in bfloat16 (the
+  throughput configuration), on a deep copy of the model config.
 
 Determinism: z is keyed by (seed, global position), identical for any
 batch layout.  Random synthesis noise (``noise_mode='random'``, the serving
@@ -21,13 +25,16 @@ rows enter (``ops/modulated_conv.py``).
 
 from __future__ import annotations
 
+import copy
+import os
+import os.path as osp
+import timeit
+
 import numpy as np
 import torch
 
-from .checkpoint.convert import load_pth
 from .data.rng import derive_seed
 from .models.infer import composite_forward, z_for_positions
-from .models.registry import get_model
 from .runtime.config import model_cfg_bank
 
 BATCH_NOISE_SALT = 0xB47C  # epoch slot of derive_seed for batch noise seeds
@@ -74,21 +81,34 @@ class InpaintEngine:
     Args:
         model_cfg: model-bank name (e.g. ``"shgan_g512"``) or a model cfg
             dict.
-        pretrained: optional released ``.pth`` state_dict (strict load).
+        pretrained: optional released ``.pth`` state_dict or training
+            snapshot ``.pkl`` (``runtime.stages.build_generator``).
         batch_size: the batch every full chunk runs at.
+        bf16: run the blocks above 16² in bfloat16 (the throughput
+            configuration); the caller's cfg dict is not changed.
         noise_mode: 'random' (serving default) | 'const' | 'none'.
         seed: base seed for the weights' random init, z and noise.
+        strict: load a ``.pth`` strictly (a ``.pkl`` always merges).
         latency_batches: smaller batch buckets a short tail pads up to.
         device: None = the CUDA device (raise if absent); "cpu" runs the
             plain PyTorch versions of the kernels.
     """
 
     def __init__(self, model_cfg, pretrained=None, batch_size=16,
-                 noise_mode="random", seed=0, latency_batches=(),
-                 device=None):
+                 bf16=False, noise_mode="random", seed=0, strict=True,
+                 latency_batches=(), device=None):
+        # runtime.stages imports this module: import it here
+        from .runtime.stages import build_generator
         self.device = resolve_device(device)
         if isinstance(model_cfg, str):
             model_cfg = model_cfg_bank()(model_cfg)
+        if bf16:
+            # a deep copy: a float32 engine built later from the caller's
+            # dict stays float32
+            model_cfg = copy.deepcopy(model_cfg)
+            args = model_cfg["args"]
+            args["encoder"]["args"]["use_fp16_before_res"] = 16
+            args["synthesis"]["args"]["use_fp16_after_res"] = 16
         self.buckets = sorted({int(b) for b in latency_batches}
                               | {int(batch_size)})
         if self.buckets[0] <= 0:
@@ -98,9 +118,7 @@ class InpaintEngine:
         self.batch_size = int(batch_size)
         self.noise_mode = noise_mode
         self.seed = seed
-        G = get_model(model_cfg, seed=seed)
-        if pretrained is not None:
-            G.load_state_dict(load_pth(pretrained), strict=True)
+        G = build_generator(model_cfg, pretrained, strict=strict, seed=seed)
         self.G = G.to(self.device).eval().requires_grad_(False)
 
     def _run_padded(self, real, mask, start):
@@ -162,3 +180,42 @@ class InpaintEngine:
                 yield dev[:valid].cpu().numpy()
         for dev, valid in inflight:
             yield dev[:valid].cpu().numpy()
+
+
+def generate_to_dir(engine, dataset, formatter, out_dir, log_every=10,
+                    num_threads=None, log=print):
+    """Run a (real, mask, uid) eval dataset through ``engine`` and write
+    ``<uid>.png`` composites into ``out_dir``: the layout the ``*_loadgen``
+    datasets and ``--evalnog_path`` read.  The host side is
+    :class:`~.data.pipeline.EvalPipeline`, so the masks come from the same
+    per-position stream as a metric run over the same dataset; padding rows
+    of the last batch are not written.  Returns the number written."""
+    from PIL import Image
+    from .data.pipeline import EvalPipeline
+
+    os.makedirs(out_dir, exist_ok=True)
+    n, bs = len(dataset), engine.batch_size
+    pipe = EvalPipeline(dataset, formatter, bs, seed=engine.seed,
+                        num_threads=num_threads)
+    meta = []
+
+    def batches():
+        for real, mask, valid, uids in pipe:
+            meta.append((valid, uids))
+            yield real, mask
+
+    t0 = timeit.default_timer()
+    written = 0
+    for bi, out in enumerate(engine.inpaint_stream(batches())):
+        valid, uids = meta[bi]
+        for img, uid, ok in zip(out, uids, valid):
+            if not ok:
+                continue
+            Image.fromarray(img.transpose(1, 2, 0)).save(
+                osp.join(out_dir, f"{uid}.png"))
+            written += 1
+        if (bi + 1) % log_every == 0:
+            log(f"generated {written}/{n}, "
+                f"{timeit.default_timer() - t0:.2f}s")
+            t0 = timeit.default_timer()
+    return written

@@ -1,9 +1,10 @@
 """StyleGAN2 GAN losses for conditional inpainting (port of
-``shgan_tpu/train/loss.py:30-150``): the non-saturating softplus loss with
+``shgan_tpu/train/loss.py:30-171``): the non-saturating softplus loss with
 style mixing, the path-length penalty (a second derivative through the
 synthesis network: kernel K2's backward and the epilogue's grad kernel,
 each differentiated once more) and the R1 penalty on real images (K2's
-second order through the discriminator).
+second order through the discriminator), and the plain StyleGAN2 G loss of
+the unconditional family (:func:`unconditional_g_main_loss`).
 
 G is conditioned on ``x = cat([mask - 0.5, real * mask])`` and D sees
 ``cat([mask - 0.5, img])``.  Every random draw comes, in a fixed order, from
@@ -35,21 +36,29 @@ def noise_seed(gen):
                              device=gen.device))
 
 
-def style_mix(G, ws, z, gen, style_mixing_prob):
-    """With probability ``style_mixing_prob`` the styles from a random
-    cutoff on come from a second z (``shgan_tpu/train/loss.py:40-49``)."""
-    if style_mixing_prob <= 0:
-        return ws
-    num_ws = ws.shape[1]
+def mixing_draws(num_ws, z, gen, style_mixing_prob):
+    """(cutoff, z2): the mixing cutoff, ``num_ws`` (no mixing) with
+    probability ``1 - style_mixing_prob``, and the second z."""
     cutoff = int(torch.randint(1, num_ws, (), generator=gen,
                                device=gen.device))
     if float(torch.rand((), generator=gen, device=gen.device)) \
             >= style_mixing_prob:
         cutoff = num_ws
-    z2 = randn(z.shape, gen, z.device)
+    return cutoff, randn(z.shape, gen, z.device)
+
+
+def style_mix(G, ws, z, gen, style_mixing_prob, c=None, mix=None):
+    """With probability ``style_mixing_prob`` the styles from a random
+    cutoff on come from a second z (``shgan_tpu/train/loss.py:40-49``);
+    ``mix`` gives ``(cutoff, z2)`` instead of drawing them."""
+    if style_mixing_prob <= 0:
+        return ws
+    num_ws = ws.shape[1]
+    cutoff, z2 = mix if mix is not None else mixing_draws(
+        num_ws, z, gen, style_mixing_prob)
     if cutoff == num_ws:
         return ws
-    return torch.cat([ws[:, :cutoff], G.mapping(z2)[:, cutoff:]], dim=1)
+    return torch.cat([ws[:, :cutoff], G.mapping(z2, c)[:, cutoff:]], dim=1)
 
 
 def run_g(G, x_in, z, gen, style_mixing_prob=0.9, update_w_avg=True,
@@ -122,3 +131,16 @@ def d_r1_loss(D, mask, real, r1_gamma=10.0):
     r1_grads, = torch.autograd.grad(logits.sum(), real_in, create_graph=True)
     r1_penalty = r1_grads.square().sum(dim=(1, 2, 3))
     return (r1_penalty * (r1_gamma / 2)).mean(), r1_penalty.detach().mean()
+
+
+def unconditional_g_main_loss(G, D, z, c, gen, style_mixing_prob=0.9,
+                              mix=None):
+    """The plain StyleGAN2 G loss softplus(-D(G(z))) of the unconditional
+    family (``shgan_tpu/train/loss.py:153-171``), with style mixing and
+    random synthesis noise; ``mix`` may give the mixing ``(cutoff, z2)``.
+    Returns ``(loss, {"w_avg": new w_avg})``."""
+    ws, new_w_avg = G.mapping(z, c, update_w_avg=True)
+    ws = style_mix(G, ws, z, gen, style_mixing_prob, c, mix)
+    img = G.synthesis(ws, noise_mode="random", noise_seed=noise_seed(gen))
+    logits = D(img, c)
+    return F.softplus(-logits).mean(), {"w_avg": new_w_avg}

@@ -217,7 +217,10 @@ def test_upfirdn2d_backward_matches_autograd_of_plain(cuda, shape, up, down,
         assert float((a - b).abs().max()) <= 1e-5 * scale
 
 
-GRAD_SHAPES = [(4, 512), (8, 64), (16, 7), (64, 33), (256, 4), (6, 3)]
+GRAD_SHAPES = [(4, 512), (8, 64), (16, 7), (64, 33), (256, 4), (6, 3),
+               # the grad kernel's blocks of 8 and of 4 channels, the last
+               # group partial (noise_bias_act.cuh: grad_group)
+               (4, 4091), (32, 2045)]
 
 
 @pytest.mark.parametrize("mode", ["random", "const", "none"])
@@ -509,3 +512,197 @@ def test_scheduled_optimizer_on_card_equals_cpu(cuda, optimizer):
     assert cpu_lr == card_lr
     for a, b in zip(card_p, cpu_p):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
+
+
+# -- the bf16 path: the grad kernel and K2's derivatives in bf16, the bf16
+#    engine ----------------------------------------------------------------
+
+
+def _bf16_ulp(v):
+    return 2.0 ** (torch.floor(torch.log2(v.float().abs().clamp_min(1e-30)))
+                   - 7)
+
+
+@pytest.mark.parametrize("mode", ["random", "const", "none"])
+@pytest.mark.parametrize("res,c", GRAD_SHAPES)
+def test_noise_bias_act_grad_kernel_bf16_matches_plain(cuda, mode, res, c):
+    """The grad kernel with bf16 dy and x: the full mode's dx (bf16) within
+    one bf16 ulp of the plain version's (the widened pair's float32 dx
+    rounded once; the noise drawn by K1 for both), its float32 sums within
+    1e-5 of the sum of their terms' magnitudes; the mask-only mode's
+    output within one bf16 ulp; the regenerated noise K1's rounded to bf16,
+    bit for bit."""
+    spec, gain = NBA_ACTS[(res + c) % 3]
+    n = 2
+    x, dcoefs, bias, const, strength = _nba_inputs(cuda, torch.bfloat16, n,
+                                                   c, res, seed=res + c + 1)
+    x = x.nan_to_num()
+    dy = torch.randn(x.shape, device=cuda).bfloat16()
+    key = noise.noise_key(6, 2 * res)
+    act = nba.epilogue_act(parse_activation(spec), gain)
+    kw = dict(dcoefs=dcoefs, bias=bias, act=act, noise_mode=mode,
+              noise_key=key, noise_const=const, strength=strength)
+    orig = nba.philox_normal_plain
+    nba.philox_normal_plain = (lambda k, b, r, device="cpu":
+                               noise.philox_normal_cuda(k, b, r, device))
+    try:
+        build.reset_launches()
+        got = nba.noise_bias_act_grad_cuda(dy, x, **kw)
+        m_got = nba.noise_bias_act_mask_cuda(dy, x, **kw)
+        torch.cuda.synchronize()
+        assert build.launches["noise_bias_act_grad"] == 2
+        want = nba.noise_bias_act_grad_plain(dy, x, **kw)
+        m_want = nba.noise_bias_act_mask_plain(dy, x, **kw)
+        g = nba.noise_bias_act_mask_plain(dy.float(), x.float(),
+                                          **kw).double()
+        nu = nba._noise_plain(x, mode, key, const)
+    finally:
+        nba.philox_normal_plain = orig
+    assert got[0].dtype == m_got.dtype == torch.bfloat16
+    for a, b in ((got[0], want[0]), (m_got, m_want)):
+        assert ((a.float() - b.float()).abs() <= _bf16_ulp(b)).all()
+    xd = x.double()
+    terms = [(got[1], (g * xd).abs().sum((2, 3)), want[1]),
+             (got[2], g.abs().sum((0, 2, 3)), want[2])]
+    if mode != "none":
+        terms.append((got[3], (g * nu).abs().sum(), want[3]))
+    for a, mag, b in terms:
+        assert a.dtype == torch.float32
+        assert ((a.double() - b.double()).abs() <= 1e-5 * mag + 1e-30).all()
+    if mode == "random":
+        zero = torch.zeros_like(x)
+        nu_k = nba.noise_bias_act_mask_cuda(
+            zero, zero, noise_mode="random", noise_key=key,
+            strength=torch.ones((), device=cuda),
+            vs=torch.ones((), device=cuda))
+        k1 = noise.philox_normal_cuda(key, n, res, cuda)[:, None]
+        assert torch.equal(nu_k, k1.bfloat16().expand_as(nu_k))
+
+
+@pytest.mark.parametrize("mode", ["random", "const"])
+def test_bf16_epilogue_first_and_second_order_card_matches_cpu(cuda, mode):
+    """The differentiable epilogue on bf16 x (the grad kernel in both modes
+    on the card) against the same on the CPU (the plain versions), with
+    const noise bit for bit the same plane, random noise K1's vs torch's
+    normals: first and second order within one bf16 ulp (+ 1e-5 of the
+    largest value for the float32 sums)."""
+    n, c, res = 2, 6, 16
+    x, dcoefs, bias, const, strength = _nba_inputs(cuda, torch.bfloat16, n,
+                                                   c, res, seed=9)
+    x = x.nan_to_num()
+    act = nba.epilogue_act(parse_activation(NBA_ACTS[1][0]), 1.0)
+    v = torch.randn(x.shape, device=cuda).bfloat16()
+    u = [torch.randn(t.shape, device=cuda).to(t.dtype)
+         for t in (x, dcoefs, bias)]
+
+    def run(dev):
+        ins = [t.to(dev).clone().requires_grad_(True)
+               for t in (x, dcoefs, bias, strength, v)]
+        y = nba.noise_bias_act(ins[0], ins[1], ins[2], act, noise_mode=mode,
+                               noise_key=noise.noise_key(5, 32),
+                               noise_const=const.to(dev), strength=ins[3])
+        gs = torch.autograd.grad(y, ins[:3], ins[4], create_graph=True)
+        f = sum((a.float() * b.to(dev).float()).sum()
+                for a, b in zip(gs, u))
+        return [t.detach().cpu() for t in gs] + [
+            t.cpu() for t in torch.autograd.grad(f, [ins[0], ins[1],
+                                                     ins[4]])]
+
+    build.reset_launches()
+    got = run(cuda)
+    assert build.launches["noise_bias_act_grad"] == 3
+    for a, b in zip(got, run("cpu")):
+        assert a.dtype == b.dtype
+        if a.dtype == torch.bfloat16:
+            tol = 2 * _bf16_ulp(b) + (1e-3 if mode == "random" else 0)
+            assert ((a.float() - b.float()).abs() <= tol).all()
+        else:
+            scale = max(float(b.abs().max()), 1.0)
+            assert float((a - b).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.parametrize("shape,up,down,pads,gain",
+                         FIR_CASES + RESAMPLE_CASES)
+def test_upfirdn2d_bf16_backward_matches_autograd_of_plain(cuda, shape, up,
+                                                           down, pads, gain):
+    """K2's forward, backward and second order on bf16 tensors, on every
+    route ``fir_route`` picks (the cases above cover the stride-1 tiles,
+    the resampling tiles and the generic kernel), against autograd of
+    fir_plain on the same bf16 values: each within one bf16 ulp + 1e-6."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(shape, generator=g).to(cuda).bfloat16()
+    taps = fir_mod.correlation_taps(fir_mod.setup_filter([1, 3, 3, 1]),
+                                    gain=gain)
+    args = (taps, (up, up), (down, down), pads)
+
+    def run(fn):
+        xa = x.clone().requires_grad_(True)
+        y = fn(xa, *args)
+        dy = torch.randn(y.shape, generator=g.manual_seed(4)).to(
+            cuda).bfloat16().requires_grad_(True)
+        dx, = torch.autograd.grad(y, xa, dy, create_graph=True)
+        w = torch.randn(x.shape, generator=g.manual_seed(5)).to(
+            cuda).bfloat16()
+        ddy, = torch.autograd.grad(dx, dy, w)
+        return y.detach(), dx.detach(), ddy
+
+    build.reset_launches()
+    got = run(fir_mod.fir)
+    assert build.launches["upfirdn2d"] == 1
+    assert build.launches["upfirdn2d_grad"] == 2
+    for a, b in zip(got, run(fir_mod.fir_plain)):
+        assert a.dtype == b.dtype == torch.bfloat16
+        assert ((a.float() - b.float()).abs() <= _bf16_ulp(b) + 1e-6).all()
+
+
+def test_bf16_engine_gate_on_a_small_model(cuda):
+    """A small SH-GAN at 128² served with ``bf16=True`` against the float32
+    engine on the same weights (noise const, TF32 off): the launches of a
+    forward (K2 and the epilogue, some in bf16), and the composite inside
+    tests/test_bf16_quality.py's GATE."""
+    from test_bf16_quality import GATE
+    from shgan_torch.eval.ssim import compute_ssim
+    act = "lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)"
+    enc = dict(resolution=128, ic_n=4, oc_n=64, ch_base=2048, ch_max=32,
+               use_fp16_before_res=None, activation=act, mbstd_group_size=0,
+               mbstd_c_n=0, has_extra_final_layer=False, shu_input_res=32,
+               shu_lowest_res=4, shu_channels=8, shu_df_freedom=[2, 3])
+    cfg = {"type": "comodgan_generator", "args": {
+        "mapping": {"type": "comodgan_mapping",
+                    "args": dict(z_dim=64, w_dim=64, num_ws=12,
+                                 num_layers=2)},
+        "encoder": {"type": "shgan_encoder", "args": enc},
+        "synthesis": {"type": "comodgan_synthesis",
+                      "args": dict(w_dim=64, w0_dim=64, resolution=128,
+                                   ch_base=2048, ch_max=32,
+                                   use_fp16_after_res=None)}}}
+    kw = dict(batch_size=4, seed=2, noise_mode="const", device=cuda)
+    e32 = InpaintEngine(cfg, **kw)
+    e16 = InpaintEngine(cfg, bf16=True, **kw)
+    assert cfg["args"]["synthesis"]["args"]["use_fp16_after_res"] is None
+    assert e16.G.synthesis.b128.dtype == torch.bfloat16
+    with torch.no_grad():
+        for e in (e32, e16):
+            for name, p in e.G.named_parameters():
+                if name.endswith("noise_strength"):
+                    p.fill_(0.1)
+    rng = np.random.RandomState(1)
+    imgs = rng.randint(0, 256, (4, 3, 128, 128), dtype=np.uint8)
+    masks = (rng.rand(4, 128, 128) > 0.5).astype(np.float32)
+    a = e32.inpaint(imgs, masks)
+    build.reset_launches()
+    b = e16.inpaint(imgs, masks)
+    # K2: the encoder's 5 blurs, 5 up-convs and 5 skip-image upsamples;
+    # the epilogue at 11 layers
+    assert build.launches["upfirdn2d"] == 15
+    assert build.launches["noise_bias_act"] == 11
+    a64, b64 = a.astype(np.int64), b.astype(np.int64)
+    delta = np.abs(a64 - b64)
+    mse = float(((a64 - b64) ** 2).mean()) / 255 ** 2
+    psnr = float("inf") if mse == 0 else -10 * np.log10(mse)
+    ssim = float(compute_ssim(torch.from_numpy(a),
+                              torch.from_numpy(b)).mean())
+    assert delta.max() <= GATE["max_u8_delta"], delta.max()
+    assert psnr >= GATE["min_psnr"] and ssim >= GATE["min_ssim"], (psnr,
+                                                                   ssim)
+    assert (delta > 2).mean() <= GATE["max_frac_gt2"]

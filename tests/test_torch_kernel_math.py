@@ -144,20 +144,22 @@ static void nba_run() {
   for (float v : y) std::printf("%u\n", bits(v));
 }
 
-// nbagrad cpt n c res mode k0 k1 alpha gain clamp hd hb s mask_only hvs vs
+// nbagrad bf cpt n c res mode k0 k1 alpha gain clamp hd hb s mask_only hvs vs
 //     dcoef[n*c]... bias[c]... const[res*res]... x[...]... dy[...]...
 // -> noise_bias_act_grad emulated block by block as the kernel runs it
-// (grad_plan's blocks and thread strides, each thread's sums in its order,
-// the fixed tree, the two finishing passes): out's bits, then the raw
+// (grad_plan's channel-group blocks and thread strides, each thread's sums
+// per channel in its order, each channel's fixed tree, the two finishing
+// passes; bf: x and dy hold bf16 values,
+// out is rounded once to bf16 at the store): out's bits, then the raw
 // normal each element used (per row and pixel; channels that disagree
 // abort), then dd[n*c], db[c] and ds's bits (full mode).
 static void nbagrad_run() {
-  int cpt, n, c, res, mode, hd, hb, mo, hvs;
+  int bf, cpt, n, c, res, mode, hd, hb, mo, hvs;
   unsigned k0, k1;
   float s, vs;
   nba::Act act;
-  std::scanf("%d %d %d %d %d %u %u %f %f %f %d %d %f %d %d %f", &cpt, &n, &c, &res, &mode, &k0,
-             &k1, &act.alpha, &act.gain, &act.clamp, &hd, &hb, &s, &mo, &hvs, &vs);
+  std::scanf("%d %d %d %d %d %d %u %u %f %f %f %d %d %f %d %d %f", &bf, &cpt, &n, &c, &res,
+             &mode, &k0, &k1, &act.alpha, &act.gain, &act.clamp, &hd, &hb, &s, &mo, &hvs, &vs);
   const long long plane = (long long)res * res, half = plane / 2, calls = plane / 4;
   const long long planes = (long long)n * c;
   std::vector<float> dcoef(planes), bias(c), cst(plane), x(planes * plane), dy(x.size());
@@ -173,19 +175,22 @@ static void nbagrad_run() {
   if (chunks != G.chunks) std::abort();
   std::vector<float> work(nba::grad_work_floats(n, c, res));
   const int V = 2 * cpt;
-  for (long long p = 0; p < planes; ++p)
+  // the kernel's blocks: (row, group of G.group channels) x chunk; each
+  // thread walks its calls, drawing the normals once, and the group's
+  // channels, a sum triple per channel; then each channel's fixed tree
+  for (long long bx = 0; bx < (long long)n * G.groups; ++bx)
     for (int by = 0; by < G.chunks; ++by) {
-      const int row = (int)(p / c), ch = (int)(p % c);
+      const int row = (int)(bx / G.groups), ch0 = (int)(bx % G.groups) * G.group;
+      const int kn = c - ch0 < G.group ? c - ch0 : G.group;
+      const long long p0 = (long long)row * c + ch0;
       const long long qa = (long long)by * G.calls_per_block;
       const long long qb = qa + G.calls_per_block < calls ? qa + G.calls_per_block : calls;
-      const float d = hd ? dcoef[p] : 1.0f, b = hb ? bias[ch] : -0.0f;
       const float sv = mode != nba::kNoiseNone ? s : 0.0f;
-      std::vector<float> sums[3];
-      for (auto& v : sums) v.assign(G.threads, 0.0f);
+      std::vector<std::vector<float>> sums(3 * kn, std::vector<float>(G.threads, 0.0f));
       for (int t = 0; t < G.threads; ++t) {
-        float acc[3] = {0.0f, 0.0f, 0.0f};
+        std::vector<float> acc(3 * kn, 0.0f);
         for (long long q = qa + (long long)t * cpt; q < qb; q += (long long)G.threads * cpt) {
-          float nu[2][4];
+          float nu[2][8];
           for (int e = 0; e < V; ++e) nu[0][e] = nu[1][e] = 0.0f;
           if (mode == nba::kNoiseRandom)
             for (int j = 0; j < cpt; ++j)
@@ -196,25 +201,33 @@ static void nbagrad_run() {
               nu[0][e] = cst[2 * q + e];
               nu[1][e] = cst[half + 2 * q + e];
             }
-          for (int h = 0; h < 2; ++h)
-            for (int e = 0; e < V; ++e) {
-              const long long pix = h * half + 2 * q + e, at = p * plane + pix;
-              const float nz = mode != nba::kNoiseNone ? nba::mul_rn(nu[h][e], sv) : -0.0f;
-              out[at] = mo ? nba::mask_element(dy[at], vs, hvs != 0, x[at], d, nu[h][e], nz, b, act)
-                           : nba::grad_element(dy[at], x[at], d, hd != 0, nu[h][e], nz, b, act,
-                                               acc);
-              if (hits[at]++) std::abort();
-              const size_t rp = (size_t)row * plane + pix;
-              if (seen[rp]++ && bits(nus[rp]) != bits(nu[h][e])) std::abort();
-              nus[rp] = nu[h][e];
-            }
+          for (int k = 0; k < kn; ++k) {
+            const long long p = p0 + k;
+            const float d = hd ? dcoef[p] : 1.0f, b = hb ? bias[ch0 + k] : -0.0f;
+            for (int h = 0; h < 2; ++h)
+              for (int e = 0; e < V; ++e) {
+                const long long pix = h * half + 2 * q + e, at = p * plane + pix;
+                const float nz = mode != nba::kNoiseNone ? nba::mul_rn(nu[h][e], sv) : -0.0f;
+                const float o = mo ? nba::mask_element(dy[at], vs, hvs != 0, x[at], d, nu[h][e],
+                                                       nz, b, act)
+                                   : nba::grad_element(dy[at], x[at], d, hd != 0, nu[h][e], nz,
+                                                       b, act, &acc[3 * k]);
+                out[at] = bf ? nba::from_bf16(nba::to_bf16(o)) : o;
+                if (hits[at]++) std::abort();
+                const size_t rp = (size_t)row * plane + pix;
+                if (seen[rp]++ && bits(nus[rp]) != bits(nu[h][e])) std::abort();
+                nus[rp] = nu[h][e];
+              }
+          }
         }
-        for (int k = 0; k < 3; ++k) sums[k][t] = acc[k];
+        for (int i = 0; i < 3 * kn; ++i) sums[i][t] = acc[i];
       }
-      for (int hh = G.threads / 2; hh > 0; hh /= 2)
-        for (int k = 0; k < 3; ++k)
-          for (int t = 0; t < hh; ++t) nba::tree_add(sums[k].data(), t, hh);
-      for (int k = 0; k < 3; ++k) work[(k * planes + p) * G.chunks + by] = sums[k][0];
+      for (int k = 0; k < kn; ++k) {
+        for (int hh = G.threads / 2; hh > 0; hh /= 2)
+          for (int j = 0; j < 3; ++j)
+            for (int t = 0; t < hh; ++t) nba::tree_add(sums[3 * k + j].data(), t, hh);
+        for (int j = 0; j < 3; ++j) work[(j * planes + p0 + k) * G.chunks + by] = sums[3 * k + j][0];
+      }
     }
   for (int h : hits)
     if (h != 1) std::abort();
@@ -676,7 +689,9 @@ static void resample() {
 //   nbaop alpha gain clamp m x d nz b (m times) -> m results' float32 bits
 //   nbagrad ...                     -> the grad kernel emulated (nbagrad_run)
 //   nbagradop alpha gain clamp m dy x d nz b (m times) -> act'(pre) * dy bits
-//   nbagradplan n c res cpt         -> the grad kernel's launch rule
+//   nbagradplan n c res cpt         -> the grad kernel's launch rule (threads,
+//                                      chunks, calls a block, work floats,
+//                                      channels a block, groups a row)
 //   bf16 m v...                     -> the bf16 bits of m floats
 int main() {
   char cmd[16];
@@ -715,8 +730,8 @@ int main() {
       int n, ch, res, cpt;
       std::scanf("%d %d %d %d", &n, &ch, &res, &cpt);
       const nba::GradLaunch G = nba::grad_plan(n, ch, res, cpt);
-      std::printf("%d %d %lld %lld\n", G.threads, G.chunks, G.calls_per_block,
-                  nba::grad_work_floats(n, ch, res));
+      std::printf("%d %d %lld %lld %d %d\n", G.threads, G.chunks, G.calls_per_block,
+                  nba::grad_work_floats(n, ch, res), G.group, G.groups);
     } else if (c == "bf16") {
       int m;
       std::scanf("%d", &m);
@@ -1390,18 +1405,27 @@ def test_noise_bias_act_grad_element_math_matches_numpy(harness, alpha, gain,
 @pytest.mark.parametrize("n,c,res,cpt", [(1, 1, 4, 2), (2, 3, 8, 1),
                                          (8, 512, 4, 2), (8, 256, 64, 2),
                                          (4, 32, 256, 2), (1, 2, 1024, 2),
-                                         (3, 5, 6, 1)])
+                                         (3, 5, 6, 1), (8, 512, 32, 4),
+                                         (8, 128, 256, 4), (1, 1, 4, 4)])
 def test_noise_bias_act_grad_launch_rule(harness, n, c, res, cpt):
-    """Blocks of a plane cover its calls once in even runs; threads a power
-    of two from a warp to kThreads; the work buffer's size agrees with the
-    wrapper's."""
-    threads, chunks, cpb, work = (int(v) for v in harness(
+    """Blocks of a channel group cover its planes' calls once in runs of a
+    multiple of max(cpt, 2) (a thread's calls stay together: 4 in bf16);
+    the groups (a power of two up to 8 channels) cover each row's channels
+    once, as many channels as leave 1024 blocks at the most chunks a plane
+    takes; threads a power of two from a warp to kThreads; the work
+    buffer's size agrees with the wrapper's."""
+    threads, chunks, cpb, work, group, groups = (int(v) for v in harness(
         f"nbagradplan {n} {c} {res} {cpt}"))
     calls = res * res // 4
+    kmax = max(-(-calls // 512), 1)
     assert threads in (32, 64, 128, 256)
-    assert chunks >= 1 and chunks * cpb >= calls and cpb % 2 == 0
+    assert chunks >= 1 and chunks * cpb >= calls
+    assert cpb % max(cpt, 2) == 0
     assert (chunks - 1) * cpb < calls
-    assert chunks <= max(1, -(-1024 // (n * c)))
+    assert group in (1, 2, 4, 8) and groups == -(-c // group)
+    assert group == 1 or n * groups * kmax >= 1024
+    assert group == 8 or n * -(-c // (2 * group)) * kmax < 1024
+    assert chunks == max(min(-(-1024 // (n * groups)), kmax), 1)
     assert work == nba_mod.grad_work_floats(n, c, res)
 
 
@@ -1414,23 +1438,29 @@ GRAD_CASES = [
     ("none", 2, True, True, 2, 3, 4, 4),
     ("none", 1, False, False, 1, 1, 3, 8),
     ("random", 2, True, True, 2, 2, 2, 64),
+    # blocks of 8 and of 4 channels, the last group partial
+    ("random", 2, True, True, 2, 2, 4091, 4),
+    ("const", 1, True, True, 2, 2, 2045, 4),
 ]
 
 
 def _grad_case(harness, mode, act_i, has_d, has_b, cpt, n, c, res,
-               mask_only=False, vs=None):
+               mask_only=False, vs=None, bf16_in=False, bf16_out=False):
     spec, gain, _, _ = NBA_ACTS[act_i]
     rng = np.random.RandomState(n * 31 + c * 7 + res)
     x = (rng.randn(n, c, res, res) * 150).astype(np.float32)
     x.flat[1], x.flat[2] = -0.0, 0.0
     dy = rng.randn(n, c, res, res).astype(np.float32)
+    if bf16_in:   # bf16 values: the harness reads them widened to float32
+        x, dy = (torch.from_numpy(t).bfloat16().float().numpy()
+                 for t in (x, dy))
     dcoef = (rng.rand(n, c) + 0.5).astype(np.float32)
     bias = (rng.randn(c) * 0.1).astype(np.float32)
     cst = rng.randn(res, res).astype(np.float32)
     s = np.float32(0.3)
     key = noise.noise_key(3, 2 * res)
     alpha, g, clamp = epilogue_act(parse_activation(spec), gain)
-    head = (f"nbagrad {cpt} {n} {c} {res} "
+    head = (f"nbagrad {int(bf16_out)} {cpt} {n} {c} {res} "
             f"{['none', 'random', 'const'].index(mode)} {key[0]} {key[1]} "
             f"{_f(1.0 if alpha is None else alpha)} {_f(g)} "
             f"{'inf' if clamp is None else _f(clamp)} {int(has_d)} "
@@ -1501,6 +1531,90 @@ def test_noise_bias_act_grad_mask_mode_matches_plain(harness, mode, vs):
         vs=None if vs is None else torch.tensor(np.float32(vs)), **kw).numpy()
     if mode == "random" and vs is not None:
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+
+
+BF16_GRAD_CASES = [GRAD_CASES[0], GRAD_CASES[2], GRAD_CASES[4],
+                   GRAD_CASES[5], GRAD_CASES[6]]
+
+
+@pytest.mark.parametrize("case", BF16_GRAD_CASES)
+def test_noise_bias_act_grad_bf16_emulation_matches_plain(harness, case):
+    """The grad kernel with bf16 I/O, emulated at its launch (4 Philox
+    calls a thread on the 16-byte path, where float32 takes 2): dx is the
+    float32 arithmetic's dx on the widened bf16 pair, rounded once to bf16
+    (nearest even), and the float32 sums are that arithmetic's on the same
+    values in the same launch, bit for bit; against the plain version's
+    bf16 mode: dx the same bits where the noise is not drawn (within one
+    bf16 ulp of libm-vs-torch normals otherwise), the sums within 1e-5 of
+    the sum of their terms' magnitudes."""
+    mode, act_i, has_d, has_b, cpt, n, c, res = case
+    case = (mode, act_i, has_d, has_b, 4 if cpt == 2 else cpt, n, c, res)
+    size = n * c * res * res
+    out, x, dy, cst, key, kw = _grad_case(harness, *case, bf16_in=True,
+                                          bf16_out=True)
+    f32, _, _, _, _, _ = _grad_case(harness, *case, bf16_in=True)
+    rounded = torch.from_numpy(f32[:size]).bfloat16().float().numpy()
+    np.testing.assert_array_equal(out[:size].view(np.uint32),
+                                  rounded.view(np.uint32))
+    np.testing.assert_array_equal(out[size:].view(np.uint32),
+                                  f32[size:].view(np.uint32))
+    want = nba_mod.noise_bias_act_grad_plain(
+        torch.from_numpy(dy).bfloat16(), torch.from_numpy(x).bfloat16(),
+        **kw)
+    assert want[0].dtype == torch.bfloat16
+    assert all(w is None or w.dtype == torch.float32 for w in want[1:])
+    dx = out[:size].reshape(n, c, res, res)
+    wdx = want[0].float().numpy()
+    if mode == "random":
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(wdx), 1e-30))) - 7)
+        assert (np.abs(dx - wdx) <= ulp).all()
+    else:
+        np.testing.assert_array_equal(dx.view(np.uint32), wdx.view(np.uint32))
+    g = nba_mod.noise_bias_act_mask_plain(
+        torch.from_numpy(dy), torch.from_numpy(x), **kw).numpy().astype(
+        np.float64)
+    nu = out[size:size + n * res * res].reshape(n, 1, res, res).astype(
+        np.float64)
+    tail = out[size + n * res * res:]
+    for got, w, terms, axes in ((tail[:n * c], want[1], g * x, (2, 3)),
+                                (tail[n * c:n * c + c], want[2], g,
+                                 (0, 2, 3)),
+                                (tail[-1:], want[3], g * nu, None)):
+        if w is None:
+            continue
+        mag = np.ravel(np.abs(terms).sum(axis=axes))
+        assert (np.abs(got - np.ravel(w.numpy())) <= 1e-5 * mag
+                + 1e-30).all()
+
+
+@pytest.mark.parametrize("vs", [None, 0.6])
+@pytest.mark.parametrize("mode", ["random", "const"])
+def test_noise_bias_act_grad_bf16_mask_mode(harness, mode, vs):
+    """The mask-only mode with bf16 I/O (4 calls a thread): the float32
+    result on the widened values rounded once to bf16, against the
+    emulated float32 arithmetic bit for bit and the plain version's bf16
+    mode (bits, or one bf16 ulp of the normals' differences)."""
+    case = (mode, 2, True, True, 4, 2, 3, 8)
+    n, c, res = case[5:]
+    size = n * c * res * res
+    out, x, v, cst, key, kw = _grad_case(harness, *case, mask_only=True,
+                                         vs=vs, bf16_in=True, bf16_out=True)
+    f32, _, _, _, _, _ = _grad_case(harness, *case, mask_only=True, vs=vs,
+                                    bf16_in=True)
+    rounded = torch.from_numpy(f32[:size]).bfloat16().float().numpy()
+    np.testing.assert_array_equal(out[:size].view(np.uint32),
+                                  rounded.view(np.uint32))
+    want = nba_mod.noise_bias_act_mask_plain(
+        torch.from_numpy(v).bfloat16(), torch.from_numpy(x).bfloat16(),
+        vs=None if vs is None else torch.tensor(np.float32(vs)), **kw)
+    assert want.dtype == torch.bfloat16
+    got, want = out[:size], want.float().numpy().ravel()
+    if mode == "random":
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+        assert (np.abs(got - want) <= ulp).all()
     else:
         np.testing.assert_array_equal(got.view(np.uint32),
                                       want.view(np.uint32))
