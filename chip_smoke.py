@@ -130,10 +130,35 @@ Phases, each printing one JSON line:
     exact, card vs CPU in float32 within 1e-3, one
     ``unconditional_g_main_loss`` step with ``stylegan2_discriminator_256``:
     finite loss and gradients, w_avg moved); the phase's wall seconds;
-12. the kernels line ``{"kernels": [...]}`` (the grad kernel's and K2
+12. several devices (``multi_device_path``): K1, the fused epilogue and its
+    grad kernel (both modes, float32 and bf16) at a noise row offset of 3
+    at every synthesis layer of ``shgan_g256`` on 4 rows, each element bit
+    for bit the rows 3... of the launch over 7 rows (the grad kernel's plane
+    sums within 1e-5 of their terms' magnitudes) and held to its plain
+    version by phase 2's and 8's rules; ``shgan_ffhq256_train`` at full width
+    (TF32 off) for 3 steps (Gpl and R1 in the first) and a resume for one
+    more, on two rank processes (``python -c`` importing the port: both on
+    ``cuda:0`` over gloo on a one-card machine, over NCCL on two cards) at
+    4 rows each against this process at 8: step 0's gradients (Gpl and
+    R1, second order) each network within 1e-3 or 4x its float32 spread
+    on one card (cuDNN's algorithms changed; every leaf's error and spread
+    recorded), ``comodgan_d256`` on N(0, 1) inputs (logits, R1's
+    input gradient, the Dmain and R1 weight gradients) within 1e-4,
+    ``w_avg`` and ``pl_mean`` within 1e-3, the replicas equal
+    bit for bit after every step, launches exact per step and rank, rank
+    1's noise rows offset, the snapshot written by the lead alone; the
+    eval stage over 64 images of an FFHQ-format zip (``shgan_g256``,
+    random noise, fid + psnr + ssim): fid within 1e-3, the gathered
+    composites by phase 4's rule, ``result.json`` written once, launches
+    exact per rank; one NCCL rank alone; the engine over ``["cuda:0",
+    "cuda:0"]`` at ``shgan_g512`` batch 8 against one device (phase 4's
+    rule, known pixels exact); step ms, eval images/s, the ranks' start-up
+    seconds and peak memory;
+13. the kernels line ``{"kernels": [...]}`` (the grad kernel's and K2
     backward's rows with their bf16 numbers; every row's launches over
-    phase 11 as ``launches_bf16_path``);
-13. last line: ``{"ok": true, "device": {...}}``.
+    phase 11 as ``launches_bf16_path`` and over phase 12 as
+    ``launches_multi_device_path``);
+14. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line.  It needs the repository (``shgan_torch``, ``configs/``) and
@@ -900,8 +925,8 @@ class k1_noise_in_plain:
     def __enter__(self):
         self.orig = self.nba.philox_normal_plain
         self.nba.philox_normal_plain = (
-            lambda key, n, r, device="cpu":
-            self.noise.philox_normal_cuda(key, n, r, device))
+            lambda key, n, r, device="cpu", row0=0:
+            self.noise.philox_normal_cuda(key, n, r, device, row0))
 
     def __exit__(self, *exc):
         self.nba.philox_normal_plain = self.orig
@@ -2581,6 +2606,693 @@ def bf16_path(tmp, cli, build, fir, nba, noise, inc_pth, tcfg32, fgr32,
     return row, egr16, fgr16, total
 
 
+# ---------------------------------------------------------------------------
+# phase 12: several devices (shgan_torch.parallel)
+# ---------------------------------------------------------------------------
+
+MD_WORLD = 2
+MD_BATCH = 8          # the global train batch: 2 ranks x 4, or 1 x 8
+MD_STEPS = 3          # step 0 with Gpl and R1
+MD_EVAL_IMAGES = 64
+MD_EVAL_BATCH = 32    # the global eval batch: 2 ranks x 16, or 1 x 32
+MD_ROW0 = 3
+MD_ENGINE_BATCH = 8   # shgan_g512 over two devices, 4 rows each
+MD_D_TOL = 1e-4       # D across ranks on N(0, 1) inputs (run 6: <= 8e-5)
+MD_SPREAD = 4         # step 0's gradient: within 4x its float32 spread
+MD_RANK_CODE = ("import sys, chip_smoke; sys.exit(chip_smoke.md_rank(int("
+                "sys.argv[1]), int(sys.argv[2]), *sys.argv[3:]))")
+
+
+def check_row_offset(noise, nba, cfg, batch, row0=MD_ROW0):
+    """K1, the fused epilogue and its grad kernel (full and mask-only mode)
+    at every synthesis layer shape of ``cfg`` on ``batch`` rows whose noise
+    starts at counter row ``row0`` (a rank's block of a global batch):
+    float32 and bf16, each element (the noise, y, dx, the mask-only output)
+    equal bit for bit to rows ``row0...`` of the same launch over ``row0 +
+    batch`` rows (the grad kernel's per-plane sums d dcoefs within 1e-5 of
+    their terms' magnitudes of them: the kernel splits a plane's sum into
+    chunks by the batch's size), and to its plain version at ``row0``
+    within phase 2's and phase 8's rules (the epilogue: 4 float32 ulp or
+    one bf16 ulp + the noise term; the grad kernel on K1's noise: dx 4 ulp
+    / one bf16 ulp, the sums 1e-5 of their terms' magnitudes)."""
+    from shgan_torch.ops.bias_act import parse_activation
+    spec = cfg["args"]["synthesis"]["args"].get(
+        "activation", "lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)")
+    act = nba.epilogue_act(parse_activation(spec))
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    n = row0 + batch
+    rows, worst = [], {"epilogue": 0.0, "grad_dx": 0.0, "grad_sums": 0.0,
+                       "mask": 0.0}
+    for (r, c) in sorted(epilogue_layers(cfg)):
+        key = noise.noise_key(99, 2 * r)
+        big = noise.philox_normal_cuda(key, n, r, "cuda")
+        part = noise.philox_normal_cuda(key, batch, r, "cuda", row0=row0)
+        want = noise.philox_normal_plain(key, batch, r, "cuda", row0=row0)
+        torch.cuda.synchronize()
+        if not torch.equal(part, big[row0:]):
+            raise AssertionError(f"K1 at row0 {row0}, R={r}: not the rows "
+                                 "of the larger launch")
+        if not float((part - want).abs().max()) <= NOISE_ATOL:
+            raise AssertionError(f"K1 at row0 {row0}, R={r} vs plain")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((n, c, r, r), generator=gen,
+                            device="cuda").to(dtype)
+            dy = torch.randn((n, c, r, r), generator=gen,
+                             device="cuda").to(dtype)
+            d = torch.rand((n, c), generator=gen, device="cuda") + 0.5
+            b = torch.randn((c,), generator=gen, device="cuda") * 0.1
+            s = torch.full((), 0.1, device="cuda")
+            kw = dict(bias=b, act=act, noise_mode="random", noise_key=key,
+                      strength=s)
+            kp = dict(kw, dcoefs=d[row0:].contiguous(), row0=row0)
+            xp, dyp = x[row0:].contiguous(), dy[row0:].contiguous()
+            outs = {
+                "y": (nba.noise_bias_act_cuda(xp, out=torch.empty_like(xp),
+                                              **kp),
+                      nba.noise_bias_act_cuda(x, out=torch.empty_like(x),
+                                              dcoefs=d, **kw)[row0:]),
+                "grad": (nba.noise_bias_act_grad_cuda(dyp, xp, **kp),
+                         [t[row0:] if t.dim() else t for t in
+                          nba.noise_bias_act_grad_cuda(dy, x, dcoefs=d,
+                                                       **kw)]),
+                "mask": (nba.noise_bias_act_mask_cuda(dyp, xp, **kp),
+                         nba.noise_bias_act_mask_cuda(dy, x, dcoefs=d,
+                                                      **kw)[row0:])}
+            torch.cuda.synchronize()
+            gp, gw = outs["grad"]
+            same = {"y": torch.equal(*outs["y"]),
+                    "mask": torch.equal(*outs["mask"]),
+                    "dx": torch.equal(gp[0], gw[0])}
+            if not all(same.values()):
+                raise AssertionError(f"epilogue kernels at row0 {row0}, R={r}"
+                                     f" {dtype}: not the larger launch's "
+                                     f"rows: {same}")
+            ulps = ((lambda v: bf16_ulp(v.float()))
+                    if dtype == torch.bfloat16 else
+                    (lambda v: 4 * 2.0 ** (torch.floor(torch.log2(
+                        v.abs().clamp_min(1e-30))) - 23)))
+            noise_tol = NOISE_ATOL * float(s) * act[1]
+            y_want = nba.noise_bias_act_plain(xp.float(), **kp)
+            dy_ = (outs["y"][0].float() - y_want).abs()
+            if not bool((dy_ <= ulps(y_want) + noise_tol).all()):
+                raise AssertionError(f"epilogue at row0 {row0} R={r} {dtype}"
+                                     f": {float(dy_.max())}")
+            with k1_noise_in_plain(nba, noise):
+                g_want = nba.noise_bias_act_grad_plain(dyp, xp, **kp)
+                m_want = nba.noise_bias_act_mask_plain(dyp, xp, **kp)
+                g64 = nba.noise_bias_act_mask_plain(
+                    dyp.float(), xp.float(), **kp).double()
+            dxd = (gp[0].float() - g_want[0].float()).abs()
+            md = (outs["mask"][0].float() - m_want.float()).abs()
+            if not (bool((dxd <= ulps(g_want[0])).all())
+                    and bool((md <= ulps(m_want)).all())):
+                raise AssertionError(f"grad kernel at row0 {row0} R={r} "
+                                     f"{dtype}: {float(dxd.max())}, "
+                                     f"{float(md.max())}")
+            nu = part[:, None].double()
+            x64 = xp.double()
+            mag_dd = (g64 * x64).abs().sum((2, 3))
+            sums = max(float(((a.double() - w.double()).abs()
+                              / (m + 1e-30)).max()) for a, w, m in (
+                (gp[1], g_want[1], mag_dd),
+                (gp[2], g_want[2], g64.abs().sum((0, 2, 3))),
+                (gp[3], g_want[3], (g64 * nu).abs().sum()),
+                # d dcoefs of the larger launch's rows: its plane sums split
+                # into chunks by the batch's size, so in another order
+                (gp[1], gw[1], mag_dd)))
+            if not sums <= 1e-5:
+                raise AssertionError(f"grad kernel sums at row0 {row0} R={r}"
+                                     f" {dtype}: {sums}")
+            for k, v in (("epilogue", float(dy_.max())),
+                         ("grad_dx", float(dxd.max())), ("grad_sums", sums),
+                         ("mask", float(md.max()))):
+                worst[k] = max(worst[k], v)
+            rows.append((r, c, str(dtype).split(".")[-1]))
+            del x, dy, outs, gp, gw, g_want, m_want, g64
+        torch.cuda.empty_cache()
+    return {"row0": row0, "batch": batch, "shapes": rows,
+            "max_abs_err": worst, "bit_for_bit_rows": True}
+
+
+def md_train_config(tmp, steps, resume=None):
+    """``shgan_ffhq256_train`` as phase 8 runs it (full width, float32, the
+    dataset swapped to synthetic 256²), the global batch ``MD_BATCH``,
+    ``steps`` steps in ticks of one, a snapshot at the end, no grids."""
+    from shgan_torch.main import build_config
+    nimg = steps * MD_BATCH
+    return build_config(
+        TRAIN_EXPERIMENT, dataset="synthetic256_inpainting",
+        log_root=os.path.join(tmp, "train"), resume_path=resume,
+        overrides={"train.experiment_id": 0, "train.batch_size": MD_BATCH,
+                   "train.total_kimg": nimg / 1000,
+                   "train.kimg_per_tick": MD_BATCH / 1000,
+                   "train.snapshot_ticks": 1000,
+                   "train.image_snapshot_ticks": 0,
+                   "env.mesh_devices": None})
+
+
+def md_eval_config(tmp, g_pth, inc_pth, data_root):
+    """``shgan_ffhq256_eval`` at full-width ``shgan_g256`` (random weights
+    from ``g_pth``) on the first ``MD_EVAL_IMAGES`` of an FFHQ-format zip:
+    fid (random Inception), psnr, ssim and ``md_capture`` (the composites),
+    random noise, the global batch ``MD_EVAL_BATCH``."""
+    from shgan_torch.main import build_config
+    cfg = build_config("shgan_ffhq256_eval", eval_id=0, pretrained=g_pth,
+                       log_root=os.path.join(tmp, "eval"))
+    ev = cfg["eval"]
+    ev["dataset"]["root_dir"] = data_root
+    ev.update(batch_size=MD_EVAL_BATCH, noise_mode="random",
+              log_display=1000, evaluator=[
+                  {"type": "fid", "args": {
+                      "detector_weights": inc_pth,
+                      "dsstat_cachefile_tag": "md",
+                      "cache_dir": os.path.join(tmp, "cache")}},
+                  {"type": "psnr", "args": {"for_dataset": None,
+                                            "rgb_range": 1}},
+                  {"type": "ssim", "args": {"window_size": 11}},
+                  {"type": "md_capture"}])
+    return cfg
+
+
+def md_register_capture():
+    """An evaluator that keeps the composites (uint8), gathered over the
+    ranks with every other accumulator, for the uint8 comparison."""
+    from shgan_torch.eval.base import (_EVALUATOR_REGISTRY, BaseEvaluator,
+                                       register_evaluator)
+    if "md_capture" in _EVALUATOR_REGISTRY:
+        return _EVALUATOR_REGISTRY["md_capture"]
+
+    @register_evaluator("md_capture")
+    class Capture(BaseEvaluator):
+        last = None
+
+        def __init__(self):
+            super().__init__()
+            self.data_fake = []
+
+        def add_batch(self, fake=None, valid=None, **_):
+            (fake,) = self._apply_valid([np.asarray(fake)], valid)
+            self.data_fake.append(np.rint(fake).astype(np.uint8))
+
+        def compute(self):
+            Capture.last = np.concatenate(self.data_fake)
+            self.final = {"images": int(len(Capture.last))}
+            return self.final["images"]
+    return Capture
+
+
+def md_d_check(device):
+    """``comodgan_d256`` (weights from seed 1, TF32 off) on a global batch
+    of ``MD_BATCH`` N(0, 1) inputs: the logits, R1's input gradient, and
+    the weight gradients of a Dmain-like loss (two D calls) and of R1's
+    penalty, averaged over the ranks; this rank's rows of each batch.
+    Inputs far apart keep the minibatch stddev well conditioned, so the
+    ranks' values agree with one process's to float32 rounding."""
+    from shgan_torch.models.registry import get_model
+    from shgan_torch.parallel import create_mesh
+    from shgan_torch.parallel.multihost import world_size
+    mesh = create_mesh(device=device) if world_size() > 1 else None
+    D = get_model(model_cfg_bank_cfg(TRAIN_D), seed=1).to(device)
+    g = np.random.RandomState(3)
+    res = int(model_cfg_bank_cfg(TRAIN_D)["args"]["resolution"])
+    xs = [torch.from_numpy(g.randn(MD_BATCH, 4, res, res).astype(np.float32))
+          for _ in range(2)]
+    rows = None
+    if mesh is not None:
+        rows = mesh.rows(MD_BATCH)
+        xs = [rows.take(x) for x in xs]
+    xf, xr = (x.to(device) for x in xs)
+    out = {}
+    lf = D(xf, rows=rows)
+    lr = D(xr, rows=rows)
+    (F.softplus(lf).mean() + F.softplus(-lr).mean()).backward()
+    grads = [p.grad.clone() for p in D.parameters()]
+    D.zero_grad(set_to_none=True)
+    xr = xr.clone().requires_grad_(True)
+    r1, = torch.autograd.grad(D(xr, rows=rows).sum(), xr, create_graph=True)
+    (r1.square().sum((1, 2, 3)).mean() * 5.0).backward()
+    for (name, p), gm in zip(D.named_parameters(), grads):
+        for tag, t in (("main", gm), ("r1", p.grad if p.grad is not None
+                                      else torch.zeros_like(p))):
+            if mesh is not None:
+                mesh.all_reduce_mean_(t)
+            out[f"dchk_{tag}.{name}"] = t.detach().cpu().numpy()
+    out["dchk_logits"] = lf.detach().cpu().numpy()
+    out["dchk_r1"] = r1.detach().cpu().numpy()
+    del D
+    torch.cuda.empty_cache()
+    return out
+
+
+def md_work(tmp, device, inc_pth, data_root, g_pth, spread=False):
+    """One rank's (or the one process's) share of phase 12: the train
+    stage for ``MD_STEPS`` steps with the step-0 gradients (the averaged
+    ones, as the optimizers read them), ``w_avg`` and ``pl_mean`` after
+    each step, the launches of each step, the replicas checked after each
+    step, the noise rows each kernel launch started at and the snapshot
+    writes; a resume for one more step; with ``spread``, step 0 once more
+    with cuDNN's autotuner on (other algorithms: each gradient leaf's
+    float32 spread on one device); :func:`md_d_check`; then the eval stage
+    over ``MD_EVAL_IMAGES`` with its launches and the composites.  Returns
+    the record and writes the arrays to ``<tmp>/md_<rank>.npz``."""
+    from shgan_torch import main as cli
+    from shgan_torch.kernels import build
+    from shgan_torch.ops import noise_bias_act as nba
+    from shgan_torch.parallel import check_replicated
+    from shgan_torch.parallel.multihost import rank, world_size
+    from shgan_torch.runtime import stages
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    r, w = rank(), world_size()
+    rec = {"rank": r, "world": w, "device": str(device)}
+    arrays = {}
+    held = {}
+    row0s, saves = set(), [0]
+
+    class Recording(stages.TrainStep):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            held["step"] = self
+            for opt, net in ((self.opt_g, "G"), (self.opt_d, "D")):
+                names = {id(p): n for n, p in
+                         (self.G if net == "G" else self.D).named_parameters()}
+                inner = opt.step
+
+                def step(*a, opt=opt, net=net, names=names, inner=inner):
+                    if self.step == 0:
+                        pre = held.get("prefix", "")
+                        for g in opt.param_groups:
+                            for p in g["params"]:
+                                arrays[f"{pre}{net}.{names[id(p)]}"] = \
+                                    p.grad.detach().cpu().numpy()
+                    return inner(*a)
+                opt.step = step
+
+    def track(fn):
+        def wrapped(*a, row0=0, **k):
+            row0s.add(int(row0))
+            return fn(*a, row0=row0, **k)
+        return wrapped
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            saves[0] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    per_step, wavg, plm = [], [], []
+
+    def start(step_i):
+        torch.cuda.synchronize()
+        build.reset_launches()
+
+    def done(step_i, metrics):
+        torch.cuda.synchronize()
+        st = held["step"]
+        G, D = st.G, st.D
+        got = dict(build.launches)
+        want = expected_train_launches(*train_sites(G, D),
+                                       step_i % st.cfg.g_reg_interval == 0,
+                                       step_i % st.cfg.d_reg_interval == 0)
+        if got != want:
+            raise AssertionError(f"rank {r} step {step_i}: launches {got}, "
+                                 f"expected {want}")
+        per_step.append(got)
+        check_replicated([G, D, st.G_ema, st.pl_mean])   # bit for bit
+        wavg.append(G.mapping.w_avg.detach().cpu().numpy())
+        plm.append(float(st.pl_mean))
+
+    orig = (stages.TrainStep, nba.noise_bias_act_cuda, nba._grad_launch,
+            stages.save_train_state)
+    stages.TrainStep = Recording
+    nba.noise_bias_act_cuda = track(orig[1])
+    nba._grad_launch = track(orig[2])
+    stages.save_train_state = counting(orig[3])
+    try:
+        t0 = time.perf_counter()
+        tcfg = md_train_config(tmp, MD_STEPS)
+        rv = cli.run(tcfg, device=device, on_step_start=start, on_step=done)
+        rec["train_s"] = time.perf_counter() - t0
+        rec["step_ms"] = [1e3 * s for s in rv["timing"]["step_s"]]
+        snap = os.path.join(tcfg["train"]["log_dir"], "weight",
+                            "network-snapshot-000000")
+        t0 = time.perf_counter()
+        rv2 = cli.run(md_train_config(tmp, MD_STEPS + 1, resume=snap),
+                      device=device, on_step_start=start, on_step=done)
+        rec["resume_s"] = time.perf_counter() - t0
+        if rv2["step"].step != MD_STEPS + 1:
+            raise AssertionError(f"resumed to step {rv2['step'].step}")
+        if spread:
+            held["prefix"] = "spread:"
+            torch.backends.cudnn.benchmark = True
+            try:
+                cli.run(md_train_config(os.path.join(tmp, "spread"), 1),
+                        device=device)
+            finally:
+                torch.backends.cudnn.benchmark = False
+    finally:
+        (stages.TrainStep, nba.noise_bias_act_cuda, nba._grad_launch,
+         stages.save_train_state) = orig
+    rec.update(launches_per_step=per_step, row0s=sorted(row0s),
+               snapshot_writes=saves[0], pl_mean=plm,
+               train_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    arrays["w_avg"] = np.stack(wavg)
+    arrays.update(md_d_check(device))
+
+    # eval: the composites, the metrics and the launches
+    Capture = md_register_capture()
+    from shgan_torch.eval.base import ComposeEvaluator
+    from shgan_torch.models.registry import get_model
+    from shgan_torch.runtime.config import model_cfg_bank
+    writes = [0]
+    save = ComposeEvaluator.save
+
+    def saving(self, log_dir):
+        writes[0] += 1
+        return save(self, log_dir)
+    ComposeEvaluator.save = saving
+    try:
+        cfg = md_eval_config(tmp, g_pth, inc_pth, data_root)
+        torch.backends.cudnn.allow_tf32 = True   # as a user evaluates
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        erv = cli.run(cfg, device=device)
+        torch.cuda.synchronize()
+        rec["eval_s"] = time.perf_counter() - t0
+        launches = dict(build.launches)
+    finally:
+        ComposeEvaluator.save = save
+    per_fwd, _ = forward_launches(get_model(model_cfg_bank()(FULL_G)))
+    batches = MD_EVAL_IMAGES // MD_EVAL_BATCH
+    want = {k: v * batches for k, v in per_fwd.items()}
+    if launches != want:
+        raise AssertionError(f"rank {r} eval launches {launches}, expected "
+                             f"{want}")
+    t = erv["timing"]
+    rec.update(eval_launches=launches, result_writes=writes[0],
+               eval_rv={k: erv["eval_rv"][k] for k in ("fid", "psnr",
+                                                      "ssim")},
+               eval_images_per_s=MD_EVAL_IMAGES / (sum(t["batch_s"])
+                                                   + t["drain_s"]),
+               eval_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    arrays["composites"] = Capture.last
+    np.savez(os.path.join(tmp, f"md_{r}.npz"), **arrays)
+    with open(os.path.join(tmp, f"md_{r}.json"), "w") as f:
+        json.dump(rec, f)
+    return rec
+
+
+def md_rank(rank, world, port, tmp, device, inc_pth, data_root, g_pth):
+    """A rank process of phase 12 (``python -c``): join the group through
+    ``SHGAN_DIST_*`` on ``device``, then :func:`md_work`."""
+    t_start = time.time()
+    os.environ.update(SHGAN_DIST_COORDINATOR=f"127.0.0.1:{port}",
+                      SHGAN_DIST_NPROCS=str(world), SHGAN_DIST_PID=str(rank))
+    from shgan_torch.kernels import build
+    from shgan_torch.parallel import maybe_initialize_distributed
+    maybe_initialize_distributed(device=device)
+    build.build_all()
+    with open(os.path.join(tmp, f"md_up_{rank}.json"), "w") as f:
+        json.dump({"joined": time.time(), "start": t_start}, f)
+    md_work(tmp, device, inc_pth, data_root, g_pth)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
+def md_spawn(tmp, inc_pth, data_root, g_pth):
+    """Two rank processes (``python -c`` importing the port): both on
+    ``cuda:0`` over gloo on a one-card machine, on ``cuda:0`` and
+    ``cuda:1`` over NCCL where there are two.  A rank that fails makes
+    this raise (the other is stopped).  Returns (records, start-up
+    seconds)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    two = torch.cuda.device_count() >= 2
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("SHGAN_DIST_", "MASTER_", "WORLD_SIZE"))}
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MD_RANK_CODE, str(r), str(MD_WORLD),
+         str(port), tmp, f"cuda:{r if two else 0}", inc_pth, data_root,
+         g_pth],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MD_WORLD)]
+    logs = [[] for _ in procs]
+    import threading
+    readers = [threading.Thread(target=lambda p=p, log=log: log.extend(
+        p.stdout), daemon=True) for p, log in zip(procs, logs)]
+    for t in readers:
+        t.start()
+    try:
+        deadline = time.time() + 900
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.time() > deadline:
+                raise AssertionError("phase 12's ranks did not finish")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for t in readers:
+            t.join(timeout=10)
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("a rank failed:\n" + "\n".join(
+            f"--- rank {r} (exit {p.returncode})\n" + "".join(log)[-4000:]
+            for r, (p, log) in enumerate(zip(procs, logs))))
+    recs, up = [], []
+    for r in range(MD_WORLD):
+        with open(os.path.join(tmp, f"md_{r}.json")) as f:
+            recs.append(json.load(f))
+        with open(os.path.join(tmp, f"md_up_{r}.json")) as f:
+            up.append(json.load(f)["joined"] - t0)
+    return recs, up, "nccl" if two else "gloo"
+
+
+def md_nccl_alone():
+    """One NCCL rank (world 1) through the port's own path: the group
+    joined, the device collectives on NCCL by rule, its all-reduce
+    returning its input."""
+    import socket
+    import torch.distributed as dist
+    from shgan_torch.parallel import create_mesh, maybe_initialize_distributed
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    keys = ("SHGAN_DIST_COORDINATOR", "SHGAN_DIST_NPROCS", "SHGAN_DIST_PID")
+    os.environ.update(zip(keys, (f"127.0.0.1:{port}", "1", "0")))
+    try:
+        t0 = time.perf_counter()
+        maybe_initialize_distributed(device="cuda:0")
+        mesh = create_mesh()
+        if mesh.backend != "nccl":
+            raise AssertionError(f"one rank on its own card: {mesh.backend}")
+        x = torch.arange(1024, device="cuda", dtype=torch.float32) * 0.5
+        y = mesh.all_reduce_(x.clone())
+        torch.cuda.synchronize()
+        if not torch.equal(x, y):
+            raise AssertionError("NCCL all-reduce of one rank changed it")
+        init_s = time.perf_counter() - t0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in keys:
+            os.environ.pop(k, None)
+    return {"backend": "nccl", "world": 1, "all_reduce_equal": True,
+            "init_s": init_s}
+
+
+def md_engine(build):
+    """The engine over ``["cuda:0", "cuda:0"]`` at ``shgan_g512`` batch 8,
+    random noise, against the one-device engine on the same weights:
+    phase 4's uint8 rule, known pixels exact, launches of two forwards of
+    4 rows a request."""
+    from shgan_torch.serve import InpaintEngine
+    res = 512
+    reqs = requests(res, seed=5)
+    outs, ms, launches = {}, {}, {}
+    torch.backends.cudnn.allow_tf32 = False
+    for name, mesh in (("one", None), ("two", ["cuda:0", "cuda:0"])):
+        e = InpaintEngine(MODEL, batch_size=MD_ENGINE_BATCH, device="cuda",
+                          mesh=mesh, noise_mode="random", seed=0)
+        noise_reaches_image(e.G)
+        for G in e.replicas.values():
+            G.load_state_dict(e.G.state_dict())
+        imgs, masks = reqs[0]
+        e.inpaint(imgs, masks)       # first use
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        outs[name] = e.inpaint(imgs, masks, start_index=16)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        launches[name] = dict(build.launches)
+        del e
+        torch.cuda.empty_cache()
+    per_fwd = len(fir_calls(model_cfg_bank_cfg(MODEL), MD_ENGINE_BATCH))
+    if launches["two"]["upfirdn2d"] != 2 * per_fwd or launches["two"][
+            "noise_bias_act"] != 2 * launches["one"]["noise_bias_act"]:
+        raise AssertionError(f"engine launches {launches}")
+    d = np.abs(outs["two"].astype(np.int16) - outs["one"].astype(np.int16))
+    within1 = float((d <= 1).mean())
+    imgs, masks = reqs[0]
+    keep = np.broadcast_to(masks[:, None] > 0.5, imgs.shape)
+    if not np.array_equal(outs["two"][keep], quantized(imgs)[keep]):
+        raise AssertionError("engine over two devices: known pixels differ")
+    if within1 < 0.999 or d.max() > 2:
+        raise AssertionError(f"engine over two devices vs one: {within1} "
+                             f"within 1, max {int(d.max())}")
+    return {"model": MODEL, "batch": MD_ENGINE_BATCH,
+            "mesh": ["cuda:0", "cuda:0"], "noise_mode": "random",
+            "within_1": within1, "max_abs_diff": int(d.max()),
+            "known_pixels_exact": True, "request_ms": ms,
+            "launches": launches}
+
+
+def model_cfg_bank_cfg(name):
+    from shgan_torch.runtime.config import model_cfg_bank
+    return model_cfg_bank()(name)
+
+
+def multi_device_path(tmp, build, noise, nba, inc_pth):
+    """Phase 12: the kernels at a row offset; the train and eval stages on
+    two ranks against one process; one NCCL rank; the engine over two
+    devices."""
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "multi_device")
+    os.makedirs(work)
+    offset = check_row_offset(noise, nba, model_cfg_bank_cfg(FULL_G),
+                              MD_BATCH // MD_WORLD)
+    emit({"phase": "kernel_check", "kernel": "row_offset", **offset})
+    data_root, _ = ffhq_zip(work, MD_EVAL_IMAGES, FULL_RES, seed=3)
+    g_pth = os.path.join(work, f"{FULL_G}_random.pth")
+    random_weights(FULL_G, g_pth)
+    one_dir, two_dir = os.path.join(work, "one"), os.path.join(work, "two")
+    os.makedirs(one_dir)
+    os.makedirs(two_dir)
+    one = md_work(one_dir, "cuda", inc_pth, data_root, g_pth, spread=True)
+    two, up_s, backend = md_spawn(two_dir, inc_pth, data_root, g_pth)
+    a = dict(np.load(os.path.join(one_dir, "md_0.npz")))
+    b = dict(np.load(os.path.join(two_dir, "md_0.npz")))
+    b1 = dict(np.load(os.path.join(two_dir, "md_1.npz")))
+    T = lambda arr, keys: {k: torch.from_numpy(arr[k]) for k in keys}  # noqa
+    # D on inputs far apart: the ranks' D to float32 rounding (1e-4)
+    dkeys = [k for k in a if k.startswith("dchk_") and k[5:8] in ("mai",
+                                                                    "r1.")]
+    d_rel = rel_errs(T(b, dkeys), T(a, dkeys))
+    lg = np.concatenate([b["dchk_logits"], b1["dchk_logits"]])
+    r1 = np.concatenate([b["dchk_r1"], b1["dchk_r1"]])
+    d_in = max(float(np.abs(lg - a["dchk_logits"]).max()
+                     / np.abs(a["dchk_logits"]).max()),
+               float(np.abs(r1 - a["dchk_r1"]).max()
+                     / np.abs(a["dchk_r1"]).max()))
+    if not (d_rel[0][0] <= MD_D_TOL and d_in <= MD_D_TOL):
+        raise AssertionError(f"D across ranks: {d_rel[:4]}, logits and R1's "
+                             f"input gradient {d_in}")
+    # step 0's gradients (Gmain + Gpl + Dmain + R1; the penalties are
+    # second order, and their float32 spread on one card, cuDNN's
+    # algorithms changed, reaches 1e-3-1e-2 a leaf: a leaky ReLU that
+    # switches slope moves a penalty's gradient): each network within
+    # phase 8's 1e-3 or MD_SPREAD times its own spread
+    grads = [k for k in a if k[:2] in ("G.", "D.")]
+    rel = rel_errs(T(b, grads), T(a, grads))
+    spread = dict((k[7:], e) for e, k in rel_errs(
+        T(a, ["spread:" + k for k in grads]),
+        {"spread:" + k: torch.from_numpy(a[k]) for k in grads}))
+
+    def net_rel(x, y, net):
+        ks = [k for k in grads if k.startswith(net)]
+        return float(np.sqrt(sum(((x[k].astype(np.float64) - y[k]) ** 2)
+                                 .sum() for k in ks))
+                     / np.sqrt(sum((y[k].astype(np.float64) ** 2).sum()
+                                   for k in ks)))
+    nets = {net: (net_rel(b, a, net), net_rel(
+        {k: a["spread:" + k] for k in grads}, a, net)) for net in ("G.",
+                                                                    "D.")}
+    bad = [(e, net, sp) for net, (e, sp) in nets.items()
+           if e > max(PARITY_TOL, MD_SPREAD * sp)]
+    for k in grads + ["w_avg"]:
+        if not np.array_equal(b[k], b1[k]):
+            raise AssertionError(f"ranks differ in {k}")
+    w_rel = float(np.abs(b["w_avg"] - a["w_avg"]).max()
+                  / np.abs(a["w_avg"]).max())
+    pl_rel = max(abs(x - y) / abs(y) for x, y in zip(two[0]["pl_mean"],
+                                                    one["pl_mean"]))
+    if bad or w_rel > PARITY_TOL or pl_rel > PARITY_TOL:
+        raise AssertionError(f"2 ranks vs 1: {bad[:8]}, w_avg {w_rel}, "
+                             f"pl_mean {pl_rel}")
+    if not (two[0]["snapshot_writes"] >= 1 and two[1]["snapshot_writes"] == 0
+            and two[0]["result_writes"] == 1 and two[1]["result_writes"] == 0):
+        writes = [(t["snapshot_writes"], t["result_writes"]) for t in two]
+        raise AssertionError(f"writes (snapshots, result.json) by rank: "
+                             f"{writes}")
+    if not (set(two[1]["row0s"]) - {0} and two[0]["row0s"] == [0]):
+        raise AssertionError(f"noise rows: {two[0]['row0s']}, "
+                             f"{two[1]['row0s']}")
+    # eval: fid within 1e-3, the composites by phase 4's rule
+    fid1, fid2 = one["eval_rv"]["fid"], two[0]["eval_rv"]["fid"]
+    d = np.abs(b["composites"].astype(np.int16)
+               - a["composites"].astype(np.int16))
+    within1 = float((d <= 1).mean())
+    if not (abs(fid2 - fid1) <= 1e-3 * abs(fid1) and within1 >= 0.999
+            and d.max() <= 2 and b["composites"].shape[0] == MD_EVAL_IMAGES):
+        raise AssertionError(f"eval 2 ranks vs 1: fid {fid2} vs {fid1}, "
+                             f"{within1} within 1, max {int(d.max())}")
+    nccl = md_nccl_alone()
+    engine = md_engine(build)
+    row = {"phase": "multi_device_path", "ranks": MD_WORLD,
+           "backend": backend, "train": {
+               "experiment": TRAIN_EXPERIMENT, "global_batch": MD_BATCH,
+               "steps": MD_STEPS, "grad_leaves": len(rel),
+               "step0_grad_net_rel_and_spread": nets,
+               "step0_grad_worst_rel": rel[0],
+               "step0_grad_worst_spread": spread[rel[0][1]],
+               "step0_grad_median_rel": rel[len(rel) // 2][0],
+               "step0_grad_median_spread": sorted(spread.values())[
+                   len(spread) // 2],
+               "d_check_worst_rel": d_rel[0], "d_check_logits_r1_rel": d_in,
+               "w_avg_rel": w_rel, "pl_mean_rel": pl_rel,
+               "replicas_bit_identical": True,
+               "step_ms_one": one["step_ms"],
+               "step_ms_ranks": [t["step_ms"] for t in two],
+               "launches_per_step_rank": two[0]["launches_per_step"],
+               "row0s_rank1": two[1]["row0s"],
+               "snapshot_writes": [t["snapshot_writes"] for t in two],
+               "resumed_on_both": True},
+           "eval": {"experiment": "shgan_ffhq256_eval", "model": FULL_G,
+                    "images": MD_EVAL_IMAGES, "global_batch": MD_EVAL_BATCH,
+                    "one": one["eval_rv"], "ranks": two[0]["eval_rv"],
+                    "composites_within_1": within1,
+                    "composites_max_diff": int(d.max()),
+                    "result_writes": [t["result_writes"] for t in two],
+                    "images_per_s_one": one["eval_images_per_s"],
+                    "images_per_s_ranks": [t["eval_images_per_s"]
+                                           for t in two],
+                    "launches_rank": two[0]["eval_launches"]},
+           "startup_s": up_s,
+           "peak_gib_one": [one["train_peak_gib"], one["eval_peak_gib"]],
+           "peak_gib_ranks": [[t["train_peak_gib"], t["eval_peak_gib"]]
+                              for t in two],
+           "nccl_alone": nccl, "engine": engine,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    total = {}
+    for t in [one] + two:
+        for s in t["launches_per_step"]:
+            add_launches(total, s)
+        add_launches(total, t["eval_launches"])
+    add_launches(total, engine["launches"]["two"])
+    return row, offset, total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="perf_out",
@@ -2967,10 +3679,15 @@ def main():
             epi_grad_rows)
         detail.update(bf16_path=bf16_row, noise_bias_act_grad_bf16=egr16,
                       fir_grad_bf16=fgr16)
+
+        # ---- 12. several devices --------------------------------------------
+        md_row, md_offset, md_total = multi_device_path(tmp, build, noise,
+                                                        nba, inc_pth)
+        detail.update(multi_device_path=md_row, row_offset=md_offset)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- 12. the kernels line ------------------------------------------------
+    # ---- 13. the kernels line -----------------------------------------------
     detail.update(eval_launches=eval_launches, k3_in_place=in_place,
                   train_launches=train_launches,
                   fullmetrics_launches=full_launches,
@@ -3011,6 +3728,7 @@ def main():
          "launches_fullmetrics_path": full_launches["upfirdn2d"],
          "launches_train_config_path": config_launches["upfirdn2d"],
          "launches_bf16_path": bf16_total["upfirdn2d"],
+         "launches_multi_device_path": md_total.get("upfirdn2d", 0),
          "max_abs_err": max(r["max_abs_err"] for r in fr + fir_1024),
          "ms": wsum(fr, "ms"), "eager_ms": wsum(fr, "eager_ms"),
          "bf16_ms": wsum(fr, "bf16_ms"),
@@ -3037,6 +3755,7 @@ def main():
          "launches_fullmetrics_path": full_launches["philox_normal"],
          "launches_train_config_path": config_launches["philox_normal"],
          "launches_bf16_path": bf16_total["philox_normal"],
+         "launches_multi_device_path": md_total.get("philox_normal", 0),
          "max_abs_err": max(r["max_abs_err"] for r in nr + noise_1024),
          "ms": wsum(nr, "ms"), "eager_ms": wsum(nr, "eager_ms"),
          "plain_ms": wsum(nr, "plain_ms"),
@@ -3058,6 +3777,7 @@ def main():
          "launches_fullmetrics_path": full_launches["noise_bias_act"],
          "launches_train_config_path": config_launches["noise_bias_act"],
          "launches_bf16_path": bf16_total["noise_bias_act"],
+         "launches_multi_device_path": md_total.get("noise_bias_act", 0),
          "max_abs_err": max(r["max_abs_err"] for r in er + epi_1024),
          "ms": wsum(er, "ms"), "eager_ms": wsum(er, "eager_ms"),
          "bf16_ms": wsum(er, "bf16_ms"),
@@ -3086,6 +3806,7 @@ def main():
          "launches_fullmetrics_path": full_launches["conv3x3_lowch"],
          "launches_train_config_path": config_launches["conv3x3_lowch"],
          "launches_bf16_path": bf16_total["conv3x3_lowch"],
+         "launches_multi_device_path": md_total.get("conv3x3_lowch", 0),
          "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
          "ms": 2 * k3["ms"], "eager_ms": 2 * k3["eager_ms"],
          "plain_ms": 2 * k3["plain_ms"],
@@ -3112,6 +3833,7 @@ def main():
          "launches_fullmetrics_path": full_launches["upfirdn2d_grad"],
          "launches_train_config_path": config_launches["upfirdn2d_grad"],
          "launches_bf16_path": bf16_total["upfirdn2d_grad"],
+         "launches_multi_device_path": md_total.get("upfirdn2d_grad", 0),
          "max_abs_err": max(r["max_abs_err"] for r in fgr),
          "ms": sum(r["ms"] for r in fgr),
          "eager_ms": sum(r["eager_ms"] for r in fgr),
@@ -3153,6 +3875,7 @@ def main():
          "launches_train_config_path": config_launches[
              "noise_bias_act_grad"],
          "launches_bf16_path": bf16_total["noise_bias_act_grad"],
+         "launches_multi_device_path": md_total.get("noise_bias_act_grad", 0),
          "max_abs_err": max(r["max_abs_err"] for r in egr),
          "sums_max_rel_err": max(r["sums_max_rel_err"] for r in egr),
          "ms": wsum(egr, "ms"), "eager_ms": wsum(egr, "eager_ms"),

@@ -104,7 +104,7 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
                           const float* __restrict__ dcoef, const float* __restrict__ bias,
                           const float* __restrict__ strength,
                           const float* __restrict__ noise_const, int mode, uint32_t k0,
-                          uint32_t k1, Act act, Launch L) {
+                          uint32_t k1, long long row0, Act act, Launch L) {
   constexpr int V = 2 * CPT;  // elements of each half a thread owns
   const long long q0 = shgan::nba::first_call(L, blockIdx.x, threadIdx.x, calls);
   if (q0 < 0) return;
@@ -120,7 +120,7 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
     if (mode == shgan::nba::kNoiseRandom) {
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        shgan::noise_quad(static_cast<uint32_t>(q0 + j), static_cast<uint32_t>(row), k0, k1,
+        shgan::noise_quad(static_cast<uint32_t>(q0 + j), shgan::noise_row(row0, row), k0, k1,
                           &nz[0][2 * j], &nz[1][2 * j]);
       }
     } else {
@@ -156,7 +156,7 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
 template <typename T, int CPT>
 void launch(const void* x, void* y, int n, int c, int res, const float* dcoef,
             const float* bias, const float* strength, const float* noise_const, int mode,
-            uint32_t k0, uint32_t k1, Act act, cudaStream_t stream) {
+            uint32_t k0, uint32_t k1, long long row0, Act act, cudaStream_t stream) {
   const Launch L = shgan::nba::plan(n, c, res, CPT, 0);
   const long long plane = static_cast<long long>(res) * res;
   const dim3 grid(static_cast<unsigned int>(L.tiles), static_cast<unsigned int>(n),
@@ -164,7 +164,7 @@ void launch(const void* x, void* y, int n, int c, int res, const float* dcoef,
   const dim3 block(L.bt, L.bc);
   noise_bias_act_kernel<T, CPT><<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), c, plane, plane / 4, dcoef, bias,
-      strength, noise_const, mode, k0, k1, act, L);
+      strength, noise_const, mode, k0, k1, row0, act, L);
 }
 
 }  // namespace
@@ -175,13 +175,14 @@ void launch(const void* x, void* y, int n, int c, int res, const float* dcoef,
 // 8-byte aligned).  dcoef float32 [n, c] or null (no
 // demodulation); bias float32 [c] or null; mode 0 none, 1 random (Philox key
 // k0, k1), 2 const (noise_const float32 [res, res]); strength: a float32 on
-// the device, read for modes 1 and 2.  clamp +inf for none; alpha 1 for a
-// linear activation.  Returns cudaGetLastError() after the launch.
+// the device, read for modes 1 and 2; row n of x draws the noise of counter
+// row row0 + n.  clamp +inf for none; alpha 1 for a linear activation.
+// Returns cudaGetLastError() after the launch.
 extern "C" int shgan_noise_bias_act(const void* x, void* y, int bf16, int n, int c, int res,
                                     const float* dcoef, const float* bias,
                                     const float* strength, const float* noise_const, int mode,
-                                    unsigned int k0, unsigned int k1, float alpha, float gain,
-                                    float clamp, void* stream) {
+                                    unsigned int k0, unsigned int k1, long long row0,
+                                    float alpha, float gain, float clamp, void* stream) {
   if (n == 0 || c == 0) return static_cast<int>(cudaSuccess);
   const Act act{alpha, gain, clamp};
   const uintptr_t vec_bytes = bf16 ? 8 : 16;
@@ -191,14 +192,18 @@ extern "C" int shgan_noise_bias_act(const void* x, void* y, int bf16, int n, int
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     if (vec) {
-      launch<uint16_t, 2>(x, y, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, act, s);
+      launch<uint16_t, 2>(x, y, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, row0,
+                          act, s);
     } else {
-      launch<uint16_t, 1>(x, y, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, act, s);
+      launch<uint16_t, 1>(x, y, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, row0,
+                          act, s);
     }
   } else if (vec) {
-    launch<float, 2>(x, y, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, act, s);
+    launch<float, 2>(x, y, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, row0, act,
+                     s);
   } else {
-    launch<float, 1>(x, y, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, act, s);
+    launch<float, 1>(x, y, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, row0, act,
+                     s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -244,8 +249,8 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
                                const float* __restrict__ dcoef, const float* __restrict__ bias,
                                const float* __restrict__ strength,
                                const float* __restrict__ noise_const, int mode, uint32_t k0,
-                               uint32_t k1, Act act, const float* __restrict__ vs, GradLaunch G,
-                               float* __restrict__ work) {
+                               uint32_t k1, long long row0, Act act, const float* __restrict__ vs,
+                               GradLaunch G, float* __restrict__ work) {
   constexpr int V = 2 * CPT;
   constexpr int K = shgan::nba::kGradGroup;
   constexpr int NT = shgan::nba::kThreads;
@@ -279,7 +284,7 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
     if (mode == shgan::nba::kNoiseRandom) {
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        shgan::noise_quad(static_cast<uint32_t>(q + j), static_cast<uint32_t>(row), k0, k1,
+        shgan::noise_quad(static_cast<uint32_t>(q + j), shgan::noise_row(row0, row), k0, k1,
                           &nu[0][2 * j], &nu[1][2 * j]);
       }
     } else if (mode == shgan::nba::kNoiseConst) {
@@ -386,8 +391,8 @@ __global__ void grad_finish_sums(const float* __restrict__ pw, int n, int c,
 template <typename T, int CPT>
 void launch_grad(const void* dy, const void* x, void* out, int n, int c, int res,
                  const float* dcoef, const float* bias, const float* strength,
-                 const float* noise_const, int mode, uint32_t k0, uint32_t k1, Act act,
-                 bool mask_only, const float* vs, float* work, cudaStream_t stream) {
+                 const float* noise_const, int mode, uint32_t k0, uint32_t k1, long long row0,
+                 Act act, bool mask_only, const float* vs, float* work, cudaStream_t stream) {
   const GradLaunch G = shgan::nba::grad_plan(n, c, res, CPT);
   const long long plane = static_cast<long long>(res) * res;
   const dim3 grid(static_cast<unsigned int>(static_cast<long long>(n) * G.groups),
@@ -398,11 +403,11 @@ void launch_grad(const void* dy, const void* x, void* out, int n, int c, int res
   if (mask_only) {
     noise_bias_act_grad_kernel<T, CPT, true><<<grid, G.threads, 0, stream>>>(
         dyp, xp, outp, c, plane, plane / 4, dcoef, bias, strength, noise_const, mode, k0, k1,
-        act, vs, G, work);
+        row0, act, vs, G, work);
   } else {
     noise_bias_act_grad_kernel<T, CPT, false><<<grid, G.threads, 0, stream>>>(
         dyp, xp, outp, c, plane, plane / 4, dcoef, bias, strength, noise_const, mode, k0, k1,
-        act, vs, G, work);
+        row0, act, vs, G, work);
   }
 }
 
@@ -410,8 +415,8 @@ void launch_grad(const void* dy, const void* x, void* out, int n, int c, int res
 
 // The epilogue's gradient at the conv output x [n, c, res, res] (the
 // forward's input), float32 (bf16 == 0) or bfloat16 (bf16 == 1), for the
-// forward's dcoef, bias, strength, noise_const, mode, key and activation (as
-// in shgan_noise_bias_act).  Full mode (mask_only == 0): dy is the cotangent
+// forward's dcoef, bias, strength, noise_const, mode, key, row0 and
+// activation (as in shgan_noise_bias_act).  Full mode (mask_only == 0): dy is the cotangent
 // of y; writes out = dx, dd [n, c], db [c] and ds [1] (every pointer set; vs
 // unused).  Mask-only mode: dy is v; writes out = act'(pre) * (v + vs * nu)
 // (vs a float32 on the device, or null for none), nothing else.  dy, x and
@@ -424,7 +429,8 @@ extern "C" int shgan_noise_bias_act_grad(const void* dy, const void* x, void* ou
                                          int n, int c, int res, const float* dcoef,
                                          const float* bias, const float* strength,
                                          const float* noise_const, int mode, unsigned int k0,
-                                         unsigned int k1, float alpha, float gain, float clamp,
+                                         unsigned int k1, long long row0, float alpha, float gain,
+                                         float clamp,
                                          int mask_only, const float* vs, float* dd, float* db,
                                          float* ds, float* work, void* stream) {
   if (n == 0 || c == 0) return static_cast<int>(cudaSuccess);
@@ -438,17 +444,17 @@ extern "C" int shgan_noise_bias_act_grad(const void* dy, const void* x, void* ou
   if (bf16) {
     if (vec) {
       launch_grad<uint16_t, 4>(dy, x, out, n, c, res, dcoef, bias, strength, noise_const, mode,
-                               k0, k1, act, mo, vs, work, s);
+                               k0, k1, row0, act, mo, vs, work, s);
     } else {
       launch_grad<uint16_t, 1>(dy, x, out, n, c, res, dcoef, bias, strength, noise_const, mode,
-                               k0, k1, act, mo, vs, work, s);
+                               k0, k1, row0, act, mo, vs, work, s);
     }
   } else if (vec) {
     launch_grad<float, 2>(dy, x, out, n, c, res, dcoef, bias, strength, noise_const, mode, k0,
-                          k1, act, mo, vs, work, s);
+                          k1, row0, act, mo, vs, work, s);
   } else {
     launch_grad<float, 1>(dy, x, out, n, c, res, dcoef, bias, strength, noise_const, mode, k0,
-                          k1, act, mo, vs, work, s);
+                          k1, row0, act, mo, vs, work, s);
   }
   if (!mo) {
     const long long planes = static_cast<long long>(n) * c;

@@ -105,6 +105,14 @@ SHGAN_HD void box_muller(uint32_t b1, uint32_t b2, float* c, float* s) {
 // writes its cos normal at flat index p and its sin normal at R*R/2 + p.
 // Philox call `call` (counter (call, row, 0, 0)) yields pairs 2*call and
 // 2*call + 1.
+// The counter row of row n of a launch whose first row is row0 of the
+// batch the noise is drawn for: a launch over rows row0... of a batch (a
+// rank's block of a global batch) draws what those rows of a launch over the
+// whole batch draw.
+SHGAN_HD uint32_t noise_row(long long row0, long long n) {
+  return static_cast<uint32_t>(row0 + n);
+}
+
 SHGAN_HD void noise_quad(uint32_t call, uint32_t row, uint32_t k0, uint32_t k1,
                          float* cos2, float* sin2) {
   U32x4 ctr;

@@ -1,6 +1,13 @@
 """Host-side eval and train pipelines with parallel background prefetch
 (port of ``_Prefetcher``, ``EvalPipeline`` and ``TrainPipeline`` of
-``shgan_tpu/data/pipeline.py``, single process).
+``shgan_tpu/data/pipeline.py``).
+
+Across ranks: :class:`EvalPipeline` takes the rank's contiguous shard of
+the dataset in batches of the rank's rows (the JAX package's per-process
+shard: rows gathered in rank order restore the dataset's order);
+:class:`TrainPipeline` yields the rank's rows of each global batch of the
+one-process stream, so a W-rank run trains on the batches a one-process run
+does.
 
 A thread pool builds whole batches concurrently (PIL decode and numpy
 release the GIL), results are yielded in order, and each batch is copied to
@@ -85,12 +92,18 @@ class EvalPipeline:
     ids."""
 
     def __init__(self, dataset, formatter, batch_size, device=None, depth=4,
-                 seed=0, num_threads=None, transport="f32"):
+                 seed=0, num_threads=None, transport="f32", shard_id=0,
+                 num_shards=1):
+        """``batch_size``: the rows of each batch of this shard (a rank's
+        share of the global batch); ``shard_id`` of ``num_shards``: the
+        rank's contiguous shard, padded (``valid`` False) to equal
+        lengths."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = None if device is None else torch.device(device)
         self.shard = DataShard(dataset, formatter, batch_size, shuffle=False,
-                               extend=True, seed=seed, transport=transport)
+                               extend=True, seed=seed, transport=transport,
+                               shard_id=shard_id, num_shards=num_shards)
         make = (self.shard.get_batch if self.device is None
                 else self._worker_batch)
         self.prefetch = _Prefetcher(make, len(self.shard), depth=depth,
@@ -113,10 +126,12 @@ class TrainPipeline:
     ``seed + e`` and drops the last partial batch.  Yields ``(real, mask)``
     as torch tensors on ``device`` (numpy arrays when ``device`` is None),
     copied as in :class:`EvalPipeline`.  ``start`` skips that many batches
-    of the stream (a resumed run continues where its snapshot was taken)."""
+    of the stream (a resumed run continues where its snapshot was taken).
+    ``batch_size`` is the global batch; ``rows`` (indices into it, default
+    all) the rows this rank takes of each."""
 
     def __init__(self, dataset, formatter, batch_size, device=None, depth=4,
-                 seed=0, num_threads=None, start=0):
+                 seed=0, num_threads=None, start=0, rows=None):
         self.dataset = dataset
         self.formatter = formatter
         self.batch_size = batch_size
@@ -125,6 +140,7 @@ class TrainPipeline:
         self.seed = seed
         self.num_threads = num_threads
         self.start = start
+        self.rows = rows
 
     def __iter__(self):
         epoch, skip = 0, self.start
@@ -140,7 +156,8 @@ class TrainPipeline:
             skip -= first
 
             def make(b, shard=shard, first=first):
-                real, mask, _valid, _uids = shard.get_batch(first + b)
+                real, mask, _valid, _uids = shard.get_batch(first + b,
+                                                            self.rows)
                 if self.device is None:
                     return real, mask
                 return (_to_device(real, self.device),

@@ -70,7 +70,9 @@ class DataShard:
     def __len__(self):
         return -(-len(self.indices) // self.batch_size)
 
-    def get_batch(self, b):
+    def get_batch(self, b, rows=None):
+        """Batch ``b``; ``rows`` (indices into the batch) formats only
+        those rows, each as the whole batch would."""
         bs = self.batch_size
         idx = self.indices[b * bs:(b + 1) * bs]
         val = self.valid[b * bs:(b + 1) * bs]
@@ -78,10 +80,12 @@ class DataShard:
             pad = bs - len(idx)
             idx = np.concatenate([idx, np.repeat(idx[-1:], pad)])
             val = np.concatenate([val, np.zeros(pad, dtype=bool)])
+        js = np.arange(bs) if rows is None else np.asarray(rows)
+        idx, val = idx[js], val[js]
         u8 = self.transport == "u8"
         reals, masks, uids = [], [], []
-        for j, i in enumerate(idx):
-            pos = self.global_offset + b * bs + j
+        for j, i in zip(js, idx):
+            pos = self.global_offset + b * bs + int(j)
             with batch_rng(derive_seed(self.seed, pos, self.epoch)):
                 r, m, u = self.formatter(self.dataset[int(i)])
             r = np.asarray(r)

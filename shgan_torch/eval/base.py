@@ -1,11 +1,13 @@
-"""Evaluator base, registry and compose (port of the single-process parts of
-``shgan_tpu/eval/base.py``; the multi-process gathers come with the
-``parallel/`` slice), with the hooks of the metrics that drive the generator
-themselves (PPL: ``needs_generator``, ``run_generator_metrics``).
+"""Evaluator base, registry and compose (port of ``shgan_tpu/eval/base.py``),
+with the hooks of the metrics that drive the generator themselves (PPL:
+``needs_generator``, ``run_generator_metrics``).
 
-Evaluators receive whole batches plus a validity mask that marks the rows
-padding the last batch, accumulate per-image values or features, and write
-``result.json`` like the reference's ``compose.save``.
+Evaluators receive batches plus a validity mask that marks the rows padding
+the last batch, accumulate per-image values or features, and write
+``result.json`` like the reference's ``compose.save``.  Across ranks each
+rank adds its own rows; :meth:`BaseEvaluator.sync_across_processes`, which
+every rank calls before ``compute``, gathers them in rank order (the
+ranks' shards are contiguous, so that is the dataset's order).
 """
 
 from __future__ import annotations
@@ -81,6 +83,22 @@ class BaseEvaluator:
 
     def clear_data(self):
         pass
+
+    def sync_across_processes(self):
+        """Gather the accumulated rows of every rank, in rank order, into
+        each accumulator (``data`` or ``data_*``: lists of ``[n_i, ...]``
+        arrays or tensors), through :func:`~..parallel.allgather_rows`'s
+        byte transport: each dtype kept bit for bit.  Every rank must call
+        it (it runs collectives); which accumulators are empty is fixed by
+        the config, so it is the same on every rank."""
+        from ..parallel import allgather_rows
+        for name, val in list(self.__dict__.items()):
+            if (name == "data" or name.startswith("data_")) \
+                    and isinstance(val, list) and val:
+                local = np.concatenate([
+                    v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                    else np.asarray(v) for v in val], axis=0)
+                setattr(self, name, [allgather_rows(local)])
 
     def drain(self):
         """Wait for the device work queued into the accumulators (feature
@@ -162,6 +180,10 @@ class ComposeEvaluator:
     def drain(self):
         for e in self.evaluators:
             e.drain()
+
+    def sync_across_processes(self):
+        for e in self.evaluators:
+            e.sync_across_processes()
 
     def compute(self):
         return {e.symbol: e.compute() for e in self.evaluators}

@@ -7,7 +7,9 @@ batch through the detector's memo.
 Real features are cached at ``<cache_dir>/<tag>_<policy>_real_feat.npy``,
 the JAX package's name, so the two packages share caches (the first writer
 wins; FID, KID and PR of one compose share a tag).  The banks are float64,
-like the reference's.
+like the reference's.  Across ranks the cache is read by no rank (whether a
+file exists is one host's state, and the gathers pair the ranks' banks) and
+written by the lead once the banks are gathered, then the ranks meet.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import os.path as osp
 import numpy as np
 import torch
 
+from ..parallel.multihost import barrier, is_lead, world_size
 from .base import BaseEvaluator, register_evaluator
 from .detector import get_detector, resolve_resize_policy
 from .stylegan_metrics import (compute_inception_score, compute_kid,
@@ -56,7 +59,8 @@ class FeatureBankEvaluator(BaseEvaluator):
         if dsstat_cachefile_tag is not None and self.needs_real:
             self.dsstat_cache_file = real_feature_cache_file(
                 cache_dir, dsstat_cachefile_tag, resize_policy)
-            self.dsstat_use_cache = osp.isfile(self.dsstat_cache_file)
+            self.dsstat_use_cache = (osp.isfile(self.dsstat_cache_file)
+                                     and world_size() == 1)
         self.detector = get_detector(detector_weights, detector_params,
                                      resize_policy)
 
@@ -106,11 +110,12 @@ class FeatureBankEvaluator(BaseEvaluator):
                 real_feat = np.load(self.dsstat_cache_file)[:sample_real_n]
             else:
                 real_feat = bank(self.data_real_feat)[:sample_real_n]
-                if (self.dsstat_cache_file is not None
-                        and not osp.isfile(self.dsstat_cache_file)):
-                    os.makedirs(osp.dirname(self.dsstat_cache_file),
-                                exist_ok=True)
-                    np.save(self.dsstat_cache_file, real_feat)
+                if self.dsstat_cache_file is not None:
+                    if is_lead() and not osp.isfile(self.dsstat_cache_file):
+                        os.makedirs(osp.dirname(self.dsstat_cache_file),
+                                    exist_ok=True)
+                        np.save(self.dsstat_cache_file, real_feat)
+                    barrier()
         return fake_feat, real_feat, fake_probs
 
     def clear_data(self):

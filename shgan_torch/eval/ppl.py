@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.multihost import world_size
 from .base import BaseEvaluator, register_evaluator
 from .lpips import lpips_distance, lpips_params_to, resolve_lpips_params
 from .stylegan_metrics import ppl_from_distances
@@ -154,7 +155,13 @@ class PPLEvaluator(BaseEvaluator):
 
     def run_generator_metrics(self, G, seed=0):
         """The sampling loop: ``num_samples`` distances in batches of
-        ``batch_size`` on the contexts' device."""
+        ``batch_size`` on the contexts' device.  One process only, as in
+        the JAX package: each rank's contexts are its own rows."""
+        if world_size() > 1:
+            raise NotImplementedError(
+                "PPL runs in one process: the conditioning contexts are "
+                "each rank's own rows; run the ppl evaluator in a "
+                "one-process eval")
         if not self._contexts:
             raise RuntimeError(
                 "PPL has no conditional contexts: add_batch with mask= must "

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -34,20 +35,21 @@ _P, _I, _U, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlon
 _F = ctypes.c_float
 # C entry points: library name -> {symbol: argtypes}
 ENTRY_POINTS = {
-    "noise": {"shgan_philox_normal": (_P, _I, _I, _U, _U, _P)},
+    "noise": {"shgan_philox_normal": (_P, _I, _I, _LL, _U, _U, _P)},
     "noise_bias_act": {
         "shgan_noise_bias_act": (_P, _P) + (_I,) * 4 + (_P,) * 4
-        + (_I, _U, _U, _F, _F, _F, _P),
+        + (_I, _U, _U, _LL, _F, _F, _F, _P),
         "shgan_noise_bias_act_grad": (_P,) * 3 + (_I,) * 4 + (_P,) * 4
-        + (_I, _U, _U, _F, _F, _F, _I) + (_P,) * 6},
+        + (_I, _U, _U, _LL, _F, _F, _F, _I) + (_P,) * 6},
     "upfirdn2d": {"shgan_upfirdn2d": (_P, _P, _I, _LL) + (_I,) * 10
                   + (_P, _I, _I, _P)},
     "conv3x3_lowch": {"shgan_conv3x3_lowch": (_P, _P, _P) + (_I,) * 6
                       + (_P,)},
 }
 
-# Launch counts of the kernel wrappers: each wrapper adds one where it
-# launches its kernel, and nowhere else.
+# Launch counts of the kernel wrappers: each wrapper adds one (count())
+# where it launches its kernel, and nowhere else; a lock keeps the counts
+# exact when several threads launch (the engine over several devices).
 # K2's derivative calls (backward and higher orders) count apart from its
 # forward calls; the epilogue's grad kernel counts in both of its modes.
 launches = {"upfirdn2d": 0, "upfirdn2d_grad": 0, "philox_normal": 0,
@@ -55,9 +57,18 @@ launches = {"upfirdn2d": 0, "upfirdn2d_grad": 0, "philox_normal": 0,
             "noise_bias_act_grad": 0}
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count(name):
+    with _LAUNCH_LOCK:
+        launches[name] += 1
+
+
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    with _LAUNCH_LOCK:
+        for k in launches:
+            launches[k] = 0
 
 
 def find_nvcc():

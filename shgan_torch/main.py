@@ -4,7 +4,7 @@ the JAX package's ``main.py``::
     python -m shgan_torch.main --experiment shgan_synthetic256_eval \\
         [--debug] [--eval ID] [--seed N] [--pretrained path.pth] \\
         [--eval_tag TAG] [--model NAME] [--dataset NAME] [--pick UID ...] \\
-        [--demo] [--gpu 0] [--device cpu] [--evalnog_path GEN_DIR]
+        [--demo] [--gpu 0 [1 ...]] [--device cpu] [--evalnog_path GEN_DIR]
     python -m shgan_torch.main --experiment smoke_train [--trainonly] \\
         [--resume_path SNAPSHOT [--resume_itern KIMG]] [--device cpu] \\
         [--signature TAG ...] [--dscache] [--port N]
@@ -25,6 +25,15 @@ suffixes the run id (``<id>_<sig1>_<sig2>``), ``--dscache`` keeps the
 datasets' decoded elements in memory, ``--port`` is accepted and unused.
 Outside ``--debug`` the run's log dir gets a copy of ``shgan_torch/`` and
 ``configs/`` under ``code/`` (``env.code_snapshot: false`` turns it off).
+
+Several devices: ``--gpu 0 1`` starts one process per entry
+(``torch.multiprocessing.spawn``), rank r on ``cuda:<entry r>`` (``--gpu 0
+0``: two ranks on one card, over gloo; with ``--device cpu`` the ranks run
+on the CPU), meeting at ``127.0.0.1:<--port>`` (default a free port).
+Without ``--gpu``, torchrun's variables or ``SHGAN_DIST_COORDINATOR`` /
+``SHGAN_DIST_NPROCS`` / ``SHGAN_DIST_PID`` make this process one rank.
+The lead picks the run id and writes the logs; any rank's failure is a
+nonzero exit.
 """
 
 from __future__ import annotations
@@ -34,10 +43,13 @@ import copy
 import os
 import os.path as osp
 import shutil
+import socket
+import sys
 import time
 
 import yaml
 
+from .parallel import multihost
 from .runtime.config import (apply_debug_shrink, dataset_cfg_bank,
                              experiment_cfg_bank, load_resume_run,
                              model_cfg_bank)
@@ -55,7 +67,7 @@ def get_args(argv=None):
     p.add_argument("--eval", type=int, default=None,
                    help="run eval, tagging the run with this id")
     p.add_argument("--gpu", nargs="+", type=int, default=None,
-                   help="device indices; one device only in this slice")
+                   help="device indices, one rank (process) each")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--pretrained", type=str, default=None,
                    help="override eval.pretrained_pth")
@@ -88,7 +100,8 @@ def get_args(argv=None):
     p.add_argument("--dscache", action="store_true",
                    help="keep the datasets' decoded elements in memory")
     p.add_argument("--port", type=int, default=None,
-                   help="accepted for the JAX CLI's flags; unused")
+                   help="the ranks' rendezvous port on 127.0.0.1 for --gpu "
+                        "with several devices (default: a free port)")
     return p.parse_args(argv)
 
 
@@ -196,7 +209,8 @@ def build_config(experiment, debug=False, eval_id=None, seed=None,
     sec = cfg[section]
     expid = sec.get("experiment_id")
     if expid is None:  # 0 is a legitimate id (--eval 0)
-        expid = int(time.time() * 100)
+        # the lead's clock: every rank writes under one id
+        expid = multihost.broadcast_object(int(time.time() * 100))
     if signature:
         expid = f"{expid}_{'_'.join(signature)}"
     model_sym = cfg.get("model", {}).get("symbol", "model")
@@ -237,10 +251,13 @@ def run(cfg, device=None, **stage_kw):
     from .runtime.stages import eval_stage, train_stage
     section = "train" if cfg.get("train") is not None else "eval"
     log_dir = cfg[section]["log_dir"]
-    set_log_file(osp.join(log_dir, f"{section}.log"))
+    lead = multihost.is_lead()
+    if lead:
+        set_log_file(osp.join(log_dir, f"{section}.log"))
     try:
-        with open(osp.join(log_dir, "config.yaml"), "w") as f:
-            yaml.safe_dump(_plain(cfg), f, sort_keys=False)
+        if lead:
+            with open(osp.join(log_dir, "config.yaml"), "w") as f:
+                yaml.safe_dump(_plain(cfg), f, sort_keys=False)
         print_log(f"experiment: {cfg.get('name')}  stage: {section}")
         print_log(f"log_dir: {log_dir}")
         stage = train_stage() if section == "train" else eval_stage()
@@ -270,13 +287,61 @@ def resume_config(resume_path, resume_itern=None, seed=None, gpu=None,
     return cfg
 
 
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank, argv, world, port):
+    """One rank started by ``--gpu``: join the group, then run ``main``."""
+    os.environ.update(SHGAN_DIST_COORDINATOR=f"127.0.0.1:{port}",
+                      SHGAN_DIST_NPROCS=str(world), SHGAN_DIST_PID=str(rank))
+    main(argv)
+
+
+def rank_device(args):
+    """This process's device: ``--device``, else ``cuda:<--gpu entry of
+    its rank>``, else the rank's by :func:`~.parallel.rank_device` (None
+    without a process group: the stages pick the CUDA device)."""
+    if args.device is not None:
+        return args.device
+    env = multihost.dist_env()
+    rank = env[2] if env is not None else 0
+    if args.gpu is not None:
+        return f"cuda:{args.gpu[rank]}"
+    if env is not None:
+        return str(multihost.rank_device(rank, env[3]))
+    return None
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = get_args(argv)
+    if (args.gpu is not None and len(args.gpu) > 1
+            and multihost.dist_env() is None):
+        import torch.multiprocessing as mp
+        port = args.port or _free_port()
+        # a rank that raises makes spawn raise (and stops the others)
+        mp.spawn(_rank_main, args=(argv, len(args.gpu), port),
+                 nprocs=len(args.gpu), join=True)
+        return None
+    device = rank_device(args)
+    multihost.maybe_initialize_distributed(device=device)
+    try:
+        return _main(args, device)
+    finally:
+        if multihost.world_size() > 1:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _main(args, device):
     if (args.resume_path is not None and args.eval is None
             and args.experiment is None):
         cfg = resume_config(args.resume_path, args.resume_itern,
                             seed=args.seed, gpu=args.gpu, debug=args.debug)
-        return run(cfg, device=args.device)
+        return run(cfg, device=device)
     if args.experiment is None:
         raise SystemExit("--experiment is required (or --resume_path to "
                          "continue a saved run)")
@@ -288,10 +353,11 @@ def main(argv=None):
         trainonly=args.trainonly, resume_path=args.resume_path,
         resume_itern=args.resume_itern, evalnog_path=args.evalnog_path,
         signature=args.signature, dscache=args.dscache)
-    if not args.debug and cfg["env"].get("code_snapshot", True):
+    if (not args.debug and cfg["env"].get("code_snapshot", True)
+            and multihost.is_lead()):
         section = "train" if cfg.get("train") is not None else "eval"
         snapshot_code(cfg[section]["log_dir"])
-    return run(cfg, device=args.device)
+    return run(cfg, device=device)
 
 
 if __name__ == "__main__":

@@ -83,10 +83,11 @@ class DiscrimEpilogue(nn.Module):
         self.out = Dense(ic_n, 1 if cmap_dim is None else cmap_dim,
                          generator=g)
 
-    def forward(self, x, cmap=None):
+    def forward(self, x, cmap=None, rows=None):
         x = x.float()
         if self.mbstd_c_n > 0:
-            x = minibatch_std(x, self.mbstd_group_size, self.mbstd_c_n)
+            x = minibatch_std(x, self.mbstd_group_size, self.mbstd_c_n,
+                              rows=rows)
         x = self.conv(x)
         x = self.fc(x.reshape(x.shape[0], -1))
         x = self.out(x)
@@ -130,12 +131,14 @@ class Discriminator(nn.Module):
                                   mbstd_c_n=mbstd_c_n, activation=activation,
                                   generator=g)
 
-    def forward(self, img, c=None):
+    def forward(self, img, c=None, rows=None):
         """Logits [N, 1]; ``c`` [N, c_dim] feeds the label mapping of a
-        class-conditional D."""
+        class-conditional D.  ``rows``: this rank's
+        :class:`~shgan_torch.parallel.Rows` of a global batch, whose
+        minibatch stddev spans it (None: the batch is whole)."""
         x = None
         for resi in self.encode_res[:-1]:
             x = getattr(self, f"b{resi}")(x, img)
             img = None
         cmap = self.mapping(None, c) if self.mapping is not None else None
-        return self.b4(x, cmap)
+        return self.b4(x, cmap, rows=rows)

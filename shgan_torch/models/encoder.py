@@ -76,10 +76,11 @@ class EncoderEpilogue(nn.Module):
         self.out = (Dense(oc_n, oc_n, generator=g) if has_extra_final_layer
                     else None)
 
-    def forward(self, x, cmap=None, train=False, generator=None):
+    def forward(self, x, cmap=None, train=False, generator=None, rows=None):
         x = x.float()
         if self.mbstd_c_n > 0:
-            x = minibatch_std(x, self.mbstd_group_size, self.mbstd_c_n)
+            x = minibatch_std(x, self.mbstd_group_size, self.mbstd_c_n,
+                              rows=rows)
         feat = self.conv(x)
         x = self.fc(feat.reshape(feat.shape[0], -1))
         if self.out is not None:
@@ -88,8 +89,11 @@ class EncoderEpilogue(nn.Module):
             if generator is None:
                 raise ValueError("encoder dropout in training needs a "
                                  "torch.Generator")
-            keep = torch.rand(x.shape, generator=generator,
-                              device=generator.device) < 0.5
+            def uniform(shape):
+                return torch.rand(shape, generator=generator,
+                                  device=generator.device)
+            keep = (uniform(x.shape) if rows is None
+                    else rows.draw(uniform, x.shape)) < 0.5
             x = torch.where(keep.to(x.device), x * 2.0, torch.zeros_like(x))
         if self.cmap_dim is not None:
             x = (x * cmap).sum(dim=1, keepdim=True) / np.sqrt(self.cmap_dim)
@@ -140,14 +144,18 @@ class Encoder(nn.Module):
             has_extra_final_layer=has_extra_final_layer,
             use_dropout=use_dropout, generator=g)
 
-    def forward(self, img, c=None, train=False, generator=None):
+    def forward(self, img, c=None, train=False, generator=None, rows=None):
         """``train`` turns the epilogue's dropout on, drawn from
-        ``generator``; ``c`` feeds the label mapping where there is one."""
+        ``generator``; ``c`` feeds the label mapping where there is one.
+        ``rows``: this rank's :class:`~shgan_torch.parallel.Rows` of a
+        global batch: the dropout draws the global batch's mask and keeps
+        its rows, the minibatch stddev spans the batch."""
         x = None
         feats = {}
         for resi in self.encode_res[:-1]:
             x, feats[resi] = getattr(self, f"b{resi}")(x, img)
             img = None
         cmap = self.mapping(None, c) if self.mapping is not None else None
-        x, feats[4] = self.b4(x, cmap, train=train, generator=generator)
+        x, feats[4] = self.b4(x, cmap, train=train, generator=generator,
+                              rows=rows)
         return x, feats

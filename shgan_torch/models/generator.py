@@ -25,11 +25,11 @@ class StyleGANGenerator(nn.Module):
         self.img_channels = synthesis.rgb_n
 
     def forward(self, z, c=None, truncation_psi=1.0, truncation_cutoff=None,
-                noise_mode="random", noise_seed=None):
+                noise_mode="random", noise_seed=None, row0=0, rows=None):
         ws = self.mapping(z, c, truncation_psi=truncation_psi,
                           truncation_cutoff=truncation_cutoff)
         return self.synthesis(ws, noise_mode=noise_mode,
-                              noise_seed=noise_seed)
+                              noise_seed=noise_seed, row0=row0, rows=rows)
 
 
 class CoModGANGenerator(nn.Module):
@@ -51,19 +51,24 @@ class CoModGANGenerator(nn.Module):
         self.img_channels = synthesis.rgb_n
 
     def forward(self, x, z, c=None, truncation_psi=1.0,
-                truncation_cutoff=None, noise_mode="random", noise_seed=None):
+                truncation_cutoff=None, noise_mode="random", noise_seed=None,
+                row0=0, rows=None):
         """``noise_seed`` keys the random noise of every synthesis layer
-        (``noise_mode='random'``)."""
+        (``noise_mode='random'``), ``row0`` its first counter row (the
+        batch's place in a larger one); ``rows``: this rank's
+        :class:`~shgan_torch.parallel.Rows` of a global batch, whose
+        batch-wide statistics the layers read (None: the batch is whole)."""
         ws = self.mapping(z, c, truncation_psi=truncation_psi,
                           truncation_cutoff=truncation_cutoff)
         return self.forward_ws(x, ws, noise_mode=noise_mode,
-                               noise_seed=noise_seed)
+                               noise_seed=noise_seed, row0=row0, rows=rows)
 
     def forward_ws(self, x, ws, noise_mode="random", noise_seed=None,
-                   train=False, generator=None):
+                   train=False, generator=None, row0=0, rows=None):
         """Encoder and synthesis for styles ``ws`` [N, num_ws, w_dim] the
         caller made (the training losses mix them); ``train`` turns the
         encoder's dropout on, drawn from ``generator``."""
-        x_global, feats = self.encoder(x, train=train, generator=generator)
+        x_global, feats = self.encoder(x, train=train, generator=generator,
+                                       rows=rows)
         return self.synthesis(x_global, feats, ws, noise_mode=noise_mode,
-                              noise_seed=noise_seed)
+                              noise_seed=noise_seed, row0=row0, rows=rows)

@@ -20,24 +20,28 @@ from ..data.rng import derive_seed
 Z_SALT = 0x5EED  # epoch slot used to derive per-position z seeds
 
 
-def composite_forward(G, real, mask, z, noise_mode="random", noise_seed=None):
+def composite_forward(G, real, mask, z, noise_mode="random", noise_seed=None,
+                      row0=0, rows=None):
     """Run the generator on (real, mask) and return the uint8 composite.
 
     ``real`` in [-1, 1] NCHW float, or uint8 0..255 (normalized here, on the
-    tensor's device); ``mask`` {0=hole, 1=keep} [N,1,H,W], float or uint8."""
+    tensor's device); ``mask`` {0=hole, 1=keep} [N,1,H,W], float or uint8.
+    ``row0`` / ``rows`` as in the generator's forward."""
     if real.dtype == torch.uint8:
         real = real.float() / 127.5 - 1.0
     if mask.dtype != torch.float32:
         mask = mask.float()
-    return composite(G, real, mask, z, noise_mode, noise_seed).to(
-        torch.uint8)
+    return composite(G, real, mask, z, noise_mode, noise_seed, row0,
+                     rows).to(torch.uint8)
 
 
-def composite(G, real, mask, z, noise_mode="random", noise_seed=None):
+def composite(G, real, mask, z, noise_mode="random", noise_seed=None, row0=0,
+              rows=None):
     """The composite of float ``real`` [-1, 1] and ``mask`` before the
     uint8 cast: ``clip(out * 127.5 + 127.5, 0, 255)`` in float."""
     x = torch.cat([mask - 0.5, real * mask], dim=1)
-    img = G(x, z, noise_mode=noise_mode, noise_seed=noise_seed)
+    img = G(x, z, noise_mode=noise_mode, noise_seed=noise_seed, row0=row0,
+            rows=rows)
     combined = real * mask + img * (1 - mask)
     return torch.clamp(combined * 127.5 + 127.5, 0, 255)
 

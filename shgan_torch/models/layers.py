@@ -152,7 +152,11 @@ class SynthesisLayer(nn.Module):
                                  randn((resolution, resolution), generator))
             self.noise_strength = nn.Parameter(torch.zeros(()))
 
-    def forward(self, x, w, gain=1.0, noise_mode="random", noise_seed=None):
+    def forward(self, x, w, gain=1.0, noise_mode="random", noise_seed=None,
+                row0=0, rows=None):
+        """``row0``: the random noise's first counter row; ``rows``: this
+        worker's rows of a global batch, whose style statistic the
+        modulated conv reads (None: the batch is whole)."""
         if noise_mode not in ("random", "const", "none"):
             raise ValueError(f"noise_mode {noise_mode!r}")
         mode = noise_mode if self.use_noise else "none"
@@ -163,14 +167,15 @@ class SynthesisLayer(nn.Module):
                                      padding=self.padding,
                                      resample_filter=self.resample_filter,
                                      flip_weight=(self.up == 1),
-                                     split_dcoefs=True)
+                                     split_dcoefs=True, rows=rows)
         return noise_bias_act(
             x, dcoefs, self.bias, epilogue_act(self.activation, gain),
             noise_mode=mode,
             noise_key=(noise_key(noise_seed, self.layer_id)
                        if mode == "random" else None),
             noise_const=self.noise_const if mode == "const" else None,
-            strength=self.noise_strength if mode != "none" else None)
+            strength=self.noise_strength if mode != "none" else None,
+            row0=row0)
 
 
 class ToRGBLayer(nn.Module):

@@ -49,12 +49,13 @@ class Mapping(nn.Module):
             self.w_avg = None
 
     def forward(self, z, c=None, truncation_psi=1.0, truncation_cutoff=None,
-                update_w_avg=False):
+                update_w_avg=False, rows=None):
         """``ws`` [N, num_ws, w_dim] (or [N, w_dim] when num_ws is None)
         from ``z`` [N, z_dim] and, with ``c_dim > 0``, the label ``c`` [N,
         c_dim].  With ``update_w_avg`` returns ``(ws, new_w_avg)``,
         ``new_w_avg`` the lerp ``x_mean + beta * (w_avg - x_mean)`` of the
-        batch mean (``shgan_tpu/models/mapping.py:76-79``; no gradient)."""
+        batch mean (``shgan_tpu/models/mapping.py:76-79``; no gradient),
+        over the global batch where ``rows`` places this batch in one."""
         x = None
         if self.z_dim > 0:
             x = normalize_2nd_moment(z.float())
@@ -68,7 +69,8 @@ class Mapping(nn.Module):
 
         new_w_avg = None
         if update_w_avg and self.w_avg is not None:
-            x_mean = x.detach().mean(dim=0)
+            xd = x.detach()
+            x_mean = (xd if rows is None else rows.gather(xd)).mean(dim=0)
             new_w_avg = x_mean + self.w_avg_beta * (self.w_avg - x_mean)
 
         if self.num_ws is not None:

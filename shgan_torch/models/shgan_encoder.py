@@ -30,8 +30,9 @@ class ShganEncoder(Encoder):
                        gaussian_at_input_res=shu_gaussian_at_input_res,
                        generator=generator)
 
-    def forward(self, img, train=False, generator=None):
-        x, feats = super().forward(img, train=train, generator=generator)
+    def forward(self, img, train=False, generator=None, rows=None):
+        x, feats = super().forward(img, train=train, generator=generator,
+                                   rows=rows)
         ch = self.shu_channels
         hints = self.shu(feats[self.shu_input_res][:, -ch:])
         for res, hint in hints.items():

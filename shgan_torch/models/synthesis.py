@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..data.rng import derive_seed
 from ..ops.upfirdn2d import setup_filter, upsample2d
 from .layers import Conv2dLayer, Dense, SynthesisLayer, ToRGBLayer, randn
 
@@ -62,7 +63,8 @@ class StyleGANSynthesisBlock(nn.Module):
                                  resample_filter=resample_filter, generator=g)
                      if ic_n != 0 and res_link else None)
 
-    def forward(self, x, img, ws, noise_mode="random", noise_seed=None):
+    def forward(self, x, img, ws, noise_mode="random", noise_seed=None,
+                row0=0, rows=None):
         if self.has_const:
             x = self.const.to(self.dtype)[None].expand(
                 ws.shape[0], -1, -1, -1)
@@ -73,11 +75,11 @@ class StyleGANSynthesisBlock(nn.Module):
         w_idx = 0
         if self.conv0 is not None:
             x = self.conv0(x, ws[:, 0], noise_mode=noise_mode,
-                           noise_seed=noise_seed)
+                           noise_seed=noise_seed, row0=row0, rows=rows)
             w_idx = 1
         x = self.conv1(x, ws[:, w_idx], gain=np.sqrt(0.5) if self.res_link
                        else 1.0, noise_mode=noise_mode,
-                       noise_seed=noise_seed)
+                       noise_seed=noise_seed, row0=row0, rows=rows)
         if y is not None:
             x = y + x
         if img is not None:
@@ -121,7 +123,8 @@ class StyleGANSynthesis(nn.Module):
                 self.num_ws += block.num_torgb
             setattr(self, f"b{resj}", block)
 
-    def forward(self, ws, noise_mode="random", noise_seed=None):
+    def forward(self, ws, noise_mode="random", noise_seed=None, row0=0,
+                rows=None):
         ws = ws.float()
         x = img = None
         w_idx = 0
@@ -130,7 +133,7 @@ class StyleGANSynthesis(nn.Module):
             cur_ws = ws[:, w_idx: w_idx + block.num_conv + block.num_torgb]
             w_idx += block.num_conv
             x, img = block(x, img, cur_ws, noise_mode=noise_mode,
-                           noise_seed=noise_seed)
+                           noise_seed=noise_seed, row0=row0, rows=rows)
         return img
 
 
@@ -154,14 +157,16 @@ class CoModSynthesisBlockFirst(nn.Module):
                       if rgb_n is not None else None)
         self.num_torgb = 1 if rgb_n is not None else 0
 
-    def forward(self, x, x0, ws, noise_mode="random", noise_seed=None):
+    def forward(self, x, x0, ws, noise_mode="random", noise_seed=None,
+                row0=0, rows=None):
         x = x.float()
         w0 = x
         x = self.fc(x).reshape(x.shape[0], -1, self.resolution,
                                self.resolution)
         x = x + x0.float()
         x = self.conv(x, torch.cat([ws[:, 0], w0], dim=1),
-                      noise_mode=noise_mode, noise_seed=noise_seed)
+                      noise_mode=noise_mode, noise_seed=noise_seed,
+                      row0=row0, rows=rows)
         img = None
         if self.torgb is not None:
             img = self.torgb(x, torch.cat([ws[:, 1], w0], dim=1))
@@ -196,14 +201,16 @@ class CoModSynthesisBlock(nn.Module):
         self.num_torgb = 1 if rgb_n is not None else 0
 
     def forward(self, x, x0, img, ws, w0, noise_mode="random",
-                noise_seed=None):
+                noise_seed=None, row0=0, rows=None):
         x = x.to(self.dtype)
         x0 = x0.to(self.dtype)
         x = self.conv0(x, torch.cat([ws[:, 0], w0], dim=1),
-                       noise_mode=noise_mode, noise_seed=noise_seed)
+                       noise_mode=noise_mode, noise_seed=noise_seed,
+                       row0=row0, rows=rows)
         x = x + x0
         x = self.conv1(x, torch.cat([ws[:, 1], w0], dim=1),
-                       noise_mode=noise_mode, noise_seed=noise_seed)
+                       noise_mode=noise_mode, noise_seed=noise_seed,
+                       row0=row0, rows=rows)
         if img is not None:
             img = upsample2d(img, self.resample_filter)
         if self.torgb is not None:
@@ -249,9 +256,12 @@ class CoModSynthesis(nn.Module):
                 activation=activation, use_fp16=use_fp16, generator=g))
 
     def forward(self, x, feats, ws, noise_mode="random", noise_seed=None,
-                w0_noise=None):
+                w0_noise=None, row0=0, rows=None):
         """``w0_noise``: the pluralistic variant's N(0, 1) draw [N, w0_dim],
-        given as a tensor instead of drawn."""
+        given as a tensor instead of drawn.  ``row0``: the random noise's
+        first row (the batch's place in a larger one); ``rows``: this
+        worker's :class:`~shgan_torch.parallel.Rows` of a global batch whose
+        style statistics the layers read (None: the batch is whole)."""
         ws = ws.float()
         w_idx, block_ws = 0, []
         for res in self.block_res:
@@ -264,28 +274,32 @@ class CoModSynthesis(nn.Module):
             # multiplicative noise on the global code of the blocks after
             # b4; b4 keeps the clean code
             if w0_noise is None:
-                w0_noise = plural_noise(w0, noise_mode, noise_seed)
+                w0_noise = plural_noise(w0, noise_mode, noise_seed, row0)
             w0 = w0 + w0_noise.to(w0.device, w0.dtype) * w0
         x, img = self.b4(x, feats[4], block_ws[0], noise_mode=noise_mode,
-                         noise_seed=noise_seed)
+                         noise_seed=noise_seed, row0=row0, rows=rows)
         for res, cur_ws in zip(self.block_res[1:], block_ws[1:]):
             x, img = getattr(self, f"b{res}")(
                 x, feats[res], img, cur_ws, w0, noise_mode=noise_mode,
-                noise_seed=noise_seed)
+                noise_seed=noise_seed, row0=row0, rows=rows)
         return img
 
 
-def plural_noise(w0, noise_mode, noise_seed):
-    """The pluralistic N(0, 1) draw of ``w0``'s shape, on the CPU: keyed by
-    ``noise_seed`` with random noise, else a constant key, so that const /
-    none eval is deterministic."""
+def plural_noise(w0, noise_mode, noise_seed, row0=0):
+    """The pluralistic N(0, 1) draw of ``w0``'s shape, on the CPU: row
+    ``i`` of the batch draws from its own generator, keyed by ``noise_seed``
+    with random noise (else a constant key, so that const / none eval is
+    deterministic) and its row ``row0 + i``, so a batch's rows draw what the
+    same rows of a larger batch draw."""
     seed = 0
     if noise_mode == "random":
         if noise_seed is None:
             raise ValueError("noise_mode='random' requires a noise_seed")
         seed = (int(noise_seed) ^ PLUR_SALT) & 0x7FFFFFFFFFFFFFFF
-    gen = torch.Generator().manual_seed(seed)
-    return torch.randn(tuple(w0.shape), generator=gen)
+    return torch.stack([
+        torch.randn(tuple(w0.shape[1:]), generator=torch.Generator()
+                    .manual_seed(derive_seed(seed, row0 + i, PLUR_SALT)))
+        for i in range(w0.shape[0])])
 
 
 class CoModSynthesisPlur(CoModSynthesis):

@@ -8,7 +8,11 @@ with the demodulation coefficients computed without per-sample weights::
 
 Note the style pre-normalization takes a global mean over the whole batch
 (as the JAX package and the reference do), so rows padded onto a ragged
-request change the real rows' output: compare at equal batch layout.
+request change the real rows' output: compare at equal batch layout.  A
+worker holding rows of a larger batch (``rows``: a rank of a data-parallel
+run) takes the mean over that whole batch, as a device mesh does: it
+gathers the batch's styles (``[N, I]``, small) and reduces them as one
+device would.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from .conv_resample import conv2d_resample
 
 def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
                      resample_filter=None, demodulate=True, flip_weight=True,
-                     split_dcoefs=False):
+                     split_dcoefs=False, rows=None):
     """
     Args:
         x:       [N, I, H, W] input activations.
@@ -33,6 +37,8 @@ def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
         split_dcoefs: return ``(conv output, dcoefs [N, O] float32)`` with
             neither the dcoefs nor any noise applied (dcoefs None without
             demodulation), for a caller that fuses them into its epilogue.
+        rows:    this worker's :class:`~shgan_torch.parallel.Rows` of a
+            global batch (the style mean's scope), or None.
     """
     n = x.shape[0]
     i_ch = weight.shape[1]
@@ -45,7 +51,8 @@ def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
         # elements (batch included)
         weight = weight * torch.rsqrt(
             weight.square().mean(dim=(1, 2, 3), keepdim=True))
-        styles = styles * torch.rsqrt(styles.square().mean())
+        whole = styles if rows is None else rows.gather(styles)
+        styles = styles * torch.rsqrt(whole.square().mean())
         wsq = weight.square().sum(dim=(2, 3))                    # [O, I]
         dcoefs = torch.rsqrt(styles.square() @ wsq.t() + 1e-8)  # [N, O]
 

@@ -5,9 +5,11 @@ the TPU kernel ``_pallas_normal``: N(0,1) noise ``[B, R, R]`` with the TPU
 kernel's recipe — uniforms from 23 mantissa bits (u1 ∈ (0,1], u2 ∈ [0,1)),
 full Box–Muller, the cos half in rows [0, R/2) and the sin half in
 [R/2, R).  The generator is Philox4x32-10 keyed by two 32-bit words; the
-counter is (call, row, 0, 0), where call c of row i yields the normals at
-flat plane indices 2c, 2c+1 (cos) and R²/2 + 2c, R²/2 + 2c + 1 (sin).  Each
-element is a pure function of (key, row, index).
+counter is (call, row0 + row, 0, 0), where call c of row i yields the
+normals at flat plane indices 2c, 2c+1 (cos) and R²/2 + 2c, R²/2 + 2c + 1
+(sin).  Each element is a pure function of (key, row0 + row, index):
+``row0`` places a batch's rows in a larger one (a rank's block of a global
+batch draws what those rows of the global batch draw).
 
 The streams differ from JAX's by design (so did the TPU kernel's, see
 ``shgan_tpu/ops/noise.py:17-20``): parity runs use ``noise_mode='const'``.
@@ -78,12 +80,20 @@ def box_muller(b1, b2):
     return r * torch.cos(theta), r * torch.sin(theta)
 
 
-def philox_normal_plain(key, batch, res, device="cpu"):
-    """Plain PyTorch version of kernel K1: float32 ``[batch, res, res]``."""
+def _check_rows(row0, batch):
+    if row0 < 0 or row0 + batch > _U32 + 1:
+        raise ValueError(f"noise rows {row0}..{row0 + batch} leave the "
+                         "32-bit counter")
+
+
+def philox_normal_plain(key, batch, res, device="cpu", row0=0):
+    """Plain PyTorch version of kernel K1: float32 ``[batch, res, res]``,
+    counter rows ``row0 ... row0 + batch - 1``."""
+    _check_rows(row0, batch)
     calls = res * res // 4
     dev = torch.device(device)
     call = torch.arange(calls, dtype=torch.int64, device=dev)
-    row = torch.arange(batch, dtype=torch.int64, device=dev)
+    row = torch.arange(row0, row0 + batch, dtype=torch.int64, device=dev)
     c0 = call[None].expand(batch, calls)
     c1 = row[:, None].expand(batch, calls)
     zero = torch.zeros_like(c0)
@@ -96,34 +106,36 @@ def philox_normal_plain(key, batch, res, device="cpu"):
     return torch.cat([cos, sin], dim=1).reshape(batch, res, res)
 
 
-def philox_normal_cuda(key, batch, res, device):
+def philox_normal_cuda(key, batch, res, device, row0=0):
     """Launch kernel K1 (``csrc/noise.cu``) on a CUDA device."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError("philox_normal_cuda needs a CUDA device")
+    _check_rows(row0, batch)
     out = torch.empty((batch, res, res), dtype=torch.float32, device=dev)
     rc = _kb.launch(_kb.library("noise").shgan_philox_normal, dev,
-                    out.data_ptr(), batch, res, int(key[0]) & _U32,
-                    int(key[1]) & _U32)
+                    out.data_ptr(), batch, res, int(row0),
+                    int(key[0]) & _U32, int(key[1]) & _U32)
     _kb.check(rc, "philox_normal kernel")
-    _kb.launches["philox_normal"] += 1
+    _kb.count("philox_normal")
     return out
 
 
-def philox_normal(key, batch, res, device):
-    """N(0,1) ``[batch, res, res]``: kernel K1 on a CUDA device, the plain
-    version on the CPU."""
+def philox_normal(key, batch, res, device, row0=0):
+    """N(0,1) ``[batch, res, res]`` of counter rows ``row0...``: kernel K1
+    on a CUDA device, the plain version on the CPU."""
     if res < 2 or res % 2:
         raise ValueError(f"noise resolution must be even, got {res}")
     kind = torch.device(device).type
     if kind == "cuda":
-        return philox_normal_cuda(key, batch, res, device)
+        return philox_normal_cuda(key, batch, res, device, row0)
     if kind != "cpu":
         raise ValueError(f"noise runs on CUDA or the CPU, not {device}")
-    return philox_normal_plain(key, batch, res, device)
+    return philox_normal_plain(key, batch, res, device, row0)
 
 
-def random_noise(seed, layer, batch, res, device):
+def random_noise(seed, layer, batch, res, device, row0=0):
     """N(0,1) noise ``[batch, 1, res, res]`` for synthesis layer ``layer``,
-    keyed by (``seed``, ``layer``)."""
-    return philox_normal(noise_key(seed, layer), batch, res, device)[:, None]
+    keyed by (``seed``, ``layer``), counter rows ``row0...``."""
+    return philox_normal(noise_key(seed, layer), batch, res, device,
+                         row0)[:, None]

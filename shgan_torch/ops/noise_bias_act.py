@@ -6,8 +6,11 @@ For the conv output ``x`` [N, C, R, R] (before demodulation) this computes::
     y = x * dcoefs[n, c] + noise[n, h, w] * strength + bias[c]
     y = lrelu_agc(y)       # or y * gain for a linear layer
 
-where the noise is K1's Philox stream keyed by ``noise_key`` (``"random"``),
-the layer's ``noise_const`` plane (``"const"``) or nothing (``"none"``).
+where the noise is K1's Philox stream keyed by ``noise_key`` (``"random"``)
+at counter rows ``row0 ... row0 + N - 1`` (``row0`` places the batch in a
+larger one: a rank's block of a global batch draws what those rows of the
+global batch draw), the layer's ``noise_const`` plane (``"const"``) or
+nothing (``"none"``).
 
 :func:`noise_bias_act_plain` is the chain the layers ran before the kernel
 existed, op for op: ``random_noise(...) * strength`` (or ``noise_const *
@@ -82,13 +85,13 @@ def _check(x, noise_mode, noise_key, noise_const, strength):
 
 def noise_bias_act_plain(x, dcoefs=None, bias=None, act=LINEAR,
                          noise_mode="none", noise_key=None, noise_const=None,
-                         strength=None):
+                         strength=None, row0=0):
     """Plain PyTorch version: the layer's chain after the conv, op for op."""
     _check(x, noise_mode, noise_key, noise_const, strength)
     noise = None
     if noise_mode == "random":
         n, _, r, _ = x.shape
-        noise = philox_normal_plain(noise_key, n, r, x.device)[:, None] \
+        noise = philox_normal_plain(noise_key, n, r, x.device, row0)[:, None] \
             * strength
     elif noise_mode == "const":
         noise = noise_const * strength
@@ -107,8 +110,9 @@ def noise_bias_act_plain(x, dcoefs=None, bias=None, act=LINEAR,
 
 
 def _kernel_args(x, dcoefs, bias, noise_mode, noise_key, noise_const,
-                 strength, what):
-    """Check the kernel's operands; the (mode, k0, k1, pointers) it takes."""
+                 strength, row0, what):
+    """Check the kernel's operands; the (mode, k0, k1, row0, pointers) it
+    takes."""
     if not x.is_cuda:
         raise ValueError(f"{what} needs a CUDA tensor")
     if not x.is_contiguous():
@@ -132,9 +136,12 @@ def _kernel_args(x, dcoefs, bias, noise_mode, noise_key, noise_const,
     if mode == 2 and noise_const.data_ptr() % 8:
         raise ValueError(f"{what} needs an 8-byte aligned noise_const")
     k0, k1 = noise_key if mode == 1 else (0, 0)
+    if row0 < 0 or row0 + n > _U32 + 1:
+        raise ValueError(f"{what}: noise rows {row0}..{row0 + n} leave the "
+                         "32-bit counter")
     ptrs = tuple(None if t is None else t.data_ptr()
                  for t, _ in aux.values())
-    return aux, (mode, int(k0) & _U32, int(k1) & _U32), ptrs
+    return aux, (mode, int(k0) & _U32, int(k1) & _U32, int(row0)), ptrs
 
 
 def _act_args(act):
@@ -145,7 +152,7 @@ def _act_args(act):
 
 def noise_bias_act_cuda(x, dcoefs=None, bias=None, act=LINEAR,
                         noise_mode="none", noise_key=None, noise_const=None,
-                        strength=None, out=None):
+                        strength=None, row0=0, out=None):
     """Launch ``csrc/noise_bias_act.cu`` on a CUDA tensor: ``x`` is updated
     in place and returned, or the result goes to ``out`` (a tensor of x's
     shape and layout) and ``out`` is returned."""
@@ -153,8 +160,8 @@ def noise_bias_act_cuda(x, dcoefs=None, bias=None, act=LINEAR,
     if x.is_cuda and x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"noise_bias_act kernel takes float32/bfloat16, got "
                         f"{x.dtype}")
-    aux, (mode, k0, k1), ptrs = _kernel_args(
-        x, dcoefs, bias, noise_mode, noise_key, noise_const, strength,
+    aux, margs, ptrs = _kernel_args(
+        x, dcoefs, bias, noise_mode, noise_key, noise_const, strength, row0,
         "noise_bias_act kernel")
     needs_grad = x.requires_grad or any(
         t is not None and t.requires_grad for t, _ in aux.values())
@@ -172,9 +179,9 @@ def noise_bias_act_cuda(x, dcoefs=None, bias=None, act=LINEAR,
     rc = _kb.launch(
         _kb.library("noise_bias_act").shgan_noise_bias_act, x.device,
         x.data_ptr(), y.data_ptr(), 0 if x.dtype == torch.float32 else 1, n,
-        c, r, *ptrs, mode, k0, k1, *_act_args(act))
+        c, r, *ptrs, *margs, *_act_args(act))
     _kb.check(rc, "noise_bias_act kernel")
-    _kb.launches["noise_bias_act"] += 1
+    _kb.count("noise_bias_act")
     return y
 
 
@@ -195,14 +202,15 @@ def grad_work_floats(n, c, res):
 
 
 def _grad_launch(v, x, dcoefs, bias, act, noise_mode, noise_key, noise_const,
-                 strength, mask_only, vs=None):
+                 strength, mask_only, vs=None, row0=0):
     what = "noise_bias_act_grad kernel"
     _check(x, noise_mode, noise_key, noise_const, strength)
     if x.dtype not in (torch.float32, torch.bfloat16) or v.dtype != x.dtype:
         raise TypeError(f"{what} takes a float32 or bfloat16 x and a "
                         f"cotangent of its type, got {v.dtype} / {x.dtype}")
-    _, (mode, k0, k1), ptrs = _kernel_args(
-        x, dcoefs, bias, noise_mode, noise_key, noise_const, strength, what)
+    _, margs, ptrs = _kernel_args(
+        x, dcoefs, bias, noise_mode, noise_key, noise_const, strength, row0,
+        what)
     if (v.shape != x.shape or v.device != x.device or not v.is_contiguous()
             or v.data_ptr() % (2 * v.element_size())):
         raise ValueError(f"{what}: the cotangent must be a contiguous, "
@@ -221,21 +229,22 @@ def _grad_launch(v, x, dcoefs, bias, act, noise_mode, noise_key, noise_const,
     rc = _kb.launch(
         _kb.library("noise_bias_act").shgan_noise_bias_act_grad, x.device,
         v.data_ptr(), x.data_ptr(), out.data_ptr(),
-        0 if x.dtype == torch.float32 else 1, n, c, r, *ptrs, mode, k0,
-        k1, *_act_args(act), int(mask_only), ptr(vs), *map(ptr, sums))
+        0 if x.dtype == torch.float32 else 1, n, c, r, *ptrs, *margs,
+        *_act_args(act), int(mask_only), ptr(vs), *map(ptr, sums))
     _kb.check(rc, what)
-    _kb.launches["noise_bias_act_grad"] += 1
+    _kb.count("noise_bias_act_grad")
     return out, sums[:3]
 
 
 def noise_bias_act_grad_cuda(dy, x, dcoefs=None, bias=None, act=LINEAR,
                              noise_mode="none", noise_key=None,
-                             noise_const=None, strength=None):
+                             noise_const=None, strength=None, row0=0):
     """The grad kernel's full mode: ``(dx, d dcoefs, d bias, d strength)``
     at the forward's input ``x`` for the cotangent ``dy``; None for an
     operand the forward did not have."""
     dx, (dd, db, ds) = _grad_launch(dy, x, dcoefs, bias, act, noise_mode,
-                                    noise_key, noise_const, strength, False)
+                                    noise_key, noise_const, strength, False,
+                                    row0=row0)
     return (dx, dd if dcoefs is not None else None,
             db if bias is not None else None,
             ds if noise_mode != "none" else None)
@@ -243,18 +252,19 @@ def noise_bias_act_grad_cuda(dy, x, dcoefs=None, bias=None, act=LINEAR,
 
 def noise_bias_act_mask_cuda(v, x, dcoefs=None, bias=None, act=LINEAR,
                              noise_mode="none", noise_key=None,
-                             noise_const=None, strength=None, vs=None):
+                             noise_const=None, strength=None, vs=None,
+                             row0=0):
     """The grad kernel's mask-only mode: ``act'(pre) * (v + vs * nu)``."""
     return _grad_launch(v, x, dcoefs, bias, act, noise_mode, noise_key,
-                        noise_const, strength, True, vs)[0]
+                        noise_const, strength, True, vs, row0=row0)[0]
 
 
-def _noise_plain(x, noise_mode, noise_key, noise_const):
+def _noise_plain(x, noise_mode, noise_key, noise_const, row0=0):
     """nu, the noise before the strength, broadcastable to x (None for
     'none')."""
     if noise_mode == "random":
         n, _, r, _ = x.shape
-        return philox_normal_plain(noise_key, n, r, x.device)[:, None]
+        return philox_normal_plain(noise_key, n, r, x.device, row0)[:, None]
     if noise_mode == "const":
         return noise_const
     return None
@@ -262,7 +272,8 @@ def _noise_plain(x, noise_mode, noise_key, noise_const):
 
 def noise_bias_act_mask_plain(v, x, dcoefs=None, bias=None, act=LINEAR,
                               noise_mode="none", noise_key=None,
-                              noise_const=None, strength=None, vs=None):
+                              noise_const=None, strength=None, vs=None,
+                              row0=0):
     """Plain version of the mask-only mode: ``act'(pre) * (v + vs * nu)``,
     in the order autograd of the plain chain takes it; a bf16 ``v`` and
     ``x`` are widened to float32 and the result rounded once to bf16."""
@@ -270,12 +281,12 @@ def noise_bias_act_mask_plain(v, x, dcoefs=None, bias=None, act=LINEAR,
     if x.dtype != torch.float32:
         return noise_bias_act_mask_plain(
             v.float(), x.float(), dcoefs, bias, act, noise_mode, noise_key,
-            noise_const, strength, vs).to(x.dtype)
-    nu = _noise_plain(x, noise_mode, noise_key, noise_const)
+            noise_const, strength, vs, row0).to(x.dtype)
+    nu = _noise_plain(x, noise_mode, noise_key, noise_const, row0)
     if vs is not None and nu is not None:
         v = v + vs * nu
     pre = noise_bias_act_plain(x, dcoefs, bias, LINEAR, noise_mode,
-                               noise_key, noise_const, strength)
+                               noise_key, noise_const, strength, row0)
     alpha, gain, clamp = act
     g = v * gain if gain != 1.0 else v
     if alpha is None:
@@ -291,18 +302,19 @@ def noise_bias_act_mask_plain(v, x, dcoefs=None, bias=None, act=LINEAR,
 
 def noise_bias_act_grad_plain(dy, x, dcoefs=None, bias=None, act=LINEAR,
                               noise_mode="none", noise_key=None,
-                              noise_const=None, strength=None):
+                              noise_const=None, strength=None, row0=0):
     """Plain version of the grad kernel's full mode; for a bf16 ``dy`` and
     ``x``, the float32 version on the widened pair with dx rounded once to
     bf16 (the sums stay float32)."""
     if x.dtype != torch.float32:
         dx, *sums = noise_bias_act_grad_plain(
             dy.float(), x.float(), dcoefs, bias, act, noise_mode, noise_key,
-            noise_const, strength)
+            noise_const, strength, row0)
         return (dx.to(x.dtype), *sums)
     g = noise_bias_act_mask_plain(dy, x, dcoefs, bias, act, noise_mode,
-                                  noise_key, noise_const, strength)
-    nu = _noise_plain(x, noise_mode, noise_key, noise_const)
+                                  noise_key, noise_const, strength,
+                                  row0=row0)
+    nu = _noise_plain(x, noise_mode, noise_key, noise_const, row0)
     dx = g * dcoefs[:, :, None, None] if dcoefs is not None else g
     return (dx,
             (g * x).sum((2, 3)) if dcoefs is not None else None,
@@ -326,10 +338,10 @@ class _Epilogue(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dcoefs, bias, strength, noise_const, spec):
-        act, noise_mode, noise_key = spec
+        act, noise_mode, noise_key, row0 = spec
         kw = dict(dcoefs=dcoefs, bias=bias, act=act, noise_mode=noise_mode,
                   noise_key=noise_key, noise_const=noise_const,
-                  strength=strength)
+                  strength=strength, row0=row0)
         if x.is_cuda:
             y = noise_bias_act_cuda(x, out=torch.empty_like(x), **kw)
         else:
@@ -354,23 +366,23 @@ class _EpilogueGrad(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, dy, x, dcoefs, bias, strength, noise_const, spec):
-        act, noise_mode, noise_key = spec
+        act, noise_mode, noise_key, row0 = spec
         fn = _on(dy, noise_bias_act_grad_cuda, noise_bias_act_grad_plain)
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(dy, x, dcoefs, bias, strength, noise_const)
         ctx.spec = spec
         return fn(dy, x, dcoefs, bias, act, noise_mode, noise_key,
-                  noise_const, strength)
+                  noise_const, strength, row0)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gdx, gdd, gdb, gds):
         dy, x, dcoefs, bias, strength, noise_const = ctx.saved_tensors
-        act, noise_mode, noise_key = ctx.spec
+        act, noise_mode, noise_key, row0 = ctx.spec
         mask = _on(dy, noise_bias_act_mask_cuda, noise_bias_act_mask_plain)
         kw = dict(dcoefs=dcoefs, bias=bias, act=act, noise_mode=noise_mode,
                   noise_key=noise_key, noise_const=noise_const,
-                  strength=strength)
+                  strength=strength, row0=row0)
         # d/d dy = act'(pre) * v, v = gdx * dcoefs + gdd * x + gdb + gds * nu
         v = None
         if gdx is not None:
@@ -401,14 +413,15 @@ class _EpilogueGrad(torch.autograd.Function):
 
 
 def noise_bias_act(x, dcoefs=None, bias=None, act=LINEAR, noise_mode="none",
-                   noise_key=None, noise_const=None, strength=None):
+                   noise_key=None, noise_const=None, strength=None, row0=0):
     """The synthesis epilogue: the kernel on a CUDA tensor (``x`` updated in
     place) or raise, the plain version on a CPU tensor.  Where grad mode is
     on and an operand needs a gradient, the result is a new tensor with a
-    gradient (:class:`_Epilogue`, the grad kernel on the card)."""
+    gradient (:class:`_Epilogue`, the grad kernel on the card).  ``row0``:
+    the random noise's first counter row."""
     kw = dict(dcoefs=dcoefs, bias=bias, act=act, noise_mode=noise_mode,
               noise_key=noise_key, noise_const=noise_const,
-              strength=strength)
+              strength=strength, row0=row0)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dcoefs, bias, strength, noise_const)):
@@ -417,5 +430,5 @@ def noise_bias_act(x, dcoefs=None, bias=None, act=LINEAR, noise_mode="none",
         return _Epilogue.apply(
             x, dcoefs, bias, used(strength, noise_mode != "none"),
             used(noise_const, noise_mode == "const"),
-            (act, noise_mode, noise_key))
+            (act, noise_mode, noise_key, row0))
     return _on(x, noise_bias_act_cuda, noise_bias_act_plain)(x, **kw)

@@ -171,7 +171,7 @@ def fir_cuda(x, taps, up=(1, 1), down=(1, 1), pads=(0, 0, 0, 0),
         ow, upx, upy, downx, downy, padx0, pady0,
         t.ctypes.data_as(ctypes.c_void_p), fh, fw)
     _kb.check(rc, "upfirdn2d kernel")
-    _kb.launches[counter] += 1
+    _kb.count(counter)
     return y
 
 

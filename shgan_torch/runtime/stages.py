@@ -16,8 +16,19 @@ Train: ``python -m shgan_torch.main`` → :class:`train_stage` →
 eval and its ``-best`` snapshot (:func:`make_nested_eval`) and a profiler
 trace of three steps.
 
-Still to port: the device image bank and multi-device eval and train;
-each raises where the config asks for it.
+Both stages run on one device or on each rank of a process group
+(:mod:`..parallel`: one process per device, started by ``python -m
+shgan_torch.main --gpu 0 1``, torchrun or the ``SHGAN_DIST_*`` variables).
+Across ranks the global batch is ``batch_size_per_gpu`` times the ranks;
+eval: each rank runs its contiguous shard of the dataset, z and the random
+noise keyed by each row's dataset position (so the images do not depend on
+the layout), the evaluators gather their rows before ``compute`` and the
+lead writes ``result.json``; train: each rank takes its rows of every
+global batch, the step averages the gradients, the lead writes the log,
+the grids and the snapshots, and every rank loads a resumed snapshot and
+checks its replica.  In one process ``env.mesh_devices > 1`` runs the
+global batch of that many devices on one.  The device image bank is a TPU
+formulation: the flag is accepted and the host pipeline runs.
 """
 
 from __future__ import annotations
@@ -39,11 +50,15 @@ from ..data.formatters import get_formatter
 from ..data.pipeline import (EvalPipeline, TrainPipeline, _Prefetcher,
                              _to_device)
 from ..data.rng import derive_seed
+from ..data.sampler import shard_indices
 from ..data.transforms import wrap_formatter
 from ..eval import get_evaluator
 from ..models.infer import composite, composite_forward, z_for_positions
 from ..models.registry import get_model
 from ..ops import conv1024
+from ..parallel import Mesh, check_replicated, create_mesh
+from ..parallel.multihost import (barrier, is_lead, local_device,
+                                  world_size)
 from ..serve import BATCH_NOISE_SALT, resolve_device
 from ..train import TrainConfig, TrainStep, compute_ema_beta
 from ..train.loss import noise_seed as draw_noise_seed
@@ -165,6 +180,30 @@ def _num_workers(cfg_section):
     return w
 
 
+def run_mesh(cfge, device=None):
+    """The run's mesh: every rank of the process group, each on its
+    device (``device``, else the one its rank was given, else
+    ``env.device``, else its CUDA device), or this process alone on
+    ``device``, else ``env.device``, else the CUDA device (raises without
+    one; ``"cpu"`` runs the kernels' plain versions)."""
+    if device is None:
+        device = cfge.get("device")
+    if world_size() > 1:
+        return create_mesh(cfge.get("mesh_devices"),
+                           device=device if device is not None
+                           else local_device(),
+                           backend=cfge.get("dist_backend"))
+    return Mesh(device=resolve_device(device))
+
+
+def global_batch(cfg_section, cfge, mesh):
+    """The global batch: ``batch_size``, else ``batch_size_per_gpu`` times
+    the devices (the ranks, or ``env.mesh_devices`` in one process)."""
+    n_dev = mesh.world if mesh.world > 1 else (cfge.get("mesh_devices") or 1)
+    return cfg_section.get("batch_size") or (
+        cfg_section["batch_size_per_gpu"] * n_dev)
+
+
 def _views(fake_u8, real):
     """(host views, device views) of one batch, the JAX package's formulas:
     detector inputs 0..255 (``fake``/``real``) and [0, 1] pairs
@@ -192,30 +231,30 @@ def _views(fake_u8, real):
 
 
 class eval_stage:
-    """Evaluation of a (pretrained) generator on one device."""
+    """Evaluation of a (pretrained) generator on one device or over the
+    ranks of a process group."""
 
     def __call__(self, cfg, device=None):
-        """Run the eval section of ``cfg``.  ``device``: the caller's
-        choice, else ``env.device``, else the CUDA device (raises without
-        one; ``"cpu"`` runs the kernels' plain versions).  Returns
-        ``{"eval_rv": {metric: value}, "timing": {...}}``."""
+        """Run the eval section of ``cfg``.  ``device``: as in
+        :func:`run_mesh`.  Returns ``{"eval_rv": {metric: value},
+        "timing": {...}}`` on every rank."""
         cfgv = cfg["eval"]
         cfge = cfg.get("env") or {}
         seed = cfge.get("rnd_seed", 0) or 0
         log_dir = cfgv.get("log_dir") or "log/eval"
-        if (cfge.get("mesh_devices") or 1) > 1:
-            raise NotImplementedError(
-                "multi-device eval comes with the parallel/ slice; set "
-                "env.mesh_devices to 1")
-        dev = resolve_device(device if device is not None
-                             else cfge.get("device"))
-        batch_size = cfgv.get("batch_size") or cfgv["batch_size_per_gpu"]
-        print_log(f"device: {dev}, eval batch: {batch_size}")
+        mesh = run_mesh(cfge, device)
+        dev = mesh.device
+        batch_size = global_batch(cfgv, cfge, mesh)
+        lo, hi = mesh.split(batch_size)
+        local_bs = hi - lo
+        print_log(f"device: {dev}, eval batch: {batch_size}"
+                  + (f" ({local_bs} on each of {mesh.world} ranks, "
+                     f"{mesh.backend})" if mesh.world > 1 else ""))
 
         ds_cfg = cfgv["dataset"]
         if cfgv.get("device_image_bank", False):
-            raise NotImplementedError(
-                "device_image_bank comes with a later slice")
+            print_log("device_image_bank: a TPU formulation; the host "
+                      "pipeline runs")
 
         dataset = get_dataset(ds_cfg, fallback_synthetic=cfge.get("debug",
                                                                   False))
@@ -224,16 +263,17 @@ class eval_stage:
                 or (ds_cfg.get("args") or {}).get("gen_dir")):
             # pre-generated images (--evalnog_path): no generator
             evaluator = self._build_evaluator(cfgv, cfge)
-            rv = self._eval_pregen(dataset, evaluator, batch_size, log_dir,
+            rv = self._eval_pregen(dataset, evaluator, local_bs, log_dir,
                                    dev, log_display=cfgv.get("log_display",
                                                              10),
-                                   num_threads=_num_workers(cfgv))
+                                   num_threads=_num_workers(cfgv), mesh=mesh)
             return {"eval_rv": rv}
         formatter = wrap_formatter(get_formatter(ds_cfg["formatter"]),
                                    ds_cfg.get("transforms"))
-        pipe = EvalPipeline(dataset, formatter, batch_size, device=dev,
+        pipe = EvalPipeline(dataset, formatter, local_bs, device=dev,
                             seed=seed, num_threads=_num_workers(cfgv),
-                            transport=cfgv.get("transport", "f32"))
+                            transport=cfgv.get("transport", "f32"),
+                            shard_id=mesh.rank, num_shards=mesh.world)
 
         pretrained = cfgv.get("pretrained_pth")
         if (pretrained and not osp.isfile(pretrained)
@@ -246,7 +286,8 @@ class eval_stage:
         G = G.to(dev).eval().requires_grad_(False)
 
         if cfgv.get("output_sample_images", False):
-            draw_demo_grid(G, dataset, formatter, log_dir, dev)
+            if is_lead():
+                draw_demo_grid(G, dataset, formatter, log_dir, dev)
             if cfgv.get("demo_only", False):
                 print_log(f"demo grid written to {log_dir}/demo")
                 return {"eval_rv": None}
@@ -266,18 +307,21 @@ class eval_stage:
         # split (the generator is fenced with a synchronize)
         phase_log = os.environ.get("SHGAN_EVAL_TIMING") == "1"
         batch_s, phases = [], []
+        # z and the random noise of dataset position i: the same for any
+        # batch layout and rank count (the noise's counter row is i)
+        noise_seed = derive_seed(seed, 0, BATCH_NOISE_SALT)
+        rows = mesh.rows(batch_size)
         try:
             t0 = t_prev = timeit.default_timer()
             for idx, (real, mask, valid, uids) in enumerate(pipe):
                 t_b = timeit.default_timer()
-                start = idx * batch_size
+                start = pipe.shard.global_offset + idx * local_bs
                 z = torch.from_numpy(z_for_positions(
-                    seed, G.z_dim, range(start, start + batch_size))).to(dev)
+                    seed, G.z_dim, range(start, start + local_bs))).to(dev)
                 with torch.inference_mode():
                     fake = composite_forward(
                         G, real, mask, z, noise_mode=noise_mode,
-                        noise_seed=derive_seed(seed, start,
-                                               BATCH_NOISE_SALT))
+                        noise_seed=noise_seed, row0=start, rows=rows)
                 if phase_log and fake.is_cuda:
                     torch.cuda.synchronize(fake.device)
                 t_c = timeit.default_timer()
@@ -308,6 +352,9 @@ class eval_stage:
             t_loop_end = timeit.default_timer()
             evaluator.drain()
             drain_s = timeit.default_timer() - t_loop_end
+            if mesh.world > 1:
+                # every rank's rows, in the dataset's order
+                evaluator.sync_across_processes()
             gen_metrics_s = 0.0
             if evaluator.needs_generator:
                 # the metrics that drive the generator run after the stream
@@ -320,13 +367,15 @@ class eval_stage:
 
         evaluator.set_sample_n(len(dataset))
         rv = evaluator.compute()
-        evaluator.one_line_summary()
-        evaluator.save(log_dir)
+        if is_lead():
+            evaluator.one_line_summary()
+            evaluator.save(log_dir)
         evaluator.clear_data()
         # per-batch wall times; batch 0 carries the first-use set-up
         timing = {"batch_s": batch_s, "drain_s": drain_s,
                   "generator_metrics_s": gen_metrics_s,
-                  "global_batch": batch_size, "images": len(dataset)}
+                  "global_batch": batch_size, "images": len(dataset),
+                  "ranks": mesh.world}
         if phase_log:
             timing["phase_s"] = phases
         return {"eval_rv": rv, "timing": timing}
@@ -346,43 +395,51 @@ class eval_stage:
 
     @staticmethod
     def _eval_pregen(dataset, evaluator, batch_size, log_dir, device,
-                     log_display=10, num_threads=None):
+                     log_display=10, num_threads=None, mesh=None):
         """The metrics over (real, pre-generated) pairs of a loadgen
         dataset, with no generator: batches decode on the prefetch pool
         (two PNG decodes an element) and go to ``device`` in the worker;
-        the evaluators read them there as the device views."""
+        the evaluators read them there as the device views.  Across ranks
+        each takes its contiguous shard (padded to equal lengths, the pads
+        not valid) in batches of ``batch_size`` and the rows are gathered
+        before ``compute``."""
         t0 = timeit.default_timer()
         n = len(dataset)
+        world, rank = (mesh.world, mesh.rank) if mesh is not None else (1, 0)
+        order, ok = shard_indices(n, rank, world)
         needs_np = evaluator.consumes_host_pixels
         needs_dev = evaluator.consumes_device_views
 
         def make_batch(b):
-            els = [dataset[i] for i in range(b * batch_size,
-                                             min((b + 1) * batch_size, n))]
+            at = slice(b * batch_size, (b + 1) * batch_size)
+            els = [dataset[int(i)] for i in order[at]]
             real = np.stack([e["image"] for e in els])       # [N,3,H,W] 0-1
             gen = np.stack([e["gen"] for e in els])
             dev = (_to_device(real, device), _to_device(gen, device))
-            return real, gen, dev, [e["unique_id"] for e in els]
+            return real, gen, dev, [e["unique_id"] for e in els], ok[at]
 
-        pf = _Prefetcher(make_batch, -(-n // batch_size),
+        pf = _Prefetcher(make_batch, -(-len(order) // batch_size),
                          num_threads=num_threads)
-        for idx, (real, gen, (real_t, gen_t), uids) in enumerate(pf):
+        for idx, (real, gen, (real_t, gen_t), uids, valid) in enumerate(pf):
             host = (dict(pred=gen, gt=real, fake=gen * 255.0,
                          real=real * 255.0) if needs_np else
                     dict(pred=None, gt=None, fake=None, real=None))
             dev = (dict(pred_dev=gen_t, gt_dev=real_t,
                         fake_dev=gen_t * 255.0, real_dev=real_t * 255.0)
                    if needs_dev else {})
-            evaluator.add_batch(fn=uids, **host, **dev)
+            evaluator.add_batch(fn=uids, valid=valid, **host, **dev)
             if idx % log_display == log_display - 1:
                 print_log("processed.. {}, Time:{:.2f}s".format(
                     idx + 1, timeit.default_timer() - t0))
                 t0 = timeit.default_timer()
         evaluator.drain()
+        if world > 1:
+            evaluator.sync_across_processes()
         evaluator.set_sample_n(n)
         rv = evaluator.compute()
-        evaluator.one_line_summary()
-        evaluator.save(log_dir)
+        if is_lead():
+            evaluator.one_line_summary()
+            evaluator.save(log_dir)
         evaluator.clear_data()
         return rv
 
@@ -427,7 +484,7 @@ def nested_eval_views(fake, real, host=False):
     return views
 
 
-def make_nested_eval(cfg, G, device):
+def make_nested_eval(cfg, G, device, mesh=None):
     """G_ema → ``(metric, value, higher_better)`` over the first
     ``eval.nested_eval_samples`` (default 64) images of the eval dataset
     (JAX ``train_stage._make_nested_eval``).  ``nested_eval_metric`` is
@@ -438,12 +495,15 @@ def make_nested_eval(cfg, G, device):
     and falls back to ``psnr`` when the detector weights are missing.  The
     scored images are quantized with ``rint`` for fid.
 
-    Each eval draws z and the noise seeds from a CPU ``torch.Generator``
-    seeded with ``env.rnd_seed + 12345``, and nothing from the train steps'
-    generators; the JAX package draws them from ``jax.random`` with the
-    same seed, so the two packages' draws differ by design."""
+    Each eval draws z (at the global batch's shape) and the noise seeds
+    from a CPU ``torch.Generator`` seeded with ``env.rnd_seed + 12345``, and
+    nothing from the train steps' generators; the JAX package draws them
+    from ``jax.random`` with the same seed, so the two packages' draws
+    differ by design.  Across the ranks of ``mesh`` each evaluates its
+    contiguous shard and the evaluators gather the rows."""
     cfgv = copy.deepcopy(cfg["eval"])
     cfge = cfg.get("env") or {}
+    mesh = mesh or Mesh(device=device)
     samples = cfgv.get("nested_eval_samples", 64)
     if cfgv.get("dataset") is not None:
         cfgv["dataset"]["try_sample"] = samples
@@ -451,10 +511,14 @@ def make_nested_eval(cfg, G, device):
                           fallback_synthetic=cfge.get("debug", False))
     formatter = wrap_formatter(get_formatter(cfgv["dataset"]["formatter"]),
                                cfgv["dataset"].get("transforms"))
-    batch_size = cfgv.get("batch_size") or (
-        cfgv.get("batch_size_per_gpu", 4) * (cfge.get("mesh_devices") or 1))
-    pipe = EvalPipeline(dataset, formatter, batch_size, device=device,
-                        num_threads=_num_workers(cfgv))
+    if not cfgv.get("batch_size") and "batch_size_per_gpu" not in cfgv:
+        cfgv["batch_size_per_gpu"] = 4
+    batch_size = global_batch(cfgv, cfge, mesh)
+    rows = mesh.rows(batch_size)
+    lo, hi = mesh.split(batch_size)
+    pipe = EvalPipeline(dataset, formatter, hi - lo, device=device,
+                        num_threads=_num_workers(cfgv), shard_id=mesh.rank,
+                        num_shards=mesh.world)
     metric = cfgv.get("nested_eval_metric", "psnr")
     # scalar metrics only: is / pr return dicts and PPL drives the
     # generator itself; fail at build time, not at the first eval tick
@@ -491,14 +555,16 @@ def make_nested_eval(cfg, G, device):
         gen = torch.Generator().manual_seed(seed)
         with torch.inference_mode():
             for real, mask, valid, uids in pipe:
-                z = torch.randn(real.shape[0], G.z_dim, generator=gen)
+                z = torch.randn(batch_size, G.z_dim, generator=gen)[lo:hi]
                 fake = composite(G_ema, real, mask, z.to(device), "random",
-                                 draw_noise_seed(gen))
+                                 draw_noise_seed(gen), row0=lo, rows=rows)
                 if fid_args is not None:
                     fake = torch.round(fake)   # the protocol's uint8 values
                 evaluator.add_batch(fn=uids, valid=valid, **nested_eval_views(
                     fake, real, evaluator.consumes_host_pixels))
         evaluator.drain()
+        if mesh.world > 1:
+            evaluator.sync_across_processes()
         evaluator.set_sample_n(len(dataset))
         rv = evaluator.compute()
         evaluator.clear_data()
@@ -550,7 +616,8 @@ class _StepProfiler:
 
 
 class train_stage:
-    """The StyleGAN2/CoModGAN training loop on one device."""
+    """The StyleGAN2/CoModGAN training loop on one device or over the
+    ranks of a process group."""
 
     def __call__(self, cfg, device=None, on_step=None, on_step_start=None):
         """Run the train section of ``cfg``.  ``device`` as in
@@ -566,19 +633,23 @@ class train_stage:
         ``SHGAN_PROFILE_DIR``) traces three steps there.  Returns ``{"step":
         the TrainStep, "ticks": [per-tick metric means, with "kimg" and
         "tick"], "timing": {...}}``; ``stats.jsonl`` holds a
-        ``ScalarLogger`` record a tick."""
+        ``ScalarLogger`` record a tick.  Across ranks (``device`` as in
+        :func:`run_mesh`) the tick's means are the ranks' means, and the
+        lead alone writes the log, the grids, the trace and the snapshots
+        (the ranks meet after each snapshot)."""
         cfgt = cfg["train"]
         cfge = cfg.get("env") or {}
         seed = cfge.get("rnd_seed", 0) or 0
         log_dir = cfgt.get("log_dir") or "log/train"
+        mesh = run_mesh(cfge, device)
+        dev = mesh.device
+        batch_size = global_batch(cfgt, cfge, mesh)
         n_dev = cfge.get("mesh_devices") or 1
-        batch_size = cfgt.get("batch_size") or (
-            cfgt["batch_size_per_gpu"] * n_dev)
-        dev = resolve_device(device if device is not None
-                             else cfge.get("device"))
-        print_log(f"device: {dev}, train batch: {batch_size}"
-                  + (f" (the global batch of {n_dev} devices on one)"
-                     if n_dev > 1 else ""))
+        print_log(f"device: {dev}, train batch: {batch_size}" + (
+            f" ({batch_size // mesh.world} on each of {mesh.world} ranks, "
+            f"{mesh.backend})" if mesh.world > 1 else
+            f" (the global batch of {n_dev} devices on one)"
+            if n_dev > 1 else ""))
 
         dataset = get_dataset(cfgt["dataset"],
                               fallback_synthetic=cfge.get("debug", False))
@@ -588,7 +659,7 @@ class train_stage:
         G = get_model(cfg["model_g"], seed=seed).to(dev)
         D = get_model(cfg["model_d"], seed=derive_seed(seed, 1)).to(dev)
         tc = TrainConfig(**(cfgt.get("loss_kwargs") or {}))
-        step = TrainStep(G, D, tc)
+        step = TrainStep(G, D, tc, mesh=mesh)
 
         total_nimg = cfgt.get("total_kimg", 25000) * 1000
         kimg_per_tick = cfgt.get("kimg_per_tick", 4)
@@ -600,6 +671,9 @@ class train_stage:
         resume_path = cfgt.get("resume_path")
         if resume_path:
             load_train_state(resume_path, step)
+            # every rank loaded the snapshot: the replicas must agree
+            check_replicated([step.G, step.D, step.G_ema, step.pl_mean],
+                             mesh=mesh)
             # resume_itern is in kimg (it names the snapshot picked);
             # without it, progress comes from the restored step counter
             if cfgt.get("resume_itern") is not None:
@@ -612,29 +686,33 @@ class train_stage:
 
         profile_dir = (cfgt.get("profile_dir")
                        or os.environ.get("SHGAN_PROFILE_DIR"))
-        profiler = _StepProfiler(profile_dir, dev) if profile_dir else None
+        profiler = (_StepProfiler(profile_dir, dev)
+                    if profile_dir and is_lead() else None)
         eval_every = cfgt.get("eval_every_kimg")
         nested_eval = None
         if eval_every and cfg.get("eval"):
-            nested_eval = make_nested_eval(cfg, G, dev)
+            nested_eval = make_nested_eval(cfg, G, dev, mesh)
         # best_metric starts anew after a resume, as in the JAX package
         best_metric, next_eval = None, None
         if eval_every:
             next_eval = next_eval_nimg(cur_nimg, eval_every)
 
-        pipe = TrainPipeline(dataset, formatter, batch_size, device=dev,
-                             seed=seed, num_threads=_num_workers(cfgt),
-                             start=cur_nimg // batch_size)
+        pipe = TrainPipeline(
+            dataset, formatter, batch_size, device=dev, seed=seed,
+            num_threads=_num_workers(cfgt), start=cur_nimg // batch_size,
+            rows=(mesh.batch_rows(batch_size, tc.grad_accum)
+                  if mesh.world > 1 else None))
         step.timing = os.environ.get("SHGAN_TRAIN_TIMING") == "1"
         timing = {"step_s": [], "phase_s": [], "global_batch": batch_size,
                   "nested_eval_s": []}
         ticks, pending = [], []
-        logger = ScalarLogger(log_dir,
+        logger = ScalarLogger(log_dir if is_lead() else None,
                               tensorboard=cfgt.get("log_tensorboard", False))
 
         def grid(filename):
-            draw_demo_grid(step.G_ema, dataset, formatter, log_dir, dev,
-                           subfolder="demo", filename=filename)
+            if is_lead():
+                draw_demo_grid(step.G_ema, dataset, formatter, log_dir, dev,
+                               subfolder="demo", filename=filename)
 
         if image_ticks:
             grid("fakes_init.png")
@@ -670,9 +748,9 @@ class train_stage:
                         or cur_nimg >= total_nimg):
                     # one readback for the tick's steps
                     keys = sorted(pending[0])
-                    vals = torch.stack([
+                    vals = mesh.all_reduce_mean_(torch.stack([
                         torch.stack([m[k].float() for k in keys])
-                        for m in pending]).tolist()
+                        for m in pending])).tolist()
                     pending.clear()
                     for v in vals:
                         logger.accumulate(dict(zip(keys, v)))
@@ -718,10 +796,13 @@ class train_stage:
 
     @staticmethod
     def save_snapshot(step, log_dir, cur_nimg, tag=None):
-        """``weight/network-snapshot-<kimg>``, or ``-<tag>``."""
+        """``weight/network-snapshot-<kimg>``, or ``-<tag>``: written by
+        the lead (the replicas are equal), then the ranks meet."""
         name = (f"network-snapshot-{tag}" if tag
                 else snapshot_name(cur_nimg))
         path = osp.join(log_dir, "weight", name)
-        save_train_state(path, step)
-        print_log(f"saved snapshot {path}")
+        if is_lead():
+            save_train_state(path, step)
+            print_log(f"saved snapshot {path}")
+        barrier()
         return path

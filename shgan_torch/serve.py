@@ -1,5 +1,5 @@
 """Batch inference engine: serving of an inpainting generator on one device
-(port of ``shgan_tpu/serve.py``; multi-device serving comes later), and
+or over several (port of ``shgan_tpu/serve.py``), and
 :func:`generate_to_dir`, which writes an eval dataset's composites as
 ``<uid>.png`` for the ``--evalnog_path`` protocol.
 
@@ -12,7 +12,13 @@
 * **asynchronous window** — ``inpaint_stream`` keeps up to ``window``
   batches queued on the device before it reads one back;
 * **bf16** — ``bf16=True`` runs the blocks above 16² in bfloat16 (the
-  throughput configuration), on a deep copy of the model config.
+  throughput configuration), on a deep copy of the model config;
+* **several devices** — ``mesh`` (a list of devices) keeps a replica of the
+  generator on each; a batch is split in contiguous blocks, one a device,
+  run in a thread each, and concatenated.  Each block's noise starts at its
+  first row and the blocks share the style normalization's batch mean
+  (:class:`~.parallel.ThreadGroup`), so the composite is the one-device
+  engine's, as JAX's engine over a mesh computes.
 
 Determinism: z is keyed by (seed, global position), identical for any
 batch layout.  Random synthesis noise (``noise_mode='random'``, the serving
@@ -28,13 +34,16 @@ from __future__ import annotations
 import copy
 import os
 import os.path as osp
+import threading
 import timeit
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from .data.rng import derive_seed
 from .models.infer import composite_forward, z_for_positions
+from .parallel.mesh import Rows, ThreadGroup, split
 from .runtime.config import model_cfg_bank
 
 BATCH_NOISE_SALT = 0xB47C  # epoch slot of derive_seed for batch noise seeds
@@ -76,7 +85,8 @@ def _as_model_input(images, masks):
 
 
 class InpaintEngine:
-    """Batched inpainting inference on one model and one device.
+    """Batched inpainting inference on one model, on one device or over
+    several.
 
     Args:
         model_cfg: model-bank name (e.g. ``"shgan_g512"``) or a model cfg
@@ -92,14 +102,20 @@ class InpaintEngine:
         latency_batches: smaller batch buckets a short tail pads up to.
         device: None = the CUDA device (raise if absent); "cpu" runs the
             plain PyTorch versions of the kernels.
+        mesh: devices to split each batch over (default ``[device]``);
+            every batch bucket must divide by their number.
     """
 
     def __init__(self, model_cfg, pretrained=None, batch_size=16,
                  bf16=False, noise_mode="random", seed=0, strict=True,
-                 latency_batches=(), device=None):
+                 latency_batches=(), device=None, mesh=None):
         # runtime.stages imports this module: import it here
         from .runtime.stages import build_generator
-        self.device = resolve_device(device)
+        self.mesh = [resolve_device(d) for d in (
+            mesh if mesh is not None else [device])]
+        if not self.mesh:
+            raise ValueError("mesh: give at least one device")
+        self.device = self.mesh[0]
         if isinstance(model_cfg, str):
             model_cfg = model_cfg_bank()(model_cfg)
         if bf16:
@@ -113,26 +129,66 @@ class InpaintEngine:
                               | {int(batch_size)})
         if self.buckets[0] <= 0:
             raise ValueError(f"batch buckets must be positive: {self.buckets}")
+        for b in self.buckets:
+            if b % len(self.mesh):
+                raise ValueError(f"batch bucket {b} not divisible by "
+                                 f"{len(self.mesh)} mesh devices")
         if noise_mode not in ("random", "const", "none"):
             raise ValueError(f"noise_mode {noise_mode!r}")
         self.batch_size = int(batch_size)
         self.noise_mode = noise_mode
         self.seed = seed
         G = build_generator(model_cfg, pretrained, strict=strict, seed=seed)
-        self.G = G.to(self.device).eval().requires_grad_(False)
+        G = G.eval().requires_grad_(False)
+        # one replica a device (devices named twice share it)
+        self.replicas = {}
+        for d in self.mesh:
+            if d not in self.replicas:
+                self.replicas[d] = (copy.deepcopy(G) if self.replicas
+                                    else G).to(d)
+        self.G = self.replicas[self.device]
 
-    def _run_padded(self, real, mask, start):
-        """Queue one padded batch on the device; returns the device uint8
-        tensor without waiting for it."""
-        n = real.shape[0]
-        z = z_for_positions(self.seed, self.G.z_dim, range(start, start + n))
-        dev = self.device
+    def _block(self, real, mask, z, lo, rows, noise_seed, device):
+        """The composite of one block (rows ``lo...`` of the batch) on
+        ``device``."""
         with torch.inference_mode():
             return composite_forward(
-                self.G, torch.from_numpy(real).to(dev),
-                torch.from_numpy(mask).to(dev), torch.from_numpy(z).to(dev),
-                noise_mode=self.noise_mode,
-                noise_seed=derive_seed(self.seed, start, BATCH_NOISE_SALT))
+                self.replicas[device], torch.from_numpy(real).to(device),
+                torch.from_numpy(mask).to(device),
+                torch.from_numpy(z).to(device), noise_mode=self.noise_mode,
+                noise_seed=noise_seed, row0=lo, rows=rows)
+
+    def _run_padded(self, real, mask, start):
+        """Queue one padded batch on the device(s); returns the uint8
+        tensor on the first device without waiting for it."""
+        n = real.shape[0]
+        z = z_for_positions(self.seed, self.G.z_dim, range(start, start + n))
+        noise_seed = derive_seed(self.seed, start, BATCH_NOISE_SALT)
+        w = len(self.mesh)
+        if w == 1:
+            return self._block(real, mask, z, 0, None, noise_seed,
+                               self.device)
+        group = ThreadGroup(w)
+
+        def work(k):
+            lo, hi = split(n, w, k)
+            try:
+                return self._block(real[lo:hi], mask[lo:hi], z[lo:hi], lo,
+                                   Rows(lo, hi, n, group), noise_seed,
+                                   self.mesh[k])
+            except BaseException:
+                group.abort()   # the other blocks stop waiting
+                raise
+
+        with ThreadPoolExecutor(w) as ex:
+            futs = [ex.submit(work, k) for k in range(w)]
+        errs = [f.exception() for f in futs]
+        first = next((e for e in errs if e is not None
+                      and not isinstance(e, threading.BrokenBarrierError)),
+                     next((e for e in errs if e is not None), None))
+        if first is not None:
+            raise first
+        return torch.cat([f.result().to(self.device) for f in futs])
 
     def inpaint(self, images, masks, start_index=0):
         """Inpaint a batch of any size; returns uint8 NCHW composites.

@@ -1,7 +1,8 @@
 """The training step: Gmain [+ Gpl] then Dmain [+ R1], two optimizers
 with lazy-regularization scaling (Adam by default, or one of the registry
 of :mod:`.schedules`, with an optional LR schedule), the NaN scrub, G-EMA
-(port of ``shgan_tpu/train/step.py:45-362``, on one device).
+(port of ``shgan_tpu/train/step.py:45-362``), on one device or on each rank
+of a data-parallel :class:`~shgan_torch.parallel.Mesh`.
 
   * every step:        Gmain + Dmain
   * g_reg_interval:    + Gpl (path length), loss scaled by the interval
@@ -13,7 +14,16 @@ one gradient of the summed loss does) and a phase's frozen network keeps
 phase none of G.  ``noise_const`` and ``w_avg`` are buffers: the optimizer
 never sees them and the EMA copies them.  ``w_avg`` chains through Gmain ->
 Gpl -> Dmain as in the JAX step (``step.py:186-198, 232-268, 300-308``),
-grad-accumulation rounds included.  Each phase runs inside a
+grad-accumulation rounds included.
+
+Across ranks each rank holds its rows of the global batch (of each
+accumulation round), the losses read the global batch's statistics
+(:mod:`.loss`) and each network's gradients are averaged over the ranks in
+one flat buffer before the NaN scrub and the optimizer, so every rank
+applies the same update and the replicas stay equal bit for bit.  Not
+``DistributedDataParallel``: R1 and the path-length penalty take
+``torch.autograd.grad(create_graph=True)``, which DDP does not support.
+Each phase runs inside a
 ``torch.profiler.record_function`` span named after it (``Gmain``,
 ``Gpl``, ``Dmain``, ``R1``, ``opt_ema``), so a profiler trace splits a
 step by phase.
@@ -137,12 +147,15 @@ class TrainStep:
     optimizer a step, so it is both optimizers' update count: update
     ``step`` runs at ``opt.lr_at(step)``, and a resumed state carries it.
     ``timing=True`` fences each phase with a synchronize and records its
-    seconds in ``phase_s``."""
+    seconds in ``phase_s``.  ``mesh``: the data-parallel ranks (None: one
+    device); the step then takes this rank's rows and the draws ``given``
+    hold the global batch's."""
 
     PHASES = ("Gmain", "Gpl", "Dmain", "R1", "opt_ema")
 
-    def __init__(self, G, D, cfg, G_ema=None):
+    def __init__(self, G, D, cfg, G_ema=None, mesh=None):
         self.G, self.D, self.cfg = G, D, cfg
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
         self.G_ema = (G_ema if G_ema is not None
                       else copy.deepcopy(G)).requires_grad_(False)
         self.opt_g = make_optimizer(freeze_buffers(G), **cfg.g_opt,
@@ -168,18 +181,24 @@ class TrainStep:
             self.phase_s[phase] = self.phase_s.get(phase, 0.0) + now - t0
         return now
 
-    def _draw(self, given, name, r, nm, shape, gen, device):
+    def _draw(self, given, name, r, nm, shape, gen, device, rows=None):
+        """Round ``r``'s ``nm`` rows of a per-row draw (given, or from
+        ``gen``), or this rank's ``rows`` of the round's global draw."""
         if given is not None and name in given:
-            return given[name][r * nm:(r + 1) * nm].to(device)
-        return L.randn((nm,) + tuple(shape), gen, device)
+            z = given[name][r * nm:(r + 1) * nm]
+        else:
+            z = L.randn((nm,) + tuple(shape), gen, device)
+        return (z if rows is None else rows.take(z)).to(device)
 
     def __call__(self, real, mask, gen, ema_beta, do_greg, do_dreg,
                  given=None):
         """One step on ``(real [N,3,H,W], mask [N,1,H,W])``; returns the
         metrics as 0-dim tensors on the device (no host readback).
         ``given`` may hold the draws ``z1``, ``z2``, ``z3`` ([N, z_dim]) and
-        ``pl_noise`` as tensors."""
-        G, D, cfg = self.G, self.D, self.cfg
+        ``pl_noise`` as tensors.  With a mesh, ``real`` and ``mask`` hold
+        this rank's rows of each round's global batch, in round order, and
+        ``N`` counts the global batch."""
+        G, D, cfg, mesh = self.G, self.D, self.cfg, self.mesh
         real = real.float()
         mask = mask.float()
         x_in = torch.cat([mask - 0.5, real * mask], dim=1)
@@ -188,6 +207,9 @@ class TrainStep:
         if n % A:
             raise ValueError(f"batch {n} is not a multiple of grad_accum {A}")
         nm = n // A
+        # the global rows of a round, and this rank's of them
+        nmg = nm * (mesh.world if mesh is not None else 1)
+        rows = mesh.rows(nmg) if mesh is not None else None
         dev = real.device
         zs = (G.z_dim,)
         self.phase_s = {}
@@ -202,9 +224,9 @@ class TrainStep:
         for r in range(A):
             sl = slice(r * nm, (r + 1) * nm)
             with record_function("Gmain"):
-                z = self._draw(given, "z1", r, nm, zs, gen, dev)
+                z = self._draw(given, "z1", r, nmg, zs, gen, dev, rows)
                 loss, aux = L.g_main_loss(G, D, x_in[sl], mask[sl], z, gen,
-                                          cfg.style_mixing_prob)
+                                          cfg.style_mixing_prob, rows=rows)
                 (loss / A).backward()
             mains.append(loss.detach())
             scores.append(aux["scores_fake"])
@@ -212,23 +234,29 @@ class TrainStep:
             t = self._mark("Gmain", t)
             if do_greg:
                 with record_function("Gpl"):
-                    z2 = self._draw(given, "z2", r, nm, zs, gen, dev)
+                    # the round's global rows: the penalty takes the first
+                    # N / pl_batch_shrink of them, split over the ranks
+                    z2 = self._draw(given, "z2", r, nmg, zs, gen, dev)
+                    x_pl = x_in[sl] if rows is None else rows.gather(
+                        x_in[sl])
                     pl_noise = None
                     if given is not None and "pl_noise" in given:
-                        k = max(nm // cfg.pl_batch_shrink, 1)
+                        k = max(nmg // cfg.pl_batch_shrink, 1)
                         pl_noise = given["pl_noise"][
                             r * k:(r + 1) * k].to(dev)
                     loss_pl, pl_mean, pl_len, pl_wa = L.g_pl_loss(
-                        G, x_in[sl], z2, gen, pl_mean,
+                        G, x_pl, z2, gen, pl_mean,
                         pl_decay=cfg.pl_decay, pl_weight=cfg.pl_weight,
                         pl_batch_shrink=cfg.pl_batch_shrink,
                         style_mixing_prob=cfg.style_mixing_prob,
-                        pl_noise=pl_noise)
+                        pl_noise=pl_noise, mesh=mesh)
                     (loss_pl * (cfg.g_reg_interval / A)).backward()
                 pl_lens.append(pl_len)
                 pl_was.append(pl_wa)
                 t = self._mark("Gpl", t)
         with record_function("opt_ema"):
+            if mesh is not None:
+                mesh.average_grads(freeze_buffers(G))
             nan_scrub(freeze_buffers(G))
             optimizer_step(self.opt_g, self.step)
             self.opt_g.zero_grad(set_to_none=True)
@@ -255,9 +283,10 @@ class TrainStep:
         for r in range(A):
             sl = slice(r * nm, (r + 1) * nm)
             with record_function("Dmain"):
-                z = self._draw(given, "z3", r, nm, zs, gen, dev)
+                z = self._draw(given, "z3", r, nmg, zs, gen, dev, rows)
                 loss, aux = L.d_main_loss(G, D, x_in[sl], mask[sl], real[sl],
-                                          z, gen, cfg.style_mixing_prob)
+                                          z, gen, cfg.style_mixing_prob,
+                                          rows=rows)
                 (loss / A).backward()
             d_mains.append(loss.detach())
             s_real.append(aux["scores_real"])
@@ -268,11 +297,14 @@ class TrainStep:
             if do_dreg:
                 with record_function("R1"):
                     loss_r1, r1 = L.d_r1_loss(D, mask[sl], real[sl],
-                                              r1_gamma=cfg.r1_gamma)
+                                              r1_gamma=cfg.r1_gamma,
+                                              rows=rows)
                     (loss_r1 * (cfg.d_reg_interval / A)).backward()
                 r1s.append(r1)
                 t = self._mark("R1", t)
         with record_function("opt_ema"):
+            if mesh is not None:
+                mesh.average_grads(freeze_buffers(D))
             nan_scrub(freeze_buffers(D))
             optimizer_step(self.opt_d, self.step)
             self.opt_d.zero_grad(set_to_none=True)

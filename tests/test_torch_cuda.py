@@ -543,8 +543,9 @@ def test_noise_bias_act_grad_kernel_bf16_matches_plain(cuda, mode, res, c):
     kw = dict(dcoefs=dcoefs, bias=bias, act=act, noise_mode=mode,
               noise_key=key, noise_const=const, strength=strength)
     orig = nba.philox_normal_plain
-    nba.philox_normal_plain = (lambda k, b, r, device="cpu":
-                               noise.philox_normal_cuda(k, b, r, device))
+    nba.philox_normal_plain = (lambda k, b, r, device="cpu", row0=0:
+                               noise.philox_normal_cuda(k, b, r, device,
+                                                        row0))
     try:
         build.reset_launches()
         got = nba.noise_bias_act_grad_cuda(dy, x, **kw)
@@ -706,3 +707,49 @@ def test_bf16_engine_gate_on_a_small_model(cuda):
     assert psnr >= GATE["min_psnr"] and ssim >= GATE["min_ssim"], (psnr,
                                                                    ssim)
     assert (delta > 2).mean() <= GATE["max_frac_gt2"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_a_row_offset_draw_the_larger_batchs_rows(cuda, dtype):
+    """K1, the fused epilogue and its grad kernel (both modes) at ``row0 =
+    3``: rows 3... of the ``row0 = 0`` launch on 3 more rows, bit for bit
+    (the grad kernel's per-plane sums to rounding: it chunks a plane's sum
+    by the batch's size), and the plain version at ``row0 = 3``."""
+    k, res = 3, 64
+    key = noise.noise_key(8, 2 * res)
+    big = noise.philox_normal_cuda(key, k + 2, res, cuda)
+    part = noise.philox_normal_cuda(key, 2, res, cuda, row0=k)
+    torch.testing.assert_close(part, big[k:], rtol=0, atol=0)
+    torch.testing.assert_close(
+        part, noise.philox_normal_plain(key, 2, res, cuda, row0=k), rtol=0,
+        atol=1e-4)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = (torch.randn(k + 2, 16, res, res, device=cuda, generator=g)
+         * 3).to(dtype)
+    dy = torch.randn(x.shape, device=cuda, generator=g).to(dtype)
+    kw = dict(dcoefs=torch.rand(k + 2, 16, device=cuda, generator=g) + 0.5,
+              bias=torch.randn(16, device=cuda, generator=g),
+              act=nba.epilogue_act(parse_activation(
+                  "lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)")),
+              noise_mode="random", noise_key=key,
+              strength=torch.full((), 0.3, device=cuda))
+    part_kw = dict(kw, dcoefs=kw["dcoefs"][k:].contiguous(), row0=k)
+    y_all = nba.noise_bias_act_cuda(x, out=torch.empty_like(x), **kw)
+    y_part = nba.noise_bias_act_cuda(x[k:].contiguous(),
+                                     out=torch.empty_like(x[k:]), **part_kw)
+    gw = nba.noise_bias_act_grad_cuda(dy, x, **kw)
+    gp = nba.noise_bias_act_grad_cuda(dy[k:].contiguous(), x[k:].contiguous(),
+                                      **part_kw)
+    mw = nba.noise_bias_act_mask_cuda(dy, x, **kw)
+    mp = nba.noise_bias_act_mask_cuda(dy[k:].contiguous(), x[k:].contiguous(),
+                                      **part_kw)
+    torch.cuda.synchronize()
+    for got, want in ((y_part, y_all[k:]), (gp[0], gw[0][k:]),
+                      (mp, mw[k:])):
+        assert torch.equal(got, want)
+    # d dcoefs: plane sums, chunked by the batch's size (another order)
+    torch.testing.assert_close(gp[1], gw[1][k:], rtol=1e-5, atol=1e-5)
+    plain = nba.noise_bias_act_plain(x[k:], **part_kw).to(dtype)
+    tol = 1e-3 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y_part.float(), plain.float(), rtol=tol,
+                               atol=tol)

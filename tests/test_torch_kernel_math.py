@@ -80,7 +80,7 @@ static void nbamap() {
 }
 
 // nba bf cpt per n c res mode k0 k1 alpha gain clamp has_dcoef has_bias
-//     strength dcoef[n*c]... bias[c]... const[res*res]... x[n*c*res*res]...
+//     strength row0 dcoef[n*c]... bias[c]... const[res*res]... x[n*c*res*res]...
 // -> the fused epilogue emulated thread by thread as the kernel runs it
 // (bf: x holds bf16 values, each result rounded once to bf16); each output
 // as its float32 bits.  An element written twice or never aborts.
@@ -88,9 +88,10 @@ static void nba_run() {
   int bf, cpt, per, n, c, res, mode, hd, hb;
   unsigned k0, k1;
   float s;
+  long long row0;
   nba::Act act;
-  std::scanf("%d %d %d %d %d %d %d %u %u %f %f %f %d %d %f", &bf, &cpt, &per, &n, &c, &res,
-             &mode, &k0, &k1, &act.alpha, &act.gain, &act.clamp, &hd, &hb, &s);
+  std::scanf("%d %d %d %d %d %d %d %u %u %f %f %f %d %d %f %lld", &bf, &cpt, &per, &n, &c,
+             &res, &mode, &k0, &k1, &act.alpha, &act.gain, &act.clamp, &hd, &hb, &s, &row0);
   const long long plane = (long long)res * res, half = plane / 2, calls = plane / 4;
   std::vector<float> dcoef(n * c), bias(c), cst(plane), x((size_t)n * c * plane);
   for (float& v : dcoef) std::scanf("%f", &v);
@@ -112,8 +113,8 @@ static void nba_run() {
             for (int e = 0; e < V; ++e) nz[0][e] = nz[1][e] = -0.0f;
             if (mode == nba::kNoiseRandom)
               for (int j = 0; j < cpt; ++j)
-                shgan::noise_quad((unsigned)(q0 + j), (unsigned)row, k0, k1, &nz[0][2 * j],
-                                  &nz[1][2 * j]);
+                shgan::noise_quad((unsigned)(q0 + j), shgan::noise_row(row0, row), k0, k1,
+                                  &nz[0][2 * j], &nz[1][2 * j]);
             if (mode == nba::kNoiseConst)
               for (int e = 0; e < V; ++e) {
                 nz[0][e] = cst[2 * q0 + e];
@@ -144,7 +145,7 @@ static void nba_run() {
   for (float v : y) std::printf("%u\n", bits(v));
 }
 
-// nbagrad bf cpt n c res mode k0 k1 alpha gain clamp hd hb s mask_only hvs vs
+// nbagrad bf cpt n c res mode k0 k1 alpha gain clamp hd hb s mask_only hvs vs row0
 //     dcoef[n*c]... bias[c]... const[res*res]... x[...]... dy[...]...
 // -> noise_bias_act_grad emulated block by block as the kernel runs it
 // (grad_plan's channel-group blocks and thread strides, each thread's sums
@@ -157,9 +158,11 @@ static void nbagrad_run() {
   int bf, cpt, n, c, res, mode, hd, hb, mo, hvs;
   unsigned k0, k1;
   float s, vs;
+  long long row0;
   nba::Act act;
-  std::scanf("%d %d %d %d %d %d %u %u %f %f %f %d %d %f %d %d %f", &bf, &cpt, &n, &c, &res,
-             &mode, &k0, &k1, &act.alpha, &act.gain, &act.clamp, &hd, &hb, &s, &mo, &hvs, &vs);
+  std::scanf("%d %d %d %d %d %d %u %u %f %f %f %d %d %f %d %d %f %lld", &bf, &cpt, &n, &c,
+             &res, &mode, &k0, &k1, &act.alpha, &act.gain, &act.clamp, &hd, &hb, &s, &mo, &hvs,
+             &vs, &row0);
   const long long plane = (long long)res * res, half = plane / 2, calls = plane / 4;
   const long long planes = (long long)n * c;
   std::vector<float> dcoef(planes), bias(c), cst(plane), x(planes * plane), dy(x.size());
@@ -194,8 +197,8 @@ static void nbagrad_run() {
           for (int e = 0; e < V; ++e) nu[0][e] = nu[1][e] = 0.0f;
           if (mode == nba::kNoiseRandom)
             for (int j = 0; j < cpt; ++j)
-              shgan::noise_quad((unsigned)(q + j), (unsigned)row, k0, k1, &nu[0][2 * j],
-                                &nu[1][2 * j]);
+              shgan::noise_quad((unsigned)(q + j), shgan::noise_row(row0, row), k0, k1,
+                                &nu[0][2 * j], &nu[1][2 * j]);
           if (mode == nba::kNoiseConst)
             for (int e = 0; e < V; ++e) {
               nu[0][e] = cst[2 * q + e];
@@ -747,16 +750,19 @@ int main() {
                  &ctr.v[2], &ctr.v[3]);
       shgan::U32x4 o = shgan::philox4x32_10(ctr, k0, k1);
       std::printf("%u %u %u %u\n", o.v[0], o.v[1], o.v[2], o.v[3]);
-    } else if (c == "noise") {
+    } else if (c == "noise" || c == "noiserows") {
+      // noise k0 k1 batch res; noiserows k0 k1 batch res row0: K1's launch
       unsigned k0, k1;
       int batch, res;
+      long long row0 = 0;
       std::scanf("%u %u %d %d", &k0, &k1, &batch, &res);
+      if (c == "noiserows") std::scanf("%lld", &row0);
       const long plane = (long)res * res, half = plane / 2;
       std::vector<float> out(batch * plane);
       for (int row = 0; row < batch; ++row)
         for (long call = 0; call < plane / 4; ++call) {
           float cs[2], sn[2];
-          shgan::noise_quad((unsigned)call, (unsigned)row, k0, k1, cs, sn);
+          shgan::noise_quad((unsigned)call, shgan::noise_row(row0, row), k0, k1, cs, sn);
           float* base = out.data() + row * plane + 2 * call;
           base[0] = cs[0]; base[1] = cs[1];
           base[half] = sn[0]; base[half + 1] = sn[1];
@@ -1265,7 +1271,7 @@ def test_noise_bias_act_emulation_matches_plain(harness, dtype, mode, has_d,
             f"{['none', 'random', 'const'].index(mode)} {key[0]} {key[1]} "
             f"{_f(1.0 if alpha is None else alpha)} {_f(g)} "
             f"{'inf' if clamp is None else _f(clamp)} {int(has_d)} "
-            f"{int(has_b)} {_f(s)}")
+            f"{int(has_b)} {_f(s)} 0")
     vals = " ".join(_f(v) for v in np.concatenate(
         [dcoef.ravel(), bias, cst.ravel(), xt.numpy().ravel()]))
     got = np.array(harness(f"{head} {vals}"), np.uint64).astype(
@@ -1445,7 +1451,8 @@ GRAD_CASES = [
 
 
 def _grad_case(harness, mode, act_i, has_d, has_b, cpt, n, c, res,
-               mask_only=False, vs=None, bf16_in=False, bf16_out=False):
+               mask_only=False, vs=None, bf16_in=False, bf16_out=False,
+               row0=0):
     spec, gain, _, _ = NBA_ACTS[act_i]
     rng = np.random.RandomState(n * 31 + c * 7 + res)
     x = (rng.randn(n, c, res, res) * 150).astype(np.float32)
@@ -1465,7 +1472,7 @@ def _grad_case(harness, mode, act_i, has_d, has_b, cpt, n, c, res,
             f"{_f(1.0 if alpha is None else alpha)} {_f(g)} "
             f"{'inf' if clamp is None else _f(clamp)} {int(has_d)} "
             f"{int(has_b)} {_f(s)} {int(mask_only)} {int(vs is not None)} "
-            f"{_f(0.0 if vs is None else vs)}")
+            f"{_f(0.0 if vs is None else vs)} {row0}")
     vals = " ".join(_f(v) for v in np.concatenate(
         [dcoef.ravel(), bias, cst.ravel(), x.ravel(), dy.ravel()]))
     out = np.array(harness(f"{head} {vals}"), np.uint64).astype(
@@ -1473,7 +1480,8 @@ def _grad_case(harness, mode, act_i, has_d, has_b, cpt, n, c, res,
     kw = dict(dcoefs=torch.from_numpy(dcoef) if has_d else None,
               bias=torch.from_numpy(bias) if has_b else None,
               act=(alpha, g, clamp), noise_mode=mode, noise_key=key,
-              noise_const=torch.from_numpy(cst), strength=torch.tensor(s))
+              noise_const=torch.from_numpy(cst), strength=torch.tensor(s),
+              row0=row0)
     return out, x, dy, cst, key, kw
 
 
@@ -1618,3 +1626,66 @@ def test_noise_bias_act_grad_bf16_mask_mode(harness, mode, vs):
     else:
         np.testing.assert_array_equal(got.view(np.uint32),
                                       want.view(np.uint32))
+
+
+@pytest.mark.parametrize("row0", [3, 7, 4_000_000_000])
+def test_noise_row_offset_draws_the_larger_batchs_rows(harness, row0):
+    """The header's counter row (shgan::noise_row): a launch over rows
+    row0... draws what rows row0... of a launch from row 0 draw, bit for
+    bit, and the plain version's rows at row0 (libm vs torch rounding)."""
+    key = noise.noise_key(9, 8)
+    got = np.array(harness(f"noiserows {key[0]} {key[1]} 2 8 {row0}"),
+                   np.float32).reshape(2, 8, 8)
+    if row0 < 100:
+        big = np.array(harness(f"noise {key[0]} {key[1]} {row0 + 2} 8"),
+                       np.float32).reshape(row0 + 2, 8, 8)
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      big[row0:].view(np.uint32))
+    want = noise.philox_normal_plain(key, 2, 8, row0=row0).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert not np.array_equal(got, noise.philox_normal_plain(key, 2, 8)
+                              .numpy())
+
+
+@pytest.mark.parametrize("mask_only", [False, True])
+def test_noise_bias_act_grad_row_offset_emulation(harness, mask_only):
+    """The grad kernel emulated at row0 = 3: its normals are rows 3... of
+    K1's draw, and its output the plain version's at row0 = 3."""
+    out, x, dy, cst, key, kw = _grad_case(
+        harness, "random", 2, True, True, 2, 2, 3, 8, mask_only=mask_only,
+        row0=3)
+    size, plane = x.size, 64
+    nus = out[size:size + 2 * plane]
+    k1 = np.array(harness(f"noise {key[0]} {key[1]} 5 8"), np.float32)
+    np.testing.assert_array_equal(nus.view(np.uint32),
+                                  k1[3 * plane:].view(np.uint32))
+    fn = (nba_mod.noise_bias_act_mask_plain if mask_only
+          else nba_mod.noise_bias_act_grad_plain)
+    want = fn(torch.from_numpy(dy), torch.from_numpy(x), **kw)
+    want = want if mask_only else want[0]
+    np.testing.assert_allclose(out[:size].reshape(x.shape), want.numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_noise_bias_act_row_offset_emulation(harness):
+    """The fused epilogue emulated at row0 = 3 against the plain version
+    at row0 = 3 (libm vs torch rounding of the normals), and unlike row 0."""
+    n, c, res = 2, 3, 8
+    rng = np.random.RandomState(12)
+    x = (rng.randn(n, c, res, res) * 3).astype(np.float32)
+    key = noise.noise_key(3, 2 * res)
+    alpha, g, clamp = epilogue_act(parse_activation(NBA_ACTS[2][0]),
+                                   NBA_ACTS[2][1])
+    zeros = np.zeros(n * c + c + res * res, np.float32)
+    outs = {}
+    for row0 in (0, 3):
+        head = (f"nba 0 2 1 {n} {c} {res} 1 {key[0]} {key[1]} {_f(alpha)} "
+                f"{_f(g)} {_f(clamp)} 0 0 {_f(0.3)} {row0}")
+        vals = " ".join(_f(v) for v in np.concatenate([zeros, x.ravel()]))
+        outs[row0] = np.array(harness(f"{head} {vals}"), np.uint64).astype(
+            np.uint32).view(np.float32).reshape(x.shape)
+    want = noise_bias_act_plain(
+        torch.from_numpy(x), act=(alpha, g, clamp), noise_mode="random",
+        noise_key=key, strength=torch.tensor(np.float32(0.3)), row0=3)
+    np.testing.assert_allclose(outs[3], want.numpy(), rtol=2.5e-7, atol=1e-5)
+    assert not np.array_equal(outs[3], outs[0])

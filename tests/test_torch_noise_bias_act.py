@@ -195,3 +195,77 @@ def test_generator_without_noise_matches_jax():
                  noise_mode="none").numpy()
     err = np.abs(got - want).max()
     assert err <= 1e-3, f"max abs err {err}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_versions_at_a_row_offset_are_rows_of_the_larger_draw(dtype):
+    """``row0 = k``: the forward, the grad's full and mask-only modes and
+    the noise itself equal rows k... of the ``row0 = 0`` versions on a
+    batch of k more rows, bit for bit (a rank's block of a global batch
+    draws what the one-device batch draws for those rows)."""
+    from shgan_torch.ops import noise_bias_act as nba
+    from shgan_torch.ops.noise import philox_normal_plain
+    k, r = 3, 8
+    g = torch.Generator().manual_seed(7)
+    x = (torch.randn(k + 2, 4, r, r, generator=g) * 40).to(dtype)
+    dy = torch.randn(x.shape, generator=g).to(dtype)
+    dcoefs = torch.rand(k + 2, 4, generator=g) + 0.5
+    kw = dict(bias=torch.randn(4, generator=g),
+              act=epilogue_act(parse_activation(ACTS["lrelu_clamp"]), 0.7),
+              noise_mode="random", noise_key=noise_key(SEED, LAYER),
+              strength=torch.tensor(0.3))
+    key = kw["noise_key"]
+    np.testing.assert_array_equal(philox_normal_plain(key, 2, r, row0=k),
+                                  philox_normal_plain(key, k + 2, r)[k:])
+    whole = nba.noise_bias_act_plain(x, dcoefs, **kw)
+    part = nba.noise_bias_act_plain(x[k:], dcoefs[k:], row0=k, **kw)
+    np.testing.assert_array_equal(part.float(), whole[k:].float())
+    gw = nba.noise_bias_act_grad_plain(dy, x, dcoefs, **kw)
+    gp = nba.noise_bias_act_grad_plain(dy[k:], x[k:], dcoefs[k:], row0=k,
+                                       **kw)
+    np.testing.assert_array_equal(gp[0].float(), gw[0][k:].float())
+    np.testing.assert_array_equal(gp[1], gw[1][k:])
+    mw = nba.noise_bias_act_mask_plain(dy, x, dcoefs, vs=torch.tensor(0.4),
+                                       **kw)
+    mp = nba.noise_bias_act_mask_plain(dy[k:], x[k:], dcoefs[k:],
+                                       vs=torch.tensor(0.4), row0=k, **kw)
+    np.testing.assert_array_equal(mp.float(), mw[k:].float())
+    # and the offset moves the draw
+    assert not torch.equal(nba.noise_bias_act_plain(x[k:], dcoefs[k:], **kw),
+                           part)
+
+
+def test_row_offset_through_the_layer_and_its_gradient():
+    """A ``SynthesisLayer`` at ``row0 = 2`` on the last rows of a batch:
+    its output and the gradient of its input are those rows of the whole
+    batch's (the style mean taken over the whole batch by a gather that
+    hands the rows to one worker: here the batch itself)."""
+    from shgan_torch.parallel import Rows
+
+    class Whole:
+        """A group of one worker that holds the whole batch's rows."""
+
+        def __init__(self, full):
+            self.full = full
+
+        def gather_rows(self, t, rows):
+            return torch.cat([self.full[:rows.start], t,
+                              self.full[rows.stop:]])
+
+    torch.manual_seed(0)
+    layer = SynthesisLayer(4, 6, 3, w_dim=8, resolution=8, up=1,
+                           activation=ACTS["lrelu_clamp"], layer_id=16)
+    with torch.no_grad():
+        layer.noise_strength.fill_(0.2)
+    x = torch.randn(5, 4, 8, 8, requires_grad=True)
+    w = torch.randn(5, 8)
+    whole = layer(x, w, noise_mode="random", noise_seed=11)
+    gx, = torch.autograd.grad(whole[2:].square().sum(), x)
+    styles = layer.affine(w).detach()
+    xp = x[2:].detach().requires_grad_(True)
+    part = layer(xp, w[2:], noise_mode="random", noise_seed=11, row0=2,
+                 rows=Rows(2, 5, 5, Whole(styles)))
+    np.testing.assert_allclose(part.detach(), whole[2:].detach(), rtol=1e-6,
+                               atol=1e-6)
+    gp, = torch.autograd.grad(part.square().sum(), xp)
+    np.testing.assert_allclose(gp, gx[2:], rtol=1e-5, atol=1e-6)

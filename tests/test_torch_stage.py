@@ -138,20 +138,57 @@ def test_eval_stage_matches_jax(tmp_path, monkeypatch):
 
 
 def test_eval_stage_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    cfg = _stage_cfg(tmp_path, None, None, "x")
-    cfg["eval"]["evaluator"] = [{"type": "psnr"}]
-    cfg["eval"]["pretrained_pth"] = None
-    cfg["env"]["mesh_devices"] = 2
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        eval_stage()(cfg, device="cpu")
-    cfg["env"]["mesh_devices"] = 1
-    cfg["eval"]["device_image_bank"] = True
-    with pytest.raises(NotImplementedError, match="device_image_bank"):
-        eval_stage()(cfg, device="cpu")
-    cfg["eval"]["device_image_bank"] = False
+    """What the stage once refused now runs: ``env.mesh_devices: 2`` in one
+    process runs the global batch of two devices on one and equals
+    ``mesh_devices: 1`` at the doubled batch; ``device_image_bank`` (a TPU
+    formulation) runs the host pipeline.  A run without CUDA that asks for
+    the card still raises."""
+    def cfg_of(name, mesh_devices, per_gpu, bank=False):
+        cfg = _stage_cfg(tmp_path, None, None, name)
+        ev = cfg["eval"]
+        ev.pop("batch_size")
+        ev.update(evaluator=[{"type": "psnr"}, {"type": "ssim"}],
+                  pretrained_pth=None, batch_size_per_gpu=per_gpu,
+                  device_image_bank=bank, noise_mode="random")
+        cfg["env"]["mesh_devices"] = mesh_devices
+        return cfg
+
+    two = eval_stage()(cfg_of("two", 2, BATCH), device="cpu")
+    one = eval_stage()(cfg_of("one", 1, 2 * BATCH), device="cpu")
+    bank = eval_stage()(cfg_of("bank", 2, BATCH, bank=True), device="cpu")
+    assert two["eval_rv"] == one["eval_rv"] == bank["eval_rv"]
+    assert two["timing"]["global_batch"] == one["timing"]["global_batch"] \
+        == 2 * BATCH
+    for name in ("two", "one", "bank"):
+        assert (tmp_path / name / "result.json").is_file()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        eval_stage()(cfg)
+        eval_stage()(cfg_of("x", 1, BATCH))
+
+
+def test_eval_stage_random_noise_does_not_depend_on_the_batch(tmp_path):
+    """z and the random noise of dataset position i are the same at any
+    batch size: the composites of a batch-1 and a batch-4 run differ only
+    through the style normalization's batch mean, which demodulation
+    cancels up to its 1e-8 epsilon and rounding."""
+    from shgan_torch.models import get_model
+    G = get_model(tiny_cfg(), seed=7)
+    with torch.no_grad():
+        for name, p in G.named_parameters():
+            if name.endswith("noise_strength"):
+                p.fill_(0.3)
+    pth = str(tmp_path / "g.pth")
+    torch.save(G.state_dict(), pth)
+    outs = {}
+    for bs in (1, 4):
+        cfg = _stage_cfg(tmp_path, pth, None, f"b{bs}")
+        cfg["eval"].update(evaluator=[{"type": "psnr"}], batch_size=bs,
+                           noise_mode="random")
+        outs[bs] = eval_stage()(cfg, device="cpu")["eval_rv"]["psnr"]
+    cfg["eval"]["noise_mode"] = "none"
+    quiet = eval_stage()(cfg, device="cpu")["eval_rv"]["psnr"]
+    assert outs[1] == pytest.approx(outs[4], abs=1e-4)
+    assert abs(quiet - outs[4]) > 1e-3   # the noise reaches the image
 
 
 def _cli(args, tmp_path):
