@@ -154,11 +154,30 @@ Phases, each printing one JSON line:
     "cuda:0"]`` at ``shgan_g512`` batch 8 against one device (phase 4's
     rule, known pixels exact); step ms, eval images/s, the ranks' start-up
     seconds and peak memory;
-13. the kernels line ``{"kernels": [...]}`` (the grad kernel's and K2
+13. spatial (H) sharding (``shgan_torch/parallel/spatial.py``), two rank
+    processes on ``cuda:0`` over gloo with a model axis of 2, TF32 off:
+    the kernels' slab modes at every synthesis layer of ``shgan_g1024``
+    above 4² for model axes of 2 and 4 (K1 alone, the fused epilogue and
+    its grad kernel on each rank's window of plane rows, float32 and bf16,
+    bit for bit those rows of the whole-plane launch, the windows' sums
+    within 1e-5 of the plane's, each against its plain version by phase 2's
+    and 8's rules; K3 on each halo'd slab of [1, 32, 1024²] within 1e-4 of
+    the whole-plane rows); ``shgan_g1024`` b4 through the engine (random
+    weights and noise, K3 on) under ``spatial_sharding(mesh, 512)``
+    against one process: phase 4's uint8 rule, known pixels exact, each
+    rank's launches the one process's (K3 2, K2 by route with none on the
+    generic kernel, the epilogue), bytes exchanged, request ms and peak
+    memory; ``shgan_ffhq256_train``'s networks at the global batch 8, 3
+    ``TrainStep`` steps (Gpl and R1 in step 0) under ``spatial_sharding(
+    mesh, 64)``: step 0's gradients each network within 1e-3 or 4× its
+    float32 spread on one card, the replicas bit for bit after every step,
+    launches exact per step and rank, step ms and peak memory;
+14. the kernels line ``{"kernels": [...]}`` (the grad kernel's and K2
     backward's rows with their bf16 numbers; every row's launches over
-    phase 11 as ``launches_bf16_path`` and over phase 12 as
-    ``launches_multi_device_path``);
-14. last line: ``{"ok": true, "device": {...}}``.
+    phase 11 as ``launches_bf16_path``, over phase 12 as
+    ``launches_multi_device_path`` and over phase 13 as
+    ``launches_spatial_path``);
+15. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line.  It needs the repository (``shgan_torch``, ``configs/``) and
@@ -925,8 +944,8 @@ class k1_noise_in_plain:
     def __enter__(self):
         self.orig = self.nba.philox_normal_plain
         self.nba.philox_normal_plain = (
-            lambda key, n, r, device="cpu", row0=0:
-            self.noise.philox_normal_cuda(key, n, r, device, row0))
+            lambda key, n, r, device="cpu", row0=0, h0=0, rows=None:
+            self.noise.philox_normal_cuda(key, n, r, device, row0, h0, rows))
 
     def __exit__(self, *exc):
         self.nba.philox_normal_plain = self.orig
@@ -3293,6 +3312,605 @@ def multi_device_path(tmp, build, noise, nba, inc_pth):
     return row, offset, total
 
 
+# ---------------------------------------------------------------------------
+# phase 13: spatial (H) sharding (shgan_torch.parallel.spatial)
+# ---------------------------------------------------------------------------
+
+SP_MODEL = 2             # the model axis: two rank processes on cuda:0
+SP_FWD_MIN_RES = 512     # shgan_g1024: the 512² and 1024² levels on slabs
+SP_FWD_BATCH = 4
+SP_TRAIN_MIN_RES = 64    # shgan_g256: the 64²-256² levels on slabs
+SP_STEPS = 3             # step 0 with Gpl and R1
+SP_KERNEL_BATCH = 2       # the sweep of every shgan_g1024 layer at m = 2, 4
+SP_K3_TOL = 1e-4
+SP_RANK_CODE = ("import sys, chip_smoke; "
+                "sys.exit(chip_smoke.sp_rank(*sys.argv[1:]))")
+
+
+def slab_windows(res, m):
+    """The rows ``(h0, h1)`` of each of ``m`` ranks' slabs of a plane."""
+    r = res // m
+    return [(i * r, (i + 1) * r) for i in range(m)]
+
+
+def check_slab_kernels(noise, nba, conv1024, cfg, batch, models,
+                       min_res=8, pl_batch=None):
+    """The kernels' slab and window modes at ``batch`` on every synthesis
+    layer shape of ``cfg`` at or above ``min_res`` (and above 4²), for each
+    model axis of ``models``: K1 alone, the fused epilogue and its grad
+    kernel (full, and mask-only at ``batch`` and at ``pl_batch``, the
+    path-length penalty's rows) on each rank's window of plane rows,
+    float32 and bf16 (the const noise in float32 too), each element equal
+    bit for bit to those rows of the whole-plane launch, the windows' sums
+    within 1e-5 of their terms' magnitudes of the whole plane's; each
+    window of ``models[0]`` against the plain versions by phase 2's and
+    phase 8's rules.  Returns the record."""
+    from shgan_torch.ops.bias_act import parse_activation
+    spec = cfg["args"]["synthesis"]["args"].get(
+        "activation", "lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)")
+    act = nba.epilogue_act(parse_activation(spec))
+    gen = torch.Generator(device="cuda").manual_seed(78)
+    n = batch
+    worst = {"k1_plain": 0.0, "epilogue_plain": 0.0, "grad_plain": 0.0,
+             "window_sums": 0.0}
+    shapes = []
+    for (r, c) in sorted(epilogue_layers(cfg)):
+        if r <= 4 or r < min_res:
+            continue
+        key = noise.noise_key(98, 2 * r)
+        k1 = noise.philox_normal_cuda(key, n, r, "cuda", row0=1)
+        for m in models:
+            for h0, h1 in slab_windows(r, m):
+                part = noise.philox_normal_cuda(key, n, r, "cuda", row0=1,
+                                                h0=h0, rows=h1 - h0)
+                if not torch.equal(part, k1[:, h0:h1]):
+                    raise AssertionError(f"K1 window {h0}:{h1} of {r}²")
+                if m == models[0]:
+                    want = noise.philox_normal_plain(key, n, r, "cuda", 1,
+                                                     h0, h1 - h0)
+                    worst["k1_plain"] = max(worst["k1_plain"], float(
+                        (part - want).abs().max()))
+        if worst["k1_plain"] > NOISE_ATOL:
+            raise AssertionError(f"K1 window vs plain: {worst}")
+        for dtype, modes in ((torch.float32, ("random", "const")),
+                             (torch.bfloat16, ("random",))):
+            for mode in modes:
+                x = torch.randn((n, c, r, r), generator=gen,
+                                device="cuda").to(dtype)
+                dy = torch.randn((n, c, r, r), generator=gen,
+                                 device="cuda").to(dtype)
+                d = torch.rand((n, c), generator=gen, device="cuda") + 0.5
+                b = torch.randn((c,), generator=gen, device="cuda") * 0.1
+                s = torch.full((), 0.1, device="cuda")
+                const = torch.randn((r, r), generator=gen, device="cuda")
+                kw = dict(dcoefs=d, bias=b, act=act, noise_mode=mode,
+                          noise_key=key, strength=s, row0=1)
+                y = nba.noise_bias_act_cuda(x, out=torch.empty_like(x),
+                                            noise_const=const, **kw)
+                gw = nba.noise_bias_act_grad_cuda(dy, x, noise_const=const,
+                                                  **kw)
+                mw = nba.noise_bias_act_mask_cuda(dy, x, noise_const=const,
+                                                  **kw)
+                kpl = dict(kw, dcoefs=d[:pl_batch].contiguous())
+                if pl_batch:
+                    mw_pl = nba.noise_bias_act_mask_cuda(
+                        dy[:pl_batch].contiguous(), x[:pl_batch].contiguous(),
+                        noise_const=const, **kpl)
+                g64 = gw[0].double() / d.double()[:, :, None, None]
+                nu = (k1[:, None] if mode == "random" else const).double()
+                mags = ((g64 * x.double()).abs().sum((2, 3)),
+                        g64.abs().sum((0, 2, 3)), (g64 * nu).abs().sum())
+                for m in models:
+                    sums = [torch.zeros_like(t, dtype=torch.float64)
+                            for t in gw[1:]]
+                    for h0, h1 in slab_windows(r, m):
+                        kp = dict(kw, noise_const=const[h0:h1], h0=h0)
+                        xs = x[:, :, h0:h1].contiguous()
+                        dys = dy[:, :, h0:h1].contiguous()
+                        ys = nba.noise_bias_act_cuda(
+                            xs, out=torch.empty_like(xs), **kp)
+                        gs = nba.noise_bias_act_grad_cuda(dys, xs, **kp)
+                        ms_ = nba.noise_bias_act_mask_cuda(dys, xs, **kp)
+                        same = {"y": torch.equal(ys, y[:, :, h0:h1]),
+                                "dx": torch.equal(gs[0], gw[0][:, :, h0:h1]),
+                                "mask": torch.equal(ms_, mw[:, :, h0:h1])}
+                        if pl_batch:
+                            kq = dict(kp, dcoefs=kpl["dcoefs"])
+                            xq = xs[:pl_batch].contiguous()
+                            dq = dys[:pl_batch].contiguous()
+                            mq = nba.noise_bias_act_mask_cuda(dq, xq, **kq)
+                            same["mask_pl"] = torch.equal(
+                                mq, mw_pl[:, :, h0:h1])
+                        if not all(same.values()):
+                            raise AssertionError(
+                                f"epilogue kernels on rows {h0}:{h1} of "
+                                f"{r}² at batch {n} ({dtype}, {mode}): "
+                                f"{same}")
+                        sums = [a + t.double() for a, t in zip(sums, gs[1:])]
+                        if m == models[0]:
+                            plain_checks(nba, noise, xs, dys, kp, ys, gs,
+                                         ms_, act, s, dtype, worst)
+                            if pl_batch:
+                                plain_checks(nba, noise, xq, dq, kq, None,
+                                             None, mq, act, s, dtype, worst)
+                    err = max(float(((a - w.double()).abs()
+                                     / (mg + 1e-30)).max())
+                              for a, w, mg in zip(sums, gw[1:], mags))
+                    worst["window_sums"] = max(worst["window_sums"], err)
+                    if err > 1e-5:
+                        raise AssertionError(f"grad kernel window sums at "
+                                             f"{r}², m={m}: {err}")
+                shapes.append((r, c, str(dtype).split(".")[-1], mode))
+                del x, dy, y, gw, mw, g64, nu
+            torch.cuda.empty_cache()
+    return {"layers": shapes, "batch": n, "pl_batch": pl_batch,
+            "models": list(models), "bit_for_bit_windows": True,
+            "max_err": worst}
+
+
+def plain_checks(nba, noise, xs, dys, kp, ys, gs, ms_, act, s, dtype, worst):
+    """A window's launches against their plain versions: the epilogue
+    (``ys``) within 4 float32 ulp (one bf16 ulp) + the noise term; the grad
+    kernel (``gs``) on K1's noise, dx within 4 ulp (one bf16 ulp) and the
+    sums within 1e-5 of their terms' magnitudes (phase 8's rules); the
+    mask-only output (``ms_``) within 4 ulp (one bf16 ulp).  ``ys`` / ``gs``
+    None: that launch is not checked."""
+    ulps = ((lambda v: bf16_ulp(v.float())) if dtype == torch.bfloat16 else
+            (lambda v: 4 * 2.0 ** (torch.floor(torch.log2(
+                v.abs().clamp_min(1e-30))) - 23)))
+    bad = []
+    if ys is not None:
+        noise_tol = NOISE_ATOL * float(s) * act[1]
+        y_want = nba.noise_bias_act_plain(xs.float(), **kp)
+        dyy = (ys.float() - y_want).abs()
+        if not bool((dyy <= ulps(y_want) + noise_tol).all()):
+            bad.append(("y", float(dyy.max())))
+        worst["epilogue_plain"] = max(worst["epilogue_plain"],
+                                      float(dyy.max()))
+    with k1_noise_in_plain(nba, noise):
+        m_want = nba.noise_bias_act_mask_plain(dys, xs, **kp)
+        g_want = (nba.noise_bias_act_grad_plain(dys, xs, **kp)
+                  if gs is not None else None)
+    md = (ms_.float() - m_want.float()).abs()
+    if not bool((md <= ulps(m_want)).all()):
+        bad.append(("mask", float(md.max())))
+    worst["grad_plain"] = max(worst["grad_plain"], float(md.max()))
+    if gs is not None:
+        dxd = (gs[0].float() - g_want[0].float()).abs()
+        if not bool((dxd <= ulps(g_want[0])).all()):
+            bad.append(("dx", float(dxd.max())))
+        worst["grad_plain"] = max(worst["grad_plain"], float(dxd.max()))
+        nu = nba._noise_plain(dys, kp["noise_mode"], kp["noise_key"],
+                              kp["noise_const"], kp["row0"], kp["h0"])
+        g = m_want.double()
+        x64 = xs.double()
+        for a, w_, mag in ((gs[1], g_want[1], (g * x64).abs().sum((2, 3))),
+                           (gs[2], g_want[2], g.abs().sum((0, 2, 3))),
+                           (gs[3], g_want[3], (g * nu.double()).abs().sum())):
+            rel = float(((a.double() - w_.double()).abs()
+                         / (mag + 1e-30)).max())
+            worst["grad_sums_plain"] = max(worst.get("grad_sums_plain", 0.0),
+                                           rel)
+            if rel > 1e-5:
+                bad.append(("sums", rel))
+    if bad:
+        raise AssertionError(f"window vs plain ({dtype}, {tuple(xs.shape)}):"
+                             f" {bad}")
+
+
+def check_slab_k3(conv1024, batch):
+    """K3's halo'd slab mode on the slabs of [batch, 32, 1024²] (m = 2 and
+    4), float32 and bf16, against those rows of the whole-plane launch and
+    against its plain version on each slab of m = 2 (phase 2's rules)."""
+    gen = torch.Generator(device="cuda").manual_seed(79)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((batch, 32, 1024, 1024), generator=gen,
+                        device="cuda").to(dtype)
+        w = torch.randn((32, 32, 3, 3), generator=gen,
+                        device="cuda") / math.sqrt(9 * 32)
+        with torch.inference_mode():
+            whole = conv1024.conv3x3_lowch(x, w)
+            xp = F.pad(x, (0, 0, 1, 1))
+            rows_err = plain_err = 0.0
+            for m in (2, 4):
+                for h0, h1 in slab_windows(1024, m):
+                    xs = xp[:, :, h0:h1 + 2].contiguous()
+                    ys = conv1024.conv3x3_lowch(xs, w, halo=1)
+                    rows_err = max(rows_err, float(
+                        (ys.float() - whole[:, :, h0:h1].float()).abs().max()))
+                    if m == 2:
+                        want = conv1024.conv3x3_lowch_plain(xs, w, halo=1)
+                        err = (ys.float() - want.float()).abs()
+                        tol = (bf16_ulp(want.float()) + 1e-6
+                               if dtype == torch.bfloat16 else SP_K3_TOL)
+                        if not bool((err <= tol).all()):
+                            raise AssertionError(f"K3 slab vs plain "
+                                                 f"{dtype}: {float(err.max())}")
+                        plain_err = max(plain_err, float(err.max()))
+        torch.cuda.synchronize()
+        if rows_err > SP_K3_TOL:
+            raise AssertionError(f"K3 slabs vs the whole plane {dtype}: "
+                                 f"{rows_err}")
+        out[str(dtype).split(".")[-1]] = {"vs_whole_plane": rows_err,
+                                          "vs_plain": plain_err,
+                                          "batch": batch}
+        del x, whole, xp
+        torch.cuda.empty_cache()
+    return out
+
+
+def fir_route_of(x, up, down):
+    """The route ``fir_route`` (upfirdn2d.cuh) gives a K2 launch."""
+    if x.data_ptr() % 16:
+        return "generic"
+    return {((1, 1), (1, 1)): "tile", ((1, 1), (2, 2)): "down2",
+            ((2, 2), (1, 1)): "up2"}.get((tuple(up), tuple(down)), "generic")
+
+
+def sp_forward(mesh):
+    """``shgan_g1024`` at batch 4 through the engine, random weights and
+    noise, K3 on, TF32 off; under ``spatial_sharding(mesh, 512)`` on a rank
+    (``mesh`` None: the one process).  Returns (the record, the
+    composites)."""
+    from contextlib import nullcontext
+    from shgan_torch.kernels import build
+    from shgan_torch.ops.conv1024 import set_conv1024_impl
+    from shgan_torch.parallel import spatial
+    from shgan_torch.serve import InpaintEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    set_conv1024_impl("pallas")
+    e = InpaintEngine(MODEL_1024, batch_size=SP_FWD_BATCH, device="cuda",
+                      noise_mode="random", seed=0)
+    noise_reaches_image(e.G)
+    for G in e.replicas.values():
+        G.load_state_dict(e.G.state_dict())
+    rng = np.random.RandomState(21)
+    imgs = rng.randint(0, 256, (SP_FWD_BATCH, 3, 1024, 1024), dtype=np.uint8)
+    masks = (rng.rand(SP_FWD_BATCH, 1024, 1024) > 0.5).astype(np.float32)
+    routes = {"tile": 0, "down2": 0, "up2": 0, "generic": 0}
+    fir = importlib.import_module("shgan_torch.ops.upfirdn2d")
+    orig = fir.fir_cuda
+
+    def tally(x, taps, up=(1, 1), down=(1, 1), pads=(0, 0, 0, 0),
+              counter="upfirdn2d"):
+        routes[fir_route_of(x, up, down)] += 1
+        return orig(x, taps, up, down, pads, counter)
+
+    ctx = (spatial.spatial_sharding(mesh, SP_FWD_MIN_RES) if mesh is not None
+           else nullcontext())
+    with ctx:
+        e.inpaint(imgs, masks)                 # first use
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        if mesh is not None:
+            mesh.traffic.update(halo_bytes=0, sum_bytes=0)
+        fir.fir_cuda = tally
+        try:
+            t0 = time.perf_counter()
+            out = e.inpaint(imgs, masks, start_index=8)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            fir.fir_cuda = orig
+    rec = {"request_ms": ms, "launches": dict(build.launches),
+           "k2_routes": routes,
+           "traffic_bytes": dict(mesh.traffic) if mesh is not None else {},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    keep = np.broadcast_to(masks[:, None] > 0.5, imgs.shape)
+    rec["known_pixels_exact"] = bool(np.array_equal(out[keep],
+                                                    quantized(imgs)[keep]))
+    set_conv1024_impl("xla")
+    del e
+    torch.cuda.empty_cache()
+    return rec, out
+
+
+def sp_train(mesh, spread=False):
+    """``shgan_ffhq256_train``'s networks (``shgan_g256`` +
+    ``comodgan_d256``, random weights, noise on), its loss settings, the
+    global batch 8 of synthetic 256² images: ``SP_STEPS`` steps of
+    ``TrainStep`` (step 0 with Gpl and R1), under ``spatial_sharding(mesh,
+    64)`` on a rank (``mesh`` None: the one process), TF32 off; step 0's
+    gradients (as the optimizers read them), launches and ms of each step,
+    the replicas checked after each; with ``spread``, step 0 once more with
+    cuDNN's autotuner on (each leaf's float32 spread).  Returns (record,
+    arrays)."""
+    from contextlib import nullcontext
+    from shgan_torch.data.rng import derive_seed
+    from shgan_torch.kernels import build
+    from shgan_torch.models.registry import get_model
+    from shgan_torch.parallel import check_replicated, spatial
+    from shgan_torch.runtime.stages import step_generator
+    from shgan_torch.train import TrainConfig, TrainStep
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train_config(tempfile.mkdtemp(prefix="sp_cfg_"), SP_STEPS)
+    tc = TrainConfig(**(cfg["train"].get("loss_kwargs") or {}))
+    rng = np.random.RandomState(31)
+    real = torch.from_numpy(rng.uniform(-1, 1, (TRAIN_BATCH, 3, 256, 256))
+                            .astype(np.float32)).cuda()
+    mask = torch.from_numpy((rng.rand(TRAIN_BATCH, 1, 256, 256) > 0.5)
+                            .astype(np.float32)).cuda()
+    ctx = (lambda: spatial.spatial_sharding(mesh, SP_TRAIN_MIN_RES)
+           if mesh is not None else nullcontext())
+    arrays = {}
+
+    def run(prefix, steps):
+        G = get_model(cfg["model_g"], seed=0)
+        noise_reaches_image(G)
+        D = get_model(cfg["model_d"], seed=derive_seed(0, 1))
+        G, D = G.cuda(), D.cuda()
+        step = TrainStep(G, D, tc, mesh=mesh)
+        for opt, net in ((step.opt_g, "G"), (step.opt_d, "D")):
+            names = {id(p): k for k, p in
+                     (G if net == "G" else D).named_parameters()}
+            inner = opt.step
+
+            def rec_step(*a, opt=opt, net=net, names=names, inner=inner):
+                if step.step == 0:
+                    for g in opt.param_groups:
+                        for p in g["params"]:
+                            arrays[f"{prefix}{net}.{names[id(p)]}"] = \
+                                p.grad.detach().cpu().numpy()
+                return inner(*a)
+            opt.step = rec_step
+        per_step, ms = [], []
+        for i in range(steps):
+            greg, dreg = i % tc.g_reg_interval == 0, i % tc.d_reg_interval == 0
+            torch.cuda.synchronize()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            with ctx():
+                step(real, mask, step_generator(0, i), 0.99, do_greg=greg,
+                     do_dreg=dreg)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got = dict(build.launches)
+            want = expected_train_launches(*train_sites(G, D), greg, dreg)
+            if got != want:
+                raise AssertionError(f"step {i} ({'rank' if mesh else 'one'})"
+                                     f": launches {got}, expected {want}")
+            per_step.append(got)
+            if mesh is not None:
+                check_replicated([G, D, step.G_ema, step.pl_mean], mesh=mesh)
+        return per_step, ms
+
+    torch.cuda.reset_peak_memory_stats()
+    per_step, ms = run("", SP_STEPS)
+    rec = {"launches_per_step": per_step, "step_ms": ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if spread:
+        torch.backends.cudnn.benchmark = True
+        try:
+            run("spread:", 1)
+        finally:
+            torch.backends.cudnn.benchmark = False
+    torch.cuda.empty_cache()
+    return rec, arrays
+
+
+def sp_rank(rank, world, port, tmp, cards=1):
+    """A rank process of :func:`sp_sharded_vs_one` (``python -c``): join
+    the group on ``cuda:0`` (``cards`` 1: two ranks share the card, over
+    gloo) or on card ``rank`` (one card a rank, NCCL), a mesh with a model
+    axis of ``world``; the forward and the training of :func:`sp_forward`
+    / :func:`sp_train` under ``spatial_sharding``; records and arrays into
+    ``tmp``."""
+    rank, world, cards = int(rank), int(world), int(cards)
+    import faulthandler
+    # a rank that hangs prints where, before sp_spawn's deadline kills it
+    faulthandler.dump_traceback_later(540, exit=True)
+    os.environ.update(SHGAN_DIST_COORDINATOR=f"127.0.0.1:{port}",
+                      SHGAN_DIST_NPROCS=str(world), SHGAN_DIST_PID=str(rank))
+    from shgan_torch.kernels import build
+    from shgan_torch.parallel import create_mesh, maybe_initialize_distributed
+    maybe_initialize_distributed(device=f"cuda:{rank if cards > 1 else 0}")
+    build.build_all()
+    mesh = create_mesh(model=world)
+    fwd, comp = sp_forward(mesh)
+    train, arrays = sp_train(mesh)
+    np.savez(os.path.join(tmp, f"sp_{rank}.npz"), composites=comp, **arrays)
+    with open(os.path.join(tmp, f"sp_{rank}.json"), "w") as f:
+        json.dump({"forward": fwd, "train": train, "device": str(mesh.device),
+                   "transport": mesh.transport, "backend": mesh.backend,
+                   "replica_gap": mesh.replica_gap}, f)
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def sp_spawn(tmp, world, cards):
+    """``world`` rank processes of :func:`sp_rank`, on ``cards`` cards. A
+    rank that fails makes this raise."""
+    import socket
+    import threading
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("SHGAN_DIST_", "MASTER_", "WORLD_SIZE"))}
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SP_RANK_CODE, str(r), str(world), str(port),
+         tmp, str(cards)], cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = [[] for _ in procs]
+    readers = [threading.Thread(target=lambda p=p, log=log: log.extend(
+        p.stdout), daemon=True) for p, log in zip(procs, logs)]
+    for t in readers:
+        t.start()
+    late = False
+    try:
+        deadline = time.time() + 600
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.time() > deadline:
+                late = True
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for t in readers:
+            t.join(timeout=10)
+    if late or any(p.returncode != 0 for p in procs):
+        raise AssertionError(
+            ("the ranks did not finish" if late else "a rank failed")
+            + ":\n" + "\n".join(
+            f"--- rank {r} (exit {p.returncode})\n" + "".join(log)[-4000:]
+            for r, (p, log) in enumerate(zip(procs, logs))))
+    recs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"sp_{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs, time.time() - t0
+
+
+def sp_sharded_vs_one(work, world, cards):
+    """``shgan_g1024``'s forward and ``shgan_ffhq256_train``'s steps in
+    this process on ``cuda:0``, then on ``world`` model ranks spread over
+    ``cards`` cards (:func:`sp_spawn`), each rank held against the one
+    process: the forward's uint8 composites by phase 4's rule with the
+    known pixels exact and the ranks' composites equal, each rank's
+    launches (K3, K2 by route, the epilogue) the one process's, halo rows
+    exchanged; step 0's gradients each network within 1e-3 or
+    ``MD_SPREAD`` times its float32 spread on one card measured here
+    (phase 12's rule), equal on every rank, the replicas checked bit for
+    bit after every step on the ranks, launches the one process's every
+    step.  Returns (the record, the launches of every run)."""
+    one_fwd, one_comp = sp_forward(None)
+    one_train, one_arr = sp_train(None, spread=True)
+    torch.cuda.empty_cache()
+    ranks, spawn_s = sp_spawn(work, world, cards)
+    a = [dict(np.load(os.path.join(work, f"sp_{r}.npz")))
+         for r in range(world)]
+    fwd = [t["forward"] for t in ranks]
+    d = np.abs(a[0]["composites"].astype(np.int16)
+               - one_comp.astype(np.int16))
+    within1 = float((d <= 1).mean())
+    if not all(np.array_equal(a[0]["composites"], x["composites"])
+               for x in a[1:]):
+        raise AssertionError("the ranks' composites differ")
+    if within1 < 0.999 or d.max() > 2 or not all(
+            f["known_pixels_exact"] for f in fwd + [one_fwd]):
+        raise AssertionError(f"sharded shgan_g1024 vs one process: {within1}"
+                             f" within 1, max {int(d.max())}")
+    for f in fwd:
+        if (f["launches"] != one_fwd["launches"]
+                or f["k2_routes"] != one_fwd["k2_routes"]
+                or f["k2_routes"]["generic"]
+                or f["launches"]["conv3x3_lowch"] != 2):
+            raise AssertionError(f"forward launches on a rank {f['launches']}"
+                                 f" {f['k2_routes']}, one process "
+                                 f"{one_fwd['launches']} "
+                                 f"{one_fwd['k2_routes']}")
+        if not f["traffic_bytes"]["halo_bytes"] > 0:
+            raise AssertionError("no halo was exchanged")
+    grads = [k for k in one_arr if k[:2] in ("G.", "D.")]
+    for k in grads:
+        if not all(np.array_equal(a[0][k], x[k]) for x in a[1:]):
+            raise AssertionError(f"the ranks' gradients differ in {k}")
+
+    def net_rel(x, y, net):
+        ks = [k for k in grads if k.startswith(net)]
+        return float(np.sqrt(sum(((x[k].astype(np.float64) - y[k]) ** 2)
+                                 .sum() for k in ks))
+                     / np.sqrt(sum((y[k].astype(np.float64) ** 2).sum()
+                                   for k in ks)))
+    spread = {k: one_arr["spread:" + k] for k in grads}
+    nets = {net: (net_rel(a[0], one_arr, net),
+                  net_rel(spread, one_arr, net)) for net in ("G.", "D.")}
+    bad = [(e, net, sp) for net, (e, sp) in nets.items()
+           if e > max(PARITY_TOL, MD_SPREAD * sp)]
+    if bad:
+        raise AssertionError(
+            f"sharded step 0 vs one process: {bad} (every network's error "
+            f"and spread {nets}; the forward held: {within1} within 1, "
+            f"{one_fwd['request_ms']} ms one process, "
+            f"{[f['request_ms'] for f in fwd]} ms the ranks)")
+    for t in ranks:
+        if t["train"]["launches_per_step"] != one_train["launches_per_step"]:
+            raise AssertionError("a rank's train launches differ from one "
+                                 "process's")
+    row = {"model_axis": world, "cards": cards,
+           "devices": [t["device"] for t in ranks],
+           "backend": ranks[0]["backend"], "transport": ranks[0]["transport"],
+           "forward": {"model": MODEL_1024, "batch": SP_FWD_BATCH,
+                       "min_res": SP_FWD_MIN_RES, "noise": "random",
+                       "k3": True, "composites_within_1": within1,
+                       "composites_max_diff": int(d.max()),
+                       "known_pixels_exact": True,
+                       "launches_rank": fwd[0]["launches"],
+                       "k2_routes_rank": fwd[0]["k2_routes"],
+                       "bytes_exchanged_per_rank": [f["traffic_bytes"]
+                                                    for f in fwd],
+                       "request_ms_one": one_fwd["request_ms"],
+                       "request_ms_ranks": [f["request_ms"] for f in fwd],
+                       "peak_gib_one": one_fwd["peak_gib"],
+                       "peak_gib_ranks": [f["peak_gib"] for f in fwd]},
+           "train": {"experiment": TRAIN_EXPERIMENT,
+                     "global_batch": TRAIN_BATCH, "steps": SP_STEPS,
+                     "min_res": SP_TRAIN_MIN_RES,
+                     "step0_grad_net_rel_and_spread": nets,
+                     "replicas_bit_identical": True,
+                     "model_ranks_grad_gap": [t["replica_gap"]
+                                              for t in ranks],
+                     "launches_per_step_rank":
+                         ranks[0]["train"]["launches_per_step"],
+                     "step_ms_one": one_train["step_ms"],
+                     "step_ms_ranks": [t["train"]["step_ms"] for t in ranks],
+                     "peak_gib_one": one_train["peak_gib"],
+                     "peak_gib_ranks": [t["train"]["peak_gib"]
+                                        for t in ranks]},
+           "ranks_wall_s": spawn_s}
+    total = {}
+    for f in fwd + [one_fwd]:
+        add_launches(total, f["launches"])
+    for t in [one_train] + [r["train"] for r in ranks]:
+        for s in t["launches_per_step"]:
+            add_launches(total, s)
+    return row, total
+
+
+def spatial_path(tmp, noise, nba, conv1024):
+    """Phase 13: the kernels' slab and window modes; ``shgan_g1024``'s
+    forward and ``shgan_ffhq256_train``'s steps on two model ranks of one
+    card against one process."""
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "spatial")
+    os.makedirs(work)
+    # every layer at m = 2 and 4, then the shapes phase 13's own path gives
+    # the kernels: the sharded levels of the shgan_g1024 forward at its
+    # batch, and shgan_g256's at the train batch (the grad kernel's full
+    # mode there, its mask-only mode at the path-length rows too)
+    g1024 = model_cfg_bank_cfg(MODEL_1024)
+    kernels = {
+        "sweep": check_slab_kernels(noise, nba, conv1024, g1024,
+                                    SP_KERNEL_BATCH, (2, 4)),
+        "forward": check_slab_kernels(noise, nba, conv1024, g1024,
+                                      SP_FWD_BATCH, (SP_MODEL,),
+                                      SP_FWD_MIN_RES),
+        "train": check_slab_kernels(noise, nba, conv1024,
+                                    model_cfg_bank_cfg(TRAIN_G), TRAIN_BATCH,
+                                    (SP_MODEL,), SP_TRAIN_MIN_RES,
+                                    TRAIN_BATCH // 2),
+        "k3": check_slab_k3(conv1024, SP_FWD_BATCH)}
+    emit({"phase": "kernel_check", "kernel": "slab_windows", **kernels})
+    row, total = sp_sharded_vs_one(work, SP_MODEL, 1)
+    row = {"phase": "spatial_path", **row,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    return row, kernels, total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="perf_out",
@@ -3684,10 +4302,15 @@ def main():
         md_row, md_offset, md_total = multi_device_path(tmp, build, noise,
                                                         nba, inc_pth)
         detail.update(multi_device_path=md_row, row_offset=md_offset)
+
+        # ---- 13. spatial (H) sharding ---------------------------------------
+        sp_row, sp_kernels, sp_total = spatial_path(tmp, noise, nba,
+                                                    conv1024)
+        detail.update(spatial_path=sp_row, slab_windows=sp_kernels)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- 13. the kernels line -----------------------------------------------
+    # ---- 14. the kernels line -----------------------------------------------
     detail.update(eval_launches=eval_launches, k3_in_place=in_place,
                   train_launches=train_launches,
                   fullmetrics_launches=full_launches,
@@ -3729,6 +4352,7 @@ def main():
          "launches_train_config_path": config_launches["upfirdn2d"],
          "launches_bf16_path": bf16_total["upfirdn2d"],
          "launches_multi_device_path": md_total.get("upfirdn2d", 0),
+         "launches_spatial_path": sp_total.get("upfirdn2d", 0),
          "max_abs_err": max(r["max_abs_err"] for r in fr + fir_1024),
          "ms": wsum(fr, "ms"), "eager_ms": wsum(fr, "eager_ms"),
          "bf16_ms": wsum(fr, "bf16_ms"),
@@ -3756,6 +4380,7 @@ def main():
          "launches_train_config_path": config_launches["philox_normal"],
          "launches_bf16_path": bf16_total["philox_normal"],
          "launches_multi_device_path": md_total.get("philox_normal", 0),
+         "launches_spatial_path": sp_total.get("philox_normal", 0),
          "max_abs_err": max(r["max_abs_err"] for r in nr + noise_1024),
          "ms": wsum(nr, "ms"), "eager_ms": wsum(nr, "eager_ms"),
          "plain_ms": wsum(nr, "plain_ms"),
@@ -3778,6 +4403,7 @@ def main():
          "launches_train_config_path": config_launches["noise_bias_act"],
          "launches_bf16_path": bf16_total["noise_bias_act"],
          "launches_multi_device_path": md_total.get("noise_bias_act", 0),
+         "launches_spatial_path": sp_total.get("noise_bias_act", 0),
          "max_abs_err": max(r["max_abs_err"] for r in er + epi_1024),
          "ms": wsum(er, "ms"), "eager_ms": wsum(er, "eager_ms"),
          "bf16_ms": wsum(er, "bf16_ms"),
@@ -3807,6 +4433,7 @@ def main():
          "launches_train_config_path": config_launches["conv3x3_lowch"],
          "launches_bf16_path": bf16_total["conv3x3_lowch"],
          "launches_multi_device_path": md_total.get("conv3x3_lowch", 0),
+         "launches_spatial_path": sp_total.get("conv3x3_lowch", 0),
          "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
          "ms": 2 * k3["ms"], "eager_ms": 2 * k3["eager_ms"],
          "plain_ms": 2 * k3["plain_ms"],
@@ -3834,6 +4461,7 @@ def main():
          "launches_train_config_path": config_launches["upfirdn2d_grad"],
          "launches_bf16_path": bf16_total["upfirdn2d_grad"],
          "launches_multi_device_path": md_total.get("upfirdn2d_grad", 0),
+         "launches_spatial_path": sp_total.get("upfirdn2d_grad", 0),
          "max_abs_err": max(r["max_abs_err"] for r in fgr),
          "ms": sum(r["ms"] for r in fgr),
          "eager_ms": sum(r["eager_ms"] for r in fgr),
@@ -3876,6 +4504,7 @@ def main():
              "noise_bias_act_grad"],
          "launches_bf16_path": bf16_total["noise_bias_act_grad"],
          "launches_multi_device_path": md_total.get("noise_bias_act_grad", 0),
+         "launches_spatial_path": sp_total.get("noise_bias_act_grad", 0),
          "max_abs_err": max(r["max_abs_err"] for r in egr),
          "sums_max_rel_err": max(r["sums_max_rel_err"] for r in egr),
          "ms": wsum(egr, "ms"), "eager_ms": wsum(egr, "eager_ms"),

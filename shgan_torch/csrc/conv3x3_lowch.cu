@@ -48,6 +48,7 @@ struct Args {
   void* y;
   int C, O, H, W, tiles_x, tiles_y, ntiles, nst;
   bool vec;  // W a multiple of 16 bytes and x, y 16-byte aligned
+  int halo;  // input rows above and below the output's (0: pad 1 in H)
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -88,7 +89,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 template <typename T>
 __device__ __forceinline__ const T* src_at(const T* x, const Args& a, int n, int c, int sy,
                                            int sx) {
-  return x + ((static_cast<int64_t>(n) * a.C + c) * a.H + sy) * a.W + sx;
+  const int64_t plane = static_cast<int64_t>(n) * a.C + c;
+  return x + (plane * (a.H + 2 * a.halo) + sy + a.halo) * a.W + sx;
 }
 
 using Acc = float[kMTiles][kNTiles][4];
@@ -104,14 +106,14 @@ __device__ void stage_f32(const float* x, uint32_t* buf, const Args& a, int t, i
       int slot, iy, ix;
       vec_item(j, 4, &slot, &iy, &ix);
       const int c = s * 8 + slot, sy = y0 - 1 + iy, sx = x0 - 1 + ix;
-      const bool ok = inside(c, sy, sx, a.C, a.H, a.W);  // all 4 or none: W % 4 == 0
+      const bool ok = inside(c, sy + a.halo, sx, a.C, a.H + 2 * a.halo, a.W);  // all 4 or none
       cp_async16(base + 4 * staged_word(slot, iy, ix), ok ? src_at(x, a, n, c, sy, sx) : x, ok);
     }
     for (int j = threadIdx.x; j < kSlots * kInH * 2; j += kThreads) {
       int slot, iy, ix;
       halo_item(j, &slot, &iy, &ix);
       const int c = s * 8 + slot, sy = y0 - 1 + iy, sx = x0 - 1 + ix;
-      const bool ok = inside(c, sy, sx, a.C, a.H, a.W);
+      const bool ok = inside(c, sy + a.halo, sx, a.C, a.H + 2 * a.halo, a.W);
       cp_async4(base + 4 * staged_word(slot, iy, ix), ok ? src_at(x, a, n, c, sy, sx) : x, ok);
     }
   } else {
@@ -119,7 +121,7 @@ __device__ void stage_f32(const float* x, uint32_t* buf, const Args& a, int t, i
       int slot, iy, ix;
       pixel_item(j, &slot, &iy, &ix);
       const int c = s * 8 + slot, sy = y0 - 1 + iy, sx = x0 - 1 + ix;
-      const bool ok = inside(c, sy, sx, a.C, a.H, a.W);
+      const bool ok = inside(c, sy + a.halo, sx, a.C, a.H + 2 * a.halo, a.W);
       cp_async4(base + 4 * staged_word(slot, iy, ix), ok ? src_at(x, a, n, c, sy, sx) : x, ok);
     }
   }
@@ -184,7 +186,7 @@ struct Bf16Stage {
 
   static __device__ __forceinline__ uint32_t pair(const __nv_bfloat16* x, const Args& a, int n,
                                                   int c, int sy, int sx) {
-    const bool row = sy >= 0 && sy < a.H && sx >= 0 && sx < a.W;
+    const bool row = sy >= -a.halo && sy < a.H + a.halo && sx >= 0 && sx < a.W;
     const uint32_t lo =
         (row && c < a.C) ? __bfloat16_as_ushort(src_at(x, a, n, c, sy, sx)[0]) : 0u;
     const uint32_t hi =
@@ -205,7 +207,7 @@ struct Bf16Stage {
       int p, iy, ix;
       vec_item(j, 8, &p, &iy, &ix);
       const int c = slot_channel<2>(s, p, 0), sy = y0 - 1 + iy, sx = x0 - 1 + ix;
-      if (sy < 0 || sy >= a.H || sx >= a.W) continue;  // all 8 or none: W % 8 == 0
+      if (sy < -a.halo || sy >= a.H + a.halo || sx >= a.W) continue;  // all 8 or none
       if (c < a.C) even[k] = __ldg(reinterpret_cast<const uint4*>(src_at(x, a, n, c, sy, sx)));
       if (c + 1 < a.C)
         odd[k] = __ldg(reinterpret_cast<const uint4*>(src_at(x, a, n, c + 1, sy, sx)));
@@ -433,14 +435,17 @@ cudaError_t allow_smem(K kernel, int bytes, int dev, bool* done) {
 
 }  // namespace
 
-// x: contiguous NCHW [n, c, h, w] (dtype 0 = float32, 1 = bfloat16);
-// w: contiguous float32 OIHW [o, c, 3, 3]; y: contiguous [n, o, h, w] of x's
-// dtype.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for arguments outside the kernel's range.
+// x: contiguous NCHW [n, c, h + 2 * halo, w] (dtype 0 = float32, 1 =
+// bfloat16); w: contiguous float32 OIHW [o, c, 3, 3]; y: contiguous [n, o, h,
+// w] of x's dtype.  halo 0: pad 1 on all sides; halo 1 (a slab of an
+// H-sharded plane with a row of each neighbour's above and below): output
+// row i reads input rows i..i+2, pad 1 in W only.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments outside the kernel's range.
 extern "C" int shgan_conv3x3_lowch(const void* x, const float* w, void* y, int dtype, int n,
-                                   int c, int o, int h, int wd, void* stream) {
+                                   int c, int o, int h, int wd, int halo, void* stream) {
   if (c < 1 || c > kMaxC || o < 1 || o > kMaxO || h < 1 || wd < 1 || n < 0 ||
-      (dtype != 0 && dtype != 1))
+      (halo != 0 && halo != 1) || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaSuccess);
   const int tiles_x = (wd + kTileW - 1) / kTileW, tiles_y = (h + kTileH - 1) / kTileH;
@@ -454,7 +459,8 @@ extern "C" int shgan_conv3x3_lowch(const void* x, const float* w, void* y, int d
   Args a{x, w, y, c, o, h, wd, tiles_x, tiles_y, static_cast<int>(ntiles),
          stages_for(c, dtype == 0 ? Io<4>::kStageCh : Io<2>::kStageCh),
          wd % vec_px == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-             reinterpret_cast<uintptr_t>(y) % 16 == 0};
+             reinterpret_cast<uintptr_t>(y) % 16 == 0,
+         halo};
   const int grid = static_cast<int>(ntiles < sms ? ntiles : sms);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   static bool f32_ready[64] = {}, bf16_ready[64] = {};

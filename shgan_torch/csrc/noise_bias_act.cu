@@ -100,16 +100,19 @@ __device__ __forceinline__ void store(uint16_t* p, const float* v) {
 // writes them, so neither pointer is __restrict__.
 template <typename T, int CPT>
 __global__ void __launch_bounds__(shgan::nba::kThreads)
-    noise_bias_act_kernel(const T* x, T* y, int c, long long plane, long long calls,
+    noise_bias_act_kernel(const T* x, T* y, int c, shgan::NoiseWindow win, long long calls,
                           const float* __restrict__ dcoef, const float* __restrict__ bias,
                           const float* __restrict__ strength,
                           const float* __restrict__ noise_const, int mode, uint32_t k0,
                           uint32_t k1, long long row0, Act act, Launch L) {
   constexpr int V = 2 * CPT;  // elements of each half a thread owns
-  const long long q0 = shgan::nba::first_call(L, blockIdx.x, threadIdx.x, calls);
-  if (q0 < 0) return;
+  const long long rel = shgan::nba::first_call(L, blockIdx.x, threadIdx.x, calls);
+  if (rel < 0) return;
+  const long long q0 = win.q0 + rel;
   const int row = blockIdx.y;
-  const long long half = plane / 2;
+  // the window offsets of this thread's cos and sin runs (-1: not in it)
+  const long long o[2] = {shgan::noise_offset(win, 0, 2 * q0),
+                          shgan::noise_offset(win, 1, 2 * q0)};
 
   float nz[2][V];  // noise * strength: [0] the cos half, [1] the sin half
   if (mode == shgan::nba::kNoiseNone) {
@@ -124,8 +127,9 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
                           &nz[0][2 * j], &nz[1][2 * j]);
       }
     } else {
-      load<V>(noise_const + 2 * q0, nz[0]);
-      load<V>(noise_const + half + 2 * q0, nz[1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (o[h] >= 0) load<V>(noise_const + o[h], nz[h]);
     }
 #pragma unroll
     for (int e = 0; e < V; ++e) {
@@ -140,51 +144,57 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
     const long long p = static_cast<long long>(row) * c + ch;
     const float d = dcoef != nullptr ? dcoef[p] : 1.0f;
     const float b = bias != nullptr ? bias[ch] : -0.0f;
-    const long long off = p * plane + 2 * q0;
-    float v[2][V];
-    load<V>(x + off, v[0]);
-    load<V>(x + off + half, v[1]);
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int h = 0; h < 2; ++h) {
+      if (o[h] < 0) continue;
+      const long long off = p * win.len + o[h];
+      float v[V];
+      load<V>(x + off, v);
 #pragma unroll
-      for (int e = 0; e < V; ++e) v[h][e] = shgan::nba::apply(v[h][e], d, nz[h][e], b, act);
-    store<V>(y + off, v[0]);
-    store<V>(y + off + half, v[1]);
+      for (int e = 0; e < V; ++e) v[e] = shgan::nba::apply(v[e], d, nz[h][e], b, act);
+      store<V>(y + off, v);
+    }
   }
 }
 
 template <typename T, int CPT>
-void launch(const void* x, void* y, int n, int c, int res, const float* dcoef,
-            const float* bias, const float* strength, const float* noise_const, int mode,
-            uint32_t k0, uint32_t k1, long long row0, Act act, cudaStream_t stream) {
-  const Launch L = shgan::nba::plan(n, c, res, CPT, 0);
-  const long long plane = static_cast<long long>(res) * res;
+void launch(const void* x, void* y, int n, int c, const shgan::NoiseWindow& win,
+            const float* dcoef, const float* bias, const float* strength,
+            const float* noise_const, int mode, uint32_t k0, uint32_t k1, long long row0, Act act,
+            cudaStream_t stream) {
+  const long long calls = win.q1 - win.q0;
+  const Launch L = shgan::nba::plan_calls(n, c, calls, CPT, 0);
   const dim3 grid(static_cast<unsigned int>(L.tiles), static_cast<unsigned int>(n),
                   static_cast<unsigned int>(L.chunks));
   const dim3 block(L.bt, L.bc);
   noise_bias_act_kernel<T, CPT><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), c, plane, plane / 4, dcoef, bias,
-      strength, noise_const, mode, k0, k1, row0, act, L);
+      static_cast<const T*>(x), static_cast<T*>(y), c, win, calls, dcoef, bias, strength,
+      noise_const, mode, k0, k1, row0, act, L);
 }
 
 }  // namespace
 
-// x: contiguous [n, c, res, res] float32 (bf16 == 0) or bfloat16 (bf16 == 1)
-// on the current device; the result goes to y, of the same layout (y == x
-// updates x in place); res even, x and y 2-element aligned (and noise_const
-// 8-byte aligned).  dcoef float32 [n, c] or null (no
+// x: contiguous [n, c, rows, res] float32 (bf16 == 0) or bfloat16 (bf16 ==
+// 1) on the current device: rows [h0, h0 + rows) of each res x res plane
+// (h0 = 0, rows = res: the whole plane); the result goes to y, of the same
+// layout (y == x updates x in place); res even, x and y 2-element aligned
+// (and noise_const 8-byte aligned).  dcoef float32 [n, c] or null (no
 // demodulation); bias float32 [c] or null; mode 0 none, 1 random (Philox key
-// k0, k1), 2 const (noise_const float32 [res, res]); strength: a float32 on
-// the device, read for modes 1 and 2; row n of x draws the noise of counter
-// row row0 + n.  clamp +inf for none; alpha 1 for a linear activation.
-// Returns cudaGetLastError() after the launch.
+// k0, k1), 2 const (noise_const float32 [rows, res], the same rows of the
+// layer's plane); strength: a float32 on the device, read for modes 1 and 2;
+// row n of x draws the noise of counter row row0 + n.  clamp +inf for none;
+// alpha 1 for a linear activation.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int shgan_noise_bias_act(const void* x, void* y, int bf16, int n, int c, int res,
-                                    const float* dcoef, const float* bias,
+                                    int rows, int h0, const float* dcoef, const float* bias,
                                     const float* strength, const float* noise_const, int mode,
                                     unsigned int k0, unsigned int k1, long long row0,
                                     float alpha, float gain, float clamp, void* stream) {
-  if (n == 0 || c == 0) return static_cast<int>(cudaSuccess);
+  if (res < 2 || res % 2 || h0 < 0 || rows < 0 || h0 + rows > res)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || c == 0 || rows == 0) return static_cast<int>(cudaSuccess);
   const Act act{alpha, gain, clamp};
+  const shgan::NoiseWindow win = shgan::noise_window(res, h0, rows);
   const uintptr_t vec_bytes = bf16 ? 8 : 16;
   const bool vec = res % 4 == 0 && reinterpret_cast<uintptr_t>(x) % vec_bytes == 0 &&
                    reinterpret_cast<uintptr_t>(y) % vec_bytes == 0 &&
@@ -192,17 +202,17 @@ extern "C" int shgan_noise_bias_act(const void* x, void* y, int bf16, int n, int
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     if (vec) {
-      launch<uint16_t, 2>(x, y, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, row0,
+      launch<uint16_t, 2>(x, y, n, c, win, dcoef, bias, strength, noise_const, mode, k0, k1, row0,
                           act, s);
     } else {
-      launch<uint16_t, 1>(x, y, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, row0,
+      launch<uint16_t, 1>(x, y, n, c, win, dcoef, bias, strength, noise_const, mode, k0, k1, row0,
                           act, s);
     }
   } else if (vec) {
-    launch<float, 2>(x, y, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, row0, act,
+    launch<float, 2>(x, y, n, c, win, dcoef, bias, strength, noise_const, mode, k0, k1, row0, act,
                      s);
   } else {
-    launch<float, 1>(x, y, n, c, res, dcoef, bias, strength, noise_const, mode, k0, k1, row0, act,
+    launch<float, 1>(x, y, n, c, win, dcoef, bias, strength, noise_const, mode, k0, k1, row0, act,
                      s);
   }
   return static_cast<int>(cudaGetLastError());
@@ -245,7 +255,7 @@ using shgan::nba::GradLaunch;
 template <typename T, int CPT, bool MASK_ONLY>
 __global__ void __launch_bounds__(shgan::nba::kThreads)
     noise_bias_act_grad_kernel(const T* __restrict__ dy, const T* __restrict__ x,
-                               T* __restrict__ out, int c, long long plane, long long calls,
+                               T* __restrict__ out, int c, shgan::NoiseWindow win,
                                const float* __restrict__ dcoef, const float* __restrict__ bias,
                                const float* __restrict__ strength,
                                const float* __restrict__ noise_const, int mode, uint32_t k0,
@@ -263,9 +273,8 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
   const int kn = c - ch0 < G.group ? c - ch0 : G.group;  // channels of this group
   const long long p0 = static_cast<long long>(row) * c + ch0;  // its first plane
   const int t = threadIdx.x;
-  const long long half = plane / 2;
-  const long long qa = static_cast<long long>(blockIdx.y) * G.calls_per_block;
-  const long long qb = qa + G.calls_per_block < calls ? qa + G.calls_per_block : calls;
+  const long long qa = win.q0 + static_cast<long long>(blockIdx.y) * G.calls_per_block;
+  const long long qb = qa + G.calls_per_block < win.q1 ? qa + G.calls_per_block : win.q1;
   const bool has_d = dcoef != nullptr;
   const float s = mode != shgan::nba::kNoiseNone ? *strength : 0.0f;
   const bool has_vs = vs != nullptr;
@@ -280,6 +289,9 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
   __syncthreads();
   for (long long q = qa + static_cast<long long>(t) * CPT; q < qb;
        q += static_cast<long long>(blockDim.x) * CPT) {
+    // the window offsets of the thread's cos and sin runs (-1: not in it)
+    const long long o[2] = {shgan::noise_offset(win, 0, 2 * q),
+                            shgan::noise_offset(win, 1, 2 * q)};
     float nu[2][V];
     if (mode == shgan::nba::kNoiseRandom) {
 #pragma unroll
@@ -288,44 +300,45 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
                           &nu[0][2 * j], &nu[1][2 * j]);
       }
     } else if (mode == shgan::nba::kNoiseConst) {
-      load<V>(noise_const + 2 * q, nu[0]);
-      load<V>(noise_const + half + 2 * q, nu[1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (o[h] >= 0) load<V>(noise_const + o[h], nu[h]);
     } else {
 #pragma unroll
       for (int e = 0; e < V; ++e) nu[0][e] = nu[1][e] = 0.0f;
     }
 #pragma unroll 1
     for (int k = 0; k < kn; ++k) {
-      const long long off = (p0 + k) * plane + 2 * q;
+      const long long base = (p0 + k) * win.len;
       const float d = sd[k], b = sb[k];
-      float gv[2][V], xv[2][V], acc[3];
-      load<V>(dy + off, gv[0]);
-      load<V>(dy + off + half, gv[1]);
-      load<V>(x + off, xv[0]);
-      load<V>(x + off + half, xv[1]);
+      float acc[3];
       if (!MASK_ONLY) {
         acc[0] = sums[k][0][t];
         acc[1] = sums[k][1][t];
         acc[2] = sums[k][2][t];
       }
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < 2; ++h) {
+        if (o[h] < 0) continue;
+        float gv[V], xv[V];
+        load<V>(dy + base + o[h], gv);
+        load<V>(x + base + o[h], xv);
 #pragma unroll
         for (int e = 0; e < V; ++e) {
           const float nz = mode != shgan::nba::kNoiseNone ? shgan::nba::mul_rn(nu[h][e], s)
                                                           : -0.0f;
-          gv[h][e] = MASK_ONLY ? shgan::nba::mask_element(gv[h][e], vsv, has_vs, xv[h][e], d,
-                                                          nu[h][e], nz, b, act)
-                               : shgan::nba::grad_element(gv[h][e], xv[h][e], d, has_d,
-                                                          nu[h][e], nz, b, act, acc);
+          gv[e] = MASK_ONLY ? shgan::nba::mask_element(gv[e], vsv, has_vs, xv[e], d, nu[h][e],
+                                                       nz, b, act)
+                            : shgan::nba::grad_element(gv[e], xv[e], d, has_d, nu[h][e], nz, b,
+                                                       act, acc);
         }
+        store<V>(out + base + o[h], gv);
+      }
       if (!MASK_ONLY) {
         sums[k][0][t] = acc[0];
         sums[k][1][t] = acc[1];
         sums[k][2][t] = acc[2];
       }
-      store<V>(out + off, gv[0]);
-      store<V>(out + off + half, gv[1]);
     }
   }
   if (MASK_ONLY) return;
@@ -389,12 +402,12 @@ __global__ void grad_finish_sums(const float* __restrict__ pw, int n, int c,
 }
 
 template <typename T, int CPT>
-void launch_grad(const void* dy, const void* x, void* out, int n, int c, int res,
-                 const float* dcoef, const float* bias, const float* strength,
-                 const float* noise_const, int mode, uint32_t k0, uint32_t k1, long long row0,
-                 Act act, bool mask_only, const float* vs, float* work, cudaStream_t stream) {
-  const GradLaunch G = shgan::nba::grad_plan(n, c, res, CPT);
-  const long long plane = static_cast<long long>(res) * res;
+void launch_grad(const void* dy, const void* x, void* out, int n, int c,
+                 const shgan::NoiseWindow& win, const float* dcoef, const float* bias,
+                 const float* strength, const float* noise_const, int mode, uint32_t k0,
+                 uint32_t k1, long long row0, Act act, bool mask_only, const float* vs,
+                 float* work, cudaStream_t stream) {
+  const GradLaunch G = shgan::nba::grad_plan_calls(n, c, win.q1 - win.q0, CPT);
   const dim3 grid(static_cast<unsigned int>(static_cast<long long>(n) * G.groups),
                   static_cast<unsigned int>(G.chunks));
   const T* dyp = static_cast<const T*>(dy);
@@ -402,40 +415,49 @@ void launch_grad(const void* dy, const void* x, void* out, int n, int c, int res
   T* outp = static_cast<T*>(out);
   if (mask_only) {
     noise_bias_act_grad_kernel<T, CPT, true><<<grid, G.threads, 0, stream>>>(
-        dyp, xp, outp, c, plane, plane / 4, dcoef, bias, strength, noise_const, mode, k0, k1,
-        row0, act, vs, G, work);
+        dyp, xp, outp, c, win, dcoef, bias, strength, noise_const, mode, k0, k1, row0, act, vs,
+        G, work);
   } else {
     noise_bias_act_grad_kernel<T, CPT, false><<<grid, G.threads, 0, stream>>>(
-        dyp, xp, outp, c, plane, plane / 4, dcoef, bias, strength, noise_const, mode, k0, k1,
-        row0, act, vs, G, work);
+        dyp, xp, outp, c, win, dcoef, bias, strength, noise_const, mode, k0, k1, row0, act, vs,
+        G, work);
   }
 }
 
 }  // namespace
 
-// The epilogue's gradient at the conv output x [n, c, res, res] (the
-// forward's input), float32 (bf16 == 0) or bfloat16 (bf16 == 1), for the
-// forward's dcoef, bias, strength, noise_const, mode, key, row0 and
-// activation (as in shgan_noise_bias_act).  Full mode (mask_only == 0): dy is the cotangent
-// of y; writes out = dx, dd [n, c], db [c] and ds [1] (every pointer set; vs
-// unused).  Mask-only mode: dy is v; writes out = act'(pre) * (v + vs * nu)
-// (vs a float32 on the device, or null for none), nothing else.  dy, x and
-// out of x's type; dd, db, ds and work float32, work of grad_work_floats(n,
-// c, res) elements (full mode).  dy, x, out contiguous, res even, 8-byte
-// aligned (float32) or 4-byte aligned (bf16); 16-byte aligned pointers and res
-// % 4 == 0 take the vectorized path.  Returns cudaGetLastError()
-// after the launches.
+// The epilogue's gradient at the conv output x [n, c, rows, res] (the
+// forward's input: rows [h0, h0 + rows) of each res x res plane, h0 = 0 and
+// rows = res for the whole plane), float32 (bf16 == 0) or bfloat16 (bf16 ==
+// 1), for the forward's dcoef, bias, strength, noise_const, mode, key, row0
+// and activation (as in shgan_noise_bias_act).  Full mode (mask_only == 0):
+// dy is the cotangent of y; writes out = dx, dd [n, c], db [c] and ds [1]
+// (every pointer set; vs unused), the sums over the window's pixels.
+// Mask-only mode: dy is v; writes out = act'(pre) * (v + vs * nu) (vs a
+// float32 on the device, or null for none), nothing else.  dy, x and out of
+// x's type; dd, db, ds and work float32, work of grad_work_floats_calls(n,
+// c, q1 - q0 of the window) elements (full mode).  dy, x, out contiguous,
+// res even, 8-byte aligned (float32) or 4-byte aligned (bf16); 16-byte
+// aligned pointers and res % 4 == 0 (res % 8 == 0 for a bf16 window) take
+// the vectorized path.  Returns
+// cudaGetLastError() after the launches.
 extern "C" int shgan_noise_bias_act_grad(const void* dy, const void* x, void* out, int bf16,
-                                         int n, int c, int res, const float* dcoef,
-                                         const float* bias, const float* strength,
-                                         const float* noise_const, int mode, unsigned int k0,
-                                         unsigned int k1, long long row0, float alpha, float gain,
-                                         float clamp,
+                                         int n, int c, int res, int rows, int h0,
+                                         const float* dcoef, const float* bias,
+                                         const float* strength, const float* noise_const,
+                                         int mode, unsigned int k0, unsigned int k1,
+                                         long long row0, float alpha, float gain, float clamp,
                                          int mask_only, const float* vs, float* dd, float* db,
                                          float* ds, float* work, void* stream) {
+  if (res < 2 || res % 2 || h0 < 0 || rows < 1 || h0 + rows > res)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || c == 0) return static_cast<int>(cudaSuccess);
   const Act act{alpha, gain, clamp};
-  const bool vec = res % 4 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+  const shgan::NoiseWindow win = shgan::noise_window(res, h0, rows);
+  // a window's bounds are multiples of res: a thread's run of 8 bf16 pairs
+  // stays on one side of them when res % 8 == 0
+  const bool runs = bf16 == 0 || (h0 == 0 && rows == res) || res % 8 == 0;
+  const bool vec = res % 4 == 0 && runs && reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(noise_const) % 16 == 0;
@@ -443,22 +465,22 @@ extern "C" int shgan_noise_bias_act_grad(const void* dy, const void* x, void* ou
   const bool mo = mask_only != 0;
   if (bf16) {
     if (vec) {
-      launch_grad<uint16_t, 4>(dy, x, out, n, c, res, dcoef, bias, strength, noise_const, mode,
+      launch_grad<uint16_t, 4>(dy, x, out, n, c, win, dcoef, bias, strength, noise_const, mode,
                                k0, k1, row0, act, mo, vs, work, s);
     } else {
-      launch_grad<uint16_t, 1>(dy, x, out, n, c, res, dcoef, bias, strength, noise_const, mode,
+      launch_grad<uint16_t, 1>(dy, x, out, n, c, win, dcoef, bias, strength, noise_const, mode,
                                k0, k1, row0, act, mo, vs, work, s);
     }
   } else if (vec) {
-    launch_grad<float, 2>(dy, x, out, n, c, res, dcoef, bias, strength, noise_const, mode, k0,
+    launch_grad<float, 2>(dy, x, out, n, c, win, dcoef, bias, strength, noise_const, mode, k0,
                           k1, row0, act, mo, vs, work, s);
   } else {
-    launch_grad<float, 1>(dy, x, out, n, c, res, dcoef, bias, strength, noise_const, mode, k0,
+    launch_grad<float, 1>(dy, x, out, n, c, win, dcoef, bias, strength, noise_const, mode, k0,
                           k1, row0, act, mo, vs, work, s);
   }
   if (!mo) {
     const long long planes = static_cast<long long>(n) * c;
-    const int chunks = shgan::nba::grad_chunks(n, c, res);
+    const int chunks = shgan::nba::grad_chunks_calls(n, c, win.q1 - win.q0);
     float* pw = work + 3 * planes * chunks;
     const int threads = shgan::nba::kThreads;
     grad_finish_planes<<<static_cast<unsigned int>(shgan::nba::cdiv(planes, threads)), threads,

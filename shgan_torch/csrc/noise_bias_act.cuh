@@ -126,11 +126,13 @@ struct Launch {
 
 SHGAN_HD long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
 
+// A launch over `calls` Philox calls a plane (a whole res x res plane has
+// res * res / 4; a window of its rows, the calls of noise_window);
 // per_override > 0 forces the channels a thread walks (the harness's sweep).
-SHGAN_HD Launch plan(int n, int c, int res, int cpt, int per_override) {
+SHGAN_HD Launch plan_calls(int n, int c, long long calls, int cpt, int per_override) {
   Launch L;
   L.cpt = cpt;
-  const long long row_threads = static_cast<long long>(res) * res / 4 / cpt;
+  const long long row_threads = calls / cpt;
   L.bt = 1;
   while (L.bt < kThreads && L.bt < row_threads) L.bt *= 2;
   L.bc = kThreads / L.bt;
@@ -143,6 +145,10 @@ SHGAN_HD Launch plan(int n, int c, int res, int cpt, int per_override) {
   L.per = static_cast<int>(per);
   L.chunks = static_cast<int>(cdiv(steps, per));
   return L;
+}
+
+SHGAN_HD Launch plan(int n, int c, int res, int cpt, int per_override) {
+  return plan_calls(n, c, static_cast<long long>(res) * res / 4, cpt, per_override);
 }
 
 // The first Philox call of call thread tx in tile bx, or -1 past the row.
@@ -230,33 +236,33 @@ struct GradLaunch {
   long long calls_per_block;  // Philox calls a block covers, a multiple of max(cpt, 2)
 };
 
-SHGAN_HD long long grad_max_chunks(int res) {
-  const long long calls = static_cast<long long>(res) * res / 4;
+// The grad launch over `calls` Philox calls a plane (res * res / 4 for a
+// whole plane, a window's q1 - q0).
+SHGAN_HD long long grad_max_chunks_calls(long long calls) {
   const long long kmax = cdiv(calls, 2LL * kThreads);
   return kmax < 1 ? 1 : kmax;
 }
 
-SHGAN_HD int grad_group(int n, int c, int res) {
-  const long long kmax = grad_max_chunks(res);
+SHGAN_HD int grad_group_calls(int n, int c, long long calls) {
+  const long long kmax = grad_max_chunks_calls(calls);
   int g = kGradGroup;
   while (g > 1 && static_cast<long long>(n) * cdiv(c, g) * kmax < kGradTargetBlocks) g /= 2;
   return g;
 }
 
-SHGAN_HD int grad_chunks(int n, int c, int res) {
-  const long long blocks = static_cast<long long>(n) * cdiv(c, grad_group(n, c, res));
+SHGAN_HD int grad_chunks_calls(int n, int c, long long calls) {
+  const long long blocks = static_cast<long long>(n) * cdiv(c, grad_group_calls(n, c, calls));
   long long k = cdiv(kGradTargetBlocks, blocks);
-  const long long kmax = grad_max_chunks(res);
+  const long long kmax = grad_max_chunks_calls(calls);
   if (k > kmax) k = kmax;
   return k < 1 ? 1 : static_cast<int>(k);
 }
 
-SHGAN_HD GradLaunch grad_plan(int n, int c, int res, int cpt) {
+SHGAN_HD GradLaunch grad_plan_calls(int n, int c, long long calls, int cpt) {
   GradLaunch G;
-  G.group = grad_group(n, c, res);
+  G.group = grad_group_calls(n, c, calls);
   G.groups = static_cast<int>(cdiv(c, G.group));
-  G.chunks = grad_chunks(n, c, res);
-  const long long calls = static_cast<long long>(res) * res / 4;
+  G.chunks = grad_chunks_calls(n, c, calls);
   const long long mult = cpt > 2 ? cpt : 2;
   const long long cpb = cdiv(cdiv(calls, G.chunks), mult) * mult;
   G.calls_per_block = cpb;
@@ -267,9 +273,24 @@ SHGAN_HD GradLaunch grad_plan(int n, int c, int res, int cpt) {
 
 // Floats of the grad kernel's work buffer: the partials (3 x planes x
 // chunks) and the per-plane sums of db and ds (2 x planes).
-SHGAN_HD long long grad_work_floats(int n, int c, int res) {
+SHGAN_HD long long grad_work_floats_calls(int n, int c, long long calls) {
   const long long planes = static_cast<long long>(n) * c;
-  return 3 * planes * grad_chunks(n, c, res) + 2 * planes;
+  return 3 * planes * grad_chunks_calls(n, c, calls) + 2 * planes;
+}
+
+SHGAN_HD long long whole_plane_calls(int res) { return static_cast<long long>(res) * res / 4; }
+SHGAN_HD long long grad_max_chunks(int res) { return grad_max_chunks_calls(whole_plane_calls(res)); }
+SHGAN_HD int grad_group(int n, int c, int res) {
+  return grad_group_calls(n, c, whole_plane_calls(res));
+}
+SHGAN_HD int grad_chunks(int n, int c, int res) {
+  return grad_chunks_calls(n, c, whole_plane_calls(res));
+}
+SHGAN_HD GradLaunch grad_plan(int n, int c, int res, int cpt) {
+  return grad_plan_calls(n, c, whole_plane_calls(res), cpt);
+}
+SHGAN_HD long long grad_work_floats(int n, int c, int res) {
+  return grad_work_floats_calls(n, c, whole_plane_calls(res));
 }
 
 // One level of the block's fixed tree: s[t] += s[t + half] for t < half.

@@ -113,6 +113,51 @@ SHGAN_HD uint32_t noise_row(long long row0, long long n) {
   return static_cast<uint32_t>(row0 + n);
 }
 
+// A window of rows [h0, h0 + rows) of an R x R noise plane (a rank's slab of a
+// plane sharded along H): the plane's layout above, read through the window.
+// The window's flat offset o is the plane's flat index base + o.  It holds
+// the cos normals of the pairs [cos_lo, cos_hi) and the sin normals of the
+// pairs [sin_lo, sin_hi) (an empty range where it misses that half); the
+// Philox calls [q0, q1) cover both.  With R even every bound is a multiple
+// of R, so a run of 2k pairs starting at a multiple of 2k (k dividing R/2)
+// lies wholly inside or wholly outside each half's range.  The whole plane
+// (h0 = 0, rows = R) is calls [0, R*R/4), cos at p, sin at R*R/2 + p.
+struct NoiseWindow {
+  long long half;            // R * R / 2
+  long long base, len;       // the window's first flat index and its length
+  long long cos_lo, cos_hi;  // pairs whose cos normal lies in the window
+  long long sin_lo, sin_hi;  // pairs whose sin normal lies in the window
+  long long q0, q1;          // the Philox calls the window needs
+};
+
+SHGAN_HD NoiseWindow noise_window(int res, long long h0, long long rows) {
+  NoiseWindow w;
+  w.half = static_cast<long long>(res) * res / 2;
+  w.base = h0 * res;
+  w.len = rows * res;
+  const long long end = w.base + w.len;
+  w.cos_lo = w.base < w.half ? w.base : w.half;
+  w.cos_hi = end < w.half ? end : w.half;
+  w.sin_lo = (w.base > w.half ? w.base : w.half) - w.half;
+  w.sin_hi = end > w.half ? end - w.half : 0;
+  if (w.sin_hi < w.sin_lo) w.sin_hi = w.sin_lo;
+  const bool has_cos = w.cos_hi > w.cos_lo, has_sin = w.sin_hi > w.sin_lo;
+  const long long lo = has_cos ? (has_sin && w.sin_lo < w.cos_lo ? w.sin_lo : w.cos_lo)
+                               : w.sin_lo;
+  const long long hi = has_cos ? (has_sin && w.sin_hi > w.cos_hi ? w.sin_hi : w.cos_hi)
+                               : w.sin_hi;
+  w.q0 = lo / 2;
+  w.q1 = (hi + 1) / 2;
+  return w;
+}
+
+// The window offset of the cos (side 0) or sin (side 1) normal of pair p,
+// or -1 where the window does not hold it.
+SHGAN_HD long long noise_offset(const NoiseWindow& w, int side, long long p) {
+  if (side == 0) return p >= w.cos_lo && p < w.cos_hi ? p - w.base : -1;
+  return p >= w.sin_lo && p < w.sin_hi ? w.half + p - w.base : -1;
+}
+
 SHGAN_HD void noise_quad(uint32_t call, uint32_t row, uint32_t k0, uint32_t k1,
                          float* cos2, float* sin2) {
   U32x4 ctr;

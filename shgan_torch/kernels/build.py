@@ -35,15 +35,15 @@ _P, _I, _U, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlon
 _F = ctypes.c_float
 # C entry points: library name -> {symbol: argtypes}
 ENTRY_POINTS = {
-    "noise": {"shgan_philox_normal": (_P, _I, _I, _LL, _U, _U, _P)},
+    "noise": {"shgan_philox_normal": (_P,) + (_I,) * 4 + (_LL, _U, _U, _P)},
     "noise_bias_act": {
-        "shgan_noise_bias_act": (_P, _P) + (_I,) * 4 + (_P,) * 4
+        "shgan_noise_bias_act": (_P, _P) + (_I,) * 6 + (_P,) * 4
         + (_I, _U, _U, _LL, _F, _F, _F, _P),
-        "shgan_noise_bias_act_grad": (_P,) * 3 + (_I,) * 4 + (_P,) * 4
+        "shgan_noise_bias_act_grad": (_P,) * 3 + (_I,) * 6 + (_P,) * 4
         + (_I, _U, _U, _LL, _F, _F, _F, _I) + (_P,) * 6},
     "upfirdn2d": {"shgan_upfirdn2d": (_P, _P, _I, _LL) + (_I,) * 10
                   + (_P, _I, _I, _P)},
-    "conv3x3_lowch": {"shgan_conv3x3_lowch": (_P, _P, _P) + (_I,) * 6
+    "conv3x3_lowch": {"shgan_conv3x3_lowch": (_P, _P, _P) + (_I,) * 7
                       + (_P,)},
 }
 

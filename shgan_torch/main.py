@@ -7,7 +7,7 @@ the JAX package's ``main.py``::
         [--demo] [--gpu 0 [1 ...]] [--device cpu] [--evalnog_path GEN_DIR]
     python -m shgan_torch.main --experiment smoke_train [--trainonly] \\
         [--resume_path SNAPSHOT [--resume_itern KIMG]] [--device cpu] \\
-        [--signature TAG ...] [--dscache] [--port N]
+        [--signature TAG ...] [--dscache [X]] [--port N]
     python -m shgan_torch.main --resume_path RUN_DIR   # continue that run
 
 An experiment with a train section trains unless ``--eval ID`` or
@@ -97,8 +97,9 @@ def get_args(argv=None):
                         "(no generator in the loop)")
     p.add_argument("--signature", nargs="+", type=str, default=None,
                    help="suffixes of the run id")
-    p.add_argument("--dscache", action="store_true",
-                   help="keep the datasets' decoded elements in memory")
+    p.add_argument("--dscache", nargs="?", const=True, default=None,
+                   help="keep the datasets' decoded elements in memory "
+                        "(bare, or with a value as the JAX CLI takes it)")
     p.add_argument("--port", type=int, default=None,
                    help="the ranks' rendezvous port on 127.0.0.1 for --gpu "
                         "with several devices (default: a free port)")
@@ -352,7 +353,7 @@ def _main(args, device):
         pick=args.pick, demo=args.demo, gpu=args.gpu,
         trainonly=args.trainonly, resume_path=args.resume_path,
         resume_itern=args.resume_itern, evalnog_path=args.evalnog_path,
-        signature=args.signature, dscache=args.dscache)
+        signature=args.signature, dscache=args.dscache is not None)
     if (not args.debug and cfg["env"].get("code_snapshot", True)
             and multihost.is_lead()):
         section = "train" if cfg.get("train") is not None else "eval"

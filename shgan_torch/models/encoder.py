@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.minibatch_std import minibatch_std
+from ..parallel.spatial import constrain, level
 from .layers import Conv2dLayer, Dense
 from .mapping import Mapping
 
@@ -45,14 +46,21 @@ class EncoderBlock(nn.Module):
 
     def forward(self, x, img):
         """(x_downsampled, feat); feat is conv0's output, the synthesis
-        skip."""
+        skip.  Under spatial sharding a sharded level's ``x``, ``img`` and
+        ``feat`` are this rank's slabs, and so is the result where its level
+        is sharded (else it is gathered)."""
+        s = level((x if x is not None else img).shape[3])
         if x is not None:
             x = x.to(self.dtype)
         if self.fromrgb is not None:
-            y = self.fromrgb(img.to(self.dtype))
+            y = self.fromrgb(img.to(self.dtype), slab=s, src=s)
             x = x + y if x is not None else y
-        feat = self.conv0(x)
-        return self.conv1(feat), feat
+        feat = self.conv0(x, slab=s, src=s)
+        if s is None:
+            return self.conv1(feat), feat
+        out = s.scaled(s.H // 2)
+        x = self.conv1(feat, slab=out, src=s)
+        return (x if level(out.H) is not None else out.gather(x)), feat
 
 
 class EncoderEpilogue(nn.Module):
@@ -152,6 +160,7 @@ class Encoder(nn.Module):
         its rows, the minibatch stddev spans the batch."""
         x = None
         feats = {}
+        img = constrain(img)   # a slab where the top level is sharded
         for resi in self.encode_res[:-1]:
             x, feats[resi] = getattr(self, f"b{resi}")(x, img)
             img = None

@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.bias_act import get_activation, parse_activation
+from ..ops.bias_act import add_bias, get_activation, parse_activation
 from ..ops.conv_resample import conv2d_resample
 from ..ops.dense import dense_apply
 from ..ops.modulated_conv import modulated_conv2d
@@ -100,13 +100,16 @@ class Conv2dLayer(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(out_channels)) if bias
                      else None)
 
-    def forward(self, x, gain=1.0):
+    def forward(self, x, gain=1.0, slab=None, src=None):
+        """``slab`` / ``src``: the output rows this rank computes and what
+        ``x`` holds (:func:`~shgan_torch.ops.conv_resample.conv2d_resample`;
+        None: the whole plane)."""
         w = self.weight * self.weight_gain
         x = conv2d_resample(x, w.to(x.dtype), f=self.resample_filter,
                             up=self.up, down=self.down, padding=self.padding,
-                            flip_weight=(self.up == 1))
+                            flip_weight=(self.up == 1), slab=slab, src=src)
         if self.bias is not None:
-            x = x + self.bias.to(x.dtype)[None, :, None, None]
+            x = add_bias(x, self.bias, slab)
         if self.activation is not None:
             x = self.activation(x, gain=gain)
         elif gain != 1.0:
@@ -153,10 +156,12 @@ class SynthesisLayer(nn.Module):
             self.noise_strength = nn.Parameter(torch.zeros(()))
 
     def forward(self, x, w, gain=1.0, noise_mode="random", noise_seed=None,
-                row0=0, rows=None):
+                row0=0, rows=None, slab=None, src=None):
         """``row0``: the random noise's first counter row; ``rows``: this
         worker's rows of a global batch, whose style statistic the
-        modulated conv reads (None: the batch is whole)."""
+        modulated conv reads (None: the batch is whole); ``slab`` / ``src``:
+        the output rows this rank computes and what ``x`` holds (spatial
+        sharding; None: the whole plane)."""
         if noise_mode not in ("random", "const", "none"):
             raise ValueError(f"noise_mode {noise_mode!r}")
         mode = noise_mode if self.use_noise else "none"
@@ -167,7 +172,8 @@ class SynthesisLayer(nn.Module):
                                      padding=self.padding,
                                      resample_filter=self.resample_filter,
                                      flip_weight=(self.up == 1),
-                                     split_dcoefs=True, rows=rows)
+                                     split_dcoefs=True, rows=rows,
+                                     slab=slab, src=src)
         return noise_bias_act(
             x, dcoefs, self.bias, epilogue_act(self.activation, gain),
             noise_mode=mode,
@@ -175,7 +181,7 @@ class SynthesisLayer(nn.Module):
                        if mode == "random" else None),
             noise_const=self.noise_const if mode == "const" else None,
             strength=self.noise_strength if mode != "none" else None,
-            row0=row0)
+            row0=row0, slab=slab)
 
 
 class ToRGBLayer(nn.Module):
@@ -194,10 +200,13 @@ class ToRGBLayer(nn.Module):
         self.affine = Dense(w_dim, in_channels, bias=True, bias_init=1.0,
                             generator=generator)
 
-    def forward(self, x, w):
+    def forward(self, x, w, slab=None):
+        """``slab``: ``x`` is this rank's slab of the planes (spatial
+        sharding), and so is the result."""
         styles = self.affine(w) * self.weight_gain
-        x = modulated_conv2d(x, self.weight, styles, demodulate=False)
-        x = x + self.bias.to(x.dtype)[None, :, None, None]
+        x = modulated_conv2d(x, self.weight, styles, demodulate=False,
+                             slab=slab, src=slab)
+        x = add_bias(x, self.bias, slab)
         if self.activation is not None:
             x = self.activation(x)
         return x

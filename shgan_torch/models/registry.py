@@ -30,6 +30,16 @@ _ASSEMBLIES = {"stylegan2_generator": StyleGANGenerator,
                "comodgan_generator": CoModGANGenerator}
 
 
+def register(name):
+    """Decorator: register a module type under ``name`` for
+    :func:`get_model` (``shgan_tpu/models/registry.py:20-27``); it is built
+    as ``cls(**args, generator=...)``."""
+    def wrap(fn):
+        MODEL_REGISTRY[name] = fn
+        return fn
+    return wrap
+
+
 def _is_model_cfg(v):
     return isinstance(v, dict) and "type" in v
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.spatial import level
 from .encoder import Encoder
 from .shu import SHU
 
@@ -34,8 +35,15 @@ class ShganEncoder(Encoder):
         x, feats = super().forward(img, train=train, generator=generator,
                                    rows=rows)
         ch = self.shu_channels
-        hints = self.shu(feats[self.shu_input_res][:, -ch:])
+        # the SHU reads the whole plane's spectrum: a sharded level's
+        # channels are gathered, and each hint added to the slab's rows
+        src = feats[self.shu_input_res][:, -ch:]
+        s = level(self.shu_input_res)
+        hints = self.shu(src if s is None else s.gather(src))
         for res, hint in hints.items():
+            s = level(res)
+            if s is not None:
+                hint = s.take(hint)
             feat = feats[res]
             feats[res] = torch.cat(
                 [feat[:, :-ch], feat[:, -ch:] + hint.to(feat.dtype)], dim=1)

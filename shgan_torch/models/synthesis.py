@@ -19,6 +19,7 @@ import torch.nn as nn
 
 from ..data.rng import derive_seed
 from ..ops.upfirdn2d import setup_filter, upsample2d
+from ..parallel.spatial import level
 from .layers import Conv2dLayer, Dense, SynthesisLayer, ToRGBLayer, randn
 
 PLUR_SALT = 0x9E3779B9   # keys the pluralistic w0 noise off the noise seed
@@ -65,27 +66,36 @@ class StyleGANSynthesisBlock(nn.Module):
 
     def forward(self, x, img, ws, noise_mode="random", noise_seed=None,
                 row0=0, rows=None):
+        """Under spatial sharding a sharded level's ``x`` and ``img`` are
+        this rank's slabs (the input's level's layout in, this level's
+        out)."""
+        s = level(self.resolution)
+        src = level(self.resolution // 2)
         if self.has_const:
             x = self.const.to(self.dtype)[None].expand(
                 ws.shape[0], -1, -1, -1)
+            if s is not None:
+                x = s.take(x)
         else:
             x = x.to(self.dtype)
-        y = self.skip(x, gain=np.sqrt(0.5)) if self.skip is not None \
-            else None
+        y = self.skip(x, gain=np.sqrt(0.5), slab=s, src=src) \
+            if self.skip is not None else None
         w_idx = 0
         if self.conv0 is not None:
             x = self.conv0(x, ws[:, 0], noise_mode=noise_mode,
-                           noise_seed=noise_seed, row0=row0, rows=rows)
+                           noise_seed=noise_seed, row0=row0, rows=rows,
+                           slab=s, src=src)
             w_idx = 1
         x = self.conv1(x, ws[:, w_idx], gain=np.sqrt(0.5) if self.res_link
                        else 1.0, noise_mode=noise_mode,
-                       noise_seed=noise_seed, row0=row0, rows=rows)
+                       noise_seed=noise_seed, row0=row0, rows=rows, slab=s,
+                       src=s)
         if y is not None:
             x = y + x
         if img is not None:
-            img = upsample2d(img, self.resample_filter)
+            img = upsample2d(img, self.resample_filter, slab=s, src=src)
         if self.torgb is not None:
-            y = self.torgb(x, ws[:, w_idx + 1]).float()
+            y = self.torgb(x, ws[:, w_idx + 1], slab=s).float()
             img = img + y if img is not None else y
         return x, img
 
@@ -134,7 +144,8 @@ class StyleGANSynthesis(nn.Module):
             w_idx += block.num_conv
             x, img = block(x, img, cur_ws, noise_mode=noise_mode,
                            noise_seed=noise_seed, row0=row0, rows=rows)
-        return img
+        s = level(self.resolution)
+        return img if s is None else s.gather(img)
 
 
 class CoModSynthesisBlockFirst(nn.Module):
@@ -184,6 +195,7 @@ class CoModSynthesisBlock(nn.Module):
         if ic_n == 0:
             raise ValueError("CoModSynthesisBlock needs input channels")
         self.dtype = torch.bfloat16 if use_fp16 else torch.float32
+        self.resolution = resolution
         self.resample_filter = setup_filter(resample_filter)
         self.num_conv = 2
         g = generator
@@ -202,19 +214,23 @@ class CoModSynthesisBlock(nn.Module):
 
     def forward(self, x, x0, img, ws, w0, noise_mode="random",
                 noise_seed=None, row0=0, rows=None):
+        # under spatial sharding a sharded level's x, x0 and img are this
+        # rank's slabs (the input's level's layout in, this level's out)
+        s, src = level(self.resolution), level(self.resolution // 2)
         x = x.to(self.dtype)
         x0 = x0.to(self.dtype)
         x = self.conv0(x, torch.cat([ws[:, 0], w0], dim=1),
                        noise_mode=noise_mode, noise_seed=noise_seed,
-                       row0=row0, rows=rows)
+                       row0=row0, rows=rows, slab=s, src=src)
         x = x + x0
         x = self.conv1(x, torch.cat([ws[:, 1], w0], dim=1),
                        noise_mode=noise_mode, noise_seed=noise_seed,
-                       row0=row0, rows=rows)
+                       row0=row0, rows=rows, slab=s, src=s)
         if img is not None:
-            img = upsample2d(img, self.resample_filter)
+            img = upsample2d(img, self.resample_filter, slab=s, src=src)
         if self.torgb is not None:
-            y = self.torgb(x, torch.cat([ws[:, 2], w0], dim=1)).float()
+            y = self.torgb(x, torch.cat([ws[:, 2], w0], dim=1),
+                           slab=s).float()
             img = img + y if img is not None else y
         return x, img
 
@@ -282,7 +298,8 @@ class CoModSynthesis(nn.Module):
             x, img = getattr(self, f"b{res}")(
                 x, feats[res], img, cur_ws, w0, noise_mode=noise_mode,
                 noise_seed=noise_seed, row0=row0, rows=rows)
-        return img
+        s = level(self.resolution)
+        return img if s is None else s.gather(img)
 
 
 def plural_noise(w0, noise_mode, noise_seed, row0=0):

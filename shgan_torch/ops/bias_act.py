@@ -13,6 +13,8 @@ from functools import partial
 
 import torch
 
+from ..parallel.spatial import replicated
+
 
 def lrelu_agc_params(alpha=0.1, gain=1.0, clamp=None, extra_gain=1.0):
     """``(alpha, act_gain, act_clamp)``: the gain and the clamp scaled by
@@ -101,6 +103,13 @@ def get_activation(spec):
         return base(x, extra_gain=gain)
 
     return act
+
+
+def add_bias(x, b, slab=None):
+    """``x + b`` over the channels of NCHW ``x``, ``b`` in ``x``'s type;
+    where ``x`` is a slab (``slab``), ``b``'s gradient is summed over the
+    model group."""
+    return x + replicated(b, slab).to(x.dtype)[None, :, None, None]
 
 
 def fma(a, b, c):

@@ -13,6 +13,11 @@ on a CUDA device.
 CUDA tensor and runs :func:`conv3x3_lowch_plain`, the plain PyTorch version
 of the same function, on a CPU tensor.  K3 is forward-only, like the TPU
 kernel.
+
+On a slab of an H-sharded plane (``parallel/spatial.py``) the conv takes
+its input with a row of each neighbour's above and below (``halo=1``):
+eligibility is decided on the whole plane, so both packages route the same
+convs, and K3 pads only W.
 """
 
 from __future__ import annotations
@@ -60,13 +65,15 @@ def conv1024_eligible(x_shape, w_shape, stride, groups, padding):
             and h == wd and h >= MIN_RES and h % BH == 0)
 
 
-def conv3x3_lowch_plain(x, w):
+def conv3x3_lowch_plain(x, w, halo=0):
     """Plain PyTorch version of K3: Σ over the nine taps of a channel
     contraction with the shifted padded input, summed in float32, cast to
-    ``x.dtype``.  ``w`` is the [O, C, 3, 3] correlation kernel."""
+    ``x.dtype``.  ``w`` is the [O, C, 3, 3] correlation kernel; ``halo=1``:
+    ``x`` holds a row above and below the output's (padded in W only)."""
     n, c, h, wd = x.shape
+    h -= 2 * halo
     wf = w.to(x.dtype).float()
-    xp = F.pad(x.float(), (1, 1, 1, 1))
+    xp = F.pad(x.float(), (1, 1, 1 - halo, 1 - halo))
     y = None
     for dy in range(3):
         for dx in range(3):
@@ -76,7 +83,12 @@ def conv3x3_lowch_plain(x, w):
     return y.to(x.dtype)
 
 
-def _check(x, w):
+def _check(x, w, halo=0):
+    if halo not in (0, 1):
+        raise ValueError(f"conv3x3_lowch takes halo 0 or 1, got {halo}")
+    if halo and (x.ndim != 4 or x.shape[2] <= 2 or (x.shape[2] - 2) % BH):
+        raise ValueError(f"conv3x3_lowch on a slab needs {BH} | its rows, "
+                         f"got {tuple(x.shape)} with a halo of 1")
     if x.ndim != 4 or w.ndim != 4 or tuple(w.shape[2:]) != (3, 3):
         raise ValueError(f"conv3x3_lowch takes NCHW x and [O,C,3,3] w, got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -88,9 +100,9 @@ def _check(x, w):
                          f"and out, got {x.shape[1]} -> {w.shape[0]}")
 
 
-def conv3x3_lowch_cuda(x, w):
+def conv3x3_lowch_cuda(x, w, halo=0):
     """Launch kernel K3 (``csrc/conv3x3_lowch.cu``) on a CUDA tensor."""
-    _check(x, w)
+    _check(x, w, halo)
     if not x.is_cuda or w.device != x.device:
         raise ValueError("conv3x3_lowch_cuda needs x and w on one CUDA device")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -102,6 +114,7 @@ def conv3x3_lowch_cuda(x, w):
         raise RuntimeError("the conv3x3_lowch kernel is forward-only; run "
                            "under torch.inference_mode()")
     n, c, h, wd = x.shape
+    h -= 2 * halo
     o = w.shape[0]
     # the kernel reads float32 weights; rounding them to x.dtype first keeps
     # the JAX package's `w.astype(x.dtype)` (exact for float32)
@@ -109,20 +122,22 @@ def conv3x3_lowch_cuda(x, w):
     y = torch.empty((n, o, h, wd), dtype=x.dtype, device=x.device)
     rc = _kb.launch(_kb.library("conv3x3_lowch").shgan_conv3x3_lowch,
                     x.device, x.data_ptr(), wk.data_ptr(), y.data_ptr(),
-                    0 if x.dtype == torch.float32 else 1, n, c, o, h, wd)
+                    0 if x.dtype == torch.float32 else 1, n, c, o, h, wd,
+                    halo)
     _kb.check(rc, "conv3x3_lowch kernel")
     _kb.count("conv3x3_lowch")
     return y
 
 
-def conv3x3_lowch(x, w):
-    """3×3 same-padding correlation, NCHW, stride 1, C_in/C_out ≤ 32:
+def conv3x3_lowch(x, w, halo=0):
+    """3×3 same-padding correlation, NCHW, stride 1, C_in/C_out ≤ 32
+    (``halo=1``: ``x`` a slab with a row above and below, pad 1 in W only):
     kernel K3 on a CUDA tensor (or raise), the plain version on a CPU
     tensor."""
     if x.is_cuda:
-        return conv3x3_lowch_cuda(x, w)
+        return conv3x3_lowch_cuda(x, w, halo)
     if x.device.type != "cpu":
         raise ValueError(f"conv3x3_lowch runs on CUDA or the CPU, not "
                          f"{x.device}")
-    _check(x, w)
-    return conv3x3_lowch_plain(x, w)
+    _check(x, w, halo)
+    return conv3x3_lowch_plain(x, w, halo)

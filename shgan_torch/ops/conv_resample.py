@@ -17,8 +17,10 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
+from ..parallel.spatial import replicated
 from .conv1024 import conv1024_eligible, conv3x3_lowch
-from .upfirdn2d import upfirdn2d, _parse_padding, _get_filter_size
+from .upfirdn2d import (fir_rows, upfirdn2d, _parse_padding,
+                        _get_filter_size)
 
 
 def _maybe_flip(w, flip_weight):
@@ -56,7 +58,7 @@ def _conv2d_up(x, w, up, padding, groups=1, flip_weight=True):
 
 
 def conv2d_resample(x, w, f=None, up=1, down=1, padding=0, groups=1,
-                    flip_weight=True, flip_filter=False):
+                    flip_weight=True, flip_filter=False, slab=None, src=None):
     """2D convolution with optional up/downsampling; padding applies once,
     w.r.t. the upsampled image.
 
@@ -69,6 +71,12 @@ def conv2d_resample(x, w, f=None, up=1, down=1, padding=0, groups=1,
         groups: feature groups.
         flip_weight: False = convolution, True = correlation.
         flip_filter: same, for the FIR filter.
+        slab: the output rows this rank computes (a
+            :class:`~shgan_torch.parallel.spatial.Slab` of the output
+            plane), or None for the whole output.
+        src: with ``slab``, what ``x`` holds: a Slab of the input plane
+            (the rows beyond it come from the neighbours), or None for the
+            whole input plane.
     """
     if x.ndim != 4 or w.ndim != 4:
         raise ValueError("conv2d_resample takes NCHW x and OIHW w")
@@ -90,6 +98,10 @@ def conv2d_resample(x, w, f=None, up=1, down=1, padding=0, groups=1,
         px1 += (fw - down) // 2
         py0 += (fh - down + 1) // 2
         py1 += (fh - down) // 2
+    if slab is not None:
+        return _conv2d_resample_slab(x, w, f, up, down, (px0, px1, py0, py1),
+                                     groups, flip_weight, flip_filter, slab,
+                                     src)
 
     # 1x1 conv + downsample: downsample first (cheaper conv).
     if kw == 1 and kh == 1 and down > 1 and up == 1:
@@ -135,3 +147,55 @@ def conv2d_resample(x, w, f=None, up=1, down=1, padding=0, groups=1,
     # Signed (asymmetric or negative) padding: pad, then a valid conv.
     x = upfirdn2d(x, None, padding=[px0, px1, py0, py1])
     return _conv2d(x, w, groups=groups, flip_weight=flip_weight)
+
+
+def _conv2d_resample_slab(x, w, f, up, down, pads, groups, flip_weight,
+                          flip_filter, slab, src):
+    """:func:`conv2d_resample` for output rows ``[slab.h0, slab.h1)``: the
+    H padding becomes the rows of the plane beyond the slab (the halo, zeros
+    past the plane's edges), and each op runs valid in H.  The paths are
+    the unsharded one's: 1x1 without resampling, a stride-1 conv (K3 where
+    the whole plane is eligible), the down path (blur, strided conv) and
+    the up path (transposed conv, blur)."""
+    kh, kw = int(w.shape[2]), int(w.shape[3])
+    fh = _get_filter_size(f)[1]
+    px0, px1, py0, py1 = pads
+    o0, o1 = slab.h0, slab.h1
+    w = replicated(w, slab)
+    if up == 1 and down == 1:
+        if px0 != px1 or py0 != py1 or px0 < 0 or py0 < 0:
+            raise NotImplementedError("a slab conv takes symmetric "
+                                      "non-negative padding")
+        xr = slab.read(x, src, o0 - py0, o1 - py0 + kh - 1)
+        n, c, _, wd = xr.shape
+        if (py0, px0) == (1, 1) and conv1024_eligible(
+                (n, c, slab.H, wd), w.shape, 1, groups, (1, 1)):
+            return conv3x3_lowch(xr.contiguous(),
+                                 _maybe_flip(w, flip_weight), halo=1)
+        return _conv2d(xr, w, padding=(0, px0), groups=groups,
+                       flip_weight=flip_weight)
+    if down > 1 and up == 1 and kh > 1:
+        # blur rows [down*o0, down*(o1-1) + kh), then the strided conv
+        b0, b1 = down * o0, down * (o1 - 1) + kh
+        xb = fir_rows(x, src, slab, b0, b1, f, 1, 1, (px0, px1, py0, py1),
+                      flip_filter=flip_filter)
+        return _conv2d(xb, w, stride=down, groups=groups,
+                       flip_weight=flip_weight)
+    if up > 1 and down == 1 and kh > 1:
+        # transposed conv over the input rows the output rows read, then
+        # the blur with the H pads the slab's rows need
+        px0 -= kw - 1
+        px1 -= kw - up
+        py0 -= kh - 1
+        pxt = max(min(-px0, -px1), 0)
+        a = -(-(o0 - py0 - kh + 1) // up)
+        b = (o1 - 1 - py0 + fh - 1) // up + 1
+        xr = slab.read(x, src, a, b)
+        t = _conv2d_up(xr, w, up=up, padding=(0, pxt), groups=groups,
+                       flip_weight=flip_weight)
+        top = up * a + py0 - o0
+        bottom = (o1 - o0) - t.shape[2] - top + fh - 1
+        return upfirdn2d(t, f, padding=[px0 + pxt, px1 + pxt, top, bottom],
+                         gain=up ** 2, flip_filter=flip_filter)
+    raise NotImplementedError(f"conv2d_resample on a slab: {kh}x{kw} with "
+                              f"up {up}, down {down}")

@@ -19,12 +19,13 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.spatial import replicated
 from .conv_resample import conv2d_resample
 
 
 def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
                      resample_filter=None, demodulate=True, flip_weight=True,
-                     split_dcoefs=False, rows=None):
+                     split_dcoefs=False, rows=None, slab=None, src=None):
     """
     Args:
         x:       [N, I, H, W] input activations.
@@ -39,6 +40,10 @@ def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
             demodulation), for a caller that fuses them into its epilogue.
         rows:    this worker's :class:`~shgan_torch.parallel.Rows` of a
             global batch (the style mean's scope), or None.
+        slab, src: the output rows this rank computes and what ``x``
+            holds (:func:`~shgan_torch.ops.conv_resample.conv2d_resample`);
+            the styles, weight and dcoefs read by slab ops get their
+            gradients summed over the model group.
     """
     n = x.shape[0]
     i_ch = weight.shape[1]
@@ -56,18 +61,20 @@ def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
         wsq = weight.square().sum(dim=(2, 3))                    # [O, I]
         dcoefs = torch.rsqrt(styles.square() @ wsq.t() + 1e-8)  # [N, O]
 
-    x = x * styles.to(x.dtype)[:, :, None, None]
+    x = x * replicated(styles, src).to(x.dtype)[:, :, None, None]
     x = conv2d_resample(x, weight.to(x.dtype), f=resample_filter, up=up,
-                        down=down, padding=padding, flip_weight=flip_weight)
+                        down=down, padding=padding, flip_weight=flip_weight,
+                        slab=slab, src=src)
+    dcoefs_slab = replicated(dcoefs, slab)
     if split_dcoefs:
         if noise is not None:
             raise ValueError("split_dcoefs leaves the noise to the caller")
         return x, dcoefs
     if demodulate and noise is not None:
         return torch.addcmul(noise.to(x.dtype), x,
-                             dcoefs.to(x.dtype)[:, :, None, None])
+                             dcoefs_slab.to(x.dtype)[:, :, None, None])
     if demodulate:
-        return x * dcoefs.to(x.dtype)[:, :, None, None]
+        return x * dcoefs_slab.to(x.dtype)[:, :, None, None]
     if noise is not None:
         return x + noise.to(x.dtype)
     return x

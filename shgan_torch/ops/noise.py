@@ -9,7 +9,9 @@ counter is (call, row0 + row, 0, 0), where call c of row i yields the
 normals at flat plane indices 2c, 2c+1 (cos) and R²/2 + 2c, R²/2 + 2c + 1
 (sin).  Each element is a pure function of (key, row0 + row, index):
 ``row0`` places a batch's rows in a larger one (a rank's block of a global
-batch draws what those rows of the global batch draw).
+batch draws what those rows of the global batch draw), and a window of plane
+rows ``[h0, h0 + rows)`` (a rank's slab of an H-sharded plane) draws those
+rows of the whole plane.
 
 The streams differ from JAX's by design (so did the TPU kernel's, see
 ``shgan_tpu/ops/noise.py:17-20``): parity runs use ``noise_mode='const'``.
@@ -86,13 +88,41 @@ def _check_rows(row0, batch):
                          "32-bit counter")
 
 
-def philox_normal_plain(key, batch, res, device="cpu", row0=0):
-    """Plain PyTorch version of kernel K1: float32 ``[batch, res, res]``,
-    counter rows ``row0 ... row0 + batch - 1``."""
+def noise_window(res, h0=0, rows=None):
+    """The plane-row window ``[h0, h0 + rows)`` of an ``res x res`` plane
+    (``csrc/philox.cuh``: ``noise_window``): ``(base, half, (cos_lo,
+    cos_hi), (sin_lo, sin_hi), (q0, q1))`` -- the window's first flat
+    index, ``res * res / 2``, the pairs whose cos / sin normal it holds and
+    the Philox calls that cover them."""
+    rows = res if rows is None else rows
+    if res < 2 or res % 2 or h0 < 0 or rows < 1 or h0 + rows > res:
+        raise ValueError(f"noise window rows {h0}..{h0 + rows} of a "
+                         f"{res}x{res} plane (res even)")
+    half, base = res * res // 2, h0 * res
+    end = base + rows * res
+    cos = (min(base, half), min(end, half))
+    sin = (max(base, half) - half, max(end - half, max(base, half) - half))
+    spans = [r for r in (cos, sin) if r[1] > r[0]]
+    lo, hi = min(r[0] for r in spans), max(r[1] for r in spans)
+    return base, half, cos, sin, (lo // 2, (hi + 1) // 2)
+
+
+def philox_normal_plain(key, batch, res, device="cpu", row0=0, h0=0,
+                        rows=None):
+    """Plain PyTorch version of kernel K1: float32 ``[batch, rows, res]``,
+    rows ``[h0, h0 + rows)`` of each ``res x res`` plane (default: the
+    whole plane), counter rows ``row0 ... row0 + batch - 1``."""
     _check_rows(row0, batch)
-    calls = res * res // 4
+    base, half, cos, sin, (q0, q1) = noise_window(res, h0, rows)
+    rows = res if rows is None else rows
+    whole = rows == res
+    # a window draws its calls in runs of 64 so each call's float ops run
+    # in the same vector lanes as in the whole plane's draw (the CPU's
+    # vectorized log/sin/cos round as its scalar tail may not)
+    q1p = q1 if whole else q0 + -(-(q1 - q0) // 64) * 64
+    calls = q1p - q0
     dev = torch.device(device)
-    call = torch.arange(calls, dtype=torch.int64, device=dev)
+    call = torch.arange(q0, q1p, dtype=torch.int64, device=dev)
     row = torch.arange(row0, row0 + batch, dtype=torch.int64, device=dev)
     c0 = call[None].expand(batch, calls)
     c1 = row[:, None].expand(batch, calls)
@@ -101,41 +131,54 @@ def philox_normal_plain(key, batch, res, device="cpu", row0=0):
                                    int(key[1]) & _U32)
     cos0, sin0 = box_muller(o0, o1)
     cos1, sin1 = box_muller(o2, o3)
-    cos = torch.stack([cos0, cos1], dim=-1).reshape(batch, res * res // 2)
-    sin = torch.stack([sin0, sin1], dim=-1).reshape(batch, res * res // 2)
-    return torch.cat([cos, sin], dim=1).reshape(batch, res, res)
+    cosn = torch.stack([cos0, cos1], dim=-1).reshape(batch, 2 * calls)
+    sinn = torch.stack([sin0, sin1], dim=-1).reshape(batch, 2 * calls)
+    if whole:
+        return torch.cat([cosn, sinn], dim=1).reshape(batch, res, res)
+    out = torch.empty((batch, rows * res), dtype=torch.float32, device=dev)
+    for (lo, hi), normals, at in ((cos, cosn, 0), (sin, sinn, half)):
+        if hi > lo:
+            out[:, at + lo - base:at + hi - base] = \
+                normals[:, lo - 2 * q0:hi - 2 * q0]
+    return out.reshape(batch, rows, res)
 
 
-def philox_normal_cuda(key, batch, res, device, row0=0):
-    """Launch kernel K1 (``csrc/noise.cu``) on a CUDA device."""
+def philox_normal_cuda(key, batch, res, device, row0=0, h0=0, rows=None):
+    """Launch kernel K1 (``csrc/noise.cu``) on a CUDA device: rows ``[h0,
+    h0 + rows)`` of each plane (default the whole plane)."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError("philox_normal_cuda needs a CUDA device")
     _check_rows(row0, batch)
-    out = torch.empty((batch, res, res), dtype=torch.float32, device=dev)
+    noise_window(res, h0, rows)
+    rows = res if rows is None else rows
+    out = torch.empty((batch, rows, res), dtype=torch.float32, device=dev)
     rc = _kb.launch(_kb.library("noise").shgan_philox_normal, dev,
-                    out.data_ptr(), batch, res, int(row0),
+                    out.data_ptr(), batch, res, rows, h0, int(row0),
                     int(key[0]) & _U32, int(key[1]) & _U32)
     _kb.check(rc, "philox_normal kernel")
     _kb.count("philox_normal")
     return out
 
 
-def philox_normal(key, batch, res, device, row0=0):
-    """N(0,1) ``[batch, res, res]`` of counter rows ``row0...``: kernel K1
-    on a CUDA device, the plain version on the CPU."""
+def philox_normal(key, batch, res, device, row0=0, h0=0, rows=None):
+    """N(0,1) ``[batch, rows, res]`` (rows ``[h0, h0 + rows)`` of each
+    ``res x res`` plane, default all of them) of counter rows
+    ``row0...``: kernel K1 on a CUDA device, the plain version on the
+    CPU."""
     if res < 2 or res % 2:
         raise ValueError(f"noise resolution must be even, got {res}")
     kind = torch.device(device).type
     if kind == "cuda":
-        return philox_normal_cuda(key, batch, res, device, row0)
+        return philox_normal_cuda(key, batch, res, device, row0, h0, rows)
     if kind != "cpu":
         raise ValueError(f"noise runs on CUDA or the CPU, not {device}")
-    return philox_normal_plain(key, batch, res, device, row0)
+    return philox_normal_plain(key, batch, res, device, row0, h0, rows)
 
 
-def random_noise(seed, layer, batch, res, device, row0=0):
-    """N(0,1) noise ``[batch, 1, res, res]`` for synthesis layer ``layer``,
-    keyed by (``seed``, ``layer``), counter rows ``row0...``."""
+def random_noise(seed, layer, batch, res, device, row0=0, h0=0, rows=None):
+    """N(0,1) noise ``[batch, 1, rows, res]`` for synthesis layer ``layer``,
+    keyed by (``seed``, ``layer``), counter rows ``row0...``, plane rows
+    ``[h0, h0 + rows)`` (default the whole plane)."""
     return philox_normal(noise_key(seed, layer), batch, res, device,
-                         row0)[:, None]
+                         row0, h0, rows)[:, None]

@@ -10,7 +10,10 @@ where the noise is K1's Philox stream keyed by ``noise_key`` (``"random"``)
 at counter rows ``row0 ... row0 + N - 1`` (``row0`` places the batch in a
 larger one: a rank's block of a global batch draws what those rows of the
 global batch draw), the layer's ``noise_const`` plane (``"const"``) or
-nothing (``"none"``).
+nothing (``"none"``).  ``x`` may be a window of plane rows: ``[N, C, rows,
+R]`` holds rows ``[h0, h0 + rows)`` of R x R planes (a rank's slab of an
+H-sharded plane), whose noise is those rows of the whole plane's, bit for
+bit, and whose ``noise_const`` is those rows of the layer's plane.
 
 :func:`noise_bias_act_plain` is the chain the layers ran before the kernel
 existed, op for op: ``random_noise(...) * strength`` (or ``noise_const *
@@ -48,8 +51,9 @@ import math
 import torch
 
 from ..kernels import build as _kb
+from ..parallel.spatial import replicated
 from .bias_act import lrelu_agc, lrelu_agc_params
-from .noise import philox_normal_plain
+from .noise import noise_window, philox_normal_plain
 
 NOISE_MODES = {"none": 0, "random": 1, "const": 2}
 LINEAR = (None, 1.0, None)
@@ -69,10 +73,14 @@ def epilogue_act(parsed, gain=1.0):
     return lrelu_agc_params(**kwargs, extra_gain=gain)
 
 
-def _check(x, noise_mode, noise_key, noise_const, strength):
-    if x.ndim != 4 or x.shape[2] != x.shape[3]:
-        raise ValueError(f"noise_bias_act takes NCHW x with H == W, got "
-                         f"{tuple(x.shape)}")
+def _check(x, noise_mode, noise_key, noise_const, strength, h0=None):
+    whole = h0 is None and x.ndim == 4 and x.shape[2] == x.shape[3]
+    window = (h0 is not None and x.ndim == 4 and h0 >= 0
+              and h0 + x.shape[2] <= x.shape[3])
+    if not (whole or window):
+        raise ValueError(f"noise_bias_act takes NCHW x with H == W, or rows "
+                         f"[h0, h0 + H) of W x W planes, got "
+                         f"{tuple(x.shape)} at h0 = {h0}")
     if noise_mode not in NOISE_MODES:
         raise ValueError(f"noise_mode {noise_mode!r}")
     if noise_mode != "none" and strength is None:
@@ -85,14 +93,14 @@ def _check(x, noise_mode, noise_key, noise_const, strength):
 
 def noise_bias_act_plain(x, dcoefs=None, bias=None, act=LINEAR,
                          noise_mode="none", noise_key=None, noise_const=None,
-                         strength=None, row0=0):
+                         strength=None, row0=0, h0=None):
     """Plain PyTorch version: the layer's chain after the conv, op for op."""
-    _check(x, noise_mode, noise_key, noise_const, strength)
+    _check(x, noise_mode, noise_key, noise_const, strength, h0)
     noise = None
     if noise_mode == "random":
-        n, _, r, _ = x.shape
-        noise = philox_normal_plain(noise_key, n, r, x.device, row0)[:, None] \
-            * strength
+        n, _, rows, r = x.shape
+        noise = philox_normal_plain(noise_key, n, r, x.device, row0,
+                                    h0 or 0, rows)[:, None] * strength
     elif noise_mode == "const":
         noise = noise_const * strength
     if dcoefs is not None:
@@ -117,14 +125,14 @@ def _kernel_args(x, dcoefs, bias, noise_mode, noise_key, noise_const,
         raise ValueError(f"{what} needs a CUDA tensor")
     if not x.is_contiguous():
         raise ValueError(f"{what} needs a contiguous NCHW x")
-    n, c, r, _ = x.shape
+    n, c, rows, r = x.shape
     if r % 2 or x.data_ptr() % (2 * x.element_size()):
         raise ValueError(f"{what} needs an even resolution and a 2-element "
                          f"aligned x, got R={r}")
     mode = NOISE_MODES[noise_mode]
     aux = {"dcoefs": (dcoefs, (n, c)), "bias": (bias, (c,)),
            "strength": (strength if mode else None, ()),
-           "noise_const": (noise_const if mode == 2 else None, (r, r))}
+           "noise_const": (noise_const if mode == 2 else None, (rows, r))}
     for name, (t, shape) in aux.items():
         if t is None:
             continue
@@ -152,11 +160,11 @@ def _act_args(act):
 
 def noise_bias_act_cuda(x, dcoefs=None, bias=None, act=LINEAR,
                         noise_mode="none", noise_key=None, noise_const=None,
-                        strength=None, row0=0, out=None):
+                        strength=None, row0=0, out=None, h0=None):
     """Launch ``csrc/noise_bias_act.cu`` on a CUDA tensor: ``x`` is updated
     in place and returned, or the result goes to ``out`` (a tensor of x's
     shape and layout) and ``out`` is returned."""
-    _check(x, noise_mode, noise_key, noise_const, strength)
+    _check(x, noise_mode, noise_key, noise_const, strength, h0)
     if x.is_cuda and x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"noise_bias_act kernel takes float32/bfloat16, got "
                         f"{x.dtype}")
@@ -175,11 +183,11 @@ def noise_bias_act_cuda(x, dcoefs=None, bias=None, act=LINEAR,
                        or y.data_ptr() % (2 * y.element_size())):
         raise ValueError("noise_bias_act kernel: out must be a contiguous, "
                          "2-element aligned tensor like x")
-    n, c, r, _ = x.shape
+    n, c, rows, r = x.shape
     rc = _kb.launch(
         _kb.library("noise_bias_act").shgan_noise_bias_act, x.device,
         x.data_ptr(), y.data_ptr(), 0 if x.dtype == torch.float32 else 1, n,
-        c, r, *ptrs, *margs, *_act_args(act))
+        c, r, rows, h0 or 0, *ptrs, *margs, *_act_args(act))
     _kb.check(rc, "noise_bias_act kernel")
     _kb.count("noise_bias_act")
     return y
@@ -190,10 +198,12 @@ def noise_bias_act_cuda(x, dcoefs=None, bias=None, act=LINEAR,
 # ---------------------------------------------------------------------------
 
 
-def grad_work_floats(n, c, res):
-    """Floats of the grad kernel's work buffer (noise_bias_act.cuh:
-    grad_group, grad_chunks and grad_work_floats, the same rules)."""
-    kmax = max(-(-(res * res // 4) // 512), 1)
+def grad_work_floats(n, c, res, rows=None, h0=None):
+    """Floats of the grad kernel's work buffer over rows ``[h0, h0 +
+    rows)`` of res x res planes (noise_bias_act.cuh: grad_group_calls,
+    grad_chunks_calls and grad_work_floats_calls, the same rules)."""
+    q0, q1 = noise_window(res, h0 or 0, rows)[4]
+    kmax = max(-(-(q1 - q0) // 512), 1)
     group = 8
     while group > 1 and n * -(-c // group) * kmax < 1024:
         group //= 2
@@ -202,9 +212,9 @@ def grad_work_floats(n, c, res):
 
 
 def _grad_launch(v, x, dcoefs, bias, act, noise_mode, noise_key, noise_const,
-                 strength, mask_only, vs=None, row0=0):
+                 strength, mask_only, vs=None, row0=0, h0=None):
     what = "noise_bias_act_grad kernel"
-    _check(x, noise_mode, noise_key, noise_const, strength)
+    _check(x, noise_mode, noise_key, noise_const, strength, h0)
     if x.dtype not in (torch.float32, torch.bfloat16) or v.dtype != x.dtype:
         raise TypeError(f"{what} takes a float32 or bfloat16 x and a "
                         f"cotangent of its type, got {v.dtype} / {x.dtype}")
@@ -218,19 +228,19 @@ def _grad_launch(v, x, dcoefs, bias, act, noise_mode, noise_key, noise_const,
     if vs is not None and (vs.shape != () or vs.dtype != torch.float32
                            or vs.device != x.device):
         raise ValueError(f"{what}: vs must be a float32 scalar on {x.device}")
-    n, c, r, _ = x.shape
+    n, c, rows, r = x.shape
     out = torch.empty_like(x)
     f32 = dict(dtype=torch.float32, device=x.device)
     sums = (None, None, None, None) if mask_only else (
         torch.empty((n, c), **f32), torch.empty((c,), **f32),
         torch.empty((), **f32),
-        torch.empty((grad_work_floats(n, c, r),), **f32))
+        torch.empty((grad_work_floats(n, c, r, rows, h0 or 0),), **f32))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = _kb.launch(
         _kb.library("noise_bias_act").shgan_noise_bias_act_grad, x.device,
         v.data_ptr(), x.data_ptr(), out.data_ptr(),
-        0 if x.dtype == torch.float32 else 1, n, c, r, *ptrs, *margs,
-        *_act_args(act), int(mask_only), ptr(vs), *map(ptr, sums))
+        0 if x.dtype == torch.float32 else 1, n, c, r, rows, h0 or 0, *ptrs,
+        *margs, *_act_args(act), int(mask_only), ptr(vs), *map(ptr, sums))
     _kb.check(rc, what)
     _kb.count("noise_bias_act_grad")
     return out, sums[:3]
@@ -238,13 +248,15 @@ def _grad_launch(v, x, dcoefs, bias, act, noise_mode, noise_key, noise_const,
 
 def noise_bias_act_grad_cuda(dy, x, dcoefs=None, bias=None, act=LINEAR,
                              noise_mode="none", noise_key=None,
-                             noise_const=None, strength=None, row0=0):
+                             noise_const=None, strength=None, row0=0,
+                             h0=None):
     """The grad kernel's full mode: ``(dx, d dcoefs, d bias, d strength)``
     at the forward's input ``x`` for the cotangent ``dy``; None for an
-    operand the forward did not have."""
+    operand the forward did not have.  Over a window (``h0``), the sums
+    are the window's."""
     dx, (dd, db, ds) = _grad_launch(dy, x, dcoefs, bias, act, noise_mode,
                                     noise_key, noise_const, strength, False,
-                                    row0=row0)
+                                    row0=row0, h0=h0)
     return (dx, dd if dcoefs is not None else None,
             db if bias is not None else None,
             ds if noise_mode != "none" else None)
@@ -253,18 +265,20 @@ def noise_bias_act_grad_cuda(dy, x, dcoefs=None, bias=None, act=LINEAR,
 def noise_bias_act_mask_cuda(v, x, dcoefs=None, bias=None, act=LINEAR,
                              noise_mode="none", noise_key=None,
                              noise_const=None, strength=None, vs=None,
-                             row0=0):
+                             row0=0, h0=None):
     """The grad kernel's mask-only mode: ``act'(pre) * (v + vs * nu)``."""
     return _grad_launch(v, x, dcoefs, bias, act, noise_mode, noise_key,
-                        noise_const, strength, True, vs, row0=row0)[0]
+                        noise_const, strength, True, vs, row0=row0,
+                        h0=h0)[0]
 
 
-def _noise_plain(x, noise_mode, noise_key, noise_const, row0=0):
+def _noise_plain(x, noise_mode, noise_key, noise_const, row0=0, h0=None):
     """nu, the noise before the strength, broadcastable to x (None for
     'none')."""
     if noise_mode == "random":
-        n, _, r, _ = x.shape
-        return philox_normal_plain(noise_key, n, r, x.device, row0)[:, None]
+        n, _, rows, r = x.shape
+        return philox_normal_plain(noise_key, n, r, x.device, row0, h0 or 0,
+                                   rows)[:, None]
     if noise_mode == "const":
         return noise_const
     return None
@@ -273,20 +287,20 @@ def _noise_plain(x, noise_mode, noise_key, noise_const, row0=0):
 def noise_bias_act_mask_plain(v, x, dcoefs=None, bias=None, act=LINEAR,
                               noise_mode="none", noise_key=None,
                               noise_const=None, strength=None, vs=None,
-                              row0=0):
+                              row0=0, h0=None):
     """Plain version of the mask-only mode: ``act'(pre) * (v + vs * nu)``,
     in the order autograd of the plain chain takes it; a bf16 ``v`` and
     ``x`` are widened to float32 and the result rounded once to bf16."""
-    _check(x, noise_mode, noise_key, noise_const, strength)
+    _check(x, noise_mode, noise_key, noise_const, strength, h0)
     if x.dtype != torch.float32:
         return noise_bias_act_mask_plain(
             v.float(), x.float(), dcoefs, bias, act, noise_mode, noise_key,
-            noise_const, strength, vs, row0).to(x.dtype)
-    nu = _noise_plain(x, noise_mode, noise_key, noise_const, row0)
+            noise_const, strength, vs, row0, h0).to(x.dtype)
+    nu = _noise_plain(x, noise_mode, noise_key, noise_const, row0, h0)
     if vs is not None and nu is not None:
         v = v + vs * nu
     pre = noise_bias_act_plain(x, dcoefs, bias, LINEAR, noise_mode,
-                               noise_key, noise_const, strength, row0)
+                               noise_key, noise_const, strength, row0, h0)
     alpha, gain, clamp = act
     g = v * gain if gain != 1.0 else v
     if alpha is None:
@@ -302,19 +316,20 @@ def noise_bias_act_mask_plain(v, x, dcoefs=None, bias=None, act=LINEAR,
 
 def noise_bias_act_grad_plain(dy, x, dcoefs=None, bias=None, act=LINEAR,
                               noise_mode="none", noise_key=None,
-                              noise_const=None, strength=None, row0=0):
+                              noise_const=None, strength=None, row0=0,
+                              h0=None):
     """Plain version of the grad kernel's full mode; for a bf16 ``dy`` and
     ``x``, the float32 version on the widened pair with dx rounded once to
     bf16 (the sums stay float32)."""
     if x.dtype != torch.float32:
         dx, *sums = noise_bias_act_grad_plain(
             dy.float(), x.float(), dcoefs, bias, act, noise_mode, noise_key,
-            noise_const, strength, row0)
+            noise_const, strength, row0, h0)
         return (dx.to(x.dtype), *sums)
     g = noise_bias_act_mask_plain(dy, x, dcoefs, bias, act, noise_mode,
                                   noise_key, noise_const, strength,
-                                  row0=row0)
-    nu = _noise_plain(x, noise_mode, noise_key, noise_const, row0)
+                                  row0=row0, h0=h0)
+    nu = _noise_plain(x, noise_mode, noise_key, noise_const, row0, h0)
     dx = g * dcoefs[:, :, None, None] if dcoefs is not None else g
     return (dx,
             (g * x).sum((2, 3)) if dcoefs is not None else None,
@@ -338,10 +353,10 @@ class _Epilogue(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dcoefs, bias, strength, noise_const, spec):
-        act, noise_mode, noise_key, row0 = spec
+        act, noise_mode, noise_key, row0, h0 = spec
         kw = dict(dcoefs=dcoefs, bias=bias, act=act, noise_mode=noise_mode,
                   noise_key=noise_key, noise_const=noise_const,
-                  strength=strength, row0=row0)
+                  strength=strength, row0=row0, h0=h0)
         if x.is_cuda:
             y = noise_bias_act_cuda(x, out=torch.empty_like(x), **kw)
         else:
@@ -366,23 +381,23 @@ class _EpilogueGrad(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, dy, x, dcoefs, bias, strength, noise_const, spec):
-        act, noise_mode, noise_key, row0 = spec
+        act, noise_mode, noise_key, row0, h0 = spec
         fn = _on(dy, noise_bias_act_grad_cuda, noise_bias_act_grad_plain)
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(dy, x, dcoefs, bias, strength, noise_const)
         ctx.spec = spec
         return fn(dy, x, dcoefs, bias, act, noise_mode, noise_key,
-                  noise_const, strength, row0)
+                  noise_const, strength, row0, h0)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gdx, gdd, gdb, gds):
         dy, x, dcoefs, bias, strength, noise_const = ctx.saved_tensors
-        act, noise_mode, noise_key, row0 = ctx.spec
+        act, noise_mode, noise_key, row0, h0 = ctx.spec
         mask = _on(dy, noise_bias_act_mask_cuda, noise_bias_act_mask_plain)
         kw = dict(dcoefs=dcoefs, bias=bias, act=act, noise_mode=noise_mode,
                   noise_key=noise_key, noise_const=noise_const,
-                  strength=strength, row0=row0)
+                  strength=strength, row0=row0, h0=h0)
         # d/d dy = act'(pre) * v, v = gdx * dcoefs + gdd * x + gdb + gds * nu
         v = None
         if gdx is not None:
@@ -413,22 +428,34 @@ class _EpilogueGrad(torch.autograd.Function):
 
 
 def noise_bias_act(x, dcoefs=None, bias=None, act=LINEAR, noise_mode="none",
-                   noise_key=None, noise_const=None, strength=None, row0=0):
+                   noise_key=None, noise_const=None, strength=None, row0=0,
+                   h0=None, slab=None):
     """The synthesis epilogue: the kernel on a CUDA tensor (``x`` updated in
     place) or raise, the plain version on a CPU tensor.  Where grad mode is
     on and an operand needs a gradient, the result is a new tensor with a
     gradient (:class:`_Epilogue`, the grad kernel on the card).  ``row0``:
-    the random noise's first counter row."""
+    the random noise's first counter row; ``h0``: the first plane row that
+    ``x`` holds (a window of rows, ``noise_const`` those rows).  ``slab``:
+    ``x`` is this :class:`~shgan_torch.parallel.spatial.Slab` of the
+    layer's planes: the window is its rows, ``noise_const`` (the layer's
+    whole plane) is cut to them, and the dcoefs, bias and strength get
+    their gradients summed over the model group."""
+    if slab is not None:
+        h0 = slab.h0
+        if noise_const is not None:
+            noise_const = noise_const[slab.h0:slab.h1]
+        dcoefs, bias, strength = (replicated(t, slab)
+                                  for t in (dcoefs, bias, strength))
     kw = dict(dcoefs=dcoefs, bias=bias, act=act, noise_mode=noise_mode,
               noise_key=noise_key, noise_const=noise_const,
-              strength=strength, row0=row0)
+              strength=strength, row0=row0, h0=h0)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, dcoefs, bias, strength, noise_const)):
-        _check(x, noise_mode, noise_key, noise_const, strength)
+        _check(x, noise_mode, noise_key, noise_const, strength, h0)
         used = lambda t, on: t if on else None  # noqa: E731
         return _Epilogue.apply(
             x, dcoefs, bias, used(strength, noise_mode != "none"),
             used(noise_const, noise_mode == "const"),
-            (act, noise_mode, noise_key, row0))
+            (act, noise_mode, noise_key, row0, h0))
     return _on(x, noise_bias_act_cuda, noise_bias_act_plain)(x, **kw)

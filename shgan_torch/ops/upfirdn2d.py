@@ -251,6 +251,29 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
     return fir(x.contiguous(), taps, up, down, pads)
 
 
+def fir_rows(x, src, slab, o0, o1, f, up=1, down=1, padding=0,
+             flip_filter=False, gain=1):
+    """Output rows ``[o0, o1)`` of ``upfirdn2d(plane, f, up, down, padding,
+    ...)``, where ``x`` holds rows of the plane: ``src`` is its
+    :class:`~shgan_torch.parallel.spatial.Slab` (the rows beyond it come
+    from the neighbours) or None (the whole plane); ``slab`` reads them (its
+    mesh).  The H pads become the plane's rows beyond ``x``'s (zeros past
+    its edges) and a crop, so K2 runs on the rows alone, on the route the
+    whole plane's call takes."""
+    upx, upy = _parse_scaling(up)
+    downx, downy = _parse_scaling(down)
+    px0, px1, py0, py1 = _parse_padding(padding)
+    fh = _get_filter_size(f)[1]
+    a = -(-(downy * o0 - py0) // upy)
+    b = (downy * (o1 - 1) - py0 + fh - 1) // upy + 1
+    xr = slab.read(x, src, a, b)
+    top = upy * a + py0 - downy * o0
+    bottom = (o1 - o0 - 1) * downy + fh - upy * (b - a) - top
+    return upfirdn2d(xr, f, up=up, down=down,
+                     padding=[px0, px1, top, bottom],
+                     flip_filter=flip_filter, gain=gain)
+
+
 # ---------------------------------------------------------------------------
 # convenience wrappers (padding algebra of shgan_tpu/ops/upfirdn2d.py:300-339)
 # ---------------------------------------------------------------------------
@@ -265,13 +288,19 @@ def filter2d(x, f, padding=0, flip_filter=False, gain=1):
     return upfirdn2d(x, f, padding=p, flip_filter=flip_filter, gain=gain)
 
 
-def upsample2d(x, f, up=2, padding=0, flip_filter=False, gain=1):
-    """Upsample by ``up`` with FIR smoothing."""
+def upsample2d(x, f, up=2, padding=0, flip_filter=False, gain=1,
+               slab=None, src=None):
+    """Upsample by ``up`` with FIR smoothing; with ``slab`` (a Slab of the
+    output plane), its rows alone from ``x`` holding ``src`` (see
+    :func:`fir_rows`)."""
     upx, upy = _parse_scaling(up)
     padx0, padx1, pady0, pady1 = _parse_padding(padding)
     fw, fh = _get_filter_size(f)
     p = [padx0 + (fw + upx - 1) // 2, padx1 + (fw - upx) // 2,
          pady0 + (fh + upy - 1) // 2, pady1 + (fh - upy) // 2]
+    if slab is not None:
+        return fir_rows(x, src, slab, slab.h0, slab.h1, f, up=up, padding=p,
+                        flip_filter=flip_filter, gain=gain * upx * upy)
     return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter,
                      gain=gain * upx * upy)
 

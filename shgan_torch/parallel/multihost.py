@@ -151,6 +151,15 @@ def device_group(asked=None):
     return "nccl", _STATE["groups"]["nccl"]
 
 
+def subgroup(backend, ranks):
+    """The ``backend`` process group over ``ranks`` (made once; every rank
+    must ask for every subgroup, in the same order)."""
+    key = (backend, tuple(ranks))
+    if key not in _STATE["groups"]:
+        _STATE["groups"][key] = dist.new_group(list(ranks), backend=backend)
+    return _STATE["groups"][key]
+
+
 def barrier():
     """All ranks meet (the default gloo group); nothing without a group."""
     if dist.is_initialized():

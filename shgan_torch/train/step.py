@@ -147,9 +147,11 @@ class TrainStep:
     optimizer a step, so it is both optimizers' update count: update
     ``step`` runs at ``opt.lr_at(step)``, and a resumed state carries it.
     ``timing=True`` fences each phase with a synchronize and records its
-    seconds in ``phase_s``.  ``mesh``: the data-parallel ranks (None: one
-    device); the step then takes this rank's rows and the draws ``given``
-    hold the global batch's."""
+    seconds in ``phase_s``.  ``mesh``: the ranks (None: one device); the
+    step then takes this rank's rows of its data group and the draws
+    ``given`` hold the global batch's.  With a model axis, G's sharded
+    levels run on slabs where :func:`~shgan_torch.parallel.spatial_sharding`
+    is active around the step."""
 
     PHASES = ("Gmain", "Gpl", "Dmain", "R1", "opt_ema")
 
@@ -208,7 +210,7 @@ class TrainStep:
             raise ValueError(f"batch {n} is not a multiple of grad_accum {A}")
         nm = n // A
         # the global rows of a round, and this rank's of them
-        nmg = nm * (mesh.world if mesh is not None else 1)
+        nmg = nm * (mesh.data if mesh is not None else 1)
         rows = mesh.rows(nmg) if mesh is not None else None
         dev = real.device
         zs = (G.z_dim,)
@@ -254,6 +256,9 @@ class TrainStep:
                 pl_lens.append(pl_len)
                 pl_was.append(pl_wa)
                 t = self._mark("Gpl", t)
+        if mesh is not None:
+            # one path-length mean on the ranks of a model group
+            pl_mean = mesh.model_mean(pl_mean)
         with record_function("opt_ema"):
             if mesh is not None:
                 mesh.average_grads(freeze_buffers(G))

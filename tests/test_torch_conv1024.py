@@ -58,7 +58,8 @@ def test_routing_matches_jax(flip_weight, monkeypatch):
     calls = []
     plain = t24.conv3x3_lowch_plain
     monkeypatch.setattr(t24, "conv3x3_lowch_plain",
-                        lambda a, b: calls.append(a.shape) or plain(a, b))
+                        lambda a, b, halo=0: calls.append(a.shape)
+                        or plain(a, b, halo))
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jcr.conv2d_resample(
             jnp.asarray(x), jnp.asarray(wt), padding=1,

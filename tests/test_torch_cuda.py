@@ -543,9 +543,9 @@ def test_noise_bias_act_grad_kernel_bf16_matches_plain(cuda, mode, res, c):
     kw = dict(dcoefs=dcoefs, bias=bias, act=act, noise_mode=mode,
               noise_key=key, noise_const=const, strength=strength)
     orig = nba.philox_normal_plain
-    nba.philox_normal_plain = (lambda k, b, r, device="cpu", row0=0:
-                               noise.philox_normal_cuda(k, b, r, device,
-                                                        row0))
+    nba.philox_normal_plain = (lambda k, b, r, device="cpu", row0=0, h0=0,
+                               rows=None: noise.philox_normal_cuda(
+                                   k, b, r, device, row0, h0, rows))
     try:
         build.reset_launches()
         got = nba.noise_bias_act_grad_cuda(dy, x, **kw)
@@ -753,3 +753,62 @@ def test_kernels_at_a_row_offset_draw_the_larger_batchs_rows(cuda, dtype):
     tol = 1e-3 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(y_part.float(), plain.float(), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.parametrize("res,m", [(16, 2), (64, 4), (128, 8)])
+def test_noise_kernels_on_a_window_draw_the_planes_rows(cuda, res, m):
+    """K1 alone, the fused epilogue and its grad kernel (both modes) on
+    each rank's window of plane rows (spatial sharding): those rows of the
+    whole-plane launch bit for bit, float32 and bf16."""
+    key = noise.noise_key(6, 2 * res)
+    whole = noise.philox_normal_cuda(key, 2, res, cuda, row0=3)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    act = nba.epilogue_act(parse_activation(
+        "lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)"))
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((2, 8, res, res), generator=gen, device=cuda)
+        dy = torch.randn((2, 8, res, res), generator=gen, device=cuda)
+        x, dy = x.to(dtype), dy.to(dtype)
+        kw = dict(dcoefs=torch.rand((2, 8), generator=gen, device=cuda),
+                  bias=torch.randn((8,), generator=gen, device=cuda),
+                  act=act, noise_mode="random", noise_key=key,
+                  strength=torch.full((), 0.2, device=cuda), row0=3)
+        y = nba.noise_bias_act_cuda(x, out=torch.empty_like(x), **kw)
+        dx = nba.noise_bias_act_grad_cuda(dy, x, **kw)[0]
+        mk = nba.noise_bias_act_mask_cuda(dy, x, **kw)
+        r = res // m
+        for h0 in range(0, res, r):
+            rows = slice(h0, h0 + r)
+            assert torch.equal(noise.philox_normal_cuda(
+                key, 2, res, cuda, row0=3, h0=h0, rows=r), whole[:, rows])
+            xs, dys = x[:, :, rows].contiguous(), dy[:, :, rows].contiguous()
+            assert torch.equal(nba.noise_bias_act_cuda(
+                xs, out=torch.empty_like(xs), h0=h0, **kw), y[:, :, rows])
+            assert torch.equal(nba.noise_bias_act_grad_cuda(
+                dys, xs, h0=h0, **kw)[0], dx[:, :, rows])
+            assert torch.equal(nba.noise_bias_act_mask_cuda(
+                dys, xs, h0=h0, **kw), mk[:, :, rows])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_on_a_halod_slab_is_the_planes_rows(cuda, dtype):
+    """K3 on a slab with a row of halo above and below: those rows of the
+    whole-plane launch, and its plain version's on the slab."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((1, 16, 128, 96), generator=gen, device=cuda).to(dtype)
+    w = torch.randn((16, 16, 3, 3), generator=gen, device=cuda) / 12
+    whole = conv1024.conv3x3_lowch(x, w)
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1))
+    for h0 in range(0, 128, 32):
+        xs = xp[:, :, h0:h0 + 34].contiguous()
+        got = conv1024.conv3x3_lowch(xs, w, halo=1)
+        torch.testing.assert_close(got, whole[:, :, h0:h0 + 32], rtol=0,
+                                   atol=1e-4)
+        want = conv1024.conv3x3_lowch_plain(xs, w, halo=1).float()
+        err = (got.float() - want).abs()
+        if dtype == torch.bfloat16:   # one bf16 ulp of the plain version
+            tol = 2.0 ** (torch.floor(torch.log2(
+                want.abs().clamp_min(1e-30))) - 7) + 1e-6
+        else:
+            tol = torch.full_like(want, 1e-4)
+        assert bool((err <= tol).all()), float(err.max())

@@ -768,6 +768,34 @@ int main() {
           base[half] = sn[0]; base[half + 1] = sn[1];
         }
       for (float v : out) std::printf("%.9g\n", v);
+    } else if (c == "noisewin") {
+      // noisewin k0 k1 batch res h0 rows: K1's launch over the window of
+      // plane rows [h0, h0 + rows) (noise.cu's thread loop); prints the
+      // elements not written exactly once, then the window's normals
+      unsigned k0, k1;
+      int batch, res, h0, rows;
+      std::scanf("%u %u %d %d %d %d", &k0, &k1, &batch, &res, &h0, &rows);
+      const shgan::NoiseWindow win = shgan::noise_window(res, h0, rows);
+      std::vector<float> out(batch * win.len);
+      std::vector<int> writes(batch * win.len, 0);
+      for (int row = 0; row < batch; ++row)
+        for (long long call = win.q0; call < win.q1; ++call) {
+          float cs[2], sn[2];
+          shgan::noise_quad((unsigned)call, shgan::noise_row(0, row), k0, k1, cs, sn);
+          const float* side[2] = {cs, sn};
+          for (int h = 0; h < 2; ++h) {
+            const long long o = shgan::noise_offset(win, h, 2 * call);
+            if (o < 0) continue;
+            for (int e = 0; e < 2; ++e) {
+              out[row * win.len + o + e] = side[h][e];
+              writes[row * win.len + o + e] += 1;
+            }
+          }
+        }
+      long bad = 0;
+      for (int w : writes) bad += w != 1;
+      std::printf("%ld\n", bad);
+      for (float v : out) std::printf("%.9g\n", v);
     } else if (c == "conv3") {
       conv3();
     } else if (c == "tf32dot") {
@@ -1689,3 +1717,26 @@ def test_noise_bias_act_row_offset_emulation(harness):
         noise_key=key, strength=torch.tensor(np.float32(0.3)), row0=3)
     np.testing.assert_allclose(outs[3], want.numpy(), rtol=2.5e-7, atol=1e-5)
     assert not np.array_equal(outs[3], outs[0])
+
+
+@pytest.mark.parametrize("res,h0,rows", [
+    (8, 0, 8), (16, 0, 8), (16, 8, 8), (16, 4, 4), (16, 12, 4), (32, 8, 8),
+    (16, 6, 4), (8, 2, 6), (64, 48, 16)])
+def test_noise_window_index_map_draws_the_planes_rows(harness, res, h0,
+                                                      rows):
+    """K1 over a window of plane rows (philox.cuh: noise_window,
+    noise_offset), as its thread loop takes it: every element of the window
+    written once, with the bits of the whole plane's draw (the ``noise``
+    command) in those rows; and the plain version's window (libm vs torch
+    rounding).  The windows cover each half alone, both halves, a window
+    across the middle and the whole plane."""
+    key = noise.noise_key(31, 2 * res)
+    got = harness(f"noisewin {key[0]} {key[1]} 2 {res} {h0} {rows}")
+    assert int(got[0]) == 0
+    got = np.array(got[1:], np.float32).reshape(2, rows, res)
+    whole = np.array(harness(f"noise {key[0]} {key[1]} 2 {res}"),
+                     np.float32).reshape(2, res, res)
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  whole[:, h0:h0 + rows].view(np.uint32))
+    want = noise.philox_normal_plain(key, 2, res, h0=h0, rows=rows).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

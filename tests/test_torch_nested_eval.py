@@ -286,8 +286,8 @@ def test_logmine_matches_jax_on_a_port_run(tmp_path):
 
 def test_cli_signature_dscache_port_and_code_snapshot(tmp_path,
                                                       monkeypatch):
-    """``--signature a b`` suffixes the run id, ``--dscache`` caches both
-    sections' datasets, ``--port`` is accepted; outside ``--debug`` the log
+    """``--signature a b`` suffixes the run id, ``--dscache`` (bare or with
+    a value) caches both sections' datasets, ``--port`` is accepted; outside ``--debug`` the log
     dir gets ``code/shgan_torch`` and ``code/configs``, and
     ``env.code_snapshot: false`` (smoke_train's) or ``--debug`` skip it.
     The stage itself is not run here."""
@@ -302,6 +302,11 @@ def test_cli_signature_dscache_port_and_code_snapshot(tmp_path,
     assert osp.basename(osp.dirname(log_dir)).endswith("_a_b")
     assert cfg["train"]["dataset"]["cache"] is True
     assert cfg["eval"]["dataset"]["cache"] is True
+    # the JAX CLI's form (main.py:44, type=str): --dscache with a value
+    tmain.main(["--experiment", "shgan_ffhq256_train", "--debug",
+                "--dscache", "1", "--device", "cpu"])
+    assert seen[-1]["train"]["dataset"]["cache"] is True
+    assert seen[-1]["eval"]["dataset"]["cache"] is True
     code = osp.join(log_dir, "code")
     assert sorted(os.listdir(code)) == ["configs", "shgan_torch"]
     assert osp.isfile(osp.join(code, "shgan_torch", "train",

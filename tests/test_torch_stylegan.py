@@ -288,8 +288,10 @@ def test_unconditional_g_main_loss_matches_jax(monkeypatch):
                         lambda rng, batch, res, dtype=jnp.float32:
                         jnp.asarray(_noise_plane(res, batch), dtype))
     monkeypatch.setattr(nba, "philox_normal_plain",
-                        lambda key, batch, res, device="cpu", row0=0:
-                        torch.from_numpy(_noise_plane(res, batch)[:, 0]))
+                        lambda key, batch, res, device="cpu", row0=0, h0=0,
+                        rows=None: torch.from_numpy(
+                            _noise_plane(res, batch)[:, 0, h0:h0 + (
+                                res if rows is None else rows)]))
     z = np.random.RandomState(16).randn(n, 32).astype(np.float32)
     key = jax.random.key(17)
     # JAX's own mixing draws (shgan_tpu/train/loss.py:156-163)
