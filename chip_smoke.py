@@ -68,8 +68,10 @@ Phases, each printing one JSON line:
    losses, moved weights, ``pl_mean > 0``;
    the final snapshot reloaded and one step from it equal to the same step
    from memory (cuDNN deterministic); one Gmain + Dmain + R1 gradient at
-   batch 2 on the card and on the CPU, TF32 off, each leaf within 1e-3 of
-   its norm;
+   batch 2 on the card (cuDNN deterministic) and on the CPU, TF32 off,
+   each leaf within 1e-3 of its norm (the noise strengths' and the SHU's
+   within 1e-2), beside the same gradient under cuDNN's default and
+   autotuned algorithms;
 9. the published eval protocol: ``shgan_ffhq256_fullmetrics_eval``
    assembled by ``build_config`` and run by ``run`` as configured
    (full-width ``shgan_g256`` with random weights from a ``.pth``, batch
@@ -140,9 +142,11 @@ Phases, each printing one JSON line:
     more, on two rank processes (``python -c`` importing the port: both on
     ``cuda:0`` over gloo on a one-card machine, over NCCL on two cards) at
     4 rows each against this process at 8: step 0's gradients (Gpl and
-    R1, second order) each network within 1e-3 or 4x its float32 spread
-    on one card (cuDNN's algorithms changed; every leaf's error and spread
-    recorded), ``comodgan_d256`` on N(0, 1) inputs (logits, R1's
+    R1, second order) each network within 1e-3 or 4x the median of its
+    three float32 spread samples on one card (step 0 again under cuDNN's
+    autotuner and under its deterministic algorithms: each pair of the
+    three runs a sample, every sample printed; every leaf's error and
+    spread recorded), ``comodgan_d256`` on N(0, 1) inputs (logits, R1's
     input gradient, the Dmain and R1 weight gradients) within 1e-4,
     ``w_avg`` and ``pl_mean`` within 1e-3, the replicas equal
     bit for bit after every step, launches exact per step and rank, rank
@@ -169,15 +173,27 @@ Phases, each printing one JSON line:
     generic kernel, the epilogue), bytes exchanged, request ms and peak
     memory; ``shgan_ffhq256_train``'s networks at the global batch 8, 3
     ``TrainStep`` steps (Gpl and R1 in step 0) under ``spatial_sharding(
-    mesh, 64)``: step 0's gradients each network within 1e-3 or 4× its
-    float32 spread on one card, the replicas bit for bit after every step,
-    launches exact per step and rank, step ms and peak memory;
-14. the kernels line ``{"kernels": [...]}`` (the grad kernel's and K2
+    mesh, 64)``: step 0's gradients each network within 1e-3 or 4× the
+    median of its float32 spread samples on one card (phase 12's rule),
+    the replicas bit for bit after every step, launches exact per step and
+    rank, step ms and peak memory; then step 0 once more on the ranks with
+    ``train.remat``'s networks, held to their step 0 without it by the
+    same gate, its launches by the recompute rule;
+14. per-block rematerialization (``train.remat``): ``shgan_ffhq256_train``'s
+    networks with and without remat (the same weights, TF32 off, cuDNN
+    deterministic, autotuner off), a step with Gpl and R1 and a main-only
+    step each: at batch 8 every gradient, metric and weight bit for bit
+    between the modes and the launches of each step exact (the recompute
+    of each checkpointed block counted from the modules); at batch 32, the
+    modes off, on, on, off, each step's ms by phase and its peak allocated
+    and reserved memory;
+15. the kernels line ``{"kernels": [...]}`` (the grad kernel's and K2
     backward's rows with their bf16 numbers; every row's launches over
     phase 11 as ``launches_bf16_path``, over phase 12 as
-    ``launches_multi_device_path`` and over phase 13 as
-    ``launches_spatial_path``);
-15. last line: ``{"ok": true, "device": {...}}``.
+    ``launches_multi_device_path``, over phase 13 as
+    ``launches_spatial_path`` and over phase 14 as
+    ``launches_remat_path``);
+16. last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line.  It needs the repository (``shgan_torch``, ``configs/``) and
@@ -773,16 +789,22 @@ def train_fir_calls(cfg_g, cfg_d, batch):
     return calls
 
 
+# the blocks that a module built with remat checkpoints (models/remat.py)
+REMAT_BLOCKS = ("EncoderBlock", "CoModSynthesisBlock", "DiscrimBlock")
+
+
 def _block_sites(module):
     """(K2 calls, synthesis layers, skip-image upsamples) of one forward of
-    ``module``, each with the type it runs in: [(dtype, k2, layers, img)]
-    over its top-level blocks (a block's ``dtype``; float32 for modules
-    without one).  Each resampling conv is one K2 call, each synthesis
-    block's skip-image upsample (float32 always: the image pyramid is
-    float32) one more."""
+    ``module``, each with the type it runs in and whether its block is
+    checkpointed: [(dtype, k2, layers, img, remat)] over its top-level
+    blocks (a block's ``dtype``; float32 for modules without one).  Each
+    resampling conv is one K2 call, each synthesis block's skip-image
+    upsample (float32 always: the image pyramid is float32) one more."""
     out = []
     for blk in module.children():
         dt = getattr(blk, "dtype", torch.float32)
+        remat = (getattr(module, "remat", False)
+                 and type(blk).__name__ in REMAT_BLOCKS)
         k2 = layers = img = 0
         for m in blk.modules():
             name = type(m).__name__
@@ -794,29 +816,33 @@ def _block_sites(module):
             elif name == "CoModSynthesisBlock" or (
                     name == "StyleGANSynthesisBlock" and not m.has_const):
                 img += 1
-        out += [(dt, k2, layers, 0), (torch.float32, img, 0, img)]
+        out += [(dt, k2, layers, 0, remat),
+                (torch.float32, img, 0, img, remat)]
     return out
 
 
-def sites_of(module, dtype=None):
+def sites_of(module, dtype=None, remat=False):
     """(K2 calls, synthesis layers, skip-image upsamples among the K2
     calls) of one forward of ``module``; with ``dtype``, only those that
-    run in it."""
-    rows = [r for r in _block_sites(module) if dtype in (None, r[0])]
+    run in it; with ``remat``, only those in the blocks it checkpoints."""
+    rows = [r for r in _block_sites(module)
+            if dtype in (None, r[0]) and (r[4] or not remat)]
     return tuple(sum(r[i] for r in rows) for i in (1, 2, 3))
 
 
-def train_sites(G, D, dtype=None):
+def train_sites(G, D, dtype=None, remat=False):
     """(K2 calls of the encoder, of the synthesis and of D per forward,
     synthesis layers, the skip-image upsamples among the synthesis' K2
     calls), read off the modules (:func:`sites_of`); with ``dtype``, only
-    the calls and layers that run in it."""
-    n_syn, layers, n_img = sites_of(G.synthesis, dtype)
-    return (sites_of(G.encoder, dtype)[0], n_syn, sites_of(D, dtype)[0],
-            layers, n_img)
+    the calls and layers that run in it; with ``remat``, only those in
+    checkpointed blocks (all zero where remat is off)."""
+    n_syn, layers, n_img = sites_of(G.synthesis, dtype, remat)
+    return (sites_of(G.encoder, dtype, remat)[0], n_syn,
+            sites_of(D, dtype, remat)[0], layers, n_img)
 
 
-def expected_train_launches(n_enc, n_syn, n_d, layers, n_img, greg, dreg):
+def expected_train_launches(n_enc, n_syn, n_d, layers, n_img, greg, dreg,
+                            recompute=None):
     """Kernel launches of one train step.  Gmain: G and D forwards, every
     K2 call and every epilogue differentiated once.  Gpl: a G forward at
     the shrunk batch; d img / d ws runs the synthesis' K2 calls backwards
@@ -828,20 +854,39 @@ def expected_train_launches(n_enc, n_syn, n_d, layers, n_img, greg, dreg):
     parameter), and per epilogue the grad kernel once more plus its two
     mask-only launches.  Dmain: G under no_grad (the in-place epilogue), D
     on fakes and reals, each D call differentiated.  R1: D on reals, d D /
-    d real (n_d), and that gradient's backward (2 n_d)."""
+    d real (n_d), and that gradient's backward (2 n_d).
+
+    ``recompute``: :func:`train_sites` with ``remat`` (the K2 calls
+    r_enc, r_syn, r_d and the synthesis layers r_layers inside checkpointed
+    blocks).  A checkpointed block runs its forward again, K2 calls and
+    epilogues, when a backward first reads its activations, once per
+    backward pass that reaches it: Gmain's backward recomputes G's and D's
+    blocks (r_enc + r_syn + r_d, r_layers); Dmain's, D's on fakes and
+    reals (2 r_d; G ran without a gradient); Gpl's d img / d ws the
+    synthesis' (r_syn, r_layers), and the penalty's backward, which
+    reaches the forward's nodes again, the synthesis' once more and the
+    encoder's (r_enc + r_syn, r_layers); R1's d D / d real and the
+    penalty's backward D's each (2 r_d).  The derivative kernels' counts
+    do not move."""
     n_g = n_enc + n_syn
     want = {"upfirdn2d": (n_g + n_d) + (n_g + 2 * n_d),
             "upfirdn2d_grad": (n_g + n_d) + 2 * n_d,
             "philox_normal": 0, "conv3x3_lowch": 0,
             "noise_bias_act": 2 * layers, "noise_bias_act_grad": layers}
+    r_enc, r_syn, r_d, r_layers, _ = recompute or (0, 0, 0, 0, 0)
+    want["upfirdn2d"] += r_enc + r_syn + 3 * r_d
+    want["noise_bias_act"] += r_layers
     if greg:
         want["upfirdn2d"] += n_g
         want["upfirdn2d_grad"] += 3 * (n_syn - n_img) + n_img + n_enc
         want["noise_bias_act"] += layers
         want["noise_bias_act_grad"] += 4 * layers
+        want["upfirdn2d"] += r_enc + 2 * r_syn
+        want["noise_bias_act"] += 2 * r_layers
     if dreg:
         want["upfirdn2d"] += n_d
         want["upfirdn2d_grad"] += 3 * n_d
+        want["upfirdn2d"] += 2 * r_d
     return want
 
 
@@ -1136,14 +1181,15 @@ def max_diff(a, b):
     return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
 
 
-def parity_grads(cfg, dev, seed=0, strength=0.1):
+def parity_grads(cfg, dev, seed=0, strength=0.1, patch=None):
     """The G gradient of one Gmain and the D gradient of one Dmain + R1 at
     batch 2 on ``dev``, from weights drawn from ``seed`` with every bias
     moved by N(0, 0.1) (zero-initialised biases would put the SHU's ReLU
     kinks on the spectra's exact zeros, the imaginary DC and Nyquist bins,
     whose sign is each FFT library's rounding) and every noise_strength at
-    ``strength``; the draws from CPU generators.  Returns ({leaf: grad on
-    the CPU}, seconds)."""
+    ``strength``; the draws from CPU generators; ``patch(G, D)``, where
+    given, returns the models to run in their place once they are on
+    ``dev``.  Returns ({leaf: grad on the CPU}, seconds)."""
     from shgan_torch.models.registry import get_model
     from shgan_torch.train import loss as L
     g = torch.Generator().manual_seed(seed)
@@ -1163,6 +1209,8 @@ def parity_grads(cfg, dev, seed=0, strength=0.1):
             elif name.endswith("bias"):
                 p.add_(torch.randn(p.shape, generator=gb) * 0.1)
     G, D = G.to(dev), D.to(dev)
+    if patch is not None:
+        G, D = patch(G, D)
     x_in = torch.cat([mask - 0.5, real * mask], dim=1)
     t0 = time.perf_counter()
     D.requires_grad_(False)
@@ -1182,6 +1230,23 @@ def parity_grads(cfg, dev, seed=0, strength=0.1):
     return grads, time.perf_counter() - t0
 
 
+class cudnn_flags:
+    """cuDNN's ``benchmark`` and ``deterministic`` flags set within the
+    block (both off unless given), restored after."""
+
+    def __init__(self, benchmark=False, deterministic=False):
+        self.flags = (benchmark, deterministic)
+
+    def __enter__(self):
+        c = torch.backends.cudnn
+        self.prev = (c.benchmark, c.deterministic)
+        c.benchmark, c.deterministic = self.flags
+
+    def __exit__(self, *exc):
+        c = torch.backends.cudnn
+        c.benchmark, c.deterministic = self.prev
+
+
 def rel_errs(a, b):
     """[(|a - b| / |b|, leaf)] over the leaves, the worst first."""
     if set(a) != set(b):
@@ -1199,34 +1264,44 @@ PARITY_LOOSE = ("noise_strength", "encoder.shu.")
 PARITY_TOL, PARITY_LOOSE_TOL = 1e-3, 1e-2
 
 
+def is_loose(leaf):
+    return any(t in leaf for t in PARITY_LOOSE)
+
+
 def train_parity(cfg, seed=0):
     """One Gmain, Dmain and R1 gradient at batch 2 on the card and on the
     CPU (the plain versions), the same weights and draws, TF32 off, every
     noise_strength at its initial 0: each gradient leaf's difference within
-    1e-3 of its norm, the PARITY_LOOSE leaves within 1e-2.  A second card
-    run with cuDNN's autotuner on (other convolution algorithms, so other
-    summation orders) gives each leaf's float32 spread on one device, for
-    the record."""
-    card, card_s = parity_grads(cfg, "cuda", seed, strength=0.0)
+    1e-3 of its norm, the PARITY_LOOSE leaves within 1e-2.  The gated card
+    run uses cuDNN's deterministic algorithms, so the verdict is the same
+    on every run; two more card runs, under cuDNN's default algorithms
+    (some of them nondeterministic) and under its autotuner, give each
+    leaf's float32 spread on one device and the default run's distance
+    from the CPU, for the record."""
+    with cudnn_flags(deterministic=True):
+        card, card_s = parity_grads(cfg, "cuda", seed, strength=0.0)
     cpu, cpu_s = parity_grads(cfg, "cpu", seed, strength=0.0)
-    prev = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = True
-    try:
+    card_default, _ = parity_grads(cfg, "cuda", seed, strength=0.0)
+    with cudnn_flags(benchmark=True):
         card2, _ = parity_grads(cfg, "cuda", seed, strength=0.0)
-    finally:
-        torch.backends.cudnn.benchmark = prev
     rel = rel_errs(card, cpu)
     spread = dict((k, e) for e, k in rel_errs(card2, card))
-    loose = [(e, k) for e, k in rel if any(t in k for t in PARITY_LOOSE)]
-    tight = [(e, k) for e, k in rel if not any(t in k for t in PARITY_LOOSE)]
+    loose = [(e, k) for e, k in rel if is_loose(k)]
+    tight = [(e, k) for e, k in rel if not is_loose(k)]
+    rel_d = rel_errs(card_default, cpu)
     row = {"phase": "train_parity", "batch": PARITY_BATCH, "tf32": False,
-           "noise_strength": 0.0, "leaves": len(cpu),
+           "cudnn_deterministic": True, "noise_strength": 0.0,
+           "leaves": len(cpu),
            "worst_rel_err": tight[0][0], "worst_leaf": tight[0][1],
            "worst_5": [(e, k, spread[k]) for e, k in tight[:5]],
            "loose_leaves": len(loose),
            "loose_worst_5": [(e, k, spread[k]) for e, k in loose[:5]],
            "median_rel_err": rel[len(rel) // 2][0],
            "median_card_spread": sorted(spread.values())[len(spread) // 2],
+           "default_algos_worst": next(r for r in rel_d
+                                       if not is_loose(r[1])),
+           "default_algos_loose_worst": next(r for r in rel_d
+                                             if is_loose(r[1])),
            "cuda_s": card_s, "cpu_s": cpu_s}
     emit(row)
     if not (tight[0][0] <= PARITY_TOL and loose[0][0] <= PARITY_LOOSE_TOL):
@@ -1364,10 +1439,7 @@ def train_path(tmp, cli, build, bf16=False):
     # the snapshot, reloaded; one step from it and from memory
     snap = os.path.join(cfg["train"]["log_dir"], "weight",
                         "network-snapshot-000000")
-    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
-        True, False
-    try:
+    with cudnn_flags(deterministic=True):
         fresh = TrainStep(get_model(cfg["model_g"], seed=9).cuda(),
                           get_model(cfg["model_d"], seed=9).cuda(), tc)
         load_train_state(snap, fresh)
@@ -1384,9 +1456,6 @@ def train_path(tmp, cli, build, bf16=False):
             st(real, mask, step_generator(0, st.step), 0.999, True, True)
             outs.append((params_of(st.G), params_of(st.D),
                          params_of(st.G_ema), float(st.pl_mean)))
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
-            prev
     diffs = [max_diff(a, b) for a, b in zip(outs[0][:3], outs[1][:3])]
     resume = {"phase": "train_resume_bf16" if bf16 else "train_resume",
               "snapshot": os.path.basename(snap),
@@ -2150,11 +2219,8 @@ def train_config_path(tmp, cli, build, fir, inc_pth):
 
     pkl = reference_pickle(stages.build_generator(g_cfg, best_pth),
                            os.path.join(work, "network-snapshot-000096.pkl"))
-    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
-        True, False
     t0 = time.perf_counter()
-    try:
+    with cudnn_flags(deterministic=True):
         outs = []
         gen = torch.Generator().manual_seed(3)
         real = torch.rand(eval_batch, 3, FULL_RES, FULL_RES,
@@ -2168,9 +2234,6 @@ def train_config_path(tmp, cli, build, fir, inc_pth):
                 outs.append(composite_forward(G, real.cuda(), mask.cuda(),
                                               z.cuda(), noise_mode="const"))
             del G
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
-            prev
     reload_s = time.perf_counter() - t0
     if not torch.equal(outs[0], outs[1]):
         raise AssertionError("the .pkl and .pth composites differ: max "
@@ -2446,18 +2509,13 @@ def bf16_grad_parity(tcfg32, tcfg16, seed=0):
     the leaf's norm; the PARITY_LOOSE leaves + 1e-2)."""
     g32, _ = parity_grads(tcfg32, "cuda", seed, strength=0.0)
     g16, s16 = parity_grads(tcfg16, "cuda", seed, strength=0.0)
-    prev = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = True
-    try:
+    with cudnn_flags(benchmark=True):
         g16b, _ = parity_grads(tcfg16, "cuda", seed, strength=0.0)
-    finally:
-        torch.backends.cudnn.benchmark = prev
     err = dict((k, e) for e, k in rel_errs(g16, g32))
     spread = dict((k, e) for e, k in rel_errs(g16b, g32))
     bad = []
     for k, e in err.items():
-        slack = PARITY_LOOSE_TOL if any(t in k for t in PARITY_LOOSE) \
-            else PARITY_TOL
+        slack = PARITY_LOOSE_TOL if is_loose(k) else PARITY_TOL
         if not e <= BF16_RATIO * spread[k] + slack:
             bad.append((k, e, spread[k]))
     worst = sorted(((e, k, spread[k]) for k, e in err.items()),
@@ -2637,9 +2695,46 @@ MD_EVAL_BATCH = 32    # the global eval batch: 2 ranks x 16, or 1 x 32
 MD_ROW0 = 3
 MD_ENGINE_BATCH = 8   # shgan_g512 over two devices, 4 rows each
 MD_D_TOL = 1e-4       # D across ranks on N(0, 1) inputs (run 6: <= 8e-5)
-MD_SPREAD = 4         # step 0's gradient: within 4x its float32 spread
+MD_SPREAD = 4         # step 0's gradient: within 4x its median spread
 MD_RANK_CODE = ("import sys, chip_smoke; sys.exit(chip_smoke.md_rank(int("
                 "sys.argv[1]), int(sys.argv[2]), *sys.argv[3:]))")
+# The float32 spread of step 0's gradient on one card: step 0 run again
+# under cuDNN's autotuner and under its deterministic algorithms, beside
+# the run under its default ones; each pair of the three runs is a sample
+# (default-autotuner, default-deterministic, autotuner-deterministic), and
+# a gate reads their median (one sample ranged 1.1e-3-1.05e-2 of D's norm)
+SPREAD_RUNS = (("spread_bench:", {"benchmark": True}),
+               ("spread_det:", {"deterministic": True}))
+
+
+def net_rel(x, y, keys, net):
+    """``|x - y| / |y|`` over the gradient leaves ``keys`` of network
+    ``net`` (their prefix, ``"G."`` or ``"D."``), in float64."""
+    ks = [k for k in keys if k.startswith(net)]
+    return float(np.sqrt(sum(((x[k].astype(np.float64) - y[k]) ** 2).sum()
+                             for k in ks))
+                 / np.sqrt(sum((y[k].astype(np.float64) ** 2).sum()
+                               for k in ks)))
+
+
+def spread_gate(got, ref, one, keys, prefix=""):
+    """Step 0's gradients ``got`` (``prefix`` + leaf) held against
+    ``ref``: per network its error, the median of its three float32 spread
+    samples on one card (the runs of :data:`SPREAD_RUNS` beside the default
+    one, all in ``one``) and the samples, and the networks beyond
+    ``max(PARITY_TOL, MD_SPREAD * median)``.  Returns ``(nets, bad)``."""
+    runs = [one] + [{k: one[p + k] for k in keys} for p, _ in SPREAD_RUNS]
+    mine = {k: got[prefix + k] for k in keys}
+    nets, bad = {}, []
+    for net in ("G.", "D."):
+        samples = [net_rel(runs[i], runs[j], keys, net)
+                   for i, j in ((1, 0), (2, 0), (1, 2))]
+        med = sorted(samples)[1]
+        e = net_rel(mine, ref, keys, net)
+        nets[net] = (e, med, samples)
+        if e > max(PARITY_TOL, MD_SPREAD * med):
+            bad.append((e, net, med))
+    return nets, bad
 
 
 def check_row_offset(noise, nba, cfg, batch, row0=MD_ROW0):
@@ -2870,8 +2965,8 @@ def md_work(tmp, device, inc_pth, data_root, g_pth, spread=False):
     each step, the launches of each step, the replicas checked after each
     step, the noise rows each kernel launch started at and the snapshot
     writes; a resume for one more step; with ``spread``, step 0 once more
-    with cuDNN's autotuner on (other algorithms: each gradient leaf's
-    float32 spread on one device); :func:`md_d_check`; then the eval stage
+    under each of :data:`SPREAD_RUNS` (other algorithms: the float32
+    spread on one device); :func:`md_d_check`; then the eval stage
     over ``MD_EVAL_IMAGES`` with its launches and the composites.  Returns
     the record and writes the arrays to ``<tmp>/md_<rank>.npz``."""
     from shgan_torch import main as cli
@@ -2962,14 +3057,11 @@ def md_work(tmp, device, inc_pth, data_root, g_pth, spread=False):
         rec["resume_s"] = time.perf_counter() - t0
         if rv2["step"].step != MD_STEPS + 1:
             raise AssertionError(f"resumed to step {rv2['step'].step}")
-        if spread:
-            held["prefix"] = "spread:"
-            torch.backends.cudnn.benchmark = True
-            try:
-                cli.run(md_train_config(os.path.join(tmp, "spread"), 1),
+        for prefix, flags in SPREAD_RUNS if spread else ():
+            held["prefix"] = prefix
+            with cudnn_flags(**flags):
+                cli.run(md_train_config(os.path.join(tmp, prefix[:-1]), 1),
                         device=device)
-            finally:
-                torch.backends.cudnn.benchmark = False
     finally:
         (stages.TrainStep, nba.noise_bias_act_cuda, nba._grad_launch,
          stages.save_train_state) = orig
@@ -3220,24 +3312,14 @@ def multi_device_path(tmp, build, noise, nba, inc_pth):
     # second order, and their float32 spread on one card, cuDNN's
     # algorithms changed, reaches 1e-3-1e-2 a leaf: a leaky ReLU that
     # switches slope moves a penalty's gradient): each network within
-    # phase 8's 1e-3 or MD_SPREAD times its own spread
+    # phase 8's 1e-3 or MD_SPREAD times the median of its spread samples
     grads = [k for k in a if k[:2] in ("G.", "D.")]
     rel = rel_errs(T(b, grads), T(a, grads))
-    spread = dict((k[7:], e) for e, k in rel_errs(
-        T(a, ["spread:" + k for k in grads]),
-        {"spread:" + k: torch.from_numpy(a[k]) for k in grads}))
-
-    def net_rel(x, y, net):
-        ks = [k for k in grads if k.startswith(net)]
-        return float(np.sqrt(sum(((x[k].astype(np.float64) - y[k]) ** 2)
-                                 .sum() for k in ks))
-                     / np.sqrt(sum((y[k].astype(np.float64) ** 2).sum()
-                                   for k in ks)))
-    nets = {net: (net_rel(b, a, net), net_rel(
-        {k: a["spread:" + k] for k in grads}, a, net)) for net in ("G.",
-                                                                    "D.")}
-    bad = [(e, net, sp) for net, (e, sp) in nets.items()
-           if e > max(PARITY_TOL, MD_SPREAD * sp)]
+    bench = SPREAD_RUNS[0][0]
+    spread = dict((k[len(bench):], e) for e, k in rel_errs(
+        T(a, [bench + k for k in grads]),
+        {bench + k: torch.from_numpy(a[k]) for k in grads}))
+    nets, bad = spread_gate(b, a, a, grads)
     for k in grads + ["w_avg"]:
         if not np.array_equal(b[k], b1[k]):
             raise AssertionError(f"ranks differ in {k}")
@@ -3271,7 +3353,7 @@ def multi_device_path(tmp, build, noise, nba, inc_pth):
            "backend": backend, "train": {
                "experiment": TRAIN_EXPERIMENT, "global_batch": MD_BATCH,
                "steps": MD_STEPS, "grad_leaves": len(rel),
-               "step0_grad_net_rel_and_spread": nets,
+               "step0_grad_net_rel_median_spread_samples": nets,
                "step0_grad_worst_rel": rel[0],
                "step0_grad_worst_spread": spread[rel[0][1]],
                "step0_grad_median_rel": rel[len(rel) // 2][0],
@@ -3608,22 +3690,24 @@ def sp_forward(mesh):
     return rec, out
 
 
-def sp_train(mesh, spread=False):
+def sp_train(mesh, spread=False, remat=False):
     """``shgan_ffhq256_train``'s networks (``shgan_g256`` +
     ``comodgan_d256``, random weights, noise on), its loss settings, the
     global batch 8 of synthetic 256² images: ``SP_STEPS`` steps of
     ``TrainStep`` (step 0 with Gpl and R1), under ``spatial_sharding(mesh,
     64)`` on a rank (``mesh`` None: the one process), TF32 off; step 0's
     gradients (as the optimizers read them), launches and ms of each step,
-    the replicas checked after each; with ``spread``, step 0 once more with
-    cuDNN's autotuner on (each leaf's float32 spread).  Returns (record,
+    the replicas checked after each; with ``spread``, step 0 once more
+    under each of :data:`SPREAD_RUNS` (the float32 spread); with
+    ``remat``, step 0 once more with the networks of ``train.remat``
+    (arrays ``remat:``, launches by the recompute rule).  Returns (record,
     arrays)."""
     from contextlib import nullcontext
     from shgan_torch.data.rng import derive_seed
     from shgan_torch.kernels import build
     from shgan_torch.models.registry import get_model
     from shgan_torch.parallel import check_replicated, spatial
-    from shgan_torch.runtime.stages import step_generator
+    from shgan_torch.runtime.stages import remat_configs, step_generator
     from shgan_torch.train import TrainConfig, TrainStep
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3638,10 +3722,13 @@ def sp_train(mesh, spread=False):
            if mesh is not None else nullcontext())
     arrays = {}
 
-    def run(prefix, steps):
-        G = get_model(cfg["model_g"], seed=0)
+    def run(prefix, steps, remat=False):
+        cfg_g, cfg_d = cfg["model_g"], cfg["model_d"]
+        if remat:
+            cfg_g, cfg_d = remat_configs(cfg_g, cfg_d)
+        G = get_model(cfg_g, seed=0)
         noise_reaches_image(G)
-        D = get_model(cfg["model_d"], seed=derive_seed(0, 1))
+        D = get_model(cfg_d, seed=derive_seed(0, 1))
         G, D = G.cuda(), D.cuda()
         step = TrainStep(G, D, tc, mesh=mesh)
         for opt, net in ((step.opt_g, "G"), (step.opt_d, "D")):
@@ -3657,6 +3744,7 @@ def sp_train(mesh, spread=False):
                                 p.grad.detach().cpu().numpy()
                 return inner(*a)
             opt.step = rec_step
+        redo = train_sites(G, D, remat=True)
         per_step, ms = [], []
         for i in range(steps):
             greg, dreg = i % tc.g_reg_interval == 0, i % tc.d_reg_interval == 0
@@ -3669,10 +3757,12 @@ def sp_train(mesh, spread=False):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             got = dict(build.launches)
-            want = expected_train_launches(*train_sites(G, D), greg, dreg)
+            want = expected_train_launches(*train_sites(G, D), greg, dreg,
+                                           recompute=redo)
             if got != want:
-                raise AssertionError(f"step {i} ({'rank' if mesh else 'one'})"
-                                     f": launches {got}, expected {want}")
+                raise AssertionError(f"step {i} ({'rank' if mesh else 'one'}"
+                                     f"{', remat' if remat else ''}): "
+                                     f"launches {got}, expected {want}")
             per_step.append(got)
             if mesh is not None:
                 check_replicated([G, D, step.G_ema, step.pl_mean], mesh=mesh)
@@ -3682,12 +3772,15 @@ def sp_train(mesh, spread=False):
     per_step, ms = run("", SP_STEPS)
     rec = {"launches_per_step": per_step, "step_ms": ms,
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    if spread:
-        torch.backends.cudnn.benchmark = True
-        try:
-            run("spread:", 1)
-        finally:
-            torch.backends.cudnn.benchmark = False
+    for prefix, flags in SPREAD_RUNS if spread else ():
+        with cudnn_flags(**flags):
+            run(prefix, 1)
+    if remat:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launches, ms = run("remat:", 1, remat=True)
+        rec.update(remat_launches=launches[0], remat_step_ms=ms[0],
+                   remat_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     torch.cuda.empty_cache()
     return rec, arrays
 
@@ -3711,7 +3804,7 @@ def sp_rank(rank, world, port, tmp, cards=1):
     build.build_all()
     mesh = create_mesh(model=world)
     fwd, comp = sp_forward(mesh)
-    train, arrays = sp_train(mesh)
+    train, arrays = sp_train(mesh, remat=True)
     np.savez(os.path.join(tmp, f"sp_{rank}.npz"), composites=comp, **arrays)
     with open(os.path.join(tmp, f"sp_{rank}.json"), "w") as f:
         json.dump({"forward": fwd, "train": train, "device": str(mesh.device),
@@ -3782,10 +3875,13 @@ def sp_sharded_vs_one(work, world, cards):
     known pixels exact and the ranks' composites equal, each rank's
     launches (K3, K2 by route, the epilogue) the one process's, halo rows
     exchanged; step 0's gradients each network within 1e-3 or
-    ``MD_SPREAD`` times its float32 spread on one card measured here
-    (phase 12's rule), equal on every rank, the replicas checked bit for
-    bit after every step on the ranks, launches the one process's every
-    step.  Returns (the record, the launches of every run)."""
+    ``MD_SPREAD`` times the median of its float32 spread samples on one
+    card measured here (:func:`spread_gate`, phase 12's rule), equal on
+    every rank, the replicas checked bit for bit after every step on the
+    ranks, launches the one process's every step; the ranks' step 0 with
+    ``train.remat``'s networks held to their step 0 without it by the same
+    gate, equal on every rank, its launches by the recompute rule.
+    Returns (the record, the launches of every run)."""
     one_fwd, one_comp = sp_forward(None)
     one_train, one_arr = sp_train(None, spread=True)
     torch.cuda.empty_cache()
@@ -3819,23 +3915,26 @@ def sp_sharded_vs_one(work, world, cards):
         if not all(np.array_equal(a[0][k], x[k]) for x in a[1:]):
             raise AssertionError(f"the ranks' gradients differ in {k}")
 
-    def net_rel(x, y, net):
-        ks = [k for k in grads if k.startswith(net)]
-        return float(np.sqrt(sum(((x[k].astype(np.float64) - y[k]) ** 2)
-                                 .sum() for k in ks))
-                     / np.sqrt(sum((y[k].astype(np.float64) ** 2).sum()
-                                   for k in ks)))
-    spread = {k: one_arr["spread:" + k] for k in grads}
-    nets = {net: (net_rel(a[0], one_arr, net),
-                  net_rel(spread, one_arr, net)) for net in ("G.", "D.")}
-    bad = [(e, net, sp) for net, (e, sp) in nets.items()
-           if e > max(PARITY_TOL, MD_SPREAD * sp)]
+    nets, bad = spread_gate(a[0], one_arr, one_arr, grads)
+    emit({"phase": "spatial_step0_gate", "nets": nets})
     if bad:
         raise AssertionError(
-            f"sharded step 0 vs one process: {bad} (every network's error "
-            f"and spread {nets}; the forward held: {within1} within 1, "
-            f"{one_fwd['request_ms']} ms one process, "
+            f"sharded step 0 vs one process: {bad} (every network's error, "
+            f"median spread and samples {nets}; the forward held: {within1} "
+            f"within 1, {one_fwd['request_ms']} ms one process, "
             f"{[f['request_ms'] for f in fwd]} ms the ranks)")
+    # the ranks' remat step 0 against their step 0 without remat
+    for k in grads:
+        if not all(np.array_equal(a[0]["remat:" + k], x["remat:" + k])
+                   for x in a[1:]):
+            raise AssertionError(f"the ranks' remat gradients differ in {k}")
+    remat_nets, remat_bad = spread_gate(a[0], a[0], one_arr, grads,
+                                        "remat:")
+    remat_bit = all(np.array_equal(a[0]["remat:" + k], a[0][k])
+                    for k in grads)
+    if remat_bad:
+        raise AssertionError(f"sharded remat step 0 vs sharded step 0: "
+                             f"{remat_bad} ({remat_nets})")
     for t in ranks:
         if t["train"]["launches_per_step"] != one_train["launches_per_step"]:
             raise AssertionError("a rank's train launches differ from one "
@@ -3859,7 +3958,15 @@ def sp_sharded_vs_one(work, world, cards):
            "train": {"experiment": TRAIN_EXPERIMENT,
                      "global_batch": TRAIN_BATCH, "steps": SP_STEPS,
                      "min_res": SP_TRAIN_MIN_RES,
-                     "step0_grad_net_rel_and_spread": nets,
+                     "step0_grad_net_rel_median_spread_samples": nets,
+                     "remat_step0_vs_step0": remat_nets,
+                     "remat_step0_bit_identical": remat_bit,
+                     "remat_launches_rank": ranks[0]["train"][
+                         "remat_launches"],
+                     "remat_step_ms_ranks": [t["train"]["remat_step_ms"]
+                                             for t in ranks],
+                     "remat_peak_gib_ranks": [t["train"]["remat_peak_gib"]
+                                              for t in ranks],
                      "replicas_bit_identical": True,
                      "model_ranks_grad_gap": [t["replica_gap"]
                                               for t in ranks],
@@ -3877,6 +3984,8 @@ def sp_sharded_vs_one(work, world, cards):
     for t in [one_train] + [r["train"] for r in ranks]:
         for s in t["launches_per_step"]:
             add_launches(total, s)
+    for r in ranks:
+        add_launches(total, r["train"]["remat_launches"])
     return row, total
 
 
@@ -3909,6 +4018,176 @@ def spatial_path(tmp, noise, nba, conv1024):
            "phase_s": time.perf_counter() - t_phase}
     emit(row)
     return row, kernels, total
+
+
+# ---------------------------------------------------------------------------
+# phase 14: per-block rematerialization (train.remat, models/remat.py)
+# ---------------------------------------------------------------------------
+
+REMAT_EXACT_BATCH = 8    # both modes bit for bit, launches by the rule
+REMAT_MEMORY_BATCH = 32  # peak memory and step ms of each mode
+# the modes at the memory batch, in this order every run (each mode's
+# first use of the batch's shapes falls on its first run)
+REMAT_ORDER = (False, True, True, False)
+
+
+def remat_path(tmp):
+    """Phase 14: ``shgan_ffhq256_train``'s networks (``shgan_g256`` +
+    ``comodgan_d256``, random weights, noise on) with and without
+    ``train.remat`` (the models of ``runtime.stages.remat_configs``, the
+    same weights), TF32 off, cuDNN deterministic, autotuner off, on
+    synthetic 256² images; each run a ``TrainStep`` of step 0 (Gpl and
+    R1) and step 1 (main only), fenced by phase.  At batch 8: off then on,
+    every gradient as the optimizers read it, the metrics, ``pl_mean``,
+    ``w_avg`` and the weights bit for bit, the launches of each step exact
+    by :func:`expected_train_launches` (the recompute terms from the
+    modules).  At batch 32: the modes in :data:`REMAT_ORDER`, each step's
+    ms by phase and its peak allocated and reserved memory (the cache
+    emptied and the peaks reset before each step), counted above what was
+    allocated and reserved when the phase began (tensors that earlier
+    phases left alive; recorded beside).  Returns (the record, the launches
+    of every step)."""
+    import copy
+    from shgan_torch.data.rng import derive_seed
+    from shgan_torch.kernels import build
+    from shgan_torch.models.registry import get_model
+    from shgan_torch.runtime.stages import remat_configs, step_generator
+    from shgan_torch.train import TrainConfig, TrainStep
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = train_config(os.path.join(tmp, "remat"), 2)
+    tc = TrainConfig(**(cfg["train"].get("loss_kwargs") or {}))
+    nets = {}
+    for remat in (False, True):
+        cfg_g, cfg_d = cfg["model_g"], cfg["model_d"]
+        if remat:
+            cfg_g, cfg_d = remat_configs(cfg_g, cfg_d)
+        G = get_model(cfg_g, seed=0)
+        noise_reaches_image(G)
+        nets[remat] = (G, get_model(cfg_d, seed=derive_seed(0, 1)))
+    if cfg["model_g"]["args"]["encoder"].get("args", {}).get("remat"):
+        raise AssertionError("remat_configs changed the caller's config")
+    for a, b in zip(nets[False], nets[True]):
+        sa, sb = a.state_dict(), b.state_dict()
+        if not all(torch.equal(sa[k], sb[k]) for k in sa):
+            raise AssertionError("the remat models' weights differ")
+    G, D = nets[True]
+    if not (G.encoder.remat and G.synthesis.remat and D.remat):
+        raise AssertionError("remat_configs did not turn remat on")
+    res = G.synthesis.resolution
+    rng = np.random.RandomState(41)
+    real = torch.from_numpy(rng.uniform(
+        -1, 1, (REMAT_MEMORY_BATCH, 3, res, res)).astype(np.float32)).cuda()
+    mask = torch.from_numpy((rng.rand(REMAT_MEMORY_BATCH, 1, res, res)
+                             > 0.5).astype(np.float32)).cuda()
+    total = {}
+
+    def run(remat, batch, keep=False):
+        G, D = (copy.deepcopy(m).cuda() for m in nets[remat])
+        step = TrainStep(G, D, tc)
+        step.timing = True
+        grads = {}
+        if keep:
+            for opt, net in ((step.opt_g, "G"), (step.opt_d, "D")):
+                names = {id(p): k for k, p in
+                         (G if net == "G" else D).named_parameters()}
+                inner = opt.step
+
+                def rec_step(*a, opt=opt, net=net, names=names,
+                             inner=inner):
+                    for g in opt.param_groups:
+                        for p in g["params"]:
+                            grads[f"{step.step}:{net}.{names[id(p)]}"] = \
+                                p.grad.detach().clone()
+                    return inner(*a)
+                opt.step = rec_step
+        sites, redo = train_sites(G, D), train_sites(G, D, remat=True)
+        rows, metrics = [], []
+        for i, (greg, dreg) in enumerate(((True, True), (False, False))):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            m = step(real[:batch], mask[:batch], step_generator(0, i), 0.99,
+                     do_greg=greg, do_dreg=dreg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = dict(build.launches)
+            want = expected_train_launches(*sites, greg, dreg,
+                                           recompute=redo)
+            if got != want:
+                raise AssertionError(
+                    f"remat {remat} batch {batch} step {i}: launches {got},"
+                    f" expected {want}")
+            add_launches(total, got)
+            metrics.append(m)
+            rows.append({
+                "regs": "GD" if greg else "", "step_ms": ms,
+                "phase_ms": {k: v * 1e3 for k, v in step.phase_s.items()},
+                "peak_allocated_gib":
+                    (torch.cuda.max_memory_allocated() - start[0]) / 2 ** 30,
+                "peak_reserved_gib":
+                    (torch.cuda.max_memory_reserved() - start[1]) / 2 ** 30,
+                "launches": got})
+        out = (rows, grads, metrics, step) if keep else (rows,)
+        del G, D, step
+        return out
+
+    with cudnn_flags(deterministic=True):
+        off = run(False, REMAT_EXACT_BATCH, keep=True)
+        on = run(True, REMAT_EXACT_BATCH, keep=True)
+        if set(off[1]) != set(on[1]) or len(off[1]) < 100:
+            raise AssertionError("the remat step's gradient leaves differ")
+        apart = [k for k in off[1] if not torch.equal(off[1][k], on[1][k])]
+        for a, b in zip(off[2], on[2]):
+            apart += [k for k in a if not torch.equal(a[k], b[k])]
+        sa, sb = off[3], on[3]
+        apart += [k for k in ("pl_mean",)
+                  if not torch.equal(sa.pl_mean, sb.pl_mean)]
+        for x, y, net in ((sa.G, sb.G, "G"), (sa.D, sb.D, "D"),
+                          (sa.G_ema, sb.G_ema, "G_ema")):
+            px, py = x.state_dict(), y.state_dict()
+            apart += [f"{net}.{k}" for k in px
+                      if not torch.equal(px[k], py[k])]
+        if apart:
+            raise AssertionError(f"remat against no remat at batch "
+                                 f"{REMAT_EXACT_BATCH}: {len(apart)} "
+                                 f"tensors differ, {apart[:6]}")
+        exact = {"batch": REMAT_EXACT_BATCH, "gradients": len(off[1]),
+                 "bit_identical": True, "off": off[0], "on": on[0]}
+        del off, on, sa, sb
+        memory = [{"remat": remat, "batch": REMAT_MEMORY_BATCH,
+                   "steps": run(remat, REMAT_MEMORY_BATCH)[0]}
+                  for remat in REMAT_ORDER]
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        prev
+    torch.cuda.empty_cache()
+
+    def mean(remat, i, key):
+        vals = [m["steps"][i][key] for m in memory if m["remat"] == remat]
+        return sum(vals) / len(vals)
+    summary = {
+        f"{'on' if remat else 'off'}_{name}": {
+            k: mean(remat, i, k) for k in ("step_ms", "peak_allocated_gib",
+                                           "peak_reserved_gib")}
+        for remat in (False, True) for i, name in ((0, "reg"), (1, "main"))}
+    row = {"phase": "remat_path", "experiment": TRAIN_EXPERIMENT,
+           "model_g": cfg["model_g"].get("name"),
+           "model_d": cfg["model_d"].get("name"),
+           "tf32": False, "cudnn_deterministic": True,
+           "phase_start_allocated_gib": start[0] / 2 ** 30,
+           "phase_start_reserved_gib": start[1] / 2 ** 30,
+           "exact": exact, "memory": memory, "mean": summary,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    return row, total
 
 
 def main():
@@ -4307,10 +4586,14 @@ def main():
         sp_row, sp_kernels, sp_total = spatial_path(tmp, noise, nba,
                                                     conv1024)
         detail.update(spatial_path=sp_row, slab_windows=sp_kernels)
+
+        # ---- 14. per-block rematerialization (train.remat) ------------------
+        remat_row, remat_total = remat_path(tmp)
+        detail.update(remat_path=remat_row)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- 14. the kernels line -----------------------------------------------
+    # ---- 15. the kernels line -----------------------------------------------
     detail.update(eval_launches=eval_launches, k3_in_place=in_place,
                   train_launches=train_launches,
                   fullmetrics_launches=full_launches,
@@ -4353,6 +4636,7 @@ def main():
          "launches_bf16_path": bf16_total["upfirdn2d"],
          "launches_multi_device_path": md_total.get("upfirdn2d", 0),
          "launches_spatial_path": sp_total.get("upfirdn2d", 0),
+         "launches_remat_path": remat_total.get("upfirdn2d", 0),
          "max_abs_err": max(r["max_abs_err"] for r in fr + fir_1024),
          "ms": wsum(fr, "ms"), "eager_ms": wsum(fr, "eager_ms"),
          "bf16_ms": wsum(fr, "bf16_ms"),
@@ -4381,6 +4665,7 @@ def main():
          "launches_bf16_path": bf16_total["philox_normal"],
          "launches_multi_device_path": md_total.get("philox_normal", 0),
          "launches_spatial_path": sp_total.get("philox_normal", 0),
+         "launches_remat_path": remat_total.get("philox_normal", 0),
          "max_abs_err": max(r["max_abs_err"] for r in nr + noise_1024),
          "ms": wsum(nr, "ms"), "eager_ms": wsum(nr, "eager_ms"),
          "plain_ms": wsum(nr, "plain_ms"),
@@ -4404,6 +4689,7 @@ def main():
          "launches_bf16_path": bf16_total["noise_bias_act"],
          "launches_multi_device_path": md_total.get("noise_bias_act", 0),
          "launches_spatial_path": sp_total.get("noise_bias_act", 0),
+         "launches_remat_path": remat_total.get("noise_bias_act", 0),
          "max_abs_err": max(r["max_abs_err"] for r in er + epi_1024),
          "ms": wsum(er, "ms"), "eager_ms": wsum(er, "eager_ms"),
          "bf16_ms": wsum(er, "bf16_ms"),
@@ -4434,6 +4720,7 @@ def main():
          "launches_bf16_path": bf16_total["conv3x3_lowch"],
          "launches_multi_device_path": md_total.get("conv3x3_lowch", 0),
          "launches_spatial_path": sp_total.get("conv3x3_lowch", 0),
+         "launches_remat_path": remat_total.get("conv3x3_lowch", 0),
          "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
          "ms": 2 * k3["ms"], "eager_ms": 2 * k3["eager_ms"],
          "plain_ms": 2 * k3["plain_ms"],
@@ -4462,6 +4749,7 @@ def main():
          "launches_bf16_path": bf16_total["upfirdn2d_grad"],
          "launches_multi_device_path": md_total.get("upfirdn2d_grad", 0),
          "launches_spatial_path": sp_total.get("upfirdn2d_grad", 0),
+         "launches_remat_path": remat_total.get("upfirdn2d_grad", 0),
          "max_abs_err": max(r["max_abs_err"] for r in fgr),
          "ms": sum(r["ms"] for r in fgr),
          "eager_ms": sum(r["eager_ms"] for r in fgr),
@@ -4505,6 +4793,7 @@ def main():
          "launches_bf16_path": bf16_total["noise_bias_act_grad"],
          "launches_multi_device_path": md_total.get("noise_bias_act_grad", 0),
          "launches_spatial_path": sp_total.get("noise_bias_act_grad", 0),
+         "launches_remat_path": remat_total.get("noise_bias_act_grad", 0),
          "max_abs_err": max(r["max_abs_err"] for r in egr),
          "sums_max_rel_err": max(r["sums_max_rel_err"] for r in egr),
          "ms": wsum(egr, "ms"), "eager_ms": wsum(egr, "eager_ms"),

@@ -15,9 +15,11 @@ networks (global batch 8, ``min_res`` 64, step 0 with Gpl and R1) in this
 process on ``cuda:0``, then on the ranks, and holds them to phase 13's
 rules: the uint8 composites by phase 4's rule with the known pixels exact,
 each rank's launches the one process's, step 0's gradients each network
-within 1e-3 or 4× its float32 spread on one card measured in the same
-run, the replicas bit for bit after every step.  Its times are one timed
-request and one timed step each, not a steady rate.
+within 1e-3 or 4× the median of its three float32 spread samples on one
+card measured in the same run, the replicas bit for bit after every step,
+and the ranks' step 0 with ``train.remat``'s networks held to their step 0
+without it by the same gate.  Its times are one timed request and one
+timed step each, not a steady rate.
 
 Prints one JSON line (also written to ``<out>/spatial_nccl.json``); exits
 non-zero if a rank fails or a check does not hold.  Imports nothing of

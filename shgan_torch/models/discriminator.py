@@ -4,12 +4,12 @@ blocks, then minibatch stddev, a conv and two dense layers.  The CoModGAN D
 is the same network with a 4-channel input (mask - 0.5 || RGB).
 
 Blocks are attributes ``b{res}`` so parameter names read
-``b256.conv0.weight`` as in the JAX package.  ``remat`` is a TPU
-formulation: accepted, not used.  A class-conditional D (``c_dim > 0``)
-maps the label to ``cmap`` with a ``mapping`` network (``z_dim`` 0); as in
-the JAX package its epilogue is built without ``cmap_dim``, so the logits
-do not read ``cmap`` (an epilogue built with ``cmap_dim`` projects onto
-it).
+``b256.conv0.weight`` as in the JAX package.  With ``remat`` each block
+above 4² is checkpointed (:mod:`.remat`); the epilogue is not.  A
+class-conditional D (``c_dim > 0``) maps the label to ``cmap`` with a
+``mapping`` network (``z_dim`` 0); as in the JAX package its epilogue is
+built without ``cmap_dim``, so the logits do not read ``cmap`` (an
+epilogue built with ``cmap_dim`` projects onto it).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch.nn as nn
 from ..ops.minibatch_std import minibatch_std
 from .layers import Conv2dLayer, Dense
 from .mapping import Mapping
+from .remat import remat_call
 
 
 class DiscrimBlock(nn.Module):
@@ -105,6 +106,7 @@ class Discriminator(nn.Module):
                  mbstd_group_size=4, mbstd_c_n=1, c_dim=None, cmap_dim=None,
                  remat=False, generator=None):
         super().__init__()
+        self.remat = remat
         log2res = int(np.log2(resolution))
         if 2 ** log2res != resolution:
             raise ValueError(resolution)
@@ -138,7 +140,7 @@ class Discriminator(nn.Module):
         minibatch stddev spans it (None: the batch is whole)."""
         x = None
         for resi in self.encode_res[:-1]:
-            x = getattr(self, f"b{resi}")(x, img)
+            x = remat_call(self.remat, getattr(self, f"b{resi}"), x, img)
             img = None
         cmap = self.mapping(None, c) if self.mapping is not None else None
         return self.b4(x, cmap, rows=rows)

@@ -8,7 +8,9 @@ builds every block without the residual link; the port has none.  With
 ``mbstd_c_n > 0`` the epilogue appends the minibatch-stddev channels
 before its conv; with ``c_dim > 0`` a ``mapping`` network (``z_dim`` 0)
 maps the label to ``cmap``, which the epilogue, built without
-``cmap_dim`` as in the JAX package, does not read.
+``cmap_dim`` as in the JAX package, does not read.  With ``remat`` each
+block above 4² is checkpointed (:mod:`.remat`); the epilogue, with its
+dropout and minibatch stddev, is not.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from ..ops.minibatch_std import minibatch_std
 from ..parallel.spatial import constrain, level
 from .layers import Conv2dLayer, Dense
 from .mapping import Mapping
+from .remat import remat_call
 
 
 class EncoderBlock(nn.Module):
@@ -121,8 +124,10 @@ class Encoder(nn.Module):
                  mbstd_group_size=4, mbstd_c_n=1, c_dim=None, cmap_dim=None,
                  use_dropout=True, has_extra_final_layer=True, remat=False,
                  fold_above_res=None, generator=None):
-        # remat / fold_above_res are TPU formulations: accepted, not used
+        # remat: each block above 4² checkpointed (models/remat.py);
+        # fold_above_res, a layout for the TPU's MXU: accepted, not used
         super().__init__()
+        self.remat = remat
         log2res = int(np.log2(resolution))
         if 2 ** log2res != resolution:
             raise ValueError(resolution)
@@ -162,7 +167,8 @@ class Encoder(nn.Module):
         feats = {}
         img = constrain(img)   # a slab where the top level is sharded
         for resi in self.encode_res[:-1]:
-            x, feats[resi] = getattr(self, f"b{resi}")(x, img)
+            x, feats[resi] = remat_call(self.remat,
+                                        getattr(self, f"b{resi}"), x, img)
             img = None
         cmap = self.mapping(None, c) if self.mapping is not None else None
         x, feats[4] = self.b4(x, cmap, train=train, generator=generator,

@@ -9,6 +9,9 @@ beside the encoder's global code.  Random noise: synthesis layer
 ``2r + 1`` and the 4² block's conv has ``8``, so each noise layer draws its
 own stream under the forward's ``noise_seed``.  A block above
 ``use_fp16_after_res`` runs in bfloat16; the image pyramid stays float32.
+With ``remat`` each co-modulated block after ``b4`` is checkpointed
+(:mod:`.remat`); as in the JAX package, ``StyleGANSynthesis`` has no
+``remat``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from ..data.rng import derive_seed
 from ..ops.upfirdn2d import setup_filter, upsample2d
 from ..parallel.spatial import level
 from .layers import Conv2dLayer, Dense, SynthesisLayer, ToRGBLayer, randn
+from .remat import remat_call
 
 PLUR_SALT = 0x9E3779B9   # keys the pluralistic w0 noise off the noise seed
 
@@ -246,11 +250,13 @@ class CoModSynthesis(nn.Module):
                  resample_filter=(1, 3, 3, 1),
                  activation="lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)",
                  remat=False, fold_above_res=None, generator=None):
-        # remat / fold_above_res are TPU formulations: accepted, not used
+        # remat: each block after b4 checkpointed (models/remat.py);
+        # fold_above_res, a layout for the TPU's MXU: accepted, not used
         super().__init__()
         log2res = int(np.log2(resolution))
         if 2 ** log2res != resolution:
             raise ValueError(resolution)
+        self.remat = remat
         self.resolution = resolution
         self.rgb_n = rgb_n
         self.block_res = [2 ** i for i in range(2, log2res + 1)]
@@ -295,9 +301,10 @@ class CoModSynthesis(nn.Module):
         x, img = self.b4(x, feats[4], block_ws[0], noise_mode=noise_mode,
                          noise_seed=noise_seed, row0=row0, rows=rows)
         for res, cur_ws in zip(self.block_res[1:], block_ws[1:]):
-            x, img = getattr(self, f"b{res}")(
-                x, feats[res], img, cur_ws, w0, noise_mode=noise_mode,
-                noise_seed=noise_seed, row0=row0, rows=rows)
+            x, img = remat_call(
+                self.remat, getattr(self, f"b{res}"), x, feats[res], img,
+                cur_ws, w0, noise_mode=noise_mode, noise_seed=noise_seed,
+                row0=row0, rows=rows)
         s = level(self.resolution)
         return img if s is None else s.gather(img)
 

@@ -55,12 +55,24 @@ HALO = 2   # the most rows an op of a sharded level reads beyond its slab
 
 _STATE = threading.local()
 
-@contextmanager
 def spatial_sharding(mesh, min_res=512):
     """Run the levels at ``H >= min_res`` (divisible by the model axis) on
     slabs over the mesh's model axis."""
-    prev = getattr(_STATE, "cfg", None)
-    _STATE.cfg = (mesh, int(min_res))
+    return within((mesh, int(min_res)))
+
+
+def state():
+    """This thread's sharding state, for :func:`within` (None: none)."""
+    return getattr(_STATE, "cfg", None)
+
+
+@contextmanager
+def within(cfg):
+    """Run under the sharding state ``cfg`` of :func:`state` (the autograd
+    engine's device thread, which recomputes a checkpointed block, does not
+    see the caller's)."""
+    prev = state()
+    _STATE.cfg = cfg
     try:
         yield
     finally:
@@ -70,7 +82,7 @@ def spatial_sharding(mesh, min_res=512):
 def active():
     """``(mesh, min_res)`` inside :func:`spatial_sharding` with a model axis
     above 1, else None."""
-    cfg = getattr(_STATE, "cfg", None)
+    cfg = state()
     if cfg is None or cfg[0].model <= 1:
         return None
     return cfg

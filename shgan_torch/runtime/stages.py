@@ -14,7 +14,8 @@ Train: ``python -m shgan_torch.main`` → :class:`train_stage` →
 [+ R1], the optimizers with their LR schedules, G-EMA) → snapshots
 (:mod:`..checkpoint.train_state`), with G_ema's image grids, the nested
 eval and its ``-best`` snapshot (:func:`make_nested_eval`) and a profiler
-trace of three steps.
+trace of three steps.  ``train.remat: true`` builds G and D with their
+blocks checkpointed (:func:`remat_configs`, ``models/remat.py``).
 
 Both stages run on one device or on each rank of a process group
 (:mod:`..parallel`: one process per device, started by ``python -m
@@ -615,6 +616,20 @@ class _StepProfiler:
             self.prof = None
 
 
+def remat_configs(cfg_g, cfg_d):
+    """Copies of the G and D model configs with ``remat`` on in G's
+    ``encoder`` and ``synthesis`` and in D, where the JAX package sets it
+    (``shgan_tpu/runtime/stages.py:565-575``); the configs given are left
+    as they are."""
+    cfg_g, cfg_d = copy.deepcopy(cfg_g), copy.deepcopy(cfg_d)
+    for sub in ("encoder", "synthesis"):
+        sub_cfg = (cfg_g.get("args") or {}).get(sub)
+        if isinstance(sub_cfg, dict):
+            sub_cfg.setdefault("args", {})["remat"] = True
+    cfg_d.setdefault("args", {})["remat"] = True
+    return cfg_g, cfg_d
+
+
 class train_stage:
     """The StyleGAN2/CoModGAN training loop on one device or over the
     ranks of a process group."""
@@ -655,9 +670,13 @@ class train_stage:
                               fallback_synthetic=cfge.get("debug", False))
         formatter = wrap_formatter(get_formatter(cfgt["dataset"]["formatter"]),
                                    cfgt["dataset"].get("transforms"))
-        # remat is a TPU formulation: the models accept and ignore it
-        G = get_model(cfg["model_g"], seed=seed).to(dev)
-        D = get_model(cfg["model_d"], seed=derive_seed(seed, 1)).to(dev)
+        cfg_g, cfg_d = cfg["model_g"], cfg["model_d"]
+        if cfgt.get("remat", False):
+            cfg_g, cfg_d = remat_configs(cfg_g, cfg_d)
+            print_log("remat: G's encoder and synthesis blocks and D's "
+                      "blocks are recomputed in the backward")
+        G = get_model(cfg_g, seed=seed).to(dev)
+        D = get_model(cfg_d, seed=derive_seed(seed, 1)).to(dev)
         tc = TrainConfig(**(cfgt.get("loss_kwargs") or {}))
         step = TrainStep(G, D, tc, mesh=mesh)
 

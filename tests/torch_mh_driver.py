@@ -19,7 +19,9 @@ the test needs each one):
   over 10 pre-generated PNGs (``--evalnog_path``'s loadgen pairing);
 * ``train``: ``train_stage`` across snapshot ticks, then a resume;
 * ``engine``: nothing distributed: the engine over two CPU "devices";
-* ``mbstd``: D's logits and R1's gradient on the global batch.
+* ``mbstd``: D's logits and R1's gradient on the global batch;
+* ``remat_step``: the ``step`` mode's step with remat on, against the
+  ranks' step without it and one process's step on the global batch.
 
 With ``model`` (default 1) the mesh has a model axis of that many ranks,
 and the spatial modes (for tests/test_torch_spatial.py) run G's levels on
@@ -32,7 +34,9 @@ slabs, each rank holding the unsharded reference it computes itself:
 * ``spatial_jax``: that generator on the JAX weights the test wrote;
 * ``spatial_step``: one ``TrainStep`` (Gmain + Gpl + Dmain + R1) sharded
   against the one-process step (``model`` 1: inside the context against
-  outside it).
+  outside it);
+* ``spatial_remat``: that sharded step with remat on against it without
+  remat, and a G forward under the sharding with its backward outside it.
 
 It imports nothing of JAX.
 """
@@ -150,6 +154,36 @@ elif mode == "step":
          **grads, **{f"W_{k}": v.detach().numpy()
                      for k, v in G.state_dict().items()})
     print("MH_STEP_OK", rank, flush=True)
+
+elif mode == "remat_step":
+    from shgan_torch.train import TrainConfig, TrainStep
+    from shgan_torch.runtime.stages import step_generator
+    out = {}
+    for name, step_mesh, remat in (("one", None, False),
+                                   ("plain", mesh, False),
+                                   ("remat", mesh, True)):
+        cfg, G, D = models()
+        for m in (G.encoder, G.synthesis, D):
+            m.remat = remat
+        step = TrainStep(G, D, TrainConfig(
+            **(cfg["train"].get("loss_kwargs") or {})), mesh=step_mesh)
+        grads = {}
+        recording(step.opt_g, "G", grads)
+        recording(step.opt_d, "D", grads)
+        real, mask = global_batch()
+        if step_mesh is not None:
+            real, mask = mesh.shard_batch((real, mask))
+        step(real, mask, step_generator(0, 0), 0.99, do_greg=True,
+             do_dreg=True)
+        if step_mesh is not None:
+            check_replicated([step.G, step.D, step.G_ema, step.pl_mean])
+        arrays = dict(grads, w_avg=G.mapping.w_avg.numpy(),
+                      pl_mean=step.pl_mean.numpy(),
+                      **{f"W_{k}": v.detach().numpy()
+                         for k, v in G.state_dict().items()})
+        out.update({f"{name}_{k}": v for k, v in arrays.items()})
+    save("remat_step", **out)
+    print("MH_REMAT_STEP_OK", rank, flush=True)
 
 elif mode == "eval":
     from shgan_torch.runtime.stages import eval_stage
@@ -496,11 +530,57 @@ def spatial_step():
     save_json("spatial_step", rec)
     print("MH_SPATIAL_STEP_OK", rank, flush=True)
 
+
+def spatial_remat():
+    from shgan_torch.parallel import spatial
+    from shgan_torch.runtime.stages import step_generator
+    from shgan_torch.train import TrainConfig, TrainStep
+    real, mask, z = graft_batch()
+    r, m = mesh.shard_batch(real), mesh.shard_batch(mask)
+    out = {}
+    for name, remat in (("plain", False), ("remat", True)):
+        G, D = graft_models()
+        for mod in (G.encoder, G.synthesis, D):
+            mod.remat = remat
+        step = TrainStep(G, D, TrainConfig(), mesh=mesh)
+        grads = {}
+        recording(step.opt_g, "G", grads)
+        recording(step.opt_d, "D", grads)
+        mesh.traffic.update(halo_bytes=0, sum_bytes=0)
+        with spatial.spatial_sharding(mesh, min_res=16):
+            metrics = step(r, m, step_generator(0, 0), 0.99, do_greg=True,
+                           do_dreg=True)
+        check_replicated([step.G, step.D, step.G_ema, step.pl_mean],
+                         mesh=mesh)
+        out[f"halo_bytes_{name}"] = np.int64(mesh.traffic["halo_bytes"])
+        # G's forward on the slabs, its backward outside the sharding: the
+        # recompute must run on the slabs it ran on
+        G2, _ = graft_models(seed=1)
+        for mod in (G2.encoder, G2.synthesis):
+            mod.remat = remat
+        x = torch.cat([mask - 0.5, real * mask], dim=1)
+        with spatial.spatial_sharding(mesh, min_res=16):
+            img = G2(mesh.shard_batch(x), mesh.shard_batch(z),
+                     noise_mode="random", noise_seed=5)
+        (img.square().mean() + img.mean()).backward()
+        arrays = dict(grads, pl_mean=step.pl_mean.numpy(),
+                      **{f"M_{k}": v.detach().numpy()
+                         for k, v in metrics.items()},
+                      **{f"W_{k}": v.detach().numpy()
+                         for k, v in step.G.state_dict().items()},
+                      **{f"B_{k}": p.grad.numpy()
+                         for k, p in G2.named_parameters()
+                         if p.grad is not None})
+        out.update({f"{name}_{k}": v for k, v in arrays.items()})
+    np.savez(os.path.join(out_dir, f"spatial_remat_rank{rank}.npz"), **out)
+    print("MH_SPATIAL_REMAT_OK", rank, flush=True)
+
+
 if mode.startswith("spatial"):
     # a comma-separated list of spatial modes, one process group for all
     for m in mode.split(","):
-        {"spatial_ops": spatial_ops, "spatial_step": spatial_step}.get(
-            m, lambda m=m: spatial_g(m))()
+        {"spatial_ops": spatial_ops, "spatial_step": spatial_step,
+         "spatial_remat": spatial_remat}.get(m, lambda m=m: spatial_g(m))()
     if world > 1:
         # every rank's point-to-point work done before the group goes away
         import torch.distributed as dist
