@@ -29,7 +29,8 @@ Phases, each printing one JSON line:
    stride-2 depthwise ``conv2d``;
 3. serving path: ``InpaintEngine("shgan_g512", device="cuda",
    batch_size=8)`` with random noise (every ``noise_strength`` set to 0.1
-   so the noise reaches the image) answers requests of 8, 8 and 3 rows;
+   so the noise reaches the image), its forward one captured CUDA graph a
+   batch bucket (``runtime/compiled.py``), answers requests of 8, 8 and 3 rows;
    launch counts over exactly those requests (the fused epilogue 15 a
    forward, K1 itself none); the composite contract and run-to-run
    determinism; latency and images/s;
@@ -40,7 +41,8 @@ Phases, each printing one JSON line:
    weights loaded strictly from a ``.pth``), 96 synthetic 1024² images
    from a pool of 4, batch 4, ``pallas_conv1024: true``, FID (random
    Inception weights from a pytorch-fid style ``.pth``), PSNR and SSIM,
-   run by the CLI's ``run``; launch counts of every kernel over exactly
+   run by the CLI's ``run`` (its forward one captured graph, replayed a
+   batch); launch counts of every kernel over exactly
    that run (K3 2, K2 24, the fused epilogue 17 a forward, K1 none),
    finite metrics in ``result.json``, images/s and peak memory; then the
    same run again with ``SHGAN_EVAL_TIMING=1`` for the
@@ -71,7 +73,8 @@ Phases, each printing one JSON line:
    batch 2 on the card (cuDNN deterministic) and on the CPU, TF32 off,
    each leaf within 1e-3 of its norm (the noise strengths' and the SHU's
    within 1e-2), beside the same gradient under cuDNN's default and
-   autotuned algorithms;
+   autotuned algorithms; each noise strength's gradient (Σ ν·g) within
+   1e-3 of the magnitude of its terms, Σ |ν·g|, on all three card runs;
 9. the published eval protocol: ``shgan_ffhq256_fullmetrics_eval``
    assembled by ``build_config`` and run by ``run`` as configured
    (full-width ``shgan_g256`` with random weights from a ``.pth``, batch
@@ -187,13 +190,31 @@ Phases, each printing one JSON line:
     of each checkpointed block counted from the modules); at batch 32, the
     modes off, on, on, off, each step's ms by phase and its peak allocated
     and reserved memory;
-15. the kernels line ``{"kernels": [...]}`` (the grad kernel's and K2
+15. the compiled forward (``compiled_path``): ``shgan_g512`` at batch 8
+    with a latency bucket of 4, random noise, float32 and bf16, through
+    the engine's graphs against the eager ``composite_forward`` on the
+    same inputs: five requests at other starts, a 3-row request through
+    bucket 4 and ``inpaint_stream`` at ``window=2`` (each bit for bit or
+    by phase 4's rule, the gap printed; known pixels exact; two starts
+    differ; launches exact per forward over the replays); ``shgan_g1024``
+    at batch 4 with K3 through the eval stage over 96 images, compiled and
+    eager (composites by the same rule, fid / psnr / ssim equal, launches
+    exact); request ms at 8 and 3 rows, steady images/s and the host's
+    enqueue ms of both, capture seconds per key, pool GiB, eval images/s
+    of both, beside the card's name and power limit;
+16. the kernels line ``{"kernels": [...]}`` (the grad kernel's and K2
     backward's rows with their bf16 numbers; every row's launches over
     phase 11 as ``launches_bf16_path``, over phase 12 as
     ``launches_multi_device_path``, over phase 13 as
-    ``launches_spatial_path`` and over phase 14 as
-    ``launches_remat_path``);
-16. last line: ``{"ok": true, "device": {...}}``.
+    ``launches_spatial_path``, over phase 14 as
+    ``launches_remat_path`` and over phase 15 as
+    ``launches_compiled_path``);
+17. last line: ``{"ok": true, "device": {...}}``.
+
+A one-device engine and a one-rank eval replay one graph a batch shape;
+the launch counts of a replay are the capture's (``runtime/compiled.py``),
+and the script's own tallies (K2 by route, launches on bf16 tensors) count
+replays by the same rule (``graph_tallies``).
 
 Any failed check raises: the script then exits non-zero and prints no
 result line.  It needs the repository (``shgan_torch``, ``configs/``) and
@@ -1262,10 +1283,63 @@ def rel_errs(a, b):
 # spectral conv sums over the spectrum of cuFFT's or the CPU FFT's output.
 PARITY_LOOSE = ("noise_strength", "encoder.shu.")
 PARITY_TOL, PARITY_LOOSE_TOL = 1e-3, 1e-2
+# a noise strength's gradient Σ ν·g against the magnitude of its terms,
+# Σ |ν·g| (the CPU run's): the tight rule, on every card run
+NOISE_TERMS_TOL = 1e-3
 
 
 def is_loose(leaf):
     return any(t in leaf for t in PARITY_LOOSE)
+
+
+class noise_terms:
+    """Within the block, each ``noise_strength`` leaf's Σ |ν·g| over the
+    plain grad kernel's calls (the CPU's epilogue gradient: g the
+    cotangent of the activation's input, ν the noise before the strength),
+    summed in float64 into ``terms[leaf]``; :meth:`patch` is
+    :func:`parity_grads`'s hook that names the leaves."""
+
+    def __init__(self):
+        self.terms, self.names = {}, {}
+
+    def patch(self, G, D):
+        for name, p in G.named_parameters():
+            if name.endswith("noise_strength"):
+                self.names[p.data_ptr()] = "G." + name
+        return G, D
+
+    def __enter__(self):
+        from shgan_torch.ops import noise_bias_act as nba
+        self.orig = plain = nba.noise_bias_act_grad_plain
+
+        def grad_plain(dy, x, dcoefs=None, bias=None, act=nba.LINEAR,
+                       noise_mode="none", noise_key=None, noise_const=None,
+                       strength=None, row0=0, h0=None):
+            out = plain(dy, x, dcoefs, bias, act, noise_mode, noise_key,
+                        noise_const, strength, row0, h0)
+            if noise_mode != "none":
+                g = nba.noise_bias_act_mask_plain(
+                    dy, x, dcoefs, bias, act, noise_mode, noise_key,
+                    noise_const, strength, row0=row0, h0=h0)
+                nu = nba._noise_plain(x, noise_mode, noise_key, noise_const,
+                                      row0, h0)
+                leaf = self.names[strength.data_ptr()]
+                self.terms[leaf] = self.terms.get(leaf, 0.0) + float(
+                    (g.double() * nu.double()).abs().sum())
+            return out
+        nba.noise_bias_act_grad_plain = grad_plain
+        return self
+
+    def __exit__(self, *exc):
+        from shgan_torch.ops import noise_bias_act as nba
+        nba.noise_bias_act_grad_plain = self.orig
+
+
+def noise_term_errs(card, cpu, terms):
+    """[(|card - cpu| / Σ |ν·g|, leaf)] over the noise strengths, the
+    worst first."""
+    return sorted((float((card[k] - cpu[k]).abs().max()) / max(t, 1e-30), k)
+                  for k, t in terms.items())[::-1]
 
 
 def train_parity(cfg, seed=0):
@@ -1277,13 +1351,29 @@ def train_parity(cfg, seed=0):
     on every run; two more card runs, under cuDNN's default algorithms
     (some of them nondeterministic) and under its autotuner, give each
     leaf's float32 spread on one device and the default run's distance
-    from the CPU, for the record."""
+    from the CPU, for the record.  Each noise strength's gradient, a sum
+    Σ ν·g that cancels, is also held against the magnitude of its terms,
+    Σ |ν·g| (from the CPU run): within 1e-3 of it on all three card
+    runs."""
     with cudnn_flags(deterministic=True):
         card, card_s = parity_grads(cfg, "cuda", seed, strength=0.0)
-    cpu, cpu_s = parity_grads(cfg, "cpu", seed, strength=0.0)
+    nt = noise_terms()
+    with nt:
+        cpu, cpu_s = parity_grads(cfg, "cpu", seed, strength=0.0,
+                                  patch=nt.patch)
     card_default, _ = parity_grads(cfg, "cuda", seed, strength=0.0)
     with cudnn_flags(benchmark=True):
         card2, _ = parity_grads(cfg, "cuda", seed, strength=0.0)
+    noise_leaves = sorted(k for k in cpu if k.endswith("noise_strength"))
+    if sorted(nt.terms) != noise_leaves:
+        raise AssertionError(f"noise terms of {sorted(nt.terms)}, leaves "
+                             f"{noise_leaves}")
+    # each noise strength's error against the magnitude of its terms, on
+    # the three card runs (deterministic, default, autotuned algorithms)
+    terms_rel = {run: noise_term_errs(g, cpu, nt.terms)
+                 for run, g in (("deterministic", card),
+                                ("default", card_default),
+                                ("autotuned", card2))}
     rel = rel_errs(card, cpu)
     spread = dict((k, e) for e, k in rel_errs(card2, card))
     loose = [(e, k) for e, k in rel if is_loose(k)]
@@ -1302,10 +1392,20 @@ def train_parity(cfg, seed=0):
                                        if not is_loose(r[1])),
            "default_algos_loose_worst": next(r for r in rel_d
                                              if is_loose(r[1])),
+           "noise_terms": nt.terms,
+           "noise_vs_terms": terms_rel,
+           "noise_vs_terms_worst": {run: r[0] for run, r in
+                                    terms_rel.items()},
+           "noise_vs_terms_tol": NOISE_TERMS_TOL,
            "cuda_s": card_s, "cpu_s": cpu_s}
     emit(row)
     if not (tight[0][0] <= PARITY_TOL and loose[0][0] <= PARITY_LOOSE_TOL):
         raise AssertionError(f"train card vs CPU: {tight[0]}, {loose[0]}")
+    bad = {run: r[0] for run, r in terms_rel.items()
+           if r[0][0] > NOISE_TERMS_TOL}
+    if bad:
+        raise AssertionError(f"noise strengths card vs CPU over the "
+                             f"magnitude of their terms: {bad}")
     return row
 
 
@@ -1571,13 +1671,65 @@ def fullmetrics_launches(g_cfg, batch, images, ppl_samples, ppl_batch):
             "noise_bias_act": (n_batches + 2 * ppl_batches) * layers}
 
 
+class graph_tallies:
+    """Tallies that this script keeps beside the wrappers' counts (dicts
+    that wrappers of the kernel wrappers count into) made to count a
+    captured graph's replays, by the rule ``runtime/compiled.py`` keeps for
+    ``build.launches``: within the block, what a graph's warm-up and
+    capture count into them is taken back, the capture's share is
+    recorded with the graph and added once per replay.  A graph captured
+    outside the block adds nothing to them."""
+
+    def __init__(self, *tallies):
+        self.tallies = tallies
+
+    def __enter__(self):
+        from shgan_torch.runtime.compiled import CompiledForward as C
+        self.orig = (C._warm_up, C._record, C._replay)
+        warm_up, record, replay = self.orig
+        tallies = self.tallies
+
+        def snap():
+            return [dict(t) for t in tallies]
+
+        def restore(saved):
+            for t, v in zip(tallies, saved):
+                t.update(v)
+
+        def warm(cf, st):
+            saved = snap()
+            warm_up(cf, st)
+            restore(saved)
+
+        def rec(cf, st):
+            saved = snap()
+            out = record(cf, st)
+            st.tallies = [{k: t[k] - v[k] for k in t}
+                          for t, v in zip(tallies, saved)]
+            restore(saved)
+            return out
+
+        def play(cf, st):
+            for t, d in zip(tallies, getattr(st, "tallies", ())):
+                for k, v in d.items():
+                    t[k] += v
+            return replay(cf, st)
+        C._warm_up, C._record, C._replay = warm, rec, play
+        return self
+
+    def __exit__(self, *exc):
+        from shgan_torch.runtime.compiled import CompiledForward as C
+        C._warm_up, C._record, C._replay = self.orig
+
+
 def fir_route_tally(fir):
     """Wrap K2's launch function so each launch is tallied by its route
     (up = down = 1: the stride-1 tiles; up = 2: the resampling tiles; any
-    other: the generic kernel) beside the wrapper's own count; → (tally,
-    undo)."""
+    other: the generic kernel) beside the wrapper's own count, a captured
+    graph's replays included (:class:`graph_tallies`); → (tally, undo)."""
     tally = {"stride1": 0, "up2": 0, "other": 0}
     orig = fir.fir_cuda
+    graphs = graph_tallies(tally).__enter__()
 
     def counted(x, taps, up=(1, 1), down=(1, 1), pads=(0, 0, 0, 0),
                 counter="upfirdn2d"):
@@ -1587,8 +1739,12 @@ def fir_route_tally(fir):
         tally[key] += 1
         return orig(x, taps, up, down, pads, counter)
 
+    def undo():
+        fir.fir_cuda = orig
+        graphs.__exit__()
+
     fir.fir_cuda = counted
-    return tally, lambda: setattr(fir, "fir_cuda", orig)
+    return tally, undo
 
 
 def fullmetrics_path(tmp, cli, build, fir, inc_pth):
@@ -2429,6 +2585,8 @@ def bf16_serving(build, total):
                 and all(getattr(b, f"b{res}").dtype == torch.bfloat16
                         for b in blocks))):
             raise AssertionError(f"bf16 serving at {model}: {row}")
+        e32.close()
+        e16.close()
         del e32, e16
         torch.cuda.empty_cache()
     return rows
@@ -2633,7 +2791,7 @@ def bf16_path(tmp, cli, build, fir, nba, noise, inc_pth, tcfg32, fgr32,
     grad kernel and of K2's backward, the phase's launches)."""
     t_phase = time.perf_counter()
     total = {}
-    with bf16_tally(fir, nba):
+    with bf16_tally(fir, nba), graph_tallies(bf16_launches):
         serving = bf16_serving(build, total)
         t_gen = time.perf_counter()
         gen = bf16_generate(tmp, cli, build, inc_pth)
@@ -3246,6 +3404,7 @@ def md_engine(build):
         outs[name] = e.inpaint(imgs, masks, start_index=16)
         ms[name] = (time.perf_counter() - t0) * 1e3
         launches[name] = dict(build.launches)
+        e.close()
         del e
         torch.cuda.empty_cache()
     per_fwd = len(fir_calls(model_cfg_bank_cfg(MODEL), MD_ENGINE_BATCH))
@@ -3662,29 +3821,34 @@ def sp_forward(mesh):
 
     ctx = (spatial.spatial_sharding(mesh, SP_FWD_MIN_RES) if mesh is not None
            else nullcontext())
-    with ctx:
-        e.inpaint(imgs, masks)                 # first use
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        build.reset_launches()
-        if mesh is not None:
-            mesh.traffic.update(halo_bytes=0, sum_bytes=0)
+    # the one process's engine replays a graph (the ranks' runs eagerly):
+    # its routes are the capture's, once a replay
+    with ctx, graph_tallies(routes):
         fir.fir_cuda = tally
         try:
+            e.inpaint(imgs, masks)                 # first use
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            routes.update(dict.fromkeys(routes, 0))
+            if mesh is not None:
+                mesh.traffic.update(halo_bytes=0, sum_bytes=0)
             t0 = time.perf_counter()
             out = e.inpaint(imgs, masks, start_index=8)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
+            path = e.path()
         finally:
             fir.fir_cuda = orig
     rec = {"request_ms": ms, "launches": dict(build.launches),
-           "k2_routes": routes,
+           "k2_routes": routes, "path": path,
            "traffic_bytes": dict(mesh.traffic) if mesh is not None else {},
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     keep = np.broadcast_to(masks[:, None] > 0.5, imgs.shape)
     rec["known_pixels_exact"] = bool(np.array_equal(out[keep],
                                                     quantized(imgs)[keep]))
     set_conv1024_impl("xla")
+    e.close()
     del e
     torch.cuda.empty_cache()
     return rec, out
@@ -4190,6 +4354,307 @@ def remat_path(tmp):
     return row, total
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the compiled forward (runtime/compiled.py) against the eager one
+# ---------------------------------------------------------------------------
+
+COMPILED_STARTS = (0, 8, 16, 1000, 123_456)   # five requests of 8 rows
+COMPILED_STREAM = 4                           # batches through the stream
+
+
+def eager_request(e, imgs, masks, start):
+    """An engine's request run eagerly: its chunks padded to their buckets,
+    z and the batch noise seed of each chunk's start, ``composite_forward``
+    on the device, as the engine ran every batch before its forward was
+    compiled."""
+    from shgan_torch.data.rng import derive_seed
+    from shgan_torch.models.infer import composite_forward, z_for_positions
+    from shgan_torch.serve import BATCH_NOISE_SALT, _as_model_input
+    real, mask = _as_model_input(imgs, masks)
+    n, bs, outs = real.shape[0], e.batch_size, []
+    for lo in range(0, n, bs):
+        r, m = real[lo:lo + bs], mask[lo:lo + bs]
+        k = r.shape[0]
+        tgt = next((b for b in e.buckets if b >= k), bs)
+        if k < tgt:
+            pad = [(0, tgt - k)] + [(0, 0)] * 3
+            r, m = np.pad(r, pad), np.pad(m, pad, constant_values=1)
+        z = z_for_positions(e.seed, e.G.z_dim, range(start + lo,
+                                                     start + lo + tgt))
+        with torch.inference_mode():
+            out = composite_forward(
+                e.G, torch.from_numpy(r).cuda(), torch.from_numpy(m).cuda(),
+                torch.from_numpy(z).cuda(), noise_mode=e.noise_mode,
+                noise_seed=derive_seed(e.seed, start + lo, BATCH_NOISE_SALT))
+        outs.append(out[:k].cpu().numpy())
+    return np.concatenate(outs)
+
+
+def uint8_gap(a, b):
+    """(bit for bit, share within 1, max |a - b|) of two uint8 arrays."""
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return bool(not d.any()), float((d <= 1).mean()), int(d.max())
+
+
+def phase4_rule(gap, what):
+    """Bit for bit, or phase 4's rule: >= 99.9 % of values within 1, max
+    <= 2."""
+    equal, within1, dmax = gap
+    if not equal and (within1 < 0.999 or dmax > 2):
+        raise AssertionError(f"{what}: compiled vs eager {within1:.6f} "
+                             f"within 1, max {dmax}")
+
+
+def compiled_serving(build, bf16, smi):
+    """``shgan_g512`` at batch 8 (a latency bucket of 4), random noise,
+    float32 or bf16: five requests at other starts, a 3-row request
+    through bucket 4 and ``inpaint_stream`` at ``window=2``, each against
+    the eager forward on the same inputs; launches exact per forward over
+    the replays (the 3-row graph captured inside the count); request ms,
+    steady images/s, the host's enqueue ms, capture seconds and pool
+    GiB."""
+    from shgan_torch.data.rng import derive_seed
+    from shgan_torch.models.infer import composite_forward, z_for_positions
+    from shgan_torch.serve import BATCH_NOISE_SALT, InpaintEngine
+    e = InpaintEngine(MODEL, device="cuda", batch_size=SERVE_BATCH,
+                      latency_batches=(4,), noise_mode="random", seed=0,
+                      bf16=bf16)
+    noise_reaches_image(e.G)
+    if e.path() != "compiled":
+        raise AssertionError(f"one-device engine: {e.path()}")
+    res = e.G.img_resolution
+    reqs = requests(res, seed=7)
+    imgs8, masks8 = reqs[0]
+    imgs3, masks3 = reqs[2]
+    want, _ = forward_launches(e.G)
+    # bucket 8 captured here; bucket 4 inside the counted requests
+    e.inpaint(imgs8, masks8, start_index=77)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    outs = [e.inpaint(imgs8, masks8, start_index=st)
+            for st in COMPILED_STARTS]
+    out3 = e.inpaint(imgs3, masks3, start_index=40)
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    n_fwd = len(COMPILED_STARTS) + 1
+    if launches != {k: v * n_fwd for k, v in want.items()}:
+        raise AssertionError(f"compiled {MODEL} launches {launches}, "
+                             f"expected {n_fwd} x {want}")
+    gaps = [uint8_gap(o, eager_request(e, imgs8, masks8, st))
+            for o, st in zip(outs, COMPILED_STARTS)]
+    gaps.append(uint8_gap(out3, eager_request(e, imgs3, masks3, 40)))
+    for g, st in zip(gaps, list(COMPILED_STARTS) + [40]):
+        phase4_rule(g, f"{MODEL} bf16={bf16} start {st}")
+    for (imgs, masks), out in ((reqs[0], outs[0]), (reqs[2], out3)):
+        keep = np.broadcast_to(masks[:, None] > 0.5, out.shape)
+        if out.shape != imgs.shape or not np.array_equal(
+                out[keep], quantized(imgs)[keep]):
+            raise AssertionError("compiled: known pixels differ")
+    if any(np.array_equal(outs[0], o) for o in outs[1:]):
+        raise AssertionError("compiled: two starts give the same images")
+    # the stream keeps two replays queued: each output a copy made before
+    # the next replay overwrote the graph's
+    batches = [(imgs8, masks8)] * COMPILED_STREAM
+    streamed = list(e.inpaint_stream(iter(batches), start_index=500,
+                                     window=2))
+    for i, got in enumerate(streamed):
+        single = e.inpaint(imgs8, masks8, start_index=500 + 8 * i)
+        if not np.array_equal(got, single):
+            raise AssertionError(f"stream batch {i} differs from inpaint")
+        phase4_rule(uint8_gap(got, eager_request(e, imgs8, masks8,
+                                                 500 + 8 * i)),
+                    f"stream batch {i}")
+
+    # times: request ms at 8 and 3 rows, steady images/s, enqueue ms
+    def req_ms(fn, imgs, masks):
+        ms = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(imgs, masks, 8 * i)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms
+
+    compiled_fn = lambda i, m, st: e.inpaint(i, m, start_index=st)  # noqa
+    eager_fn = lambda i, m, st: eager_request(e, i, m, st)  # noqa
+    times = {}
+    for name, fn in (("compiled", compiled_fn), ("eager", eager_fn),
+                     ("eager", eager_fn), ("compiled", compiled_fn)):
+        t = times.setdefault(name, {"ms_8": [], "ms_3": [], "ips": []})
+        t["ms_8"] += req_ms(fn, imgs8, masks8)
+        t["ms_3"] += req_ms(fn, imgs3, masks3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(5):
+            fn(imgs8, masks8, 8 * i)
+        torch.cuda.synchronize()
+        t["ips"].append(5 * SERVE_BATCH / (time.perf_counter() - t0))
+    # the host's enqueue: one batch's forward call, device inputs, the
+    # device idle before it
+    r = torch.from_numpy(imgs8).cuda()
+    m = torch.from_numpy(masks8[:, None]).cuda()
+    z = z_for_positions(0, e.G.z_dim, range(8))
+    zd = torch.from_numpy(z).cuda()
+    enq = {"compiled": [], "eager": []}
+    for i in range(5):
+        for name in ("compiled", "eager"):
+            torch.cuda.synchronize()
+            seed = derive_seed(0, 8 * i, BATCH_NOISE_SALT)
+            t0 = time.perf_counter()
+            if name == "compiled":
+                e.compiled(r, m, z, seed)
+            else:
+                with torch.inference_mode():
+                    composite_forward(e.G, r, m, zd, noise_seed=seed)
+            enq[name].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+    row = {"model": MODEL, "batch": SERVE_BATCH, "bf16": bf16,
+           "buckets": e.buckets, "noise_mode": "random", "path": e.path(),
+           "starts": list(COMPILED_STARTS), "cudnn_tf32": True,
+           "bit_for_bit": [g[0] for g in gaps],
+           "within_1": [g[1] for g in gaps],
+           "max_abs_diff": [g[2] for g in gaps],
+           "stream_window": 2, "stream_batches": COMPILED_STREAM,
+           "launches": launches, "forwards": n_fwd,
+           "request_ms": times, "enqueue_ms": enq,
+           "steady_images_per_s": {k: v["ips"] for k, v in times.items()},
+           "captures": e.compiled.records,
+           "pool_gib": e.compiled.pool_bytes() / 2 ** 30,
+           "nvidia_smi": smi}
+    e.close()
+    del e
+    torch.cuda.empty_cache()
+    return row
+
+
+def compiled_eval(tmp, cli, build, g_pth, inc_pth, smi):
+    """``shgan_g1024`` at batch 4 with K3 through the eval stage over
+    ``EVAL_IMAGES`` images, its forward compiled and then eager (the
+    stage's own eager branch, which several ranks take, chosen by giving
+    ``eager_reason`` a reason): composites by phase 4's rule, fid / psnr /
+    ssim equal, launches exact; images/s of both.  The composites are kept
+    on the card until the end (no readback inside the timed loop)."""
+    from shgan_torch.runtime import stages
+    Compiled, reason, forward = (stages.CompiledForward, stages.eager_reason,
+                                 stages.composite_forward)
+    got = {"compiled": [], "eager": []}
+    made = []
+
+    class Recording(Compiled):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+        def __call__(self, *a, **k):
+            out = super().__call__(*a, **k)
+            got["compiled"].append(out)
+            return out
+
+    def eager_forward(*a, **k):
+        out = forward(*a, **k)
+        got["eager"].append(out)
+        return out
+
+    patches = {"compiled": {"CompiledForward": Recording},
+               "eager": {"eager_reason": lambda *a, **k: "compared",
+                         "composite_forward": eager_forward}}
+    n_batches = EVAL_IMAGES // EVAL_BATCH
+    calls = fir_calls(model_cfg_bank_cfg(MODEL_1024), EVAL_BATCH)
+    layers = noise_layers(model_cfg_bank_cfg(MODEL_1024))
+    want = {"conv3x3_lowch": 2 * n_batches,
+            "upfirdn2d": len(calls) * n_batches, "upfirdn2d_grad": 0,
+            "philox_normal": 0, "noise_bias_act": sum(layers.values())
+            * n_batches, "noise_bias_act_grad": 0}
+    runs = {}
+    for name in ("compiled", "eager"):
+        for k, v in patches[name].items():
+            setattr(stages, k, v)
+        try:
+            cfg = eval_config(tmp, g_pth, inc_pth, EVAL_IMAGES,
+                              f"log_{name}")
+            build.reset_launches()
+            t0 = time.perf_counter()
+            rv = cli.run(cfg)
+            stage_s = time.perf_counter() - t0
+            launches = dict(build.launches)
+        finally:
+            (stages.CompiledForward, stages.eager_reason,
+             stages.composite_forward) = Compiled, reason, forward
+        if launches != want:
+            raise AssertionError(f"{name} eval launches {launches}, "
+                                 f"expected {want}")
+        with open(os.path.join(cfg["eval"]["log_dir"], "result.json")) as f:
+            result = json.load(f)
+        t = rv["timing"]
+        runs[name] = {
+            "metrics": {k: result[k][k] for k in ("fid", "psnr", "ssim")},
+            "images_per_s": EVAL_BATCH * (n_batches - 1)
+            / (sum(t["batch_s"][1:]) + t["drain_s"]),
+            "batch0_s": t["batch_s"][0], "stage_s": stage_s,
+            "launches": launches}
+    if len(made) != 1 or not made[0].records or len(got["eager"]) != len(
+            got["compiled"]):
+        raise AssertionError("the eval stage's compiled run did not capture "
+                             "its forward, or its eager run did not run "
+                             "eagerly")
+    gap = uint8_gap(torch.cat(got["compiled"]).cpu().numpy(),
+                    torch.cat(got["eager"]).cpu().numpy())
+    got.clear()
+    phase4_rule(gap, f"{MODEL_1024} eval")
+    if runs["compiled"]["metrics"] != runs["eager"]["metrics"]:
+        raise AssertionError(f"eval metrics compiled {runs['compiled']} "
+                             f"vs eager {runs['eager']}")
+    return {"model": MODEL_1024, "batch": EVAL_BATCH,
+            "images": EVAL_IMAGES, "pallas_conv1024": True,
+            "noise_mode": "random", "cudnn_tf32": True,
+            "bit_for_bit": gap[0], "within_1": gap[1],
+            "max_abs_diff": gap[2], "runs": runs,
+            "captures": made[0].records, "nvidia_smi": smi}
+
+
+def compiled_path(tmp, cli, build, g_pth, inc_pth, smi):
+    """Phase 15: the compiled forward against the eager one, at
+    ``shgan_g512`` b8 (float32 and bf16) through the engine and at
+    ``shgan_g1024`` b4 with K3 through the eval stage.  Returns the row
+    and the phase's launches."""
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True   # as served
+    serving = {("bf16" if bf16 else "float32"): compiled_serving(
+        build, bf16, smi) for bf16 in (False, True)}
+    ev = compiled_eval(tmp, cli, build, g_pth, inc_pth, smi)
+    total = {}
+    for r in serving.values():
+        add_launches(total, r["launches"])
+    for r in ev["runs"].values():
+        add_launches(total, r["launches"])
+    f32 = serving["float32"]
+    row = {"phase": "compiled_path", "serving": serving, "eval": ev,
+           "summary": {
+               "nvidia_smi": smi,
+               "request_ms_8": {k: v["ms_8"] for k, v in
+                                f32["request_ms"].items()},
+               "request_ms_3": {k: v["ms_3"] for k, v in
+                                f32["request_ms"].items()},
+               "steady_images_per_s": {
+                   prec: r["steady_images_per_s"]
+                   for prec, r in serving.items()},
+               "enqueue_ms": {prec: {k: float(np.median(v))
+                                     for k, v in r["enqueue_ms"].items()}
+                              for prec, r in serving.items()},
+               "capture_s": {prec: [c["capture_s"] for c in r["captures"]]
+                             for prec, r in serving.items()}
+               | {"eval": [c["capture_s"] for c in ev["captures"]]},
+               "pool_gib": {prec: r["pool_gib"]
+                            for prec, r in serving.items()}
+               | {"eval": sum(c["pool_bytes"] for c in ev["captures"])
+                  / 2 ** 30},
+               "eval_images_per_s": {k: v["images_per_s"]
+                                     for k, v in ev["runs"].items()}},
+           "launches": total, "wall_s": time.perf_counter() - t_phase}
+    emit(row)
+    return row, total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="perf_out",
@@ -4393,6 +4858,8 @@ def main():
     steady_s = time.perf_counter() - t0
     n_img = sum(r[0].shape[0] for r in reqs)
     emit({"phase": "main_path", "model": MODEL, "batch_size": SERVE_BATCH,
+          "path": engine.path(),
+          "pool_gib": engine.compiled.pool_bytes() / 2 ** 30,
           "buckets": engine.buckets, "requests_rows": [8, 8, 3],
           "latency_ms": lat_ms, "images_per_s": n_img / (sum(lat_ms) / 1e3),
           "steady_images_per_s": 40 / steady_s, "launches": launches,
@@ -4404,6 +4871,7 @@ def main():
     # ---- 4. whole-path parity, card vs CPU ----------------------------------
     torch.backends.cudnn.allow_tf32 = False
     state = {k: v.cpu() for k, v in engine.G.state_dict().items()}
+    engine.close()
     del engine
     torch.cuda.empty_cache()
     imgs, masks = reqs[2][0][:1], reqs[2][1][:1]
@@ -4415,6 +4883,7 @@ def main():
         t0 = time.perf_counter()
         got[dev] = e.inpaint(imgs, masks).astype(np.int16)
         got[dev + "_s"] = time.perf_counter() - t0
+        e.close()
         del e
     d = np.abs(got["cuda"] - got["cpu"])
     within1 = float((d <= 1).mean())
@@ -4590,10 +5059,16 @@ def main():
         # ---- 14. per-block rematerialization (train.remat) ------------------
         remat_row, remat_total = remat_path(tmp)
         detail.update(remat_path=remat_row)
+
+        # ---- 15. the compiled forward against the eager one -----------------
+        torch.cuda.empty_cache()
+        compiled_row, compiled_total = compiled_path(tmp, cli, build, g_pth,
+                                                     inc_pth, smi)
+        detail.update(compiled_path=compiled_row)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- 15. the kernels line -----------------------------------------------
+    # ---- 16. the kernels line -----------------------------------------------
     detail.update(eval_launches=eval_launches, k3_in_place=in_place,
                   train_launches=train_launches,
                   fullmetrics_launches=full_launches,
@@ -4637,6 +5112,7 @@ def main():
          "launches_multi_device_path": md_total.get("upfirdn2d", 0),
          "launches_spatial_path": sp_total.get("upfirdn2d", 0),
          "launches_remat_path": remat_total.get("upfirdn2d", 0),
+         "launches_compiled_path": compiled_total.get("upfirdn2d", 0),
          "max_abs_err": max(r["max_abs_err"] for r in fr + fir_1024),
          "ms": wsum(fr, "ms"), "eager_ms": wsum(fr, "eager_ms"),
          "bf16_ms": wsum(fr, "bf16_ms"),
@@ -4666,6 +5142,7 @@ def main():
          "launches_multi_device_path": md_total.get("philox_normal", 0),
          "launches_spatial_path": sp_total.get("philox_normal", 0),
          "launches_remat_path": remat_total.get("philox_normal", 0),
+         "launches_compiled_path": compiled_total.get("philox_normal", 0),
          "max_abs_err": max(r["max_abs_err"] for r in nr + noise_1024),
          "ms": wsum(nr, "ms"), "eager_ms": wsum(nr, "eager_ms"),
          "plain_ms": wsum(nr, "plain_ms"),
@@ -4690,6 +5167,7 @@ def main():
          "launches_multi_device_path": md_total.get("noise_bias_act", 0),
          "launches_spatial_path": sp_total.get("noise_bias_act", 0),
          "launches_remat_path": remat_total.get("noise_bias_act", 0),
+         "launches_compiled_path": compiled_total.get("noise_bias_act", 0),
          "max_abs_err": max(r["max_abs_err"] for r in er + epi_1024),
          "ms": wsum(er, "ms"), "eager_ms": wsum(er, "eager_ms"),
          "bf16_ms": wsum(er, "bf16_ms"),
@@ -4721,6 +5199,7 @@ def main():
          "launches_multi_device_path": md_total.get("conv3x3_lowch", 0),
          "launches_spatial_path": sp_total.get("conv3x3_lowch", 0),
          "launches_remat_path": remat_total.get("conv3x3_lowch", 0),
+         "launches_compiled_path": compiled_total.get("conv3x3_lowch", 0),
          "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
          "ms": 2 * k3["ms"], "eager_ms": 2 * k3["eager_ms"],
          "plain_ms": 2 * k3["plain_ms"],
@@ -4750,6 +5229,7 @@ def main():
          "launches_multi_device_path": md_total.get("upfirdn2d_grad", 0),
          "launches_spatial_path": sp_total.get("upfirdn2d_grad", 0),
          "launches_remat_path": remat_total.get("upfirdn2d_grad", 0),
+         "launches_compiled_path": compiled_total.get("upfirdn2d_grad", 0),
          "max_abs_err": max(r["max_abs_err"] for r in fgr),
          "ms": sum(r["ms"] for r in fgr),
          "eager_ms": sum(r["eager_ms"] for r in fgr),
@@ -4794,6 +5274,7 @@ def main():
          "launches_multi_device_path": md_total.get("noise_bias_act_grad", 0),
          "launches_spatial_path": sp_total.get("noise_bias_act_grad", 0),
          "launches_remat_path": remat_total.get("noise_bias_act_grad", 0),
+         "launches_compiled_path": compiled_total.get("noise_bias_act_grad", 0),
          "max_abs_err": max(r["max_abs_err"] for r in egr),
          "sums_max_rel_err": max(r["sums_max_rel_err"] for r in egr),
          "ms": wsum(egr, "ms"), "eager_ms": wsum(egr, "eager_ms"),

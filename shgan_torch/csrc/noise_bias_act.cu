@@ -103,7 +103,8 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
     noise_bias_act_kernel(const T* x, T* y, int c, shgan::NoiseWindow win, long long calls,
                           const float* __restrict__ dcoef, const float* __restrict__ bias,
                           const float* __restrict__ strength,
-                          const float* __restrict__ noise_const, int mode, uint32_t k0,
+                          const float* __restrict__ noise_const,
+                          const long long* __restrict__ key_row, int mode, uint32_t k0,
                           uint32_t k1, long long row0, Act act, Launch L) {
   constexpr int V = 2 * CPT;  // elements of each half a thread owns
   const long long rel = shgan::nba::first_call(L, blockIdx.x, threadIdx.x, calls);
@@ -121,10 +122,11 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
   } else {
     const float s = *strength;
     if (mode == shgan::nba::kNoiseRandom) {
+      const shgan::nba::NoiseKey key = shgan::nba::pick_key(key_row, k0, k1, row0);
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        shgan::noise_quad(static_cast<uint32_t>(q0 + j), shgan::noise_row(row0, row), k0, k1,
-                          &nz[0][2 * j], &nz[1][2 * j]);
+        shgan::noise_quad(static_cast<uint32_t>(q0 + j), shgan::noise_row(key.row0, row), key.k0,
+                          key.k1, &nz[0][2 * j], &nz[1][2 * j]);
       }
     } else {
 #pragma unroll
@@ -160,8 +162,8 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
 template <typename T, int CPT>
 void launch(const void* x, void* y, int n, int c, const shgan::NoiseWindow& win,
             const float* dcoef, const float* bias, const float* strength,
-            const float* noise_const, int mode, uint32_t k0, uint32_t k1, long long row0, Act act,
-            cudaStream_t stream) {
+            const float* noise_const, const long long* key_row, int mode, uint32_t k0, uint32_t k1,
+            long long row0, Act act, cudaStream_t stream) {
   const long long calls = win.q1 - win.q0;
   const Launch L = shgan::nba::plan_calls(n, c, calls, CPT, 0);
   const dim3 grid(static_cast<unsigned int>(L.tiles), static_cast<unsigned int>(n),
@@ -169,7 +171,7 @@ void launch(const void* x, void* y, int n, int c, const shgan::NoiseWindow& win,
   const dim3 block(L.bt, L.bc);
   noise_bias_act_kernel<T, CPT><<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), c, win, calls, dcoef, bias, strength,
-      noise_const, mode, k0, k1, row0, act, L);
+      noise_const, key_row, mode, k0, k1, row0, act, L);
 }
 
 }  // namespace
@@ -182,14 +184,19 @@ void launch(const void* x, void* y, int n, int c, const shgan::NoiseWindow& win,
 // demodulation); bias float32 [c] or null; mode 0 none, 1 random (Philox key
 // k0, k1), 2 const (noise_const float32 [rows, res], the same rows of the
 // layer's plane); strength: a float32 on the device, read for modes 1 and 2;
-// row n of x draws the noise of counter row row0 + n.  clamp +inf for none;
+// row n of x draws the noise of counter row row0 + n.  key_row: null, or an
+// 8-byte aligned int64 [3] on the device holding (k0, k1, row0), which mode 1
+// then reads in place of the three scalars (noise_bias_act.cuh: pick_key;
+// the key of a captured graph's launch, written before each replay).
+// clamp +inf for none;
 // alpha 1 for a linear activation.  Returns cudaGetLastError() after the
 // launch.
 extern "C" int shgan_noise_bias_act(const void* x, void* y, int bf16, int n, int c, int res,
                                     int rows, int h0, const float* dcoef, const float* bias,
-                                    const float* strength, const float* noise_const, int mode,
-                                    unsigned int k0, unsigned int k1, long long row0,
-                                    float alpha, float gain, float clamp, void* stream) {
+                                    const float* strength, const float* noise_const,
+                                    const long long* key_row, int mode, unsigned int k0,
+                                    unsigned int k1, long long row0, float alpha, float gain,
+                                    float clamp, void* stream) {
   if (res < 2 || res % 2 || h0 < 0 || rows < 0 || h0 + rows > res)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || c == 0 || rows == 0) return static_cast<int>(cudaSuccess);
@@ -202,18 +209,18 @@ extern "C" int shgan_noise_bias_act(const void* x, void* y, int bf16, int n, int
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     if (vec) {
-      launch<uint16_t, 2>(x, y, n, c, win, dcoef, bias, strength, noise_const, mode, k0, k1, row0,
-                          act, s);
+      launch<uint16_t, 2>(x, y, n, c, win, dcoef, bias, strength, noise_const, key_row, mode, k0,
+                          k1, row0, act, s);
     } else {
-      launch<uint16_t, 1>(x, y, n, c, win, dcoef, bias, strength, noise_const, mode, k0, k1, row0,
-                          act, s);
+      launch<uint16_t, 1>(x, y, n, c, win, dcoef, bias, strength, noise_const, key_row, mode, k0,
+                          k1, row0, act, s);
     }
   } else if (vec) {
-    launch<float, 2>(x, y, n, c, win, dcoef, bias, strength, noise_const, mode, k0, k1, row0, act,
-                     s);
+    launch<float, 2>(x, y, n, c, win, dcoef, bias, strength, noise_const, key_row, mode, k0, k1,
+                     row0, act, s);
   } else {
-    launch<float, 1>(x, y, n, c, win, dcoef, bias, strength, noise_const, mode, k0, k1, row0, act,
-                     s);
+    launch<float, 1>(x, y, n, c, win, dcoef, bias, strength, noise_const, key_row, mode, k0, k1,
+                     row0, act, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

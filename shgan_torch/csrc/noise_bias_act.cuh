@@ -97,6 +97,24 @@ SHGAN_HD uint16_t to_bf16(float f) {
   return static_cast<uint16_t>((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
 }
 
+// The Philox key and first counter row of a random-noise launch.  With a
+// device row (k0, k1, row0) of a noise table (int64 [3]: ops/noise.py,
+// noise_table) the launch reads them from it and ignores the scalars; with
+// none (nullptr) it takes the scalars.  A captured CUDA graph holds its
+// launches' scalars fixed: the table row is written before each replay, so
+// each batch draws its own noise, as the TPU kernel reads its seed words
+// from SMEM (shgan_tpu/ops/noise.py:94-95).  A key word is the low 32 bits
+// of its int64.
+struct NoiseKey {
+  uint32_t k0, k1;
+  long long row0;
+};
+
+SHGAN_HD NoiseKey pick_key(const long long* row, uint32_t k0, uint32_t k1, long long row0) {
+  if (row == nullptr) return NoiseKey{k0, k1, row0};
+  return NoiseKey{static_cast<uint32_t>(row[0]), static_cast<uint32_t>(row[1]), row[2]};
+}
+
 // The launch.  Philox call q of batch row n yields the normals of flat plane
 // indices 2q, 2q+1 (cos half) and R*R/2 + 2q, R*R/2 + 2q + 1 (sin half), as
 // in kernel K1 (noise.cu).  A thread owns `cpt` consecutive calls of one row

@@ -37,7 +37,7 @@ _F = ctypes.c_float
 ENTRY_POINTS = {
     "noise": {"shgan_philox_normal": (_P,) + (_I,) * 4 + (_LL, _U, _U, _P)},
     "noise_bias_act": {
-        "shgan_noise_bias_act": (_P, _P) + (_I,) * 6 + (_P,) * 4
+        "shgan_noise_bias_act": (_P, _P) + (_I,) * 6 + (_P,) * 5
         + (_I, _U, _U, _LL, _F, _F, _F, _P),
         "shgan_noise_bias_act_grad": (_P,) * 3 + (_I,) * 6 + (_P,) * 4
         + (_I, _U, _U, _LL, _F, _F, _F, _I) + (_P,) * 6},
@@ -52,6 +52,9 @@ ENTRY_POINTS = {
 # exact when several threads launch (the engine over several devices).
 # K2's derivative calls (backward and higher orders) count apart from its
 # forward calls; the epilogue's grad kernel counts in both of its modes.
+# The counts are plain Python counts: a CUDA graph's replay launches its
+# captured kernels without a wrapper call, so runtime/compiled.py records
+# each graph's counts at capture and adds them once per replay (add()).
 launches = {"upfirdn2d": 0, "upfirdn2d_grad": 0, "philox_normal": 0,
             "conv3x3_lowch": 0, "noise_bias_act": 0,
             "noise_bias_act_grad": 0}
@@ -63,6 +66,20 @@ _LAUNCH_LOCK = threading.Lock()
 def count(name):
     with _LAUNCH_LOCK:
         launches[name] += 1
+
+
+def add(delta):
+    """Add ``{name: n}`` to the counts (a graph's launches per replay; a
+    negative n takes back a capture's, whose kernels ran no time)."""
+    with _LAUNCH_LOCK:
+        for k, v in delta.items():
+            launches[k] += v
+
+
+def snapshot():
+    """A copy of the counts."""
+    with _LAUNCH_LOCK:
+        return dict(launches)
 
 
 def reset_launches():

@@ -55,7 +55,9 @@ class CoModGANGenerator(nn.Module):
                 row0=0, rows=None):
         """``noise_seed`` keys the random noise of every synthesis layer
         (``noise_mode='random'``), ``row0`` its first counter row (the
-        batch's place in a larger one); ``rows``: this rank's
+        batch's place in a larger one); or ``noise_seed`` is a noise table
+        (``ops/noise.noise_table``) holding each layer's key and counter
+        row, and ``row0`` is 0; ``rows``: this rank's
         :class:`~shgan_torch.parallel.Rows` of a global batch, whose
         batch-wide statistics the layers read (None: the batch is whole)."""
         ws = self.mapping(z, c, truncation_psi=truncation_psi,

@@ -26,7 +26,8 @@ def composite_forward(G, real, mask, z, noise_mode="random", noise_seed=None,
 
     ``real`` in [-1, 1] NCHW float, or uint8 0..255 (normalized here, on the
     tensor's device); ``mask`` {0=hole, 1=keep} [N,1,H,W], float or uint8.
-    ``row0`` / ``rows`` as in the generator's forward."""
+    ``noise_seed`` (an integer or a noise table), ``row0`` and ``rows`` as
+    in the generator's forward."""
     if real.dtype == torch.uint8:
         real = real.float() / 127.5 - 1.0
     if mask.dtype != torch.float32:

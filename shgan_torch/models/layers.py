@@ -121,7 +121,10 @@ class SynthesisLayer(nn.Module):
     """Modulated conv + per-layer noise injection.
 
     ``layer_id`` keys this layer's random noise: with ``noise_mode='random'``
-    the noise is K1's Philox stream of ``noise_key(noise_seed, layer_id)``.
+    the noise is K1's Philox stream of ``noise_key(noise_seed, layer_id)``,
+    or, where ``noise_seed`` is a noise table (``ops/noise.noise_table``,
+    in place of an integer seed and ``row0``), of the key and counter row
+    in its row ``layer_id``.
     Everything after the conv (demodulation, noise, bias, activation) runs
     as one :func:`noise_bias_act` call: one kernel launch on the card, and
     with grad mode on, a differentiable one (its backward the grad kernel).
@@ -157,7 +160,9 @@ class SynthesisLayer(nn.Module):
 
     def forward(self, x, w, gain=1.0, noise_mode="random", noise_seed=None,
                 row0=0, rows=None, slab=None, src=None):
-        """``row0``: the random noise's first counter row; ``rows``: this
+        """``noise_seed``: an integer, or a noise table (its row
+        ``layer_id`` holds the key and the first counter row; ``row0`` is
+        then 0); ``row0``: the random noise's first counter row; ``rows``: this
         worker's rows of a global batch, whose style statistic the
         modulated conv reads (None: the batch is whole); ``slab`` / ``src``:
         the output rows this rank computes and what ``x`` holds (spatial
@@ -174,11 +179,14 @@ class SynthesisLayer(nn.Module):
                                      flip_weight=(self.up == 1),
                                      split_dcoefs=True, rows=rows,
                                      slab=slab, src=src)
+        key = None
+        if mode == "random":
+            key = (noise_seed[self.layer_id]
+                   if isinstance(noise_seed, torch.Tensor)
+                   else noise_key(noise_seed, self.layer_id))
         return noise_bias_act(
             x, dcoefs, self.bias, epilogue_act(self.activation, gain),
-            noise_mode=mode,
-            noise_key=(noise_key(noise_seed, self.layer_id)
-                       if mode == "random" else None),
+            noise_mode=mode, noise_key=key,
             noise_const=self.noise_const if mode == "const" else None,
             strength=self.noise_strength if mode != "none" else None,
             row0=row0, slab=slab)

@@ -7,7 +7,9 @@ Co-modulation: every affine reads ``concat[w_i, w0]``, the mapping style
 beside the encoder's global code.  Random noise: synthesis layer
 ``conv0``/``conv1`` of the block at resolution ``r`` has layer id ``2r`` /
 ``2r + 1`` and the 4² block's conv has ``8``, so each noise layer draws its
-own stream under the forward's ``noise_seed``.  A block above
+own stream under the forward's ``noise_seed`` (an integer, or a noise
+table: ``ops/noise.noise_table``, row ``layer_id`` a layer's key and
+counter row).  A block above
 ``use_fp16_after_res`` runs in bfloat16; the image pyramid stays float32.
 With ``remat`` each co-modulated block after ``b4`` is checkpointed
 (:mod:`.remat`); as in the JAX package, ``StyleGANSynthesis`` has no
@@ -319,6 +321,12 @@ def plural_noise(w0, noise_mode, noise_seed, row0=0):
     if noise_mode == "random":
         if noise_seed is None:
             raise ValueError("noise_mode='random' requires a noise_seed")
+        if isinstance(noise_seed, torch.Tensor):
+            # a noise table keys the layers' noise on the device; this draw
+            # is the host's, from an integer seed (the compiled forward
+            # runs this synthesis eagerly: runtime/compiled.py)
+            raise ValueError("the pluralistic w0 draw takes an integer "
+                             "noise_seed, not a noise table")
         seed = (int(noise_seed) ^ PLUR_SALT) & 0x7FFFFFFFFFFFFFFF
     return torch.stack([
         torch.randn(tuple(w0.shape[1:]), generator=torch.Generator()

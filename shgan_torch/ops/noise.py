@@ -43,6 +43,34 @@ def noise_key(seed, layer):
             derive_seed(seed, layer, NOISE_SALT + 1))
 
 
+def noise_table(seed, layer_ids, row0=0, out=None):
+    """The noise table of a model's noise layers under ``seed``: int64
+    ``[max(layer_ids) + 1, 3]`` whose row ``layer_id`` is ``(*noise_key(
+    seed, layer_id), row0)`` for each id in ``layer_ids`` (the other rows
+    0).  A layer's random noise reads its row in place of an integer seed
+    and ``row0`` (``models/layers.SynthesisLayer``), and the fused
+    epilogue reads it from device memory, so a captured CUDA graph draws
+    each batch's noise from the table written before its replay.  ``out``:
+    a CPU int64 tensor of that shape to fill in place (a pinned staging
+    buffer); returns the table."""
+    ids = sorted({int(i) for i in layer_ids})
+    if not ids or ids[0] < 0:
+        raise ValueError(f"noise layer ids {layer_ids}")
+    if row0 < 0 or row0 > _U32:
+        raise ValueError(f"noise row {row0} leaves the 32-bit counter")
+    rows = np.zeros((ids[-1] + 1, 3), np.int64)
+    for i in ids:
+        rows[i] = (*noise_key(seed, i), row0)
+    if out is None:
+        return torch.from_numpy(rows)
+    if out.shape != rows.shape or out.dtype != torch.int64 or out.is_cuda:
+        raise ValueError(f"noise table: out must be a CPU int64 "
+                         f"{rows.shape}, got {out.dtype} {tuple(out.shape)} "
+                         f"on {out.device}")
+    out.numpy()[...] = rows
+    return out
+
+
 def _mulhilo(a, b):
     """(hi, lo) 32-bit words of the constant ``a`` times the int64 tensor
     ``b`` (values in [0, 2^32)), in 16-bit limbs so nothing overflows."""

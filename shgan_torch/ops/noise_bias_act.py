@@ -10,7 +10,12 @@ where the noise is K1's Philox stream keyed by ``noise_key`` (``"random"``)
 at counter rows ``row0 ... row0 + N - 1`` (``row0`` places the batch in a
 larger one: a rank's block of a global batch draws what those rows of the
 global batch draw), the layer's ``noise_const`` plane (``"const"``) or
-nothing (``"none"``).  ``x`` may be a window of plane rows: ``[N, C, rows,
+nothing (``"none"``).  ``noise_key`` is a pair of integers, or a row of a
+noise table (``ops/noise.noise_table``): an int64 tensor ``(k0, k1, row0)``
+on x's device, whose ``row0`` is the first counter row (the ``row0``
+argument is then 0).  The kernel reads a table row from device memory, so a
+captured CUDA graph draws the noise of the key written there before each
+replay (``runtime/compiled.py``).  ``x`` may be a window of plane rows: ``[N, C, rows,
 R]`` holds rows ``[h0, h0 + rows)`` of R x R planes (a rank's slab of an
 H-sharded plane), whose noise is those rows of the whole plane's, bit for
 bit, and whose ``noise_const`` is those rows of the layer's plane.
@@ -91,6 +96,28 @@ def _check(x, noise_mode, noise_key, noise_const, strength, h0=None):
         raise ValueError("noise_mode 'const' needs noise_const")
 
 
+def _host_key(noise_key, row0=0):
+    """``((k0, k1), row0)`` as integers: a table row read back to the host
+    (its own ``row0``; the argument must then be 0), or the pair and
+    ``row0`` as given."""
+    if not isinstance(noise_key, torch.Tensor):
+        return noise_key, row0
+    _check_row(noise_key, row0, noise_key.device)
+    k0, k1, r0 = noise_key.tolist()
+    return (k0, k1), r0
+
+
+def _check_row(noise_key, row0, device):
+    if (noise_key.shape != (3,) or noise_key.dtype != torch.int64
+            or noise_key.device != device or not noise_key.is_contiguous()):
+        raise ValueError(f"a noise-table row is a contiguous int64 (3,) "
+                         f"tensor on {device}, got {noise_key.dtype} "
+                         f"{tuple(noise_key.shape)} on {noise_key.device}")
+    if row0:
+        raise ValueError("a noise-table row carries its counter row: pass "
+                         "row0 = 0 with it")
+
+
 def noise_bias_act_plain(x, dcoefs=None, bias=None, act=LINEAR,
                          noise_mode="none", noise_key=None, noise_const=None,
                          strength=None, row0=0, h0=None):
@@ -98,6 +125,7 @@ def noise_bias_act_plain(x, dcoefs=None, bias=None, act=LINEAR,
     _check(x, noise_mode, noise_key, noise_const, strength, h0)
     noise = None
     if noise_mode == "random":
+        noise_key, row0 = _host_key(noise_key, row0)
         n, _, rows, r = x.shape
         noise = philox_normal_plain(noise_key, n, r, x.device, row0,
                                     h0 or 0, rows)[:, None] * strength
@@ -120,7 +148,8 @@ def noise_bias_act_plain(x, dcoefs=None, bias=None, act=LINEAR,
 def _kernel_args(x, dcoefs, bias, noise_mode, noise_key, noise_const,
                  strength, row0, what):
     """Check the kernel's operands; the (mode, k0, k1, row0, pointers) it
-    takes."""
+    takes.  A noise-table row is for the forward kernel's ``key_row``
+    operand (:func:`noise_bias_act_cuda`), not for this."""
     if not x.is_cuda:
         raise ValueError(f"{what} needs a CUDA tensor")
     if not x.is_contiguous():
@@ -168,6 +197,11 @@ def noise_bias_act_cuda(x, dcoefs=None, bias=None, act=LINEAR,
     if x.is_cuda and x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"noise_bias_act kernel takes float32/bfloat16, got "
                         f"{x.dtype}")
+    key_row = None
+    if noise_mode == "random" and isinstance(noise_key, torch.Tensor):
+        # the kernel reads (k0, k1, row0) from the row on the device
+        _check_row(noise_key, row0, x.device)
+        key_row, noise_key = noise_key, (0, 0)
     aux, margs, ptrs = _kernel_args(
         x, dcoefs, bias, noise_mode, noise_key, noise_const, strength, row0,
         "noise_bias_act kernel")
@@ -187,7 +221,9 @@ def noise_bias_act_cuda(x, dcoefs=None, bias=None, act=LINEAR,
     rc = _kb.launch(
         _kb.library("noise_bias_act").shgan_noise_bias_act, x.device,
         x.data_ptr(), y.data_ptr(), 0 if x.dtype == torch.float32 else 1, n,
-        c, r, rows, h0 or 0, *ptrs, *margs, *_act_args(act))
+        c, r, rows, h0 or 0, *ptrs,
+        None if key_row is None else key_row.data_ptr(), *margs,
+        *_act_args(act))
     _kb.check(rc, "noise_bias_act kernel")
     _kb.count("noise_bias_act")
     return y
@@ -215,6 +251,11 @@ def _grad_launch(v, x, dcoefs, bias, act, noise_mode, noise_key, noise_const,
                  strength, mask_only, vs=None, row0=0, h0=None):
     what = "noise_bias_act_grad kernel"
     _check(x, noise_mode, noise_key, noise_const, strength, h0)
+    if noise_mode == "random":
+        # the grad kernel takes its key by value: a table row is read back
+        # (training runs eagerly; ROADMAP lists the device key for the
+        # compiled train step)
+        noise_key, row0 = _host_key(noise_key, row0)
     if x.dtype not in (torch.float32, torch.bfloat16) or v.dtype != x.dtype:
         raise TypeError(f"{what} takes a float32 or bfloat16 x and a "
                         f"cotangent of its type, got {v.dtype} / {x.dtype}")
@@ -276,6 +317,7 @@ def _noise_plain(x, noise_mode, noise_key, noise_const, row0=0, h0=None):
     """nu, the noise before the strength, broadcastable to x (None for
     'none')."""
     if noise_mode == "random":
+        noise_key, row0 = _host_key(noise_key, row0)
         n, _, rows, r = x.shape
         return philox_normal_plain(noise_key, n, r, x.device, row0, h0 or 0,
                                    rows)[:, None]

@@ -58,6 +58,7 @@ from ..models.infer import composite, composite_forward, z_for_positions
 from ..models.registry import get_model
 from ..ops import conv1024
 from ..parallel import Mesh, check_replicated, create_mesh
+from .compiled import CompiledForward, eager_reason
 from ..parallel.multihost import (barrier, is_lead, local_device,
                                   world_size)
 from ..serve import BATCH_NOISE_SALT, resolve_device
@@ -312,17 +313,30 @@ class eval_stage:
         # batch layout and rank count (the noise's counter row is i)
         noise_seed = derive_seed(seed, 0, BATCH_NOISE_SALT)
         rows = mesh.rows(batch_size)
+        # one rank on CUDA: the forward replays one captured graph a batch
+        # (row0 = the batch's start goes into the noise table); several
+        # ranks run it eagerly, since the style statistic's all_reduce
+        # runs through gloo on the host, which a graph cannot capture
+        why = eager_reason(G, [dev], mesh.world)
+        compiled = CompiledForward(G, noise_mode) if why is None else None
+        if dev.type == "cuda":
+            print_log("generator forward: " + (
+                "one CUDA graph a batch shape" if why is None
+                else f"eager ({why})"))
         try:
             t0 = t_prev = timeit.default_timer()
             for idx, (real, mask, valid, uids) in enumerate(pipe):
                 t_b = timeit.default_timer()
                 start = pipe.shard.global_offset + idx * local_bs
                 z = torch.from_numpy(z_for_positions(
-                    seed, G.z_dim, range(start, start + local_bs))).to(dev)
-                with torch.inference_mode():
-                    fake = composite_forward(
-                        G, real, mask, z, noise_mode=noise_mode,
-                        noise_seed=noise_seed, row0=start, rows=rows)
+                    seed, G.z_dim, range(start, start + local_bs)))
+                if compiled is not None:
+                    fake = compiled(real, mask, z, noise_seed, row0=start)
+                else:
+                    with torch.inference_mode():
+                        fake = composite_forward(
+                            G, real, mask, z.to(dev), noise_mode=noise_mode,
+                            noise_seed=noise_seed, row0=start, rows=rows)
                 if phase_log and fake.is_cuda:
                     torch.cuda.synchronize(fake.device)
                 t_c = timeit.default_timer()
@@ -365,6 +379,8 @@ class eval_stage:
                 gen_metrics_s = timeit.default_timer() - t_g
         finally:
             conv1024.set_conv1024_impl(prev_conv)
+            if compiled is not None:
+                compiled.release()
 
         evaluator.set_sample_n(len(dataset))
         rv = evaluator.compute()

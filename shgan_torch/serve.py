@@ -3,9 +3,16 @@ or over several (port of ``shgan_tpu/serve.py``), and
 :func:`generate_to_dir`, which writes an eval dataset's composites as
 ``<uid>.png`` for the ``--evalnog_path`` protocol.
 
-* **fixed batch shapes** — requests run in chunks of ``batch_size``; a
-  ragged tail pads up to the smallest latency bucket that fits and the
-  padding rows are stripped;
+* **fixed compiled shapes** — one captured forward per (batch,
+  resolution): on one CUDA device the composite forward runs as one CUDA
+  graph per batch bucket (``runtime/compiled.py``, the counterpart of the
+  JAX engine's AOT-compiled forward), captured at the first batch of each
+  bucket and replayed per batch; requests run in chunks of
+  ``batch_size``, a ragged tail pads up to the smallest latency bucket that
+  fits and the padding rows are stripped.  An engine over several devices
+  runs eagerly: its blocks meet on host barriers (``ThreadGroup``), which a
+  graph cannot capture; so does the pluralistic synthesis, whose ``w0``
+  draw is the host's;
 * **on-device postprocess** — mask-composite and uint8 quantization on the
   device (``models/infer.py``), so the readback is 1 byte per pixel; uint8
   images travel to the device as uint8;
@@ -44,6 +51,7 @@ import torch
 from .data.rng import derive_seed
 from .models.infer import composite_forward, z_for_positions
 from .parallel.mesh import Rows, ThreadGroup, split
+from .runtime.compiled import CompiledForward, eager_reason
 from .runtime.config import model_cfg_bank
 
 BATCH_NOISE_SALT = 0xB47C  # epoch slot of derive_seed for batch noise seeds
@@ -147,6 +155,25 @@ class InpaintEngine:
                 self.replicas[d] = (copy.deepcopy(G) if self.replicas
                                     else G).to(d)
         self.G = self.replicas[self.device]
+        # one device: the composite forward as one CUDA graph per bucket
+        # (on the CPU, the same statics run eagerly)
+        self.compiled = (CompiledForward(self.G, noise_mode)
+                         if len(self.mesh) == 1 else None)
+
+    def path(self):
+        """``"compiled"`` where a batch replays a captured graph, else
+        ``"eager: <why>"`` (``runtime/compiled.eager_reason``; on the CPU
+        there is nothing to capture)."""
+        why = eager_reason(self.G, self.mesh)
+        if why is None and self.device.type != "cuda":
+            why = "on the CPU, nothing to capture"
+        return "compiled" if why is None else f"eager: {why}"
+
+    def close(self):
+        """Free the captured graphs and their statics; a later batch
+        captures again."""
+        if self.compiled is not None:
+            self.compiled.release()
 
     def _block(self, real, mask, z, lo, rows, noise_seed, device):
         """The composite of one block (rows ``lo...`` of the batch) on
@@ -166,6 +193,8 @@ class InpaintEngine:
         noise_seed = derive_seed(self.seed, start, BATCH_NOISE_SALT)
         w = len(self.mesh)
         if w == 1:
+            if eager_reason(self.G, self.mesh) is None:
+                return self.compiled(real, mask, z, noise_seed)
             return self._block(real, mask, z, 0, None, noise_seed,
                                self.device)
         group = ThreadGroup(w)

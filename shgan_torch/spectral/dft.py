@@ -28,9 +28,9 @@ def irfft2(x_re, x_im, s):
     h, w = int(s[0]), int(s[1])
     u = torch.fft.ifft(torch.complex(x_re.float(), x_im.float()), n=h,
                        dim=-2, norm="forward")
-    keep = torch.ones(u.shape[-1], dtype=torch.float32, device=u.device)
-    keep[0] = 0.0
-    if w % 2 == 0:
-        keep[w // 2] = 0.0
-    u = torch.complex(u.real, u.imag * keep)
+    # 1 but at the DC and Nyquist columns, made on the device (a captured
+    # CUDA graph takes no host-to-device write of a Python scalar)
+    col = torch.arange(u.shape[-1], device=u.device)
+    keep = (col != 0) & (col != (w // 2 if w % 2 == 0 else -1))
+    u = torch.complex(u.real, u.imag * keep.to(torch.float32))
     return torch.fft.irfft(u, n=w, dim=-1, norm="forward")

@@ -348,6 +348,110 @@ def test_tiny_engine_card_matches_cpu(cuda):
     assert d.max() <= 1
 
 
+def _tiny_engine_cfg():
+    act = "lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)"
+    enc = dict(resolution=32, ic_n=4, oc_n=32, ch_base=256, ch_max=8,
+               use_fp16_before_res=None, activation=act, mbstd_group_size=0,
+               mbstd_c_n=0, has_extra_final_layer=False, shu_input_res=16,
+               shu_lowest_res=4, shu_channels=4, shu_df_freedom=[2, 3])
+    return {"type": "comodgan_generator", "args": {
+        "mapping": {"type": "comodgan_mapping",
+                    "args": dict(z_dim=32, w_dim=32, num_ws=8, num_layers=2)},
+        "encoder": {"type": "shgan_encoder", "args": enc},
+        "synthesis": {"type": "comodgan_synthesis",
+                      "args": dict(w_dim=32, w0_dim=32, resolution=32,
+                                   ch_base=256, ch_max=8,
+                                   use_fp16_after_res=None)}}}
+
+
+def test_compiled_engine_matches_eager(cuda):
+    """A small model's one-device engine replays a captured graph per
+    bucket: each request equals the eager forward at its own start bit for
+    bit, the stream at window 2 equals inpaint, and the launch counts are
+    one forward's a replay."""
+    from shgan_torch.data.rng import derive_seed
+    from shgan_torch.models.infer import composite_forward, z_for_positions
+    from shgan_torch.serve import BATCH_NOISE_SALT
+    e = InpaintEngine(_tiny_engine_cfg(), device=cuda, batch_size=2,
+                      latency_batches=(1,), seed=1, noise_mode="random")
+    with torch.no_grad():
+        for name, p in e.G.named_parameters():
+            if name.endswith("noise_strength"):
+                p.fill_(0.3)
+    assert e.path() == "compiled"
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (2, 3, 32, 32), dtype=np.uint8)
+    masks = (rng.rand(2, 32, 32) > 0.5).astype(np.float32)
+
+    def eager(n, start):
+        z = z_for_positions(1, e.G.z_dim, range(start, start + n))
+        with torch.inference_mode():
+            return composite_forward(
+                e.G, torch.from_numpy(imgs[:n]).to(cuda),
+                torch.from_numpy(masks[:n, None]).to(cuda),
+                torch.from_numpy(z).to(cuda),
+                noise_seed=derive_seed(1, start, BATCH_NOISE_SALT)
+            ).cpu().numpy()
+
+    e.inpaint(imgs, masks)            # captures bucket 2
+    torch.cuda.synchronize()
+    build.reset_launches()
+    outs = {st: e.inpaint(imgs, masks, start_index=st) for st in (0, 5, 9)}
+    one = e.inpaint(imgs[:1], masks[:1], start_index=3)   # bucket 1
+    torch.cuda.synchronize()
+    per = {k: v // 4 for k, v in build.launches.items()}
+    assert per["noise_bias_act"] == 7 and per["upfirdn2d"] > 0
+    assert build.launches == {k: 4 * v for k, v in per.items()}
+    for st, out in outs.items():
+        np.testing.assert_array_equal(out, eager(2, st))
+    np.testing.assert_array_equal(one, eager(1, 3))
+    assert not np.array_equal(outs[0], outs[5])
+    streamed = list(e.inpaint_stream(iter([(imgs, masks)] * 3),
+                                     start_index=20, window=2))
+    for i, got in enumerate(streamed):
+        np.testing.assert_array_equal(got, eager(2, 20 + 2 * i))
+    assert len(e.compiled.records) == 2 and e.compiled.pool_bytes() >= 0
+    e.close()
+    assert not e.compiled.statics
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res,row0,window", [
+    (4, 0, None), (64, 3, None), (512, 1000, None), (64, 2, (16, 24))])
+def test_noise_bias_act_device_key_equals_scalar_key(cuda, dtype, res, row0,
+                                                     window):
+    """The epilogue keyed by a noise-table row on the card (its key_row
+    operand) against the same key and row0 as scalars: bit for bit, whole
+    planes and a window of plane rows; another table row draws other
+    noise."""
+    n, c = 3, 5
+    h0, rows = window or (None, res)
+    x, dcoefs, bias, const, strength = _nba_inputs(cuda, dtype, n, c, res,
+                                                   seed=res + row0)
+    x = x[:, :, :rows].contiguous()
+    act = nba.epilogue_act(parse_activation(NBA_ACTS[1][0]), 0.7)
+    layer = 2 * res + 1
+    table = noise.noise_table(13, [2 * res, layer], row0).to(cuda)
+    kw = dict(dcoefs=dcoefs, bias=bias, act=act, noise_mode="random",
+              strength=strength, h0=h0)
+    def bits(t):   # x holds a NaN: compare the bits
+        return t.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+
+    want = nba.noise_bias_act(x.clone(), noise_key=noise.noise_key(13, layer),
+                              row0=row0, **kw)
+    got = nba.noise_bias_act(x.clone(), noise_key=table[layer], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(bits(got), bits(want))
+    other = nba.noise_bias_act(x.clone(), noise_key=table[2 * res], **kw)
+    assert not torch.equal(bits(other), bits(want))
+    # the table row written anew reaches the launch that reads it
+    table[layer, 2] = row0 + 1
+    moved = nba.noise_bias_act(x.clone(), noise_key=table[layer], **kw)
+    assert torch.equal(bits(moved), bits(nba.noise_bias_act(
+        x.clone(), noise_key=noise.noise_key(13, layer), row0=row0 + 1,
+        **kw)))
+
+
 NBA_ACTS = [
     # (spec, runtime gain): linear with a gain, lrelu with and without clamp
     (None, 0.5),

@@ -84,7 +84,9 @@ static void nbamap() {
 // -> the fused epilogue emulated thread by thread as the kernel runs it
 // (bf: x holds bf16 values, each result rounded once to bf16); each output
 // as its float32 bits.  An element written twice or never aborts.
-static void nba_run() {
+// nbadev: the same, with (k0, k1, row0) handed to the threads as a table
+// row (pick_key's device operand) and other scalars beside it.
+static void nba_run(bool from_row) {
   int bf, cpt, per, n, c, res, mode, hd, hb;
   unsigned k0, k1;
   float s;
@@ -102,6 +104,9 @@ static void nba_run() {
   std::vector<int> hits(x.size(), 0);
   const nba::Launch L = nba::plan(n, c, res, cpt, per);
   const int V = 2 * cpt;
+  const long long table_row[3] = {(long long)k0, (long long)k1, row0};
+  const nba::NoiseKey key = from_row ? nba::pick_key(table_row, ~k0, k1 ^ 0x5A5A5A5Au, row0 + 7)
+                                     : nba::pick_key(nullptr, k0, k1, row0);
   for (int bz = 0; bz < L.chunks; ++bz)
     for (int row = 0; row < n; ++row)
       for (long long bx = 0; bx < L.tiles; ++bx)
@@ -113,8 +118,8 @@ static void nba_run() {
             for (int e = 0; e < V; ++e) nz[0][e] = nz[1][e] = -0.0f;
             if (mode == nba::kNoiseRandom)
               for (int j = 0; j < cpt; ++j)
-                shgan::noise_quad((unsigned)(q0 + j), shgan::noise_row(row0, row), k0, k1,
-                                  &nz[0][2 * j], &nz[1][2 * j]);
+                shgan::noise_quad((unsigned)(q0 + j), shgan::noise_row(key.row0, row), key.k0,
+                                  key.k1, &nz[0][2 * j], &nz[1][2 * j]);
             if (mode == nba::kNoiseConst)
               for (int e = 0; e < V; ++e) {
                 nz[0][e] = cst[2 * q0 + e];
@@ -708,7 +713,17 @@ int main() {
     } else if (c == "nbamap") {
       nbamap();
     } else if (c == "nba") {
-      nba_run();
+      nba_run(false);
+    } else if (c == "nbadev") {
+      nba_run(true);
+    } else if (c == "nbakey") {
+      // nbakey has_row r0 r1 r2 k0 k1 row0 -> pick_key's (k0, k1, row0)
+      int has_row;
+      long long r[3], row0;
+      unsigned k0, k1;
+      std::scanf("%d %lld %lld %lld %u %u %lld", &has_row, &r[0], &r[1], &r[2], &k0, &k1, &row0);
+      const nba::NoiseKey k = nba::pick_key(has_row ? r : nullptr, k0, k1, row0);
+      std::printf("%u %u %lld\n", k.k0, k.k1, k.row0);
     } else if (c == "nbaop") {
       nba::Act a;
       int m;
@@ -1717,6 +1732,52 @@ def test_noise_bias_act_row_offset_emulation(harness):
         noise_key=key, strength=torch.tensor(np.float32(0.3)), row0=3)
     np.testing.assert_allclose(outs[3], want.numpy(), rtol=2.5e-7, atol=1e-5)
     assert not np.array_equal(outs[3], outs[0])
+
+
+@pytest.mark.parametrize("has_row,row,scalars,want", [
+    (0, (0, 0, 0), (7, 9, 3), (7, 9, 3)),
+    (1, (11, 12, 5), (7, 9, 3), (11, 12, 5)),
+    (1, (0xFFFFFFFF, 0x80000000, 2 ** 32 - 8), (1, 2, 0),
+     (0xFFFFFFFF, 0x80000000, 2 ** 32 - 8)),
+    # a key word is the low 32 bits of its int64
+    (1, (2 ** 32 + 5, 2 ** 33 + 6, 4), (1, 2, 3), (5, 6, 4)),
+])
+def test_noise_key_operand_rule(harness, has_row, row, scalars, want):
+    """pick_key (noise_bias_act.cuh): a table row's (k0, k1, row0) where
+    the launch has one, the scalars where it has none."""
+    got = harness(f"nbakey {has_row} {row[0]} {row[1]} {row[2]} "
+                  f"{scalars[0]} {scalars[1]} {scalars[2]}")
+    assert tuple(int(v) for v in got) == want
+
+
+@pytest.mark.parametrize("row0", [0, 3])
+@pytest.mark.parametrize("cpt", [1, 2])
+def test_noise_bias_act_key_from_a_table_row(harness, row0, cpt):
+    """The epilogue emulated with its key and counter row from a table
+    row (other scalars beside it) gives the scalar launch's bits, and the
+    plain version keyed by the same noise-table row."""
+    n, c, res = 2, 3, 8
+    rng = np.random.RandomState(5 + row0)
+    x = (rng.randn(n, c, res, res) * 3).astype(np.float32)
+    layer = 2 * res + 1
+    table = noise.noise_table(17, [layer], row0)
+    k0, k1, r0 = table[layer].tolist()
+    alpha, g, clamp = epilogue_act(parse_activation(NBA_ACTS[2][0]),
+                                   NBA_ACTS[2][1])
+    zeros = np.zeros(n * c + c + res * res, np.float32)
+    vals = " ".join(_f(v) for v in np.concatenate([zeros, x.ravel()]))
+    outs = []
+    for cmd in ("nba", "nbadev"):
+        head = (f"{cmd} 0 {cpt} 1 {n} {c} {res} 1 {k0} {k1} {_f(alpha)} "
+                f"{_f(g)} {_f(clamp)} 0 0 {_f(0.3)} {r0}")
+        outs.append(np.array(harness(f"{head} {vals}"), np.uint64).astype(
+            np.uint32).view(np.float32).reshape(x.shape))
+    np.testing.assert_array_equal(outs[0].view(np.uint32),
+                                  outs[1].view(np.uint32))
+    want = noise_bias_act_plain(
+        torch.from_numpy(x), act=(alpha, g, clamp), noise_mode="random",
+        noise_key=table[layer], strength=torch.tensor(np.float32(0.3)))
+    np.testing.assert_allclose(outs[1], want.numpy(), rtol=2.5e-7, atol=1e-5)
 
 
 @pytest.mark.parametrize("res,h0,rows", [
