@@ -1,0 +1,10 @@
+"""The share of the traced window in which no kernel, copy or set runs on
+the device (the complement of the union of the profiler's device
+activity)."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
