@@ -24,6 +24,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from ..runtime import tracing
 from .sampler import DataShard
 
 
@@ -49,14 +50,31 @@ class _Prefetcher:
 
     Up to ``max(depth, num_threads)`` batches are in flight on a
     ``num_threads``-wide pool; results yield strictly in order.
-    ``num_threads=0`` → synchronous."""
+    ``num_threads=0`` → synchronous.  Where a profiler records on the
+    consuming thread, each build is a ``data.build`` span on its worker
+    and each wait for a batch a ``data.wait`` span (``runtime/tracing``):
+    ``epoch_batch`` is the batch's index in its epoch (``first`` + its
+    index) and ``ready`` whether it was built when the consumer asked for
+    it."""
 
-    def __init__(self, make_batch, n_batches, depth=4, num_threads=None):
+    def __init__(self, make_batch, n_batches, depth=4, num_threads=None,
+                 first=0):
         self.make_batch = make_batch
         self.n_batches = n_batches
         self.depth = depth
         self.num_threads = (default_num_threads() if num_threads is None
                             else num_threads)
+        self.first = first
+
+    def _build(self, i):
+        with tracing.thread_span("data.build"):
+            return self.make_batch(i)
+
+    def _submit(self, ex, i):
+        # the profiler's state is the consuming thread's: read it here
+        if tracing.recording():
+            return ex.submit(self._build, i)
+        return ex.submit(self.make_batch, i)
 
     def __iter__(self):
         n = self.n_batches
@@ -70,12 +88,17 @@ class _Prefetcher:
             inflight = deque()
             nxt = 0
             while nxt < min(window, n):
-                inflight.append(ex.submit(self.make_batch, nxt))
+                inflight.append(self._submit(ex, nxt))
                 nxt += 1
+            got = 0
             while inflight:
-                batch = inflight.popleft().result()
+                fut = inflight.popleft()
+                with tracing.span("data.wait", ready=fut.done(),
+                                  epoch_batch=self.first + got):
+                    batch = fut.result()
+                got += 1
                 if nxt < n:
-                    inflight.append(ex.submit(self.make_batch, nxt))
+                    inflight.append(self._submit(ex, nxt))
                     nxt += 1
                 yield batch
         finally:
@@ -164,5 +187,6 @@ class TrainPipeline:
                         _to_device(mask, self.device))
             yield from _Prefetcher(make, len(shard) - first,
                                    depth=self.depth,
-                                   num_threads=self.num_threads)
+                                   num_threads=self.num_threads,
+                                   first=first)
             epoch += 1

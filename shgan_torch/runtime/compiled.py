@@ -25,6 +25,10 @@ replay launches without them.  The graph's counts are recorded at capture
 are the capture's own, whose kernels ran no time) and added once per
 replay.
 
+A call's host stages are spans (``runtime/tracing``): ``compiled.load``
+(the staging wait, the copies and the table) and ``compiled.replay`` (the
+replay and the output's copy).
+
 On the CPU there is nothing to capture: a call writes the statics and the
 table and runs ``composite_forward`` on them.  On CUDA a failed capture
 raises; it never falls back to the eager forward.  The forwards that stay
@@ -44,6 +48,7 @@ from ..models.layers import SynthesisLayer
 from ..ops import conv1024
 from ..ops.noise import noise_table
 from ..parallel import spatial
+from .tracing import span
 
 WARMUP = 2   # eager forwards on the side stream before a capture
 
@@ -137,7 +142,8 @@ class CompiledForward:
     eagerly on the statics.  ``G`` stays on its device and in eval mode;
     ``records`` lists each capture: its key, seconds (warm-up and capture)
     and pool bytes (the growth of the device's reserved memory over the
-    capture, the cache emptied before it)."""
+    capture, the cache emptied before it); ``last_path`` says how the last
+    call ran: ``"capture"``, ``"replay"`` or, on the CPU, ``"eager"``."""
 
     def __init__(self, G, noise_mode="random"):
         if noise_mode not in ("random", "const", "none"):
@@ -152,6 +158,7 @@ class CompiledForward:
         self.statics = {}
         self.pool = None
         self.records = []
+        self.last_path = None
 
     def key(self, real, mask):
         n, _, h, w = real.shape
@@ -182,18 +189,22 @@ class CompiledForward:
                 st = self.statics[key] = _Statics(
                     self.device, real, mask, z,
                     self.layer_ids[-1] + 1 if self.layer_ids else 0)
-            st.load({"real": real, "mask": mask, "z": z},
-                    lambda out: noise_table(noise_seed, self.layer_ids, row0,
-                                            out=out))
+            with span("compiled.load"):
+                st.load({"real": real, "mask": mask, "z": z},
+                        lambda out: noise_table(noise_seed, self.layer_ids,
+                                                row0, out=out))
             if not self.captures:
+                self.last_path = "eager"
                 return self._forward(st)
+            self.last_path = "capture" if fresh else "replay"
             if fresh:
                 try:
                     self._compile(key, st)
                 except BaseException:
                     del self.statics[key]   # no graph: raise, never eager
                     raise
-            return self._replay(st)
+            with span("compiled.replay"):
+                return self._replay(st)
 
     def _forward(self, st):
         d = st.dev

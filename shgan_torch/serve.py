@@ -17,7 +17,10 @@ or over several (port of ``shgan_tpu/serve.py``), and
   device (``models/infer.py``), so the readback is 1 byte per pixel; uint8
   images travel to the device as uint8;
 * **asynchronous window** — ``inpaint_stream`` keeps up to ``window``
-  batches queued on the device before it reads one back;
+  batches queued on the device before it reads one back; a batch's enqueue
+  is a ``serve.batch`` span (its stages ``serve.prepare``, ``serve.z`` and
+  the compiled forward's inside it) and its readback a ``serve.readback``
+  span (``runtime/tracing``), neither open while the caller runs;
 * **bf16** — ``bf16=True`` runs the blocks above 16² in bfloat16 (the
   throughput configuration), on a deep copy of the model config;
 * **several devices** — ``mesh`` (a list of devices) keeps a replica of the
@@ -53,6 +56,7 @@ from .models.infer import composite_forward, z_for_positions
 from .parallel.mesh import Rows, ThreadGroup, split
 from .runtime.compiled import CompiledForward, eager_reason
 from .runtime.config import model_cfg_bank
+from .runtime.tracing import span
 
 BATCH_NOISE_SALT = 0xB47C  # epoch slot of derive_seed for batch noise seeds
 
@@ -187,16 +191,21 @@ class InpaintEngine:
 
     def _run_padded(self, real, mask, start):
         """Queue one padded batch on the device(s); returns the uint8
-        tensor on the first device without waiting for it."""
+        tensor on the first device without waiting for it, and the path
+        it took: ``"replay"`` or ``"capture"`` of a CUDA graph, or
+        ``"eager"``."""
         n = real.shape[0]
-        z = z_for_positions(self.seed, self.G.z_dim, range(start, start + n))
+        with span("serve.z"):
+            z = z_for_positions(self.seed, self.G.z_dim,
+                                range(start, start + n))
         noise_seed = derive_seed(self.seed, start, BATCH_NOISE_SALT)
         w = len(self.mesh)
         if w == 1:
             if eager_reason(self.G, self.mesh) is None:
-                return self.compiled(real, mask, z, noise_seed)
+                out = self.compiled(real, mask, z, noise_seed)
+                return out, self.compiled.last_path
             return self._block(real, mask, z, 0, None, noise_seed,
-                               self.device)
+                               self.device), "eager"
         group = ThreadGroup(w)
 
         def work(k):
@@ -217,54 +226,70 @@ class InpaintEngine:
                      next((e for e in errs if e is not None), None))
         if first is not None:
             raise first
-        return torch.cat([f.result().to(self.device) for f in futs])
+        return torch.cat([f.result().to(self.device) for f in futs]), "eager"
+
+    def _enqueue(self, images, masks, rows, start):
+        """Queue one batch of ``len(images)`` rows, normalized
+        (``_as_model_input``) and padded with all-kept rows up to
+        ``rows``, its first row at global position ``start``; returns the
+        device tensor of all ``rows`` composites."""
+        k = len(images)
+        with span("serve.batch") as s:
+            with span("serve.prepare"):
+                real, mask = _as_model_input(images, masks)
+                if k < rows:
+                    pad = [(0, rows - k)] + [(0, 0)] * 3
+                    real = np.pad(real, pad)
+                    mask = np.pad(mask, pad, constant_values=1)
+            out, path = self._run_padded(real, mask, start)
+            s.set(path=path)
+        return out
+
+    @staticmethod
+    def _readback(dev, valid):
+        """The first ``valid`` composites of a queued batch on the host."""
+        with span("serve.readback"):
+            return dev[:valid].cpu().numpy()
 
     def inpaint(self, images, masks, start_index=0):
         """Inpaint a batch of any size; returns uint8 NCHW composites.
 
         ``start_index`` positions the batch in the deterministic z stream
         (the global dataset offset).  Random noise is keyed by each chunk's
-        global start and drawn at the padded shape."""
-        real, mask = _as_model_input(images, masks)
-        n, bs = real.shape[0], self.batch_size
+        global start and drawn at the padded shape: a ragged tail pads up
+        to the smallest batch bucket that holds it."""
+        n, bs = len(images), self.batch_size
+        if len(masks) != n:
+            raise ValueError("images/masks batch mismatch")
         if n == 0:
-            return np.zeros(real.shape, np.uint8)
+            return np.zeros(_as_model_input(images, masks)[0].shape,
+                            np.uint8)
         outs = []
         for lo in range(0, n, bs):
-            chunk_r, chunk_m = real[lo:lo + bs], mask[lo:lo + bs]
-            k = chunk_r.shape[0]
-            tgt = next((b for b in self.buckets if b >= k), bs)
-            if k < tgt:
-                pad = [(0, tgt - k)] + [(0, 0)] * 3
-                chunk_r = np.pad(chunk_r, pad)
-                chunk_m = np.pad(chunk_m, pad, constant_values=1)
-            out = self._run_padded(chunk_r, chunk_m, start_index + lo)
-            outs.append(out[:k].cpu().numpy())
+            k = min(bs, n - lo)
+            rows = next((b for b in self.buckets if b >= k), bs)
+            dev = self._enqueue(images[lo:lo + bs], masks[lo:lo + bs], rows,
+                                start_index + lo)
+            outs.append(self._readback(dev, k))
         return np.concatenate(outs) if len(outs) > 1 else outs[0]
 
     def inpaint_stream(self, batches, start_index=0, window=2):
         """Stream (images, masks) batches through the engine, yielding uint8
         NCHW composites per input batch; up to ``window`` batches stay
         queued on the device.  Every batch has ``batch_size`` rows except
-        the last."""
+        the last, which pads up to ``batch_size``."""
         inflight = []
         gi = start_index
         for images, masks in batches:
-            real, mask = _as_model_input(images, masks)
-            k, bs = real.shape[0], self.batch_size
+            k, bs = len(images), self.batch_size
             if k > bs:
                 raise ValueError(f"stream batch {k} > engine batch {bs}")
-            if k < bs:
-                pad = [(0, bs - k)] + [(0, 0)] * 3
-                real = np.pad(real, pad)
-                mask = np.pad(mask, pad, constant_values=1)
-            inflight.append((self._run_padded(real, mask, gi), k))
+            inflight.append((self._enqueue(images, masks, bs, gi), k))
             gi += k
             if len(inflight) > window:
-                dev, valid = inflight.pop(0)
-                yield dev[:valid].cpu().numpy()
-        for dev, valid in inflight:
-            yield dev[:valid].cpu().numpy()
+                yield self._readback(*inflight.pop(0))
+        for queued in inflight:
+            yield self._readback(*queued)
 
 
 def generate_to_dir(engine, dataset, formatter, out_dir, log_every=10,

@@ -23,10 +23,9 @@ one flat buffer before the NaN scrub and the optimizer, so every rank
 applies the same update and the replicas stay equal bit for bit.  Not
 ``DistributedDataParallel``: R1 and the path-length penalty take
 ``torch.autograd.grad(create_graph=True)``, which DDP does not support.
-Each phase runs inside a
-``torch.profiler.record_function`` span named after it (``Gmain``,
-``Gpl``, ``Dmain``, ``R1``, ``opt_ema``), so a profiler trace splits a
-step by phase.
+The step runs inside a ``train.step`` span and each phase inside one
+named after it (``Gmain``, ``Gpl``, ``Dmain``, ``R1``, ``opt_ema``;
+``runtime/tracing.span``), so a profiler trace splits a step by phase.
 """
 
 from __future__ import annotations
@@ -37,8 +36,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from ..runtime.tracing import span
 from . import loss as L
 from .schedules import get_optimizer, get_scheduler
 
@@ -200,6 +199,11 @@ class TrainStep:
         ``pl_noise`` as tensors.  With a mesh, ``real`` and ``mask`` hold
         this rank's rows of each round's global batch, in round order, and
         ``N`` counts the global batch."""
+        with span("train.step"):
+            return self._step(real, mask, gen, ema_beta, do_greg, do_dreg,
+                              given)
+
+    def _step(self, real, mask, gen, ema_beta, do_greg, do_dreg, given):
         G, D, cfg, mesh = self.G, self.D, self.cfg, self.mesh
         real = real.float()
         mask = mask.float()
@@ -225,7 +229,7 @@ class TrainStep:
         pl_mean = self.pl_mean
         for r in range(A):
             sl = slice(r * nm, (r + 1) * nm)
-            with record_function("Gmain"):
+            with span("Gmain"):
                 z = self._draw(given, "z1", r, nmg, zs, gen, dev, rows)
                 loss, aux = L.g_main_loss(G, D, x_in[sl], mask[sl], z, gen,
                                           cfg.style_mixing_prob, rows=rows)
@@ -235,7 +239,7 @@ class TrainStep:
             main_was.append(aux["w_avg"])
             t = self._mark("Gmain", t)
             if do_greg:
-                with record_function("Gpl"):
+                with span("Gpl"):
                     # the round's global rows: the penalty takes the first
                     # N / pl_batch_shrink of them, split over the ranks
                     z2 = self._draw(given, "z2", r, nmg, zs, gen, dev)
@@ -259,7 +263,7 @@ class TrainStep:
         if mesh is not None:
             # one path-length mean on the ranks of a model group
             pl_mean = mesh.model_mean(pl_mean)
-        with record_function("opt_ema"):
+        with span("opt_ema"):
             if mesh is not None:
                 mesh.average_grads(freeze_buffers(G))
             nan_scrub(freeze_buffers(G))
@@ -287,7 +291,7 @@ class TrainStep:
         d_mains, s_real, s_fake, r1s = [], [], [], []
         for r in range(A):
             sl = slice(r * nm, (r + 1) * nm)
-            with record_function("Dmain"):
+            with span("Dmain"):
                 z = self._draw(given, "z3", r, nmg, zs, gen, dev, rows)
                 loss, aux = L.d_main_loss(G, D, x_in[sl], mask[sl], real[sl],
                                           z, gen, cfg.style_mixing_prob,
@@ -300,14 +304,14 @@ class TrainStep:
                 wad = aux["w_avg"] + self.w_beta * (wad - w0d)
             t = self._mark("Dmain", t)
             if do_dreg:
-                with record_function("R1"):
+                with span("R1"):
                     loss_r1, r1 = L.d_r1_loss(D, mask[sl], real[sl],
                                               r1_gamma=cfg.r1_gamma,
                                               rows=rows)
                     (loss_r1 * (cfg.d_reg_interval / A)).backward()
                 r1s.append(r1)
                 t = self._mark("R1", t)
-        with record_function("opt_ema"):
+        with span("opt_ema"):
             if mesh is not None:
                 mesh.average_grads(freeze_buffers(D))
             nan_scrub(freeze_buffers(D))

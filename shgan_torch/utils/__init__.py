@@ -1,2 +1,2 @@
-from .misc import assert_shape, constant_cache, profiled_function
+from .misc import assert_shape, constant_cache
 from .timing import device_timeit

@@ -4,8 +4,6 @@ from __future__ import annotations
 
 import functools
 
-from torch.profiler import record_function
-
 
 def assert_shape(x, ref_shape):
     """Shape assert with ``None`` wildcards."""
@@ -20,16 +18,6 @@ def assert_shape(x, ref_shape):
             raise AssertionError(
                 f"Wrong size for dimension {idx}: got {size}, "
                 f"expected {ref_size}")
-
-
-def profiled_function(fn):
-    """Run ``fn`` inside a ``torch.profiler.record_function`` span named
-    after it, so it shows up in profiler traces."""
-    @functools.wraps(fn)
-    def wrapped(*args, **kwargs):
-        with record_function(fn.__name__):
-            return fn(*args, **kwargs)
-    return wrapped
 
 
 def constant_cache(fn):

@@ -1,6 +1,5 @@
 """The port's small host helpers against shgan_tpu's ``utils``:
-``assert_shape`` (the same messages), ``constant_cache``,
-``profiled_function`` (a span in a ``torch.profiler`` trace) and
+``assert_shape`` (the same messages), ``constant_cache`` and
 ``device_timeit`` on the CPU (its CUDA-event path is held on the card by
 tests/test_torch_cuda.py)."""
 
@@ -10,8 +9,7 @@ import torch
 
 from shgan_tpu.utils import assert_shape as j_assert_shape
 from shgan_tpu.utils import constant_cache as j_constant_cache
-from shgan_torch.utils import (assert_shape, constant_cache, device_timeit,
-                               profiled_function)
+from shgan_torch.utils import assert_shape, constant_cache, device_timeit
 
 
 @pytest.mark.parametrize("ref", [(2, None, 4), (2, 3), (2, 5, 4),
@@ -40,18 +38,6 @@ def test_constant_cache_memoizes_like_jax():
         calls.clear()
         f = cache(make)
         assert f(3) is f(3) and calls == [3]
-
-
-def test_profiled_function_is_a_span():
-    @profiled_function
-    def blur_twice(x):
-        return x * 2
-
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        assert torch.equal(blur_twice(torch.ones(3)), torch.full((3,), 2.0))
-    assert blur_twice.__name__ == "blur_twice"
-    assert any(e.key == "blur_twice" for e in prof.key_averages())
 
 
 def test_device_timeit_on_the_cpu():
