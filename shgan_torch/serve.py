@@ -17,10 +17,20 @@ or over several (port of ``shgan_tpu/serve.py``), and
   device (``models/infer.py``), so the readback is 1 byte per pixel; uint8
   images travel to the device as uint8;
 * **asynchronous window** — ``inpaint_stream`` keeps up to ``window``
-  batches queued on the device before it reads one back; a batch's enqueue
-  is a ``serve.batch`` span (its stages ``serve.prepare``, ``serve.z`` and
-  the compiled forward's inside it) and its readback a ``serve.readback``
-  span (``runtime/tracing``), neither open while the caller runs;
+  batches queued on the device beyond the one it reads back.  On CUDA each
+  queued batch carries an event recorded on its device's stream after its
+  forward; its readback makes the engine's one copy stream wait on that
+  event alone and copies the batch's valid rows into pinned host memory
+  there, so the batches queued after it keep the device busy while it is
+  copied.  The pinned block comes from torch's caching host allocator and
+  is the returned array's own: the caller may keep it while later batches
+  run.  The device tensor stays referenced until its copy has completed.
+  On the CPU the readback is the output itself.  A batch's enqueue is a
+  ``serve.batch`` span (its stages ``serve.prepare``, ``serve.z`` and the
+  compiled forward's inside it) and its readback a ``serve.readback`` span
+  (``runtime/tracing``; ``drained``: the newest queued batch had already
+  finished as it returned, so the device had nothing queued), neither
+  open while the caller runs;
 * **bf16** — ``bf16=True`` runs the blocks above 16² in bfloat16 (the
   throughput configuration), on a deep copy of the model config;
 * **several devices** — ``mesh`` (a list of devices) keeps a replica of the
@@ -163,6 +173,8 @@ class InpaintEngine:
         # (on the CPU, the same statics run eagerly)
         self.compiled = (CompiledForward(self.G, noise_mode)
                          if len(self.mesh) == 1 else None)
+        self._copy_stream = None   # made at the first CUDA readback
+        self._newest = None        # the newest queued batch's event
 
     def path(self):
         """``"compiled"`` where a batch replays a captured graph, else
@@ -232,7 +244,8 @@ class InpaintEngine:
         """Queue one batch of ``len(images)`` rows, normalized
         (``_as_model_input``) and padded with all-kept rows up to
         ``rows``, its first row at global position ``start``; returns the
-        device tensor of all ``rows`` composites."""
+        device tensor of all ``rows`` composites and, on CUDA, the event
+        after its forward on its device's stream (else None)."""
         k = len(images)
         with span("serve.batch") as s:
             with span("serve.prepare"):
@@ -243,13 +256,34 @@ class InpaintEngine:
                     mask = np.pad(mask, pad, constant_values=1)
             out, path = self._run_padded(real, mask, start)
             s.set(path=path)
-        return out
+            done = None
+            if out.is_cuda:
+                done = torch.cuda.current_stream(out.device).record_event()
+            self._newest = done
+        return out, done
 
-    @staticmethod
-    def _readback(dev, valid):
-        """The first ``valid`` composites of a queued batch on the host."""
-        with span("serve.readback"):
-            return dev[:valid].cpu().numpy()
+    def _readback(self, dev, done, valid):
+        """The first ``valid`` composites of a queued batch, in host memory
+        the returned array owns.  On CUDA they are copied into pinned
+        memory on the engine's copy stream once ``done`` (the batch's own
+        event) has completed, so the batches queued after it run on."""
+        with span("serve.readback") as s:
+            src = dev[:valid]
+            if done is None:
+                out = src.cpu().numpy()
+            else:
+                if self._copy_stream is None:
+                    self._copy_stream = torch.cuda.Stream(dev.device)
+                cs = self._copy_stream
+                host = torch.empty(src.shape, dtype=src.dtype,
+                                   pin_memory=True)
+                cs.wait_event(done)
+                with torch.cuda.stream(cs):
+                    host.copy_(src, non_blocking=True)
+                cs.record_event().synchronize()   # dev is held until here
+                out = host.numpy()
+            s.set(drained=self._newest is None or self._newest.query())
+        return out
 
     def inpaint(self, images, masks, start_index=0):
         """Inpaint a batch of any size; returns uint8 NCHW composites.
@@ -268,23 +302,24 @@ class InpaintEngine:
         for lo in range(0, n, bs):
             k = min(bs, n - lo)
             rows = next((b for b in self.buckets if b >= k), bs)
-            dev = self._enqueue(images[lo:lo + bs], masks[lo:lo + bs], rows,
-                                start_index + lo)
-            outs.append(self._readback(dev, k))
+            queued = self._enqueue(images[lo:lo + bs], masks[lo:lo + bs],
+                                   rows, start_index + lo)
+            outs.append(self._readback(*queued, k))
         return np.concatenate(outs) if len(outs) > 1 else outs[0]
 
     def inpaint_stream(self, batches, start_index=0, window=2):
         """Stream (images, masks) batches through the engine, yielding uint8
-        NCHW composites per input batch; up to ``window`` batches stay
-        queued on the device.  Every batch has ``batch_size`` rows except
-        the last, which pads up to ``batch_size``."""
+        NCHW composites per input batch, each array the caller's own; up
+        to ``window`` batches stay queued on the device beyond the one
+        being read back.  Every batch has ``batch_size`` rows except the
+        last, which pads up to ``batch_size``."""
         inflight = []
         gi = start_index
         for images, masks in batches:
             k, bs = len(images), self.batch_size
             if k > bs:
                 raise ValueError(f"stream batch {k} > engine batch {bs}")
-            inflight.append((self._enqueue(images, masks, bs, gi), k))
+            inflight.append((*self._enqueue(images, masks, bs, gi), k))
             gi += k
             if len(inflight) > window:
                 yield self._readback(*inflight.pop(0))

@@ -367,8 +367,10 @@ def _tiny_engine_cfg():
 def test_compiled_engine_matches_eager(cuda):
     """A small model's one-device engine replays a captured graph per
     bucket: each request equals the eager forward at its own start bit for
-    bit, the stream at window 2 equals inpaint, and the launch counts are
-    one forward's a replay."""
+    bit, and so does each of six streamed batches at window 2 (read back
+    on the copy stream into arrays that share no memory and stay as they
+    were after the stream ends); the launch counts are one forward's a
+    replay."""
     from shgan_torch.data.rng import derive_seed
     from shgan_torch.models.infer import composite_forward, z_for_positions
     from shgan_torch.serve import BATCH_NOISE_SALT
@@ -406,10 +408,20 @@ def test_compiled_engine_matches_eager(cuda):
         np.testing.assert_array_equal(out, eager(2, st))
     np.testing.assert_array_equal(one, eager(1, 3))
     assert not np.array_equal(outs[0], outs[5])
-    streamed = list(e.inpaint_stream(iter([(imgs, masks)] * 3),
-                                     start_index=20, window=2))
+    streamed, first = [], []
+    for got in e.inpaint_stream(iter([(imgs, masks)] * 6), start_index=20,
+                                window=2):
+        streamed.append(got)
+        first.append(got.copy())
+    assert len(streamed) == 6
     for i, got in enumerate(streamed):
         np.testing.assert_array_equal(got, eager(2, 20 + 2 * i))
+    # later readbacks take other pinned blocks: the arrays stay as they were
+    list(e.inpaint_stream(iter([(imgs, masks)] * 3), window=2))
+    for got, was in zip(streamed, first, strict=True):
+        np.testing.assert_array_equal(got, was)
+    assert not any(np.shares_memory(a, b) for i, a in enumerate(streamed)
+                   for b in streamed[i + 1:])
     assert len(e.compiled.records) == 2 and e.compiled.pool_bytes() >= 0
     e.close()
     assert not e.compiled.statics

@@ -173,7 +173,8 @@ def test_stream_spans_leave_out_the_consumer():
     batch, back = _named("serve.batch"), _named("serve.readback")
     assert len(batch) == len(back) == 4
     assert all(r.attrs == {"path": "eager"} for r in batch)
-    assert all(r.attrs == {} for r in back)
+    assert all(set(r.attrs) == {"drained"}
+               and isinstance(r.attrs["drained"], bool) for r in back)
     # with 2 in flight, batch k's readback follows batch k + 2's enqueue
     assert back[0].t0 > batch[2].t1 and back[1].t0 > batch[3].t1
     ids = {r.id for r in batch}
@@ -204,6 +205,31 @@ def test_composites_equal_with_tracing_on_and_off():
     # inpaint: 3 chunks (2, 2, 1 padded to 2); the stream: 2 batches
     assert len(_named("serve.batch")) == len(_named("serve.readback")) == 5
     assert len(_named("serve.prepare")) == 5
+
+
+def test_stream_arrays_are_the_callers_own():
+    """The arrays of a 4-batch stream, 2 in flight, keep their first value
+    after every later batch has been read back (no buffer of the engine's
+    is reused under the caller), and each equals ``inpaint`` of its batch
+    at the same start; the last batch is ragged."""
+    e = _engine()
+    imgs, masks = _inputs(7, seed=6)
+    cuts = [(0, 2), (2, 4), (4, 6), (6, 7)]
+    got, first = [], []
+    with _profiled():
+        for out in e.inpaint_stream(
+                ((imgs[a:b], masks[a:b]) for a, b in cuts), start_index=40,
+                window=2):
+            got.append(out)
+            first.append(out.copy())
+    back = _named("serve.readback")
+    assert len(back) == 4 and all(r.attrs["drained"] is True for r in back)
+    for out, was, (a, b) in zip(got, first, cuts, strict=True):
+        np.testing.assert_array_equal(out, was)
+        np.testing.assert_array_equal(
+            out, e.inpaint(imgs[a:b], masks[a:b], start_index=40 + a))
+    assert not any(np.shares_memory(x, y) for i, x in enumerate(got)
+                   for y in got[i + 1:])
 
 
 def test_inpaint_normalizes_each_chunk_once(monkeypatch):
