@@ -233,6 +233,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -2499,6 +2500,20 @@ def add_launches(total, got):
         total[k] = total.get(k, 0) + v
 
 
+@contextmanager
+def library_conv():
+    """The serving engines' K3 route swapped for the library conv (cuDNN)
+    inside the block: the engine holds ``conv1024.routed("pallas")`` around
+    its forwards, so the swap replaces that call."""
+    from shgan_torch.ops import conv1024
+    held = conv1024.routed
+    conv1024.routed = lambda impl: held("xla")
+    try:
+        yield
+    finally:
+        conv1024.routed = held
+
+
 def bf16_serving(build, total):
     """The bf16 engine against the float32 engine on the same random weights
     and requests (noise const, the float32 reference with TF32 off):
@@ -2506,13 +2521,13 @@ def bf16_serving(build, total):
     request at batch 4 with K3 on, its two 1024² blocks in bf16 (K3's bf16
     route): launches exact, known pixels exact, SSIM within the GATE, and
     the GATE's four numbers recorded against float32 and against the same
-    bf16 engine with K3 off (cuDNN).  The GATE was set and measured at
+    bf16 engine with its route swapped for cuDNN (:func:`library_conv`).
+    The GATE was set and measured at
     512² (the JAX package, on a TPU); with random weights ``shgan_g1024``
     turns a one-ulp change at an early 1024² layer into 5–7 % of its
     pixels off by more than 2 (K3 or cuDNN alike), so at 1024² it is
     recorded, not held.  Steady images/s of both engines in turns
     (cuDNN's defaults, as served)."""
-    from shgan_torch.ops import conv1024
     from shgan_torch.serve import InpaintEngine
     rows = {}
     for model, batch, k3 in ((MODEL, SERVE_BATCH, False),
@@ -2530,9 +2545,8 @@ def bf16_serving(build, total):
         imgs = rng.randint(0, 256, (batch, 3, res, res), dtype=np.uint8)
         masks = (rng.rand(batch, res, res) > 0.5).astype(np.float32)
         want, want16 = forward_launches(e16.G)
-        if k3:
+        if k3:   # the engines route the 1024² low-channel convs to K3
             want["conv3x3_lowch"] = 2
-            conv1024.set_conv1024_impl("pallas")
         torch.backends.cudnn.allow_tf32 = False
         try:
             out32 = e32.inpaint(imgs, masks)
@@ -2540,9 +2554,8 @@ def bf16_serving(build, total):
             out16, launches, l16 = counted(
                 build, lambda: e16.inpaint(imgs, masks))
             if k3:   # the same bf16 engine on cuDNN's convolution
-                conv1024.set_conv1024_impl("xla")
-                out16_cudnn = e16.inpaint(imgs, masks)
-                conv1024.set_conv1024_impl("pallas")
+                with library_conv():
+                    out16_cudnn = e16.inpaint(imgs, masks)
             torch.backends.cudnn.allow_tf32 = True
             ips = {"float32": [], "bf16": []}
             for name, e in (("float32", e32), ("bf16", e16), ("bf16", e16),
@@ -2555,7 +2568,6 @@ def bf16_serving(build, total):
                 torch.cuda.synchronize()
                 ips[name].append(5 * batch / (time.perf_counter() - t0))
         finally:
-            conv1024.set_conv1024_impl("xla")
             torch.backends.cudnn.allow_tf32 = False
         add_launches(total, launches)
         if launches != want or l16 != want16:
@@ -3796,12 +3808,10 @@ def sp_forward(mesh):
     composites)."""
     from contextlib import nullcontext
     from shgan_torch.kernels import build
-    from shgan_torch.ops.conv1024 import set_conv1024_impl
     from shgan_torch.parallel import spatial
     from shgan_torch.serve import InpaintEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    set_conv1024_impl("pallas")
     e = InpaintEngine(MODEL_1024, batch_size=SP_FWD_BATCH, device="cuda",
                       noise_mode="random", seed=0)
     noise_reaches_image(e.G)
@@ -3847,7 +3857,6 @@ def sp_forward(mesh):
     keep = np.broadcast_to(masks[:, None] > 0.5, imgs.shape)
     rec["known_pixels_exact"] = bool(np.array_equal(out[keep],
                                                     quantized(imgs)[keep]))
-    set_conv1024_impl("xla")
     e.close()
     del e
     torch.cuda.empty_cache()

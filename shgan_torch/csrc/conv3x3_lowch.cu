@@ -370,7 +370,7 @@ __device__ __forceinline__ int block_items(const Args& a) {
   return (a.ntiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x * a.nst;
 }
 
-__global__ void __launch_bounds__(kThreads, 1) conv3x3_f32_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, 1) conv3x3_lowch_f32_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* bufs = reinterpret_cast<uint32_t*>(smem);
   float* sc = reinterpret_cast<float*>(smem + kBufBytes) + (threadIdx.x / 32) * kOutWords;
@@ -397,7 +397,7 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_f32_kernel(Args a) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) conv3x3_bf16_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, 1) conv3x3_lowch_bf16_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* bufs = reinterpret_cast<uint32_t*>(smem);
   float* sc = reinterpret_cast<float*>(smem + kBufBytes) + (threadIdx.x / 32) * kOutWords;
@@ -465,13 +465,13 @@ extern "C" int shgan_conv3x3_lowch(const void* x, const float* w, void* y, int d
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   static bool f32_ready[64] = {}, bf16_ready[64] = {};
   if (dtype == 0) {
-    e = allow_smem(conv3x3_f32_kernel, kSmemF32, dev, f32_ready);
+    e = allow_smem(conv3x3_lowch_f32_kernel, kSmemF32, dev, f32_ready);
     if (e != cudaSuccess) return static_cast<int>(e);
-    conv3x3_f32_kernel<<<grid, kThreads, kSmemF32, s>>>(a);
+    conv3x3_lowch_f32_kernel<<<grid, kThreads, kSmemF32, s>>>(a);
   } else {
-    e = allow_smem(conv3x3_bf16_kernel, kSmemBf16, dev, bf16_ready);
+    e = allow_smem(conv3x3_lowch_bf16_kernel, kSmemBf16, dev, bf16_ready);
     if (e != cudaSuccess) return static_cast<int>(e);
-    conv3x3_bf16_kernel<<<grid, kThreads, kSmemBf16, s>>>(a);
+    conv3x3_lowch_bf16_kernel<<<grid, kThreads, kSmemBf16, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

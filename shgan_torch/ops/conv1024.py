@@ -7,7 +7,9 @@ keeps the same switch (:func:`set_conv1024_impl`, with the
 ``SHGAN_CONV1024`` environment override) and the same eligibility rule
 (:func:`conv1024_eligible`), so both packages route the same convs.  Off by
 default, as in JAX; the eval stage turns it on from ``eval.pallas_conv1024``
-on a CUDA device.
+on a CUDA device.  :func:`routed` holds a route of its caller's own for a
+block and then restores the one before it: the serving engine holds
+'pallas' around its forwards.
 
 :func:`conv3x3_lowch` launches kernel K3 (``csrc/conv3x3_lowch.cu``) on a
 CUDA tensor and runs :func:`conv3x3_lowch_plain`, the plain PyTorch version
@@ -23,6 +25,7 @@ convs, and K3 pads only W.
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +53,22 @@ def set_conv1024_impl(impl):
 def conv1024_impl():
     """The routing now in force: 'pallas' (K3) or 'xla' (library conv)."""
     return _IMPL
+
+
+@contextmanager
+def routed(impl):
+    """Route as ``impl`` ('pallas' or 'xla') inside the block, whatever
+    ``SHGAN_CONV1024`` says, and restore the routing before it on leaving.
+    The routing is the process's: blocks that hold different routes must
+    not run at once on several threads."""
+    global _IMPL
+    if impl not in ("pallas", "xla"):
+        raise ValueError(f"conv1024 impl {impl!r}: 'pallas' or 'xla'")
+    prev, _IMPL = _IMPL, impl
+    try:
+        yield
+    finally:
+        _IMPL = prev
 
 
 def conv1024_eligible(x_shape, w_shape, stride, groups, padding):

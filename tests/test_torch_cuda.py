@@ -427,6 +427,44 @@ def test_compiled_engine_matches_eager(cuda):
     assert not e.compiled.statics
 
 
+def test_engine_route_replays_k3_on_the_card(cuda, monkeypatch):
+    """shgan_g1024's plan at a tiny width (2 channels at 1024²): the engine
+    replays a graph with K3's two launches whatever the process's routing,
+    which is unchanged after each call; the same engine with its route
+    swapped for the library conv replays none, and the two composites
+    agree within a level (K3 against cuDNN, TF32 off)."""
+    import copy
+    from shgan_torch.runtime.config import model_cfg_bank
+    cfg = copy.deepcopy(model_cfg_bank()("shgan_g1024"))
+    a = cfg["args"]
+    a["mapping"]["args"].update(z_dim=16, w_dim=16)
+    a["encoder"]["args"].update(ch_base=2048, ch_max=16, oc_n=16,
+                                shu_channels=4)
+    a["synthesis"]["args"].update(ch_base=2048, ch_max=16, w_dim=16,
+                                  w0_dim=16)
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (2, 3, 1024, 1024), dtype=np.uint8)
+    masks = (rng.rand(2, 1024, 1024) > 0.5).astype(np.float32)
+    e = InpaintEngine(cfg, device=cuda, batch_size=2, seed=1)
+    before, outs = conv1024.conv1024_impl(), {}
+    held = conv1024.routed
+    for k3 in (True, False):
+        if not k3:   # the library conv in the engine's place
+            monkeypatch.setattr(conv1024, "routed",
+                                lambda impl: held("xla"))
+        e.inpaint(imgs, masks)                       # captures
+        torch.cuda.synchronize()
+        build.reset_launches()
+        outs[k3] = e.inpaint(imgs, masks)            # replays
+        assert build.launches["conv3x3_lowch"] == (2 if k3 else 0)
+        assert conv1024.conv1024_impl() == before
+    assert len(e.compiled.statics) == 2              # a graph a route
+    e.close()
+    build.reset_launches()
+    d = np.abs(outs[True].astype(int) - outs[False].astype(int))
+    assert d.max() <= 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("res,row0,window", [
     (4, 0, None), (64, 3, None), (512, 1000, None), (64, 2, (16, 24))])
