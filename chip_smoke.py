@@ -581,6 +581,86 @@ def check_epilogue(noise, nba, cfg, batch, layers=None, seed=1234):
     return rows
 
 
+def encoder_conv_layers(cfg):
+    """{(resolution, channels): the encoder's Conv2dLayers whose output is
+    that} of one forward: fromrgb at R, conv0 (ch(r) at r²) and conv1
+    (ch(r/2) at (r/2)²) for each level r from R down to 8, and the 4²
+    epilogue's conv; each ends in its bias and lrelu_agc (bias_lrelu)."""
+    enc = cfg["args"]["encoder"]["args"]
+    ch = lambda r: min(int(enc["ch_base"]) // r, int(enc["ch_max"]))  # noqa
+    res = int(enc["resolution"])
+    sites = [res]
+    r = res
+    while r >= 8:
+        sites += [r, r // 2]
+        r //= 2
+    sites.append(4)
+    out = {}
+    for r in sites:
+        out[(r, ch(r))] = out.get((r, ch(r)), 0) + 1
+    return out
+
+
+def conv_chain(x, b, act):
+    """A conv layer's bias and activation as it ran before bias_lrelu: the
+    bias add, then lrelu_agc as PyTorch ops."""
+    from shgan_torch.ops.bias_act import lrelu_agc
+    return lrelu_agc(x + b.to(x.dtype)[None, :, None, None], act[0],
+                     gain=act[1], clamp=act[2])
+
+
+def check_conv_epilogue(nba, cfg, batch, layers=None):
+    """bias_lrelu (a conv layer's bias and activation in one launch) at each
+    of the encoder's conv output shapes: in place, float32 bit for bit the
+    PyTorch chain, bf16 the float32 chain on the widened input rounded once;
+    timed beside the chain on the same input."""
+    from shgan_torch.ops.bias_act import parse_activation
+    spec = cfg["args"]["encoder"]["args"].get(
+        "activation", "lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)")
+    act = nba.epilogue_act(parse_activation(spec))
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(batch + 1)
+    for (r, c), count in sorted((layers or encoder_conv_layers(cfg)).items()):
+        x = torch.randn((batch, c, r, r), generator=gen, device="cuda") * 100
+        b = torch.randn((c,), generator=gen, device="cuda") * 0.1
+        want = conv_chain(x, b, act)
+        y = nba.noise_bias_act_cuda(x.clone(), None, b, act)
+        torch.cuda.synchronize()
+        if not torch.equal(y, want):
+            raise AssertionError(f"bias_lrelu f32 R={r} C={c}: "
+                                 f"{float((y - want).abs().max())}")
+        nbytes = 2 * x.numel() * 4 + c * 4
+        it = iters_for(nbytes)
+        xk = x.clone()
+        kern = lambda: nba.noise_bias_act_cuda(xk, None, b, act)  # noqa
+        lib = lambda: conv_chain(x, b, act)  # noqa: E731
+        row = {"res": r, "channels": c, "batch": batch,
+               "layers_per_forward": count, "iters": it,
+               "ms": graph_ms(kern, nbytes), "eager_ms": eager_ms(kern, it),
+               "library_ms": graph_ms(lib, nbytes),
+               "library_eager_ms": eager_ms(lib, it)}
+        # x read once and written once; ~6 operations an element
+        bound(row, nbytes, x.numel() * 6)
+        row["hbm_share"] = row["bytes_ms"] / row["ms"]
+        xb = x.bfloat16()
+        yb = nba.noise_bias_act_cuda(xb.clone(), None, b, act)
+        wb = conv_chain(xb.float(), b, act).bfloat16()
+        torch.cuda.synchronize()
+        if not torch.equal(yb, wb):
+            err = float((yb.float() - wb.float()).abs().max())
+            raise AssertionError(f"bias_lrelu bf16 R={r} C={c}: {err}")
+        xbk = xb.clone()
+        bf16_bytes = nbytes - 2 * x.numel() * 2
+        row["bf16_ms"] = graph_ms(
+            lambda: nba.noise_bias_act_cuda(xbk, None, b, act), bf16_bytes)
+        row["bf16_hbm_share"] = bf16_bytes / HBM_BYTES_PER_S * 1e3 \
+            / row["bf16_ms"]
+        rows.append(row)
+        del x, xk, xb, xbk, y, yb, want, wb
+        torch.cuda.empty_cache()
+    return rows
+
+
 def quantized(imgs_u8):
     """The composite protocol's round trip of a kept uint8 pixel."""
     real = torch.from_numpy(imgs_u8).float() / 127.5 - 1.0
@@ -816,30 +896,33 @@ REMAT_BLOCKS = ("EncoderBlock", "CoModSynthesisBlock", "DiscrimBlock")
 
 
 def _block_sites(module):
-    """(K2 calls, synthesis layers, skip-image upsamples) of one forward of
-    ``module``, each with the type it runs in and whether its block is
-    checkpointed: [(dtype, k2, layers, img, remat)] over its top-level
-    blocks (a block's ``dtype``; float32 for modules without one).  Each
-    resampling conv is one K2 call, each synthesis block's skip-image
-    upsample (float32 always: the image pyramid is float32) one more."""
+    """(K2 calls, synthesis layers, skip-image upsamples, conv epilogues)
+    of one forward of ``module``, each with the type it runs in, whether
+    its block is checkpointed and the block's type: [(dtype, k2, layers,
+    img, remat, convs, block)] over its top-level blocks (a block's
+    ``dtype``; float32 for modules without one).  Each resampling conv is
+    one K2 call, each synthesis block's skip-image upsample (float32
+    always: the image pyramid is float32) one more; each Conv2dLayer with a
+    bias or an lrelu_agc one conv epilogue (bias_lrelu)."""
     out = []
     for blk in module.children():
         dt = getattr(blk, "dtype", torch.float32)
-        remat = (getattr(module, "remat", False)
-                 and type(blk).__name__ in REMAT_BLOCKS)
-        k2 = layers = img = 0
+        kind = type(blk).__name__
+        remat = getattr(module, "remat", False) and kind in REMAT_BLOCKS
+        k2 = layers = img = convs = 0
         for m in blk.modules():
             name = type(m).__name__
-            if name == "Conv2dLayer" and (m.up > 1 or m.down > 1):
-                k2 += 1
+            if name == "Conv2dLayer":
+                k2 += m.up > 1 or m.down > 1
+                convs += m.bias is not None or m.activation is not None
             elif name == "SynthesisLayer":
                 layers += 1
                 k2 += m.up > 1
             elif name == "CoModSynthesisBlock" or (
                     name == "StyleGANSynthesisBlock" and not m.has_const):
                 img += 1
-        out += [(dt, k2, layers, 0, remat),
-                (torch.float32, img, 0, img, remat)]
+        out += [(dt, k2, layers, 0, remat, convs, kind),
+                (torch.float32, img, 0, img, remat, 0, kind)]
     return out
 
 
@@ -852,19 +935,32 @@ def sites_of(module, dtype=None, remat=False):
     return tuple(sum(r[i] for r in rows) for i in (1, 2, 3))
 
 
+def conv_sites(module, dtype=None, remat=False, blocks=None):
+    """Conv epilogues (bias_lrelu launches) of one forward of ``module``,
+    filtered as :func:`sites_of` filters; with ``blocks``, only those in
+    blocks of these types."""
+    return sum(r[5] for r in _block_sites(module)
+               if dtype in (None, r[0]) and (r[4] or not remat)
+               and (blocks is None or r[6] in blocks))
+
+
 def train_sites(G, D, dtype=None, remat=False):
     """(K2 calls of the encoder, of the synthesis and of D per forward,
     synthesis layers, the skip-image upsamples among the synthesis' K2
-    calls), read off the modules (:func:`sites_of`); with ``dtype``, only
-    the calls and layers that run in it; with ``remat``, only those in
-    checkpointed blocks (all zero where remat is off)."""
+    calls, conv epilogues of the encoder, of D, and of D's blocks (those
+    ahead of its minibatch stddev)), read off the modules (:func:`sites_of`,
+    :func:`conv_sites`); with ``dtype``, only the calls and layers that run
+    in it; with ``remat``, only those in checkpointed blocks (all zero
+    where remat is off)."""
     n_syn, layers, n_img = sites_of(G.synthesis, dtype, remat)
     return (sites_of(G.encoder, dtype, remat)[0], n_syn,
-            sites_of(D, dtype, remat)[0], layers, n_img)
+            sites_of(D, dtype, remat)[0], layers, n_img,
+            conv_sites(G.encoder, dtype, remat), conv_sites(D, dtype, remat),
+            conv_sites(D, dtype, remat, blocks=("DiscrimBlock",)))
 
 
-def expected_train_launches(n_enc, n_syn, n_d, layers, n_img, greg, dreg,
-                            recompute=None):
+def expected_train_launches(n_enc, n_syn, n_d, layers, n_img, c_enc, c_d,
+                            c_dr, greg, dreg, recompute=None):
     """Kernel launches of one train step.  Gmain: G and D forwards, every
     K2 call and every epilogue differentiated once.  Gpl: a G forward at
     the shrunk batch; d img / d ws runs the synthesis' K2 calls backwards
@@ -878,6 +974,16 @@ def expected_train_launches(n_enc, n_syn, n_d, layers, n_img, greg, dreg,
     on fakes and reals, each D call differentiated.  R1: D on reals, d D /
     d real (n_d), and that gradient's backward (2 n_d).
 
+    The conv epilogues (bias_lrelu; their gradient the same grad kernel):
+    c_enc in G's encoder, c_d in D, c_dr of them in D's blocks.  One launch
+    each per forward: Gmain c_enc + c_d, Dmain c_enc (no_grad, in place) +
+    2 c_d, Gpl c_enc, R1 c_d.  The grad kernel at each differentiated one:
+    Gmain c_enc + c_d, Dmain 2 c_d; Gpl's penalty's backward reaches the
+    encoder (c_enc; d img / d ws does not); R1's d D / d real c_d, its
+    backward one mask-only launch at each (c_d: with no dcoefs the second
+    derivative is that alone) and the first order again at each conv
+    ahead of the minibatch stddev, whose backward reads its input (c_dr).
+
     ``recompute``: :func:`train_sites` with ``remat`` (the K2 calls
     r_enc, r_syn, r_d and the synthesis layers r_layers inside checkpointed
     blocks).  A checkpointed block runs its forward again, K2 calls and
@@ -888,27 +994,35 @@ def expected_train_launches(n_enc, n_syn, n_d, layers, n_img, greg, dreg,
     synthesis' (r_syn, r_layers), and the penalty's backward, which
     reaches the forward's nodes again, the synthesis' once more and the
     encoder's (r_enc + r_syn, r_layers); R1's d D / d real and the
-    penalty's backward D's each (2 r_d).  The derivative kernels' counts
-    do not move."""
+    penalty's backward D's each (2 r_d).  The conv epilogues the same way
+    (rc_enc, rc_d).  The derivative kernels' counts do not move."""
     n_g = n_enc + n_syn
     want = {"upfirdn2d": (n_g + n_d) + (n_g + 2 * n_d),
             "upfirdn2d_grad": (n_g + n_d) + 2 * n_d,
             "philox_normal": 0, "conv3x3_lowch": 0,
-            "noise_bias_act": 2 * layers, "noise_bias_act_grad": layers}
-    r_enc, r_syn, r_d, r_layers, _ = recompute or (0, 0, 0, 0, 0)
+            "noise_bias_act": 2 * layers,
+            "noise_bias_act_grad": layers + (c_enc + c_d) + 2 * c_d,
+            "bias_lrelu": (c_enc + c_d) + (c_enc + 2 * c_d)}
+    r_enc, r_syn, r_d, r_layers, _, rc_enc, rc_d, _ = recompute or (0,) * 8
     want["upfirdn2d"] += r_enc + r_syn + 3 * r_d
     want["noise_bias_act"] += r_layers
+    want["bias_lrelu"] += rc_enc + 3 * rc_d
     if greg:
         want["upfirdn2d"] += n_g
         want["upfirdn2d_grad"] += 3 * (n_syn - n_img) + n_img + n_enc
         want["noise_bias_act"] += layers
-        want["noise_bias_act_grad"] += 4 * layers
+        want["noise_bias_act_grad"] += 4 * layers + c_enc
+        want["bias_lrelu"] += c_enc
         want["upfirdn2d"] += r_enc + 2 * r_syn
         want["noise_bias_act"] += 2 * r_layers
+        want["bias_lrelu"] += rc_enc
     if dreg:
         want["upfirdn2d"] += n_d
         want["upfirdn2d_grad"] += 3 * n_d
+        want["noise_bias_act_grad"] += 2 * c_d + c_dr
+        want["bias_lrelu"] += c_d
         want["upfirdn2d"] += 2 * r_d
+        want["bias_lrelu"] += 2 * rc_d
     return want
 
 
@@ -1149,14 +1263,15 @@ def train_config(tmp, steps, bf16=False):
 
 
 BF16_KEYS = ("upfirdn2d", "upfirdn2d_grad", "noise_bias_act",
-             "noise_bias_act_grad")
+             "noise_bias_act_grad", "bias_lrelu")
 bf16_launches = dict.fromkeys(BF16_KEYS, 0)
 
 
 class bf16_tally:
     """Within this block the launches of K2 (forward and derivative), the
-    fused epilogue and its grad kernel (both modes) on bfloat16 tensors are
-    counted in ``bf16_launches`` as well, by wrapping the wrappers."""
+    fused epilogue (or bias_lrelu, by the kernel it runs) and its grad
+    kernel (both modes) on bfloat16 tensors are counted in
+    ``bf16_launches`` as well, by wrapping the wrappers."""
 
     def __init__(self, fir, nba):
         self.fir, self.nba = fir, nba
@@ -1174,7 +1289,9 @@ class bf16_tally:
 
         def noise_bias_act_cuda(x, *a, **k):
             if x.dtype == torch.bfloat16:
-                bf16_launches["noise_bias_act"] += 1
+                bf16_launches[nba.kernel_of(
+                    k.get("dcoefs", a[0] if a else None),
+                    k.get("noise_mode", a[3] if len(a) > 3 else "none"))] += 1
             return f_nba(x, *a, **k)
 
         def grad_launch(v, x, *a, **k):
@@ -1483,7 +1600,8 @@ def train_path(tmp, cli, build, bf16=False):
         raise AssertionError(f"training grids {grids}")
     fwd = {k: 0 for k in build.launches}
     fwd.update(upfirdn2d=GRID_FORWARDS * (sites[0] + sites[1]),
-               noise_bias_act=GRID_FORWARDS * sites[3])
+               noise_bias_act=GRID_FORWARDS * sites[3],
+               bias_lrelu=GRID_FORWARDS * sites[5])
     none = {k: 0 for k in build.launches}
     want = [fwd] + [none] * (TRAIN_STEPS - 1) + [fwd]
     if outside != want:
@@ -1652,24 +1770,27 @@ def fullmetrics_launches(g_cfg, batch, images, ppl_samples, ppl_batch):
     """The launches of a fullmetrics eval, worked out from the modules:
     ``images / batch`` stream forwards, then ``ppl_samples / ppl_batch``
     PPL batches of one encoder and two synthesis passes each; K2's by route
-    (``stride1``: up = down = 1, ``up2``: the skip-image upsample) and the
-    fused epilogue's."""
+    (``stride1``: up = down = 1, ``up2``: the skip-image upsample), the
+    fused epilogue's and bias_lrelu's (the encoder's conv epilogues)."""
     calls = fir_calls(g_cfg, batch)
     per_fwd = {"stride1": sum(c[3] == 1 for c in calls),
                "up2": sum(c[3] == 2 for c in calls)}
     per_enc = sum(c[0] == "enc_down_blur" for c in calls)
     layers = sum(noise_layers(g_cfg).values())
+    convs = sum(encoder_conv_layers(g_cfg).values())
     n_batches = -(-images // batch)
     ppl_batches = -(-ppl_samples // ppl_batch)
     return {"stream_forwards": n_batches, "ppl_batches": ppl_batches,
             "upfirdn2d_per_forward": per_fwd, "upfirdn2d_encoder": per_enc,
             "noise_bias_act_per_forward": layers,
+            "bias_lrelu_per_forward": convs,
             "upfirdn2d_by_route": {
                 "stride1": n_batches * per_fwd["stride1"] + ppl_batches
                 * (per_enc + 2 * (per_fwd["stride1"] - per_enc)),
                 "up2": (n_batches + 2 * ppl_batches) * per_fwd["up2"],
                 "other": 0},
-            "noise_bias_act": (n_batches + 2 * ppl_batches) * layers}
+            "noise_bias_act": (n_batches + 2 * ppl_batches) * layers,
+            "bias_lrelu": (n_batches + ppl_batches) * convs}
 
 
 class graph_tallies:
@@ -1781,7 +1902,8 @@ def fullmetrics_path(tmp, cli, build, fir, inc_pth):
         want_route = rule["upfirdn2d_by_route"]
         want = {k: 0 for k in build.launches}
         want.update(upfirdn2d=sum(want_route.values()),
-                    noise_bias_act=rule["noise_bias_act"])
+                    noise_bias_act=rule["noise_bias_act"],
+                    bias_lrelu=rule["bias_lrelu"])
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2159,6 +2281,7 @@ def train_config_path(tmp, cli, build, fir, inc_pth):
     per_fwd = fullmetrics_launches(g_cfg, eval_batch, 0, 0, 1)
     fwd_k2 = per_fwd["upfirdn2d_per_forward"]
     layers = per_fwd["noise_bias_act_per_forward"]
+    convs = per_fwd["bias_lrelu_per_forward"]
 
     # the TrainStep the stage builds, its LRs and launches around each step
     seen, lrs, per_step, outside, out_route, inception = [], [], [], [], [], []
@@ -2281,7 +2404,7 @@ def train_config_path(tmp, cli, build, fir, inc_pth):
         fwd = NESTED_FORWARDS * evals + GRID_FORWARDS * grids
         row = {k: 0 for k in build.launches}
         row.update(upfirdn2d=fwd * sum(fwd_k2.values()),
-                   noise_bias_act=fwd * layers)
+                   noise_bias_act=fwd * layers, bias_lrelu=fwd * convs)
         want_out.append((row, {"stride1": fwd * fwd_k2["stride1"],
                                "up2": fwd * fwd_k2["up2"], "other": 0}))
     got_out = list(zip(outside, out_route))
@@ -2470,18 +2593,22 @@ def gate_holds(g):
 
 def forward_launches(G, encoder=True):
     """(all launches, bf16 launches) of one generator forward: K2 at every
-    resampling site and the fused epilogue at every synthesis layer."""
+    resampling site, the fused epilogue at every synthesis layer and
+    bias_lrelu at every conv epilogue of the encoder."""
     mods = ([G.encoder] if encoder else []) + [G.synthesis]
-    allk = [sites_of(m)[:2] for m in mods]
-    bfk = [sites_of(m, torch.bfloat16)[:2] for m in mods]
+    allk = [sites_of(m)[:2] + (conv_sites(m),) for m in mods]
+    bfk = [sites_of(m, torch.bfloat16)[:2]
+           + (conv_sites(m, torch.bfloat16),) for m in mods]
     want = {k: 0 for k in ("upfirdn2d", "upfirdn2d_grad", "philox_normal",
                            "conv3x3_lowch", "noise_bias_act",
-                           "noise_bias_act_grad")}
-    want.update(upfirdn2d=sum(k for k, _ in allk),
-                noise_bias_act=sum(n for _, n in allk))
+                           "noise_bias_act_grad", "bias_lrelu")}
+    want.update(upfirdn2d=sum(k for k, _, _ in allk),
+                noise_bias_act=sum(n for _, n, _ in allk),
+                bias_lrelu=sum(c for _, _, c in allk))
     want16 = dict.fromkeys(BF16_KEYS, 0)
-    want16.update(upfirdn2d=sum(k for k, _ in bfk),
-                  noise_bias_act=sum(n for _, n in bfk))
+    want16.update(upfirdn2d=sum(k for k, _, _ in bfk),
+                  noise_bias_act=sum(n for _, n, _ in bfk),
+                  bias_lrelu=sum(c for _, _, c in bfk))
     return want, want16
 
 
@@ -2763,14 +2890,16 @@ def stylegan2_path(build, total):
     (loss, aux), sl, sl16 = counted(build, step)
     add_launches(total, sl)
     n_syn, layers, _ = sites_of(G.synthesis)
-    n_d = sites_of(D)[0]
+    n_d, c_d = sites_of(D)[0], conv_sites(D)
     b_syn, b_layers, _ = sites_of(G.synthesis, torch.bfloat16)
-    b_d = sites_of(D, torch.bfloat16)[0]
+    b_d, bc_d = sites_of(D, torch.bfloat16)[0], conv_sites(D, torch.bfloat16)
     swant = {"upfirdn2d": n_syn + n_d, "upfirdn2d_grad": n_syn + n_d,
              "philox_normal": 0, "conv3x3_lowch": 0,
-             "noise_bias_act": layers, "noise_bias_act_grad": layers}
+             "noise_bias_act": layers, "noise_bias_act_grad": layers + c_d,
+             "bias_lrelu": c_d}
     swant16 = {"upfirdn2d": b_syn + b_d, "upfirdn2d_grad": b_syn + b_d,
-               "noise_bias_act": b_layers, "noise_bias_act_grad": b_layers}
+               "noise_bias_act": b_layers,
+               "noise_bias_act_grad": b_layers + bc_d, "bias_lrelu": bc_d}
     if sl != swant or sl16 != swant16 or not b_layers:
         raise AssertionError(f"StyleGAN2 loss launches {sl} / bf16 {sl16}, "
                              f"expected {swant} / {swant16}")
@@ -3420,8 +3549,9 @@ def md_engine(build):
         del e
         torch.cuda.empty_cache()
     per_fwd = len(fir_calls(model_cfg_bank_cfg(MODEL), MD_ENGINE_BATCH))
-    if launches["two"]["upfirdn2d"] != 2 * per_fwd or launches["two"][
-            "noise_bias_act"] != 2 * launches["one"]["noise_bias_act"]:
+    if launches["two"]["upfirdn2d"] != 2 * per_fwd or any(
+            launches["two"][k] != 2 * launches["one"][k]
+            for k in ("noise_bias_act", "bias_lrelu")):
         raise AssertionError(f"engine launches {launches}")
     d = np.abs(outs["two"].astype(np.int16) - outs["one"].astype(np.int16))
     within1 = float((d <= 1).mean())
@@ -4570,10 +4700,12 @@ def compiled_eval(tmp, cli, build, g_pth, inc_pth, smi):
     n_batches = EVAL_IMAGES // EVAL_BATCH
     calls = fir_calls(model_cfg_bank_cfg(MODEL_1024), EVAL_BATCH)
     layers = noise_layers(model_cfg_bank_cfg(MODEL_1024))
+    convs = encoder_conv_layers(model_cfg_bank_cfg(MODEL_1024))
     want = {"conv3x3_lowch": 2 * n_batches,
             "upfirdn2d": len(calls) * n_batches, "upfirdn2d_grad": 0,
             "philox_normal": 0, "noise_bias_act": sum(layers.values())
-            * n_batches, "noise_bias_act_grad": 0}
+            * n_batches, "noise_bias_act_grad": 0,
+            "bias_lrelu": sum(convs.values()) * n_batches}
     runs = {}
     for name in ("compiled", "eager"):
         for k, v in patches[name].items():
@@ -4747,6 +4879,15 @@ def main():
           "bf16_max_abs_err": max(r["bf16_max_abs_err"] for r in epi_rows),
           "noise_equals_k1": True})
     detail["noise_bias_act"] = epi_rows
+    conv_epi_rows = check_conv_epilogue(nba, cfg, SERVE_BATCH)
+    emit({"phase": "kernel_check", "kernel": "bias_lrelu",
+          "batch": SERVE_BATCH,
+          **{k: [r[k] for r in conv_epi_rows]
+             for k in ("res", "channels", "layers_per_forward", "ms",
+                       "eager_ms", "bound_ms", "hbm_share", "bf16_ms",
+                       "bf16_hbm_share", "library_ms", "library_eager_ms")},
+          "bit_for_bit": True})
+    detail["bias_lrelu"] = conv_epi_rows
 
     # K1 and K2 at the 1024² calls of a shgan_g1024 forward (eval batch)
     cfg_1024 = model_cfg_bank()(MODEL_1024)
@@ -4833,12 +4974,14 @@ def main():
 
     per_fwd_fir = len(detail["fir_calls"][SERVE_BATCH])
     per_fwd_noise = sum(layers.values())
-    # every synthesis layer's epilogue is one fused launch; K1 itself is
-    # off the main path
+    per_fwd_conv = sum(encoder_conv_layers(cfg).values())
+    # every synthesis layer's epilogue is one fused launch, every encoder
+    # conv's bias and activation one bias_lrelu launch; K1 itself is off
+    # the main path
     want_serve = {"upfirdn2d": 3 * per_fwd_fir, "upfirdn2d_grad": 0,
                   "philox_normal": 0, "conv3x3_lowch": 0,
                   "noise_bias_act": 3 * per_fwd_noise,
-                  "noise_bias_act_grad": 0}
+                  "noise_bias_act_grad": 0, "bias_lrelu": 3 * per_fwd_conv}
     if launches != want_serve:
         raise AssertionError(f"launch counts {launches}, expected "
                              f"{want_serve}")
@@ -4931,7 +5074,9 @@ def main():
                 "upfirdn2d": len(calls_1024) * n_batches,
                 "upfirdn2d_grad": 0, "philox_normal": 0,
                 "noise_bias_act": sum(layers_1024.values()) * n_batches,
-                "noise_bias_act_grad": 0}
+                "noise_bias_act_grad": 0,
+                "bias_lrelu": sum(encoder_conv_layers(cfg_1024).values())
+                * n_batches}
         if eval_launches != want:
             raise AssertionError(f"eval launch counts {eval_launches}, "
                                  f"expected {want}")
@@ -5196,6 +5341,36 @@ def main():
                   "plus the PyTorch chain (no single PyTorch call computes "
                   "the function); launches over the serving path (and over "
                   f"the {MODEL_1024} eval path)"},
+        {"name": "bias_lrelu", "route": "cuda",
+         "source": "shgan_torch/csrc/noise_bias_act.cu",
+         "replaces": None,
+         "replaces_function": "the Conv2dLayers' bias add and lrelu_agc "
+                              "(PyTorch ops; XLA fused them in JAX)",
+         "launches": launches["bias_lrelu"],
+         "launches_eval_path": eval_launches["bias_lrelu"],
+         "launches_train_path": train_launches["bias_lrelu"],
+         "launches_fullmetrics_path": full_launches["bias_lrelu"],
+         "launches_train_config_path": config_launches["bias_lrelu"],
+         "launches_bf16_path": bf16_total["bias_lrelu"],
+         "launches_multi_device_path": md_total.get("bias_lrelu", 0),
+         "launches_spatial_path": sp_total.get("bias_lrelu", 0),
+         "launches_remat_path": remat_total.get("bias_lrelu", 0),
+         "launches_compiled_path": compiled_total.get("bias_lrelu", 0),
+         "max_abs_err": 0.0,
+         "ms": wsum(conv_epi_rows, "ms"),
+         "eager_ms": wsum(conv_epi_rows, "eager_ms"),
+         "bf16_ms": wsum(conv_epi_rows, "bf16_ms"),
+         "bound_ms": wsum(conv_epi_rows, "bound_ms"),
+         "bound_by": bound_by(conv_epi_rows),
+         "hbm_share": wsum(conv_epi_rows, "bytes_ms")
+         / wsum(conv_epi_rows, "ms"),
+         "library_ms": wsum(conv_epi_rows, "library_ms"),
+         "library_eager_ms": wsum(conv_epi_rows, "library_eager_ms"),
+         "scope": f"all {per_fwd_conv} encoder convs of one {MODEL} forward "
+                  f"at batch {SERVE_BATCH}, float32, bit for bit the "
+                  "chain (bf16_ms: in bfloat16); library_ms: the PyTorch "
+                  "chain on the same inputs; launches over the serving "
+                  f"path (and over the {MODEL_1024} eval path)"},
         {"name": "conv3x3_lowch", "route": "cuda",
          "source": "shgan_torch/csrc/conv3x3_lowch.cu",
          "replaces": "shgan_tpu/ops/conv1024.py:101",

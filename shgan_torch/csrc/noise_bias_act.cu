@@ -96,16 +96,18 @@ __device__ __forceinline__ void store(uint16_t* p, const float* v) {
   }
 }
 
-// x and y may be the same tensor: each thread reads its elements before it
-// writes them, so neither pointer is __restrict__.
+// One thread's work of the epilogue: its 2 * CPT elements in each half of
+// each plane it walks.  x and y may be the same tensor: each thread reads its
+// elements before it writes them, so neither pointer is __restrict__.
 template <typename T, int CPT>
-__global__ void __launch_bounds__(shgan::nba::kThreads)
-    noise_bias_act_kernel(const T* x, T* y, int c, shgan::NoiseWindow win, long long calls,
-                          const float* __restrict__ dcoef, const float* __restrict__ bias,
-                          const float* __restrict__ strength,
-                          const float* __restrict__ noise_const,
-                          const long long* __restrict__ key_row, int mode, uint32_t k0,
-                          uint32_t k1, long long row0, Act act, Launch L) {
+__device__ __forceinline__ void epilogue(const T* x, T* y, int c, const shgan::NoiseWindow& win,
+                                         long long calls, const float* __restrict__ dcoef,
+                                         const float* __restrict__ bias,
+                                         const float* __restrict__ strength,
+                                         const float* __restrict__ noise_const,
+                                         const long long* __restrict__ key_row, int mode,
+                                         uint32_t k0, uint32_t k1, long long row0, Act act,
+                                         const Launch& L) {
   constexpr int V = 2 * CPT;  // elements of each half a thread owns
   const long long rel = shgan::nba::first_call(L, blockIdx.x, threadIdx.x, calls);
   if (rel < 0) return;
@@ -160,15 +162,58 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
 }
 
 template <typename T, int CPT>
+__global__ void __launch_bounds__(shgan::nba::kThreads)
+    noise_bias_act_kernel(const T* x, T* y, int c, shgan::NoiseWindow win, long long calls,
+                          const float* __restrict__ dcoef, const float* __restrict__ bias,
+                          const float* __restrict__ strength,
+                          const float* __restrict__ noise_const,
+                          const long long* __restrict__ key_row, int mode, uint32_t k0,
+                          uint32_t k1, long long row0, Act act, Launch L) {
+  epilogue<T, CPT>(x, y, c, win, calls, dcoef, bias, strength, noise_const, key_row, mode, k0, k1,
+                   row0, act, L);
+}
+
+// bias_lrelu_kernel: the conv layers' epilogue.  Every Conv2dLayer of the
+// encoder and of D ends in its bias and activation (lrelu_agc with clamp, or
+// linear with a gain) and nothing else.  As PyTorch ops that chain was six
+// launches (the add, then compare, multiply, select, gain and clamp) and ~50
+// bytes of traffic per float32 element.  It replaces no TPU kernel: XLA
+// fused the chain in the JAX package.
+//
+// It is the epilogue above with no dcoef and no noise, fixed at compile time
+// (the Philox draw and the dcoef load drop out), under a name of its own so
+// that the profiler's trace tells the conv layers' time from the synthesis
+// layers'.  Bound on the card: bytes, 8 per float32 element (4 in bf16);
+// ~6 operations an element against the card's ~20 float32 operations per
+// byte.  The launch is the epilogue's, with one channel a thread (no noise
+// to reuse across channels, so the most blocks and the most loads in
+// flight).  apply() with dcoef 1 and a noise term of -0 is x + bias and then
+// the chain's activation steps, each rounded as PyTorch rounds it: float32
+// results equal the chain's bit for bit.
+template <typename T, int CPT>
+__global__ void __launch_bounds__(shgan::nba::kThreads)
+    bias_lrelu_kernel(const T* x, T* y, int c, shgan::NoiseWindow win, long long calls,
+                      const float* __restrict__ bias, Act act, Launch L) {
+  epilogue<T, CPT>(x, y, c, win, calls, nullptr, bias, nullptr, nullptr, nullptr,
+                   shgan::nba::kNoiseNone, 0, 0, 0, act, L);
+}
+
+template <typename T, int CPT>
 void launch(const void* x, void* y, int n, int c, const shgan::NoiseWindow& win,
             const float* dcoef, const float* bias, const float* strength,
             const float* noise_const, const long long* key_row, int mode, uint32_t k0, uint32_t k1,
             long long row0, Act act, cudaStream_t stream) {
   const long long calls = win.q1 - win.q0;
-  const Launch L = shgan::nba::plan_calls(n, c, calls, CPT, 0);
+  const bool conv = dcoef == nullptr && mode == shgan::nba::kNoiseNone;
+  const Launch L = shgan::nba::plan_calls(n, c, calls, CPT, conv ? 1 : 0);
   const dim3 grid(static_cast<unsigned int>(L.tiles), static_cast<unsigned int>(n),
                   static_cast<unsigned int>(L.chunks));
   const dim3 block(L.bt, L.bc);
+  if (conv) {
+    bias_lrelu_kernel<T, CPT><<<grid, block, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), c, win, calls, bias, act, L);
+    return;
+  }
   noise_bias_act_kernel<T, CPT><<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), c, win, calls, dcoef, bias, strength,
       noise_const, key_row, mode, k0, k1, row0, act, L);
@@ -189,8 +234,9 @@ void launch(const void* x, void* y, int n, int c, const shgan::NoiseWindow& win,
 // then reads in place of the three scalars (noise_bias_act.cuh: pick_key;
 // the key of a captured graph's launch, written before each replay).
 // clamp +inf for none;
-// alpha 1 for a linear activation.  Returns cudaGetLastError() after the
-// launch.
+// alpha 1 for a linear activation.  With no dcoef and mode 0 (a conv layer's
+// bias and activation alone) the launch is bias_lrelu_kernel.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int shgan_noise_bias_act(const void* x, void* y, int bf16, int n, int c, int res,
                                     int rows, int h0, const float* dcoef, const float* bias,
                                     const float* strength, const float* noise_const,

@@ -51,13 +51,15 @@ ENTRY_POINTS = {
 # where it launches its kernel, and nowhere else; a lock keeps the counts
 # exact when several threads launch (the engine over several devices).
 # K2's derivative calls (backward and higher orders) count apart from its
-# forward calls; the epilogue's grad kernel counts in both of its modes.
+# forward calls; the epilogue's grad kernel counts in both of its modes; a
+# forward epilogue launch with no dcoefs and no noise (a conv layer's bias
+# and activation) counts as bias_lrelu, the kernel it runs.
 # The counts are plain Python counts: a CUDA graph's replay launches its
 # captured kernels without a wrapper call, so runtime/compiled.py records
 # each graph's counts at capture and adds them once per replay (add()).
 launches = {"upfirdn2d": 0, "upfirdn2d_grad": 0, "philox_normal": 0,
             "conv3x3_lowch": 0, "noise_bias_act": 0,
-            "noise_bias_act_grad": 0}
+            "noise_bias_act_grad": 0, "bias_lrelu": 0}
 
 
 _LAUNCH_LOCK = threading.Lock()

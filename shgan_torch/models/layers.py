@@ -80,7 +80,13 @@ class Conv2d(nn.Module):
 
 
 class Conv2dLayer(nn.Module):
-    """Equalized-LR conv with optional FIR up/downsampling."""
+    """Equalized-LR conv with optional FIR up/downsampling.
+
+    The bias and the activation (lrelu_agc or linear; any other is refused
+    here, as in :class:`SynthesisLayer`) run after the conv as one
+    :func:`noise_bias_act` call with no dcoefs and no noise: on the card one
+    in-place launch of its ``bias_lrelu`` kernel (with grad mode on, a
+    differentiable one whose backward is the grad kernel)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, bias=True,
                  activation=None, up=1, down=1, resample_filter=(1, 3, 3, 1),
@@ -93,7 +99,8 @@ class Conv2dLayer(nn.Module):
                                 if resample_filter is not None else None)
         self.padding = kernel_size // 2
         self.weight_gain = 1.0 / np.sqrt(in_channels * kernel_size ** 2)
-        self.activation = get_activation(activation)
+        self.activation = parse_activation(activation)
+        epilogue_act(self.activation)   # lrelu_agc or linear, else raise
         k = kernel_size
         self.weight = nn.Parameter(
             randn((out_channels, in_channels, k, k), generator))
@@ -108,13 +115,10 @@ class Conv2dLayer(nn.Module):
         x = conv2d_resample(x, w.to(x.dtype), f=self.resample_filter,
                             up=self.up, down=self.down, padding=self.padding,
                             flip_weight=(self.up == 1), slab=slab, src=src)
-        if self.bias is not None:
-            x = add_bias(x, self.bias, slab)
-        if self.activation is not None:
-            x = self.activation(x, gain=gain)
-        elif gain != 1.0:
-            x = x * gain
-        return x
+        if self.bias is None and self.activation is None:
+            return x * gain if gain != 1.0 else x
+        return noise_bias_act(x, None, self.bias,
+                              epilogue_act(self.activation, gain), slab=slab)
 
 
 class SynthesisLayer(nn.Module):

@@ -28,6 +28,10 @@ the noise in registers (the same bits as K1) and updates ``x`` in place (or
 writes ``out``), so the noise never reaches device memory.
 :func:`noise_bias_act` runs the kernel on a CUDA tensor and the plain version
 on a CPU tensor, through :class:`_Epilogue` where a gradient is needed.
+With no dcoefs and no noise (a conv layer's bias and activation,
+``models/layers.Conv2dLayer``) the launch runs the same thread body as
+``bias_lrelu_kernel``, one channel a thread, and counts as ``"bias_lrelu"``
+(:func:`kernel_of`); its gradient is the same grad kernel.
 
 The gradient.  With ``pre`` the activation's input and ``g = dy *
 act'(pre)`` (the activation's gain, times alpha where ``pre < 0``, 0 where a
@@ -76,6 +80,14 @@ def epilogue_act(parsed, gain=1.0):
         raise ValueError(f"the fused epilogue takes lrelu_agc or a linear "
                          f"activation, not {name!r}")
     return lrelu_agc_params(**kwargs, extra_gain=gain)
+
+
+def kernel_of(dcoefs, noise_mode):
+    """The kernel a forward launch runs, as the launch counts name it:
+    ``"bias_lrelu"`` for a bias and activation alone (no dcoefs, no
+    noise: a conv layer's epilogue), else the fused ``"noise_bias_act"``."""
+    return ("bias_lrelu" if dcoefs is None and noise_mode == "none"
+            else "noise_bias_act")
 
 
 def _check(x, noise_mode, noise_key, noise_const, strength, h0=None):
@@ -225,7 +237,7 @@ def noise_bias_act_cuda(x, dcoefs=None, bias=None, act=LINEAR,
         None if key_row is None else key_row.data_ptr(), *margs,
         *_act_args(act))
     _kb.check(rc, "noise_bias_act kernel")
-    _kb.count("noise_bias_act")
+    _kb.count(kernel_of(dcoefs, noise_mode))
     return y
 
 

@@ -477,12 +477,12 @@ def _count_by_dtype(monkeypatch):
         return fir_any(x, taps, up, down, pads, counter)
 
     def counted_on(x, cuda_fn, plain_fn):
-        name = ("noise_bias_act" if plain_fn is nba.noise_bias_act_plain
-                else "noise_bias_act_grad")
         fn = on(x, cuda_fn, plain_fn)
 
         def run(*a, **k):
-            tally(name, x)
+            tally(nba.kernel_of(k.get("dcoefs"), k.get("noise_mode"))
+                  if plain_fn is nba.noise_bias_act_plain
+                  else "noise_bias_act_grad", x)
             return fn(*a, **k)
         return run
     monkeypatch.setattr(fir, "_fir_any", counted_fir)
@@ -552,17 +552,21 @@ def test_chip_smoke_stylegan2_launch_rule(monkeypatch):
             G, D, z, None, torch.Generator().manual_seed(2))
         loss.backward()
     n_syn, layers, _ = smoke.sites_of(G.synthesis)
-    n_d = smoke.sites_of(D)[0]
+    n_d, c_d = smoke.sites_of(D)[0], smoke.conv_sites(D)
     assert counts == {"upfirdn2d": n_syn + n_d,
                       "upfirdn2d_grad": n_syn + n_d,
                       "noise_bias_act": layers,
-                      "noise_bias_act_grad": layers}
+                      "noise_bias_act_grad": layers + c_d,
+                      "bias_lrelu": c_d}
     b_syn, b_layers, _ = smoke.sites_of(G.synthesis, torch.bfloat16)
     b_d = smoke.sites_of(D, torch.bfloat16)[0]
+    bc_d = smoke.conv_sites(D, torch.bfloat16)
+    assert 0 < bc_d < c_d
     assert counts16 == {"upfirdn2d": b_syn + b_d,
                         "upfirdn2d_grad": b_syn + b_d,
                         "noise_bias_act": b_layers,
-                        "noise_bias_act_grad": b_layers}
+                        "noise_bias_act_grad": b_layers + bc_d,
+                        "bias_lrelu": bc_d}
 
 
 def test_chip_smoke_serving_sites_match_its_fir_calls():
@@ -575,7 +579,12 @@ def test_chip_smoke_serving_sites_match_its_fir_calls():
     want, want16 = smoke.forward_launches(G)
     assert want["upfirdn2d"] == len(smoke.fir_calls(cfg, 2))
     assert want["noise_bias_act"] == sum(smoke.noise_layers(cfg).values())
+    assert want["bias_lrelu"] == sum(
+        smoke.encoder_conv_layers(cfg).values())
     # bf16: the encoder's 64² and 32² blurs, the synthesis' 32² and 64²
-    # up-convs; the epilogue at the four layers of those two blocks
+    # up-convs; the epilogue at the four layers of those two blocks;
+    # bias_lrelu at the encoder's five convs of those two blocks (b64's
+    # fromrgb, conv0 and conv1, b32's conv0 and conv1)
     assert want16 == {"upfirdn2d": 4, "upfirdn2d_grad": 0,
-                      "noise_bias_act": 4, "noise_bias_act_grad": 0}
+                      "noise_bias_act": 4, "noise_bias_act_grad": 0,
+                      "bias_lrelu": 5}

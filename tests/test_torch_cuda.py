@@ -166,14 +166,17 @@ def test_wrappers_count_launches_and_refuse_grad(cuda):
     fir_mod.upfirdn2d(x, fir_mod.setup_filter([1, 3, 3, 1]), padding=1)
     noise.random_noise(0, 8, 2, 8, cuda)
     nba.noise_bias_act(torch.zeros(1, 2, 8, 8, device=cuda))
+    nba.noise_bias_act(torch.zeros(1, 2, 8, 8, device=cuda),
+                       torch.ones(1, 2, device=cuda))
     assert build.launches == {"upfirdn2d": 1, "upfirdn2d_grad": 0,
                               "philox_normal": 1, "conv3x3_lowch": 0,
-                              "noise_bias_act": 1, "noise_bias_act_grad": 0}
+                              "noise_bias_act": 1, "noise_bias_act_grad": 0,
+                              "bias_lrelu": 1}
     xg = torch.zeros(1, 2, 8, 8, device=cuda, requires_grad=True)
     y = nba.noise_bias_act(xg)
     assert y.data_ptr() != xg.data_ptr()
     y.sum().backward()
-    assert build.launches["noise_bias_act"] == 2
+    assert build.launches["bias_lrelu"] == 2
     assert build.launches["noise_bias_act_grad"] == 1
     with pytest.raises(RuntimeError, match="in-place"):
         nba.noise_bias_act_cuda(xg)
@@ -549,7 +552,7 @@ def test_noise_bias_act_kernel_matches_plain(cuda, dtype, mode, res, c):
     build.reset_launches()
     got = nba.noise_bias_act(x, **kw)
     torch.cuda.synchronize()
-    assert build.launches["noise_bias_act"] == 1
+    assert build.launches[nba.kernel_of(kw["dcoefs"], mode)] == 1
     assert got.data_ptr() == x.data_ptr() and got.dtype == dtype
     got = got.float()
     assert torch.equal(torch.isnan(got), torch.isnan(want))
@@ -966,3 +969,198 @@ def test_k3_on_a_halod_slab_is_the_planes_rows(cuda, dtype):
         else:
             tol = torch.full_like(want, 1e-4)
         assert bool((err <= tol).all()), float(err.max())
+
+
+# -- bias_lrelu: a conv layer's bias and activation in one launch ------------
+
+def _conv_chain(x, bias, parsed, gain):
+    """Conv2dLayer's bias and activation as PyTorch ops (``add_bias``, then
+    ``lrelu_agc`` of the parsed spec, or the gain of a linear layer)."""
+    from shgan_torch.ops.bias_act import add_bias, lrelu_agc
+    if bias is not None:
+        x = add_bias(x, bias)
+    if parsed is not None:
+        return lrelu_agc(x, **parsed[1], extra_gain=gain)
+    return x * gain if gain != 1.0 else x
+
+
+BL_ACTS = [
+    # (spec, runtime gain, bias): the encoder's convs, D's conv1 (gain
+    # sqrt(1/2)), a linear layer with a gain, no bias
+    ("lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)", 1.0, True),
+    ("lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)", float(np.sqrt(0.5)),
+     True),
+    (None, float(np.sqrt(0.5)), True),
+    ("lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)", 1.0, False),
+]
+
+
+def _bl_inputs(cuda, shape, seed, offset=0, dtype=torch.float32):
+    """x with a NaN, ±0, ±inf and values past the clamp (``offset``
+    elements off the 16-byte alignment), and a bias of its channels."""
+    g = torch.Generator().manual_seed(seed)
+    n = int(np.prod(shape))
+    flat = torch.randn(n + offset, generator=g) * 150
+    flat[offset:offset + 5] = torch.tensor([np.nan, -0.0, 0.0, np.inf,
+                                            -np.inf])
+    x = flat.to(cuda, dtype)[offset:].view(shape)
+    bias = (torch.randn(shape[1], generator=g) * 0.3).to(cuda)
+    return x, bias
+
+
+def _same(a, b):
+    """Equal bits up to the sign of a zero, NaN where NaN."""
+    nan = torch.isnan(b)
+    return torch.equal(torch.isnan(a), nan) and torch.equal(a[~nan], b[~nan])
+
+
+@pytest.mark.parametrize("act", range(len(BL_ACTS)))
+@pytest.mark.parametrize("into", [False, True])
+@pytest.mark.parametrize("shape,offset", [
+    # the encoder's planes at batch 8: 32 x 1024², 64 x 512², 512 x 4²;
+    # small planes, and 8 bytes off the 16-byte alignment (2-element path)
+    ((8, 32, 1024, 1024), 0), ((8, 64, 512, 512), 0), ((8, 512, 4, 4), 0),
+    ((3, 7, 6, 6), 0), ((2, 5, 8, 8), 2)])
+def test_bias_lrelu_kernel_matches_the_chain_bit_for_bit(cuda, shape, offset,
+                                                         into, act):
+    """float32: one launch of the kernel, in place or into ``out``, gives
+    the PyTorch chain's bits (up to the sign of a zero), NaN kept."""
+    spec, gain, with_bias = BL_ACTS[act]
+    x, bias = _bl_inputs(cuda, shape, seed=sum(shape) + act, offset=offset)
+    bias = bias if with_bias else None
+    want = _conv_chain(x.clone(), bias, parse_activation(spec), gain)
+    a = nba.epilogue_act(parse_activation(spec), gain)
+    build.reset_launches()
+    if into:
+        out = torch.empty_like(x)
+        got = nba.noise_bias_act_cuda(x, None, bias, a, out=out)
+        assert got.data_ptr() == out.data_ptr()
+    else:
+        got = nba.noise_bias_act(x, None, bias, a)
+        assert got.data_ptr() == x.data_ptr()
+    torch.cuda.synchronize()
+    assert build.launches["bias_lrelu"] == 1
+    assert build.launches["noise_bias_act"] == 0
+    assert _same(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,h0,res", [
+    ((2, 6, 16, 64), 24, 64),   # a slab of 16 rows of 64² planes
+    ((2, 5, 3, 6), 1, 6)])      # 18 elements a plane: the 2-element path
+def test_bias_lrelu_kernel_on_a_slab_window(cuda, dtype, shape, h0, res):
+    """A window of plane rows (a spatial rank's slab, ``h0``): the chain's
+    result on those rows (bf16: the float32 chain on the widened input,
+    rounded once)."""
+    x, bias = _bl_inputs(cuda, shape, seed=res + h0, dtype=dtype)
+    spec, gain, _ = BL_ACTS[0]
+    want = _conv_chain(x.float(), bias, parse_activation(spec),
+                       gain).to(dtype)
+    got = nba.noise_bias_act(x, None, bias,
+                             nba.epilogue_act(parse_activation(spec), gain),
+                             h0=h0)
+    torch.cuda.synchronize()
+    assert _same(got, want)
+
+
+@pytest.mark.parametrize("act", range(len(BL_ACTS)))
+@pytest.mark.parametrize("shape", [(8, 64, 512, 512), (8, 512, 4, 4),
+                                   (2, 5, 6, 6)])
+def test_bias_lrelu_kernel_bf16_is_one_rounding(cuda, shape, act):
+    """bf16 I/O: the float32 chain on the widened input, rounded once to
+    bf16, bit for bit (the chain in bf16 rounds after each op)."""
+    spec, gain, with_bias = BL_ACTS[act]
+    x, bias = _bl_inputs(cuda, shape, seed=act, dtype=torch.bfloat16)
+    bias = bias if with_bias else None
+    want = _conv_chain(x.float(), bias, parse_activation(spec),
+                       gain).bfloat16()
+    got = nba.noise_bias_act(x, None, bias,
+                             nba.epilogue_act(parse_activation(spec), gain))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and _same(got.float(), want.float())
+
+
+@pytest.mark.parametrize("model,convs,layers", [("shgan_g512", 16, 15),
+                                                ("shgan_g1024", 18, 17)])
+def test_replay_launches_bias_lrelu_at_each_encoder_conv(cuda, model, convs,
+                                                         layers):
+    """A replay of the compiled forward at full width launches the conv
+    epilogue once for each of the encoder's Conv2dLayers and the fused
+    synthesis epilogue once for each synthesis layer, and no chain."""
+    res = 1024 if model == "shgan_g1024" else 512
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (1, 3, res, res), dtype=np.uint8)
+    masks = (rng.rand(1, res, res) > 0.5).astype(np.float32)
+    e = InpaintEngine(model, device=cuda, batch_size=1, seed=1)
+    e.inpaint(imgs, masks)                          # captures
+    torch.cuda.synchronize()
+    build.reset_launches()
+    e.inpaint(imgs, masks)                          # replays
+    torch.cuda.synchronize()
+    assert e.path() == "compiled"
+    assert build.launches["bias_lrelu"] == convs
+    assert build.launches["noise_bias_act"] == layers
+    assert build.launches["noise_bias_act_grad"] == 0
+    e.close()
+    build.reset_launches()
+
+
+def test_train_losses_through_the_conv_epilogue_match_the_chain(cuda,
+                                                                monkeypatch):
+    """shgan_ffhq256_train's G and D at full width, batch 2: Gmain's
+    gradients (first order through G's encoder and D) and R1's (the second
+    order through D) with every Conv2dLayer on the kernel and its grad
+    kernel, against the same losses with the layers' PyTorch chain under
+    autograd, leaf by leaf within 1e-4 of the leaf's norm."""
+    from shgan_torch.models.layers import Conv2dLayer
+    from shgan_torch.models.registry import get_model
+    from shgan_torch.ops.conv_resample import conv2d_resample
+    from shgan_torch.runtime.config import model_cfg_bank
+    from shgan_torch.train import loss as TL
+    bank = model_cfg_bank()
+    G = get_model(bank("shgan_g256"), seed=0).to(cuda)
+    D = get_model(bank("comodgan_d256"), seed=1).to(cuda)
+    g = torch.Generator().manual_seed(3)
+    real = (torch.rand(2, 3, 256, 256, generator=g) * 2 - 1).to(cuda)
+    mask = (torch.rand(2, 1, 256, 256, generator=g) > 0.5).float().to(cuda)
+    x_in = torch.cat([mask - 0.5, real * mask], dim=1)
+    z = torch.randn(2, G.z_dim, generator=g).to(cuda)
+    forward = Conv2dLayer.forward
+
+    def chain(self, x, gain=1.0, slab=None, src=None):
+        w = self.weight * self.weight_gain
+        x = conv2d_resample(x, w.to(x.dtype), f=self.resample_filter,
+                            up=self.up, down=self.down, padding=self.padding,
+                            flip_weight=(self.up == 1), slab=slab, src=src)
+        return _conv_chain(x, self.bias, self.activation, gain)
+
+    def grads(fused):
+        monkeypatch.setattr(Conv2dLayer, "forward",
+                            forward if fused else chain)
+        out = []
+        for m in (G, D):
+            m.zero_grad(set_to_none=True)
+        loss, _ = TL.g_main_loss(G, D, x_in, mask, z,
+                                 torch.Generator().manual_seed(4))
+        loss.backward()
+        loss, _ = TL.d_r1_loss(D, mask, real)
+        loss.backward()
+        for m in (G, D):
+            out += [(n, p.grad.clone()) for n, p in m.named_parameters()
+                    if p.grad is not None]
+        return out
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        build.reset_launches()
+        got = grads(True)
+        counts = dict(build.launches)
+        want = grads(False)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert counts["bias_lrelu"] > 0 and counts["noise_bias_act_grad"] > 0
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, a), (_, b) in zip(got, want):
+        err = float((a - b).norm())
+        assert err <= 1e-4 * float(b.norm()) + 1e-12, (name, err)

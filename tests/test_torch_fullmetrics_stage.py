@@ -280,7 +280,8 @@ def test_chip_smoke_fullmetrics_launch_rule(tmp_path, stand_in, lpips_params,
     sys.path.insert(0, REPO)
     smoke = importlib.import_module("chip_smoke")
     fir = importlib.import_module("shgan_torch.ops.upfirdn2d")
-    counts = {"stride1": 0, "up2": 0, "other": 0, "noise_bias_act": 0}
+    counts = {"stride1": 0, "up2": 0, "other": 0, "noise_bias_act": 0,
+              "bias_lrelu": 0}
     fir_any, on = fir._fir_any, nba._on
 
     def counted_fir(x, taps, up, down, pads, counter):
@@ -296,7 +297,7 @@ def test_chip_smoke_fullmetrics_launch_rule(tmp_path, stand_in, lpips_params,
         fn = on(x, cuda_fn, plain_fn)
 
         def run(*a, **k):
-            counts["noise_bias_act"] += 1
+            counts[nba.kernel_of(k.get("dcoefs"), k.get("noise_mode"))] += 1
             return fn(*a, **k)
         return run
     monkeypatch.setattr(fir, "_fir_any", counted_fir)
@@ -309,4 +310,5 @@ def test_chip_smoke_fullmetrics_launch_rule(tmp_path, stand_in, lpips_params,
                                       ppl["num_samples"], ppl["batch_size"])
     assert rule["stream_forwards"] == 2 and rule["ppl_batches"] == 2
     assert counts == dict(rule["upfirdn2d_by_route"],
-                          noise_bias_act=rule["noise_bias_act"])
+                          noise_bias_act=rule["noise_bias_act"],
+                          bias_lrelu=rule["bias_lrelu"])

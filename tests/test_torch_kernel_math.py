@@ -692,6 +692,7 @@ static void resample() {
 //   tf32 v                          -> TF32 high part and residual of v, both
 //                                      splits
 //   nbaplan n c res cpt             -> the fused epilogue's launch rule
+//   blplan n c res cpt              -> bias_lrelu's launch (one channel a thread)
 //   nbamap n c res cpt per          -> the fused epilogue's launch and coverage
 //   nba ...                         -> the fused epilogue emulated (nba_run)
 //   nbaop alpha gain clamp m x d nz b (m times) -> m results' float32 bits
@@ -705,10 +706,10 @@ int main() {
   char cmd[16];
   while (std::scanf("%15s", cmd) == 1) {
     std::string c(cmd);
-    if (c == "nbaplan") {
+    if (c == "nbaplan" || c == "blplan") {
       int n, ch, res, cpt;
       std::scanf("%d %d %d %d", &n, &ch, &res, &cpt);
-      const nba::Launch L = nba::plan(n, ch, res, cpt, 0);
+      const nba::Launch L = nba::plan(n, ch, res, cpt, c == "blplan" ? 1 : 0);
       std::printf("%d %d %d %d %lld\n", L.per, L.chunks, L.bt, L.bc, L.tiles);
     } else if (c == "nbamap") {
       nbamap();
@@ -1801,3 +1802,84 @@ def test_noise_window_index_map_draws_the_planes_rows(harness, res, h0,
                                   whole[:, h0:h0 + rows].view(np.uint32))
     want = noise.philox_normal_plain(key, 2, res, h0=h0, rows=rows).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+# -- bias_lrelu: the conv layers' epilogue ----------------------------------
+# bias_lrelu_kernel is the fused epilogue's thread body with no dcoef and no
+# noise, launched with one channel a thread (plan per_override 1).
+
+
+@pytest.mark.parametrize("n,c,res,cpt", [
+    # encoder conv outputs (batch cut where a plane is large): 512 x 4²,
+    # 512 x 16², 128 x 64², 64 x 256²; the 1-call path; one past a lane group
+    (8, 512, 4, 2), (8, 512, 16, 2), (2, 128, 64, 2), (1, 64, 256, 2),
+    (2, 5, 6, 1), (3, 513, 8, 2),
+])
+def test_bias_lrelu_index_map_covers_each_element_once(harness, n, c, res,
+                                                       cpt):
+    """The conv layers' launch: every element is read and written by
+    exactly one thread, each thread walks one channel, and the channel
+    chunks are the fewest that cover C at one channel a lane."""
+    got_per, chunks, bt, bc, tiles, bad = (
+        int(v) for v in harness(f"nbamap {n} {c} {res} {cpt} 1"))
+    assert bad == 0 and got_per == 1
+    assert bt * bc == 256 and chunks == -(-c // bc)
+    assert tiles * bt * cpt >= res * res // 4
+
+
+@pytest.mark.parametrize("cpt", [1, 2])
+@pytest.mark.parametrize("c,res", [
+    # every encoder conv output of shgan_g512 and shgan_g1024
+    (512, 4), (512, 8), (512, 16), (512, 32), (512, 64), (256, 128),
+    (128, 256), (64, 512), (32, 1024)])
+def test_bias_lrelu_launch_at_the_encoder_shapes(harness, c, res, cpt):
+    """At batch 8: one channel a thread, the chunks cover C once, the call
+    threads cover a plane's row of calls, and the grid fits CUDA's limits
+    (y and z at most 65535)."""
+    n = 8
+    per, chunks, bt, bc, tiles = (
+        int(v) for v in harness(f"blplan {n} {c} {res} {cpt}"))
+    assert per == 1 and bt * bc == 256 and chunks == -(-c // bc)
+    assert tiles * bt * cpt >= res * res // 4 > (tiles - 1) * bt * cpt
+    assert n <= 65535 and chunks <= 65535 and tiles < 2 ** 31
+
+
+@pytest.mark.parametrize("spec,gain,has_bias", [
+    ("lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)", 1.0, True),
+    ("lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)", float(np.sqrt(0.5)),
+     True),
+    (None, float(np.sqrt(0.5)), True),
+    ("lrelu_agc(alpha=0.2, gain=sqrt_2)", 1.0, False),
+])
+@pytest.mark.parametrize("res,cpt", [(4, 2), (6, 1), (8, 2)])
+def test_bias_lrelu_emulation_equals_the_chain(harness, spec, gain, has_bias,
+                                               res, cpt):
+    """The conv layers' launch (no dcoef, no noise, one channel a thread)
+    emulated on the host gives the PyTorch chain's bits (``+ bias``, then
+    lrelu_agc or the gain), NaN, ±0 and ±inf included."""
+    n, c = 2, 5
+    rng = np.random.RandomState(res + cpt)
+    x = (rng.randn(n * c * res * res) * 150).astype(np.float32)
+    x[:5] = [np.nan, -0.0, 0.0, np.inf, -np.inf]
+    b = (rng.randn(c) * 0.3).astype(np.float32)
+    act = epilogue_act(parse_activation(spec), gain)
+    alpha, g, clamp = nba_mod._act_args(act)
+    head = (f"nba 0 {cpt} 1 {n} {c} {res} 0 0 0 {_f(alpha)} {_f(g)} "
+            f"{'inf' if clamp == np.inf else _f(clamp)} 0 {int(has_bias)} "
+            f"{_f(0.0)} 0")
+    vals = np.concatenate([np.ones(n * c, np.float32), b,
+                           np.zeros(res * res, np.float32), x])
+    out = harness(f"{head} " + " ".join(_f(t) for t in vals))
+    got = np.array([int(t) for t in out], np.uint32).view(np.float32)
+    y = torch.from_numpy(x).view(n, c, res * res)
+    if has_bias:
+        y = y + torch.from_numpy(b)[None, :, None]
+    if act[0] is not None:
+        y = lrelu_agc(y, act[0], gain=act[1], clamp=act[2])
+    elif act[1] != 1.0:
+        y = y * act[1]
+    want = y.reshape(-1).numpy()
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(got[~nan].view(np.uint32),
+                          want[~nan].view(np.uint32))

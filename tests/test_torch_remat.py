@@ -170,10 +170,10 @@ def test_chip_smoke_launch_rule_counts_a_remat_step(res, monkeypatch):
     sites, redo = smoke.train_sites(G, D), smoke.train_sites(G, D,
                                                              remat=True)
     # every K2 call sits in a checkpointed block, every synthesis layer
-    # but b4's conv
+    # but b4's conv, every conv epilogue but the encoder's and D's 4² conv
     assert redo[:3] == sites[:3] and redo[3] == sites[3] - 1
-    assert smoke.train_sites(*_tiny(False, res=res), remat=True) == (
-        0, 0, 0, 0, 0)
+    assert redo[5:7] == (sites[5] - 1, sites[6] - 1)
+    assert smoke.train_sites(*_tiny(False, res=res), remat=True) == (0,) * 8
     real, mask = _inputs(res)
     for greg, dreg in [(True, True), (False, False), (True, False),
                        (False, True)]:

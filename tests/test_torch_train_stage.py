@@ -179,8 +179,9 @@ def test_cli_flags_for_training(tmp_path):
 
 def _count_launches(monkeypatch):
     """Counts of the calls where each kernel's wrapper would launch it on
-    the card (K2 forward and derivative calls apart, the epilogue and its
-    grad kernel in both modes), kept in the dict returned."""
+    the card (K2 forward and derivative calls apart, the epilogue by the
+    kernel it runs, its grad kernel in both modes), kept in the dict
+    returned."""
     import importlib
 
     from shgan_torch.ops import noise_bias_act as nba
@@ -193,11 +194,12 @@ def _count_launches(monkeypatch):
         return fir_any(x, taps, up, down, pads, counter)
 
     def counted_on(x, cuda_fn, plain_fn):
-        name = ("noise_bias_act" if plain_fn is nba.noise_bias_act_plain
-                else "noise_bias_act_grad")
         fn = on(x, cuda_fn, plain_fn)
 
         def run(*a, **k):
+            name = (nba.kernel_of(k.get("dcoefs"), k.get("noise_mode"))
+                    if plain_fn is nba.noise_bias_act_plain
+                    else "noise_bias_act_grad")
             counts[name] = counts.get(name, 0) + 1
             return fn(*a, **k)
         return run
@@ -271,5 +273,6 @@ def test_chip_smoke_counts_the_grids_apart(tmp_path, monkeypatch):
             *sites, i % tc.g_reg_interval == 0, i % tc.d_reg_interval == 0)
         assert got == {k: v for k, v in want.items() if v}, i
     grid = {"upfirdn2d": smoke.GRID_FORWARDS * (sites[0] + sites[1]),
-            "noise_bias_act": smoke.GRID_FORWARDS * sites[3]}
+            "noise_bias_act": smoke.GRID_FORWARDS * sites[3],
+            "bias_lrelu": smoke.GRID_FORWARDS * sites[5]}
     assert outside == [grid, {}, grid, grid]

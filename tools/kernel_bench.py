@@ -4,7 +4,7 @@ epilogue (noise_bias_act) on one NVIDIA GPU at the shapes of the port's
 main path, each checked against its plain version.
 
     python3 tools/kernel_bench.py [--root DIR]
-        [--only k2,k3,width,nba,resample,k2grad] [--out FILE]
+        [--only k2,k3,width,nba,bl,resample,k2grad] [--out FILE]
 
 It runs the kernel checks of ``chip_smoke.py`` phase 2 (the same inputs,
 tolerances, CUDA-graph timing and bounds) from the checkout at ``--root``
@@ -18,7 +18,10 @@ streaming kernels (multiply, copy, pad to 1025) at that shape; the fused
 epilogue at every synthesis layer of a ``shgan_g512`` forward at batch 8
 and the 1024² layers of ``shgan_g1024`` at batch 4, beside the unfused
 path on the same inputs (K1 plus the PyTorch chain; a checkout without the
-fused kernel skips it); K2's resampling calls (``resample``): the 1x1 skips
+fused kernel skips it); the conv layers' epilogue (``bl``: bias_lrelu) at
+every encoder conv of a ``shgan_g512`` and a ``shgan_g1024`` forward at
+batch 8, beside the PyTorch chain it replaced (a checkout without it skips
+it); K2's resampling calls (``resample``): the 1x1 skips
 of ``comodgan_d256`` at batch 8 (down = 2) and their backward (up = 2), the
 skip-image upsample of ``shgan_g256`` at batch 8 (up = 2) and its backward
 (down = 2), float32 and bf16, each beside the one cuDNN call that computes
@@ -137,10 +140,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE,
                     help="checkout whose shgan_torch and chip_smoke.py run")
-    ap.add_argument("--only", default="k2,k3,width,nba,resample,k2grad",
+    ap.add_argument("--only", default="k2,k3,width,nba,bl,resample,k2grad",
                     help="k2, k3, width (K2 at an odd and an even output "
                          "width, beside PyTorch's streaming kernels), nba "
-                         "(the fused synthesis epilogue), resample (K2's "
+                         "(the fused synthesis epilogue), bl (bias_lrelu, "
+                         "the encoder's conv epilogues), resample (K2's "
                          "down = 2 / up = 2 calls of training) and/or "
                          "k2grad (K2's backward over one G and D forward)")
     ap.add_argument("--out", default=None, help="file for the full rows")
@@ -225,6 +229,23 @@ def main():
                                    "ms", "bound_ms", "hbm_share", "bf16_ms",
                                    "library_ms", "max_abs_err")}
                 for r in rows]
+    if "bl" in only and hasattr(cs, "check_conv_epilogue"):
+        from shgan_torch.ops import noise_bias_act as nba
+        for name, model in (("bl_g512", cs.MODEL), ("bl_g1024",
+                                                     cs.MODEL_1024)):
+            rows = cs.check_conv_epilogue(nba, model_cfg_bank()(model),
+                                          cs.SERVE_BATCH)
+            full[name] = rows
+            w = [r["layers_per_forward"] for r in rows]
+            out[name] = {
+                k: sum(r[k] * n for r, n in zip(rows, w))
+                for k in ("ms", "eager_ms", "bf16_ms", "bound_ms",
+                          "bytes_ms", "library_ms", "library_eager_ms")}
+            out[name]["hbm_share"] = out[name]["bytes_ms"] / out[name]["ms"]
+            out[name]["layers"] = [
+                {k: r[k] for k in ("res", "channels", "layers_per_forward",
+                                   "ms", "bound_ms", "hbm_share", "bf16_ms",
+                                   "library_ms")} for r in rows]
     if "resample" in only:
         rows = resample_rows(cs, fir, resample_calls(model_cfg_bank(), 8))
         full["resample"] = rows
