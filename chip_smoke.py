@@ -39,17 +39,16 @@ Phases, each printing one JSON line:
 5. eval path: ``shgan_synthetic256_eval`` assembled by the CLI's
    ``build_config`` with the model swapped to ``shgan_g1024`` (random
    weights loaded strictly from a ``.pth``), 96 synthetic 1024² images
-   from a pool of 4, batch 4, ``pallas_conv1024: true``, FID (random
-   Inception weights from a pytorch-fid style ``.pth``), PSNR and SSIM,
+   from a pool of 4, batch 4, K3 on the two 1024² convs (an inference
+   forward's route), FID (random Inception weights from a pytorch-fid
+   style ``.pth``), PSNR and SSIM,
    run by the CLI's ``run`` (its forward one captured graph, replayed a
    batch); launch counts of every kernel over exactly
    that run (K3 2, K2 24, the fused epilogue 17 a forward, K1 none),
-   finite metrics in ``result.json``, images/s and peak memory; then the
-   same run again with ``SHGAN_EVAL_TIMING=1`` for the
-   fenced per-batch split (pipe wait, generator, metrics);
+   finite metrics in ``result.json``, images/s and peak memory;
 6. K3 in place: one ``shgan_g1024`` batch with constant noise, TF32 off,
-   with the conv1024 switch on (K3) and off (cuDNN): composites compared,
-   forwards timed;
+   on K3 and with the route's predicate patched to the library conv
+   (cuDNN): composites compared, forwards timed;
 7. the CLI: ``python -m shgan_torch.main --experiment
    shgan_synthetic256_eval --debug --eval 0`` exits 0 with a result.json;
 8. training path: K2's backward at every K2 call of a ``shgan_g256``
@@ -60,14 +59,13 @@ Phases, each printing one JSON line:
    ``shgan_ffhq256_train`` (``shgan_g256`` + ``comodgan_d256`` at full
    width, batch 8, random weights, the dataset swapped to synthetic 256²)
    assembled by ``build_config`` and run by the CLI's ``run`` for 6 steps
-   (step 0 with both regularizers, 4 with the path-length penalty),
-   ``SHGAN_TRAIN_TIMING=1``: per-step ms by phase (fenced), images/s over
-   steps 1–5, peak memory, launches per step checked against counts worked
-   out from the modules (the counts set to 0 as each step starts and read
-   as it ends), G_ema's image grids (``demo/fakes_init.png`` and the final
-   one) with their own launches (three forwards each, none between the
-   steps), ``stats.jsonl`` a record a tick keyed by ``step``, finite
-   losses, moved weights, ``pl_mean > 0``;
+   (step 0 with both regularizers, 4 with the path-length penalty):
+   per-step ms, images/s over steps 1–5, peak memory, launches per step
+   checked against counts worked out from the modules (the counts set to 0
+   as each step starts and read as it ends), G_ema's image grids
+   (``demo/fakes_init.png`` and the final one) with their own launches
+   (three forwards each, none between the steps), ``stats.jsonl`` a record
+   a tick keyed by ``step``, finite losses, moved weights, ``pl_mean > 0``;
    the final snapshot reloaded and one step from it equal to the same step
    from memory (cuDNN deterministic); one Gmain + Dmain + R1 gradient at
    batch 2 on the card (cuDNN deterministic) and on the CPU, TF32 off,
@@ -233,7 +231,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -693,13 +691,10 @@ def check_conv3(conv1024, conv_resample):
             / math.sqrt(9 * c)
         wc = w.flip([2, 3]) if flip else w   # the correlation kernel
         before = build.launches["conv3x3_lowch"]
-        if flip:   # the routing of ops/conv_resample._conv2d, switch on
-            conv1024.set_conv1024_impl("pallas")
-            try:
+        if flip:   # the routing of ops/conv_resample._conv2d, in inference
+            with torch.inference_mode():
                 y = conv_resample._conv2d(x, w, padding=(1, 1),
                                           flip_weight=False)
-            finally:
-                conv1024.set_conv1024_impl("xla")
         else:
             y = conv1024.conv3x3_lowch(x, w)
         if build.launches["conv3x3_lowch"] != before + 1:
@@ -800,7 +795,7 @@ def eval_config(tmp, g_pth, inc_pth, images, log_sub):
                                "mask_resolution": K3_RES,
                                "hole_range": [0, 1]}}}
     ev.update(batch_size=EVAL_BATCH, dataset_num_workers=4,
-              pallas_conv1024=True, noise_mode="random",
+              noise_mode="random",
               output_sample_images=False, log_display=images,
               evaluator=[{"type": "fid",
                           "args": {"detector_weights": inc_pth}},
@@ -812,15 +807,14 @@ def eval_config(tmp, g_pth, inc_pth, images, log_sub):
 
 def k3_in_place(cfg, g_pth):
     """One ``shgan_g1024`` batch with constant noise, TF32 off: the forward
-    with the switch on (K3) and off (cuDNN), composites compared and both
-    forwards timed, in turns on, off, off, on."""
+    on K3 and on the library conv (cuDNN, :func:`library_conv`), composites
+    compared and both forwards timed, in turns K3, cuDNN, cuDNN, K3."""
     from shgan_torch.data.datasets import get_dataset
     from shgan_torch.data.formatters import get_formatter
     from shgan_torch.data.pipeline import EvalPipeline
     from shgan_torch.data.transforms import wrap_formatter
     from shgan_torch.kernels import build
     from shgan_torch.models.infer import composite_forward, z_for_positions
-    from shgan_torch.ops import conv1024
     from shgan_torch.runtime.stages import build_generator
     G = build_generator(cfg["model_g"], g_pth).to("cuda").eval()
     G.requires_grad_(False)
@@ -837,27 +831,28 @@ def k3_in_place(cfg, g_pth):
         with torch.inference_mode():
             return composite_forward(G, real, mask, z, noise_mode="const")
 
-    out, ms = {}, {"pallas": [], "xla": []}
-    try:
-        for impl in ("pallas", "xla"):
-            conv1024.set_conv1024_impl(impl)
+    def route(impl):
+        return library_conv() if impl == "cudnn" else nullcontext()
+
+    out, ms = {}, {"k3": [], "cudnn": []}
+    for impl in ("k3", "cudnn"):
+        with route(impl):
             build.reset_launches()
             out[impl] = fwd().cpu().numpy().astype(np.int16)
-            out[impl + "_k3"] = build.launches["conv3x3_lowch"]
-        for impl in ("pallas", "xla", "xla", "pallas"):
-            conv1024.set_conv1024_impl(impl)
+            out[impl + "_launches"] = build.launches["conv3x3_lowch"]
+    for impl in ("k3", "cudnn", "cudnn", "k3"):
+        with route(impl):
             ms[impl].append(eager_ms(fwd, 3))
-    finally:
-        conv1024.set_conv1024_impl("xla")
-    if out["pallas_k3"] != 2 or out["xla_k3"] != 0:
-        raise AssertionError(f"K3 launches on/off: {out['pallas_k3']} / "
-                             f"{out['xla_k3']}, expected 2 / 0")
-    d = np.abs(out["pallas"] - out["xla"])
+    if out["k3_launches"] != 2 or out["cudnn_launches"] != 0:
+        raise AssertionError(f"K3 launches on K3 / cuDNN: "
+                             f"{out['k3_launches']} / "
+                             f"{out['cudnn_launches']}, expected 2 / 0")
+    d = np.abs(out["k3"] - out["cudnn"])
     row = {"phase": "k3_in_place", "model": MODEL_1024, "batch": EVAL_BATCH,
            "noise_mode": "const", "tf32": False,
            "within_1": float((d <= 1).mean()), "max_abs_diff": int(d.max()),
-           "k3_launches_per_forward": out["pallas_k3"],
-           "forward_ms_k3": ms["pallas"], "forward_ms_cudnn": ms["xla"]}
+           "k3_launches_per_forward": out["k3_launches"],
+           "forward_ms_k3": ms["k3"], "forward_ms_cudnn": ms["cudnn"]}
     emit(row)
     if row["within_1"] < 0.999 or row["max_abs_diff"] > 2:
         raise AssertionError(f"K3 vs cuDNN in place: {row['within_1']:.6f} "
@@ -1529,7 +1524,7 @@ def train_parity(cfg, seed=0):
 
 def train_path(tmp, cli, build, bf16=False):
     """The training path as the CLI runs it (``main.run`` of the assembled
-    config), fenced per phase, with launch counts per step; then the
+    config), with launch counts per step; then the
     snapshot reloaded and one step from it against the same step from
     memory (cuDNN deterministic).  With ``bf16`` the model runs the blocks
     of ``BF16_TRAIN`` in bfloat16, and the launches on bfloat16 tensors
@@ -1561,13 +1556,9 @@ def train_path(tmp, cli, build, bf16=False):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    os.environ["SHGAN_TRAIN_TIMING"] = "1"
     build.reset_launches()
     t0 = time.perf_counter()
-    try:
-        rv = cli.run(cfg, on_step=on_step, on_step_start=on_step_start)
-    finally:
-        del os.environ["SHGAN_TRAIN_TIMING"]
+    rv = cli.run(cfg, on_step=on_step, on_step_start=on_step_start)
     outside.append(dict(build.launches))
     stage_s = time.perf_counter() - t0
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1626,7 +1617,6 @@ def train_path(tmp, cli, build, bf16=False):
     if not moved > 0:
         raise AssertionError("G's weights did not move")
     timing = rv["timing"]
-    phases = timing["phase_s"]
     row = {"phase": "train_path_bf16" if bf16 else "train_path",
            "experiment": TRAIN_EXPERIMENT, "bf16_blocks": bf16,
            "model_g": cfg["model_g"].get("name"),
@@ -1637,7 +1627,6 @@ def train_path(tmp, cli, build, bf16=False):
                + ("D" if i % tc.d_reg_interval == 0 else "")
                for i in range(TRAIN_STEPS)],
            "step_ms": [s * 1e3 for s in timing["step_s"]],
-           "phase_ms": [{k: v * 1e3 for k, v in p.items()} for p in phases],
            "images_per_s_steps_1_5": TRAIN_BATCH * (TRAIN_STEPS - 1)
            / sum(timing["step_s"][1:]),
            "peak_mem_gib": peak_gib, "stage_s": stage_s,
@@ -1652,7 +1641,7 @@ def train_path(tmp, cli, build, bf16=False):
                ("k2_encoder", "k2_synthesis", "k2_discriminator",
                 "synthesis_layers", "k2_skip_image"), sites)),
            "ticks": ticks, "pl_mean": float(step.pl_mean),
-           "max_weight_move": moved, "fenced": True}
+           "max_weight_move": moved}
     emit(row)
 
     # the snapshot, reloaded; one step from it and from memory
@@ -1671,7 +1660,6 @@ def train_path(tmp, cli, build, bf16=False):
         real, mask = next(iter(pipe))
         outs = []
         for st in (step, fresh):
-            st.timing = False
             st(real, mask, step_generator(0, st.step), 0.999, True, True)
             outs.append((params_of(st.G), params_of(st.D),
                          params_of(st.G_ema), float(st.pl_mean)))
@@ -1962,22 +1950,15 @@ def fullmetrics_path(tmp, cli, build, fir, inc_pth):
                                  f"{d_step.tolist()}")
         del G
 
-        # again, the real features from the cache the first run wrote, with
-        # SHGAN_EVAL_TIMING=1: each batch's pipe wait, generator (fenced)
-        # and metrics
+        # again, the real features from the cache the first run wrote
         cache = os.path.join(work, "cache")
         if not os.listdir(cache):
             raise AssertionError("no real-feature cache written")
         ccfg = fullmetrics_config(work, g_pth, data_root, "log_cached",
                                   evaluators=("fid", "kid", "pr", "is"))
-        os.environ["SHGAN_EVAL_TIMING"] = "1"
         t0 = time.perf_counter()
-        try:
-            crv = cli.run(ccfg)
-        finally:
-            del os.environ["SHGAN_EVAL_TIMING"]
+        crv = cli.run(ccfg)
         cached_s = time.perf_counter() - t0
-        split = crv["timing"]["phase_s"][1:]
         cached = {"fid": crv["eval_rv"]["fid"], "kid": crv["eval_rv"]["kid"],
                   "precision": crv["eval_rv"]["pr"]["precision"],
                   "recall": crv["eval_rv"]["pr"]["recall"]}
@@ -2068,11 +2049,8 @@ def fullmetrics_path(tmp, cli, build, fir, inc_pth):
            "ppl_step_distance": d_step.tolist(),
            "cached": cached, "cached_abs_diff": cached_diff,
            "cached_rtol": CACHED_RTOL,
-           "cached_fenced_images_per_s": batch * (rule["stream_forwards"] - 1)
+           "cached_images_per_s": batch * (rule["stream_forwards"] - 1)
            / (sum(crv["timing"]["batch_s"][1:]) + crv["timing"]["drain_s"]),
-           "cached_fenced_phase_mean_s": {
-               k: float(np.mean([p[k] for p in split]))
-               for k in ("pipe_wait_s", "gen_s", "metrics_s")},
            "cached_run_s": cached_s,
            "pregen": pregen, "pregen_images": PREGEN_IMAGES,
            "pregen_launches": pregen_launches, "pregen_s": pregen_s,
@@ -2628,17 +2606,22 @@ def add_launches(total, got):
 
 
 @contextmanager
-def library_conv():
-    """The serving engines' K3 route swapped for the library conv (cuDNN)
-    inside the block: the engine holds ``conv1024.routed("pallas")`` around
-    its forwards, so the swap replaces that call."""
-    from shgan_torch.ops import conv1024
-    held = conv1024.routed
-    conv1024.routed = lambda impl: held("xla")
+def library_conv(*engines):
+    """The library conv (cuDNN) in K3's place inside the block: the route's
+    predicate in ``ops/conv_resample`` patched to refuse K3.  A graph
+    replays the route it was captured with, so ``engines``' graphs are
+    freed on entering the block and on leaving it."""
+    from shgan_torch.ops import conv_resample
+    held = conv_resample.takes_k3
+    for e in engines:
+        e.close()
+    conv_resample.takes_k3 = lambda *a, **k: False
     try:
         yield
     finally:
-        conv1024.routed = held
+        conv_resample.takes_k3 = held
+        for e in engines:
+            e.close()
 
 
 def bf16_serving(build, total):
@@ -2681,7 +2664,7 @@ def bf16_serving(build, total):
             out16, launches, l16 = counted(
                 build, lambda: e16.inpaint(imgs, masks))
             if k3:   # the same bf16 engine on cuDNN's convolution
-                with library_conv():
+                with library_conv(e16):
                     out16_cudnn = e16.inpaint(imgs, masks)
             torch.backends.cudnn.allow_tf32 = True
             ips = {"float32": [], "bf16": []}
@@ -4340,12 +4323,12 @@ def remat_path(tmp):
     ``train.remat`` (the models of ``runtime.stages.remat_configs``, the
     same weights), TF32 off, cuDNN deterministic, autotuner off, on
     synthetic 256² images; each run a ``TrainStep`` of step 0 (Gpl and
-    R1) and step 1 (main only), fenced by phase.  At batch 8: off then on,
+    R1) and step 1 (main only), each fenced.  At batch 8: off then on,
     every gradient as the optimizers read it, the metrics, ``pl_mean``,
     ``w_avg`` and the weights bit for bit, the launches of each step exact
     by :func:`expected_train_launches` (the recompute terms from the
     modules).  At batch 32: the modes in :data:`REMAT_ORDER`, each step's
-    ms by phase and its peak allocated and reserved memory (the cache
+    ms and its peak allocated and reserved memory (the cache
     emptied and the peaks reset before each step), counted above what was
     allocated and reserved when the phase began (tensors that earlier
     phases left alive; recorded beside).  Returns (the record, the launches
@@ -4394,7 +4377,6 @@ def remat_path(tmp):
     def run(remat, batch, keep=False):
         G, D = (copy.deepcopy(m).cuda() for m in nets[remat])
         step = TrainStep(G, D, tc)
-        step.timing = True
         grads = {}
         if keep:
             for opt, net in ((step.opt_g, "G"), (step.opt_d, "D")):
@@ -4433,7 +4415,6 @@ def remat_path(tmp):
             metrics.append(m)
             rows.append({
                 "regs": "GD" if greg else "", "step_ms": ms,
-                "phase_ms": {k: v * 1e3 for k, v in step.phase_s.items()},
                 "peak_allocated_gib":
                     (torch.cuda.max_memory_allocated() - start[0]) / 2 ** 30,
                 "peak_reserved_gib":
@@ -4746,7 +4727,7 @@ def compiled_eval(tmp, cli, build, g_pth, inc_pth, smi):
         raise AssertionError(f"eval metrics compiled {runs['compiled']} "
                              f"vs eager {runs['eager']}")
     return {"model": MODEL_1024, "batch": EVAL_BATCH,
-            "images": EVAL_IMAGES, "pallas_conv1024": True,
+            "images": EVAL_IMAGES, "k3": True,
             "noise_mode": "random", "cudnn_tf32": True,
             "bit_for_bit": gap[0], "within_1": gap[1],
             "max_abs_diff": gap[2], "runs": runs,
@@ -5090,32 +5071,16 @@ def main():
         # the images after batch 0 (its first-use set-up) over the loop's
         # wall time after batch 0, the evaluators' drain included
         loop_s = sum(timing["batch_s"][1:]) + timing["drain_s"]
-
-        # the same stage again with SHGAN_EVAL_TIMING=1, which fences each
-        # generator forward to split each batch's time
-        scfg = eval_config(tmp, g_pth, inc_pth, EVAL_IMAGES, "log_split")
-        os.environ["SHGAN_EVAL_TIMING"] = "1"
-        try:
-            split = cli.run(scfg)["timing"]
-        finally:
-            del os.environ["SHGAN_EVAL_TIMING"]
-        split_s = sum(split["batch_s"][1:]) + split["drain_s"]
         emit({"phase": "eval_path", "model": MODEL_1024,
               "experiment": "shgan_synthetic256_eval", "images": EVAL_IMAGES,
               "batch": EVAL_BATCH, "resolution": K3_RES,
-              "noise_mode": "random", "pallas_conv1024": True,
-              "cudnn_tf32": True, "metrics": metrics,
+              "noise_mode": "random", "cudnn_tf32": True, "metrics": metrics,
               "launches": eval_launches,
               "expected_per_forward": {k: v // n_batches
                                        for k, v in want.items()},
               "images_per_s": EVAL_BATCH * (n_batches - 1) / loop_s,
               "images_timed": EVAL_BATCH * (n_batches - 1),
               "batch_s": timing["batch_s"], "drain_s": timing["drain_s"],
-              "fenced_images_per_s": EVAL_BATCH * (n_batches - 1) / split_s,
-              "fenced_phase_mean_s": {
-                  k: float(np.mean([p[k] for p in split["phase_s"][1:]]))
-                  for k in ("pipe_wait_s", "gen_s", "metrics_s")},
-              "fenced_gen_s": [p["gen_s"] for p in split["phase_s"]],
               "stage_s": eval_s, "weights_s": weights_s,
               "peak_mem_gib": peak_gib})
 

@@ -3,13 +3,10 @@
 The full-width channel plan gives the top pyramid level of ``shgan_g1024``
 32 channels.  The JAX package routes the 3×3, stride-1, pad-1 convs of that
 level to its Pallas kernel ``conv3x3_lowch`` when switched on; this module
-keeps the same switch (:func:`set_conv1024_impl`, with the
-``SHGAN_CONV1024`` environment override) and the same eligibility rule
-(:func:`conv1024_eligible`), so both packages route the same convs.  Off by
-default, as in JAX; the eval stage turns it on from ``eval.pallas_conv1024``
-on a CUDA device.  :func:`routed` holds a route of its caller's own for a
-block and then restores the one before it: the serving engine holds
-'pallas' around its forwards.
+keeps the same eligibility rule (:func:`conv1024_eligible`), so both
+packages pick the same convs.  :func:`takes_k3` is the route: an eligible
+conv runs on K3 wherever it records no gradient (K3 is forward-only), and
+on the library conv where it does.  No switch chooses it.
 
 :func:`conv3x3_lowch` launches kernel K3 (``csrc/conv3x3_lowch.cu``) on a
 CUDA tensor and runs :func:`conv3x3_lowch_plain`, the plain PyTorch version
@@ -24,9 +21,6 @@ convs, and K3 pads only W.
 
 from __future__ import annotations
 
-import os
-from contextlib import contextmanager
-
 import torch
 import torch.nn.functional as F
 
@@ -36,52 +30,26 @@ BH = 8          # the TPU kernel's row block: kept in the eligibility rule
 MIN_RES = 1024  # below this the JAX package keeps the XLA conv
 MAX_CH = 32
 
-_IMPL = "xla"
-
-
-def set_conv1024_impl(impl):
-    """'pallas' routes eligible low-channel ≥1024² convs through
-    :func:`conv3x3_lowch` (kernel K3 on the card); 'xla' restores the
-    library conv.  The names are the JAX package's.  The environment
-    override ``SHGAN_CONV1024`` wins."""
-    global _IMPL
-    if impl not in ("pallas", "xla"):
-        raise ValueError(f"conv1024 impl {impl!r}: 'pallas' or 'xla'")
-    _IMPL = os.environ.get("SHGAN_CONV1024", impl)
-
-
-def conv1024_impl():
-    """The routing now in force: 'pallas' (K3) or 'xla' (library conv)."""
-    return _IMPL
-
-
-@contextmanager
-def routed(impl):
-    """Route as ``impl`` ('pallas' or 'xla') inside the block, whatever
-    ``SHGAN_CONV1024`` says, and restore the routing before it on leaving.
-    The routing is the process's: blocks that hold different routes must
-    not run at once on several threads."""
-    global _IMPL
-    if impl not in ("pallas", "xla"):
-        raise ValueError(f"conv1024 impl {impl!r}: 'pallas' or 'xla'")
-    prev, _IMPL = _IMPL, impl
-    try:
-        yield
-    finally:
-        _IMPL = prev
-
 
 def conv1024_eligible(x_shape, w_shape, stride, groups, padding):
-    """True iff the switch is on and the conv is in K3's routed class:
-    3×3, stride 1, pad 1, groups 1, C_in and C_out ≤ 32, H = W ≥ MIN_RES,
-    H divisible by the TPU kernel's row block (``conv1024.py:72-82``)."""
-    if _IMPL != "pallas":
-        return False
+    """True iff the conv is in K3's class: 3×3, stride 1, pad 1, groups 1,
+    C_in and C_out ≤ 32, H = W ≥ MIN_RES, H divisible by the TPU kernel's
+    row block (``conv1024.py:72-82``)."""
     _, c, h, wd = x_shape
     oc, _, kh, kw = w_shape
     return (stride == 1 and groups == 1 and (kh, kw) == (3, 3)
             and tuple(padding) == (1, 1) and c <= MAX_CH and oc <= MAX_CH
             and h == wd and h >= MIN_RES and h % BH == 0)
+
+
+def takes_k3(x, w, stride, groups, padding, shape=None):
+    """True iff the conv of ``x`` by ``w`` runs on K3: it is eligible
+    (:func:`conv1024_eligible` on ``shape``, the whole plane's for a slab;
+    by default ``x``'s) and records no gradient."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return False
+    return conv1024_eligible(x.shape if shape is None else shape, w.shape,
+                             stride, groups, padding)
 
 
 def conv3x3_lowch_plain(x, w, halo=0):

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from ..parallel.spatial import replicated
-from .conv1024 import conv1024_eligible, conv3x3_lowch
+from .conv1024 import conv3x3_lowch, takes_k3
 from .upfirdn2d import (fir_rows, upfirdn2d, _parse_padding,
                         _get_filter_size)
 
@@ -32,11 +32,11 @@ def _maybe_flip(w, flip_weight):
 
 
 def _conv2d(x, w, stride=1, padding=(0, 0), groups=1, flip_weight=True):
-    """Plain correlation; padding=(py, px).  With the conv1024 switch on,
-    the low-channel 3×3 convs at ≥1024² go to kernel K3 (the routing of
-    ``shgan_tpu/ops/conv_resample.py:108-118``)."""
+    """Plain correlation; padding=(py, px).  The low-channel 3×3 convs at
+    ≥1024² that record no gradient go to kernel K3 (``conv1024.takes_k3``;
+    the routing of ``shgan_tpu/ops/conv_resample.py:108-118``)."""
     w = _maybe_flip(w, flip_weight)
-    if conv1024_eligible(x.shape, w.shape, stride, groups, padding):
+    if takes_k3(x, w, stride, groups, padding):
         return conv3x3_lowch(x, w)
     return F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding,
                     groups=groups)
@@ -168,8 +168,8 @@ def _conv2d_resample_slab(x, w, f, up, down, pads, groups, flip_weight,
                                       "non-negative padding")
         xr = slab.read(x, src, o0 - py0, o1 - py0 + kh - 1)
         n, c, _, wd = xr.shape
-        if (py0, px0) == (1, 1) and conv1024_eligible(
-                (n, c, slab.H, wd), w.shape, 1, groups, (1, 1)):
+        if (py0, px0) == (1, 1) and takes_k3(
+                xr, w, 1, groups, (1, 1), shape=(n, c, slab.H, wd)):
             return conv3x3_lowch(xr.contiguous(),
                                  _maybe_flip(w, flip_weight), halo=1)
         return _conv2d(xr, w, padding=(0, px0), groups=groups,

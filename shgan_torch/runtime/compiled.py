@@ -5,13 +5,14 @@ of the JAX package's ``jax.jit`` forward (``shgan_tpu/serve.py:122-133``,
 
 :class:`CompiledForward` keeps a graph per key: the batch, ``H``, ``W``,
 the inputs' dtypes (uint8 or float32), ``noise_mode``, the model's bf16
-setting, ``conv1024_impl()`` and the backends' TF32 and cuDNN algorithm
-flags (read at capture, as ``jax.jit`` reads a static argument).  For each key it holds static ``real``, ``mask``, ``z``
-and noise-table tensors; the first batch of a key warms the forward up on a
-side stream (cuDNN's and cuBLAS's handles, cuFFT's plans, K3's shared-memory
-opt-in and the kernels' occupancy caches are set there, not under capture),
-then captures it into a ``torch.cuda.CUDAGraph``.  Every graph of a model
-draws from one memory pool (``torch.cuda.graph_pool_handle()``).  A call
+setting and the backends' TF32 and cuDNN algorithm flags (read at capture,
+as ``jax.jit`` reads a static argument).  For each key it holds static
+``real``, ``mask``, ``z`` and noise-table tensors; the first batch of a key
+warms the forward up on a side stream (cuDNN's and cuBLAS's handles,
+cuFFT's plans, K3's shared-memory opt-in and the kernels' occupancy caches
+are set there, not under capture), then captures it into a
+``torch.cuda.CUDAGraph``.  Every graph of a model draws from one memory
+pool (``torch.cuda.graph_pool_handle()``).  A call
 copies the inputs into the statics (host inputs through a pinned buffer,
 reused only after its last copy completed), writes the batch's noise table
 (each noise layer's Philox key and first counter row: the fused epilogue
@@ -45,7 +46,6 @@ import torch
 from ..kernels import build as _kb
 from ..models.infer import composite_forward
 from ..models.layers import SynthesisLayer
-from ..ops import conv1024
 from ..ops.noise import noise_table
 from ..parallel import spatial
 from .tracing import span
@@ -166,8 +166,8 @@ class CompiledForward:
         # the backends' math flags are read at capture as well: a graph
         # replays the algorithms (TF32 or not) it was captured with
         return (n, h, w, real.dtype, mask.dtype, self.noise_mode, self.bf16,
-                conv1024.conv1024_impl(), c.allow_tf32, c.deterministic,
-                c.benchmark, torch.backends.cuda.matmul.allow_tf32)
+                c.allow_tf32, c.deterministic, c.benchmark,
+                torch.backends.cuda.matmul.allow_tf32)
 
     def __call__(self, real, mask, z, noise_seed=None, row0=0):
         """The uint8 composite of one batch: ``real`` / ``mask`` / ``z``

@@ -56,7 +56,6 @@ from ..data.transforms import wrap_formatter
 from ..eval import get_evaluator
 from ..models.infer import composite, composite_forward, z_for_positions
 from ..models.registry import get_model
-from ..ops import conv1024
 from ..parallel import Mesh, check_replicated, create_mesh
 from .compiled import CompiledForward, eager_reason
 from ..parallel.multihost import (barrier, is_lead, local_device,
@@ -300,15 +299,7 @@ class eval_stage:
         needs_dev = evaluator.consumes_device_views
         log_display = cfgv.get("log_display", 10)
 
-        # kernel K3 for the low-channel 3×3 convs at ≥1024², on the card
-        # only, for this stage's forwards
-        prev_conv = conv1024.conv1024_impl()
-        if dev.type == "cuda" and cfgv.get("pallas_conv1024", False):
-            conv1024.set_conv1024_impl("pallas")
-        # SHGAN_EVAL_TIMING=1: per-batch pipe-wait / generator / metrics
-        # split (the generator is fenced with a synchronize)
-        phase_log = os.environ.get("SHGAN_EVAL_TIMING") == "1"
-        batch_s, phases = [], []
+        batch_s = []
         # z and the random noise of dataset position i: the same for any
         # batch layout and rank count (the noise's counter row is i)
         noise_seed = derive_seed(seed, 0, BATCH_NOISE_SALT)
@@ -326,7 +317,6 @@ class eval_stage:
         try:
             t0 = t_prev = timeit.default_timer()
             for idx, (real, mask, valid, uids) in enumerate(pipe):
-                t_b = timeit.default_timer()
                 start = pipe.shard.global_offset + idx * local_bs
                 z = torch.from_numpy(z_for_positions(
                     seed, G.z_dim, range(start, start + local_bs)))
@@ -337,9 +327,6 @@ class eval_stage:
                         fake = composite_forward(
                             G, real, mask, z.to(dev), noise_mode=noise_mode,
                             noise_seed=noise_seed, row0=start, rows=rows)
-                if phase_log and fake.is_cuda:
-                    torch.cuda.synchronize(fake.device)
-                t_c = timeit.default_timer()
                 host, dev_views = _views(fake, real)
                 pixels = (host() if needs_np else
                           dict(pred=None, gt=None, fake=None, real=None))
@@ -350,13 +337,6 @@ class eval_stage:
                     fn=uids, valid=valid, **pixels,
                     **(dev_views if needs_dev else {}))
                 now = timeit.default_timer()
-                if phase_log:
-                    phases.append({"pipe_wait_s": t_b - t_prev,
-                                   "gen_s": t_c - t_b,
-                                   "metrics_s": now - t_c})
-                    print_log(f"batch {idx}: pipe_wait {t_b - t_prev:.3f}s "
-                              f"gen {t_c - t_b:.3f}s "
-                              f"metrics {now - t_c:.3f}s")
                 batch_s.append(now - t_prev)
                 t_prev = now
                 if idx % log_display == log_display - 1:
@@ -378,7 +358,6 @@ class eval_stage:
                 evaluator.drain()
                 gen_metrics_s = timeit.default_timer() - t_g
         finally:
-            conv1024.set_conv1024_impl(prev_conv)
             if compiled is not None:
                 compiled.release()
 
@@ -393,8 +372,6 @@ class eval_stage:
                   "generator_metrics_s": gen_metrics_s,
                   "global_batch": batch_size, "images": len(dataset),
                   "ranks": mesh.world}
-        if phase_log:
-            timing["phase_s"] = phases
         return {"eval_rv": rv, "timing": timing}
 
     @staticmethod
@@ -655,11 +632,10 @@ class train_stage:
         :class:`eval_stage`.  ``on_step_start(step_i)`` and ``on_step(step_i,
         metrics)``, if given, are called just before and just after each
         step (``metrics`` on the device); the snapshots, image grids and
-        nested evals fall between them.  ``SHGAN_TRAIN_TIMING=1`` fences
-        each phase of each step with a synchronize and returns the per-step
-        split.  ``train.eval_every_kimg`` runs :func:`make_nested_eval` at
-        the first tick past each interval; its ``eval_<metric>`` joins that
-        tick's record, and each strict improvement writes
+        nested evals fall between them.  ``train.eval_every_kimg`` runs
+        :func:`make_nested_eval` at the first tick past each interval; its
+        ``eval_<metric>`` joins that tick's record, and each strict
+        improvement writes
         ``weight/network-snapshot-best``.  ``train.profile_dir`` (or
         ``SHGAN_PROFILE_DIR``) traces three steps there.  Returns ``{"step":
         the TrainStep, "ticks": [per-tick metric means, with "kimg" and
@@ -737,8 +713,7 @@ class train_stage:
             num_threads=_num_workers(cfgt), start=cur_nimg // batch_size,
             rows=(mesh.batch_rows(batch_size, tc.grad_accum)
                   if mesh.world > 1 else None))
-        step.timing = os.environ.get("SHGAN_TRAIN_TIMING") == "1"
-        timing = {"step_s": [], "phase_s": [], "global_batch": batch_size,
+        timing = {"step_s": [], "global_batch": batch_size,
                   "nested_eval_s": []}
         ticks, pending = [], []
         logger = ScalarLogger(log_dir if is_lead() else None,
@@ -777,8 +752,6 @@ class train_stage:
                 now = timeit.default_timer()
                 timing["step_s"].append(now - t_prev)
                 t_prev = now
-                if step.timing:
-                    timing["phase_s"].append(dict(step.phase_s))
                 if (cur_nimg >= tick_start + kimg_per_tick * 1000
                         or cur_nimg >= total_nimg):
                     # one readback for the tick's steps

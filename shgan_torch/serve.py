@@ -33,13 +33,8 @@ or over several (port of ``shgan_tpu/serve.py``), and
   open while the caller runs;
 * **bf16** — ``bf16=True`` runs the blocks above 16² in bfloat16 (the
   throughput configuration), on a deep copy of the model config;
-* **K3** — the low-channel 3×3 convs at ≥1024²
-  (``ops/conv1024.conv1024_eligible``) run on kernel K3 on the card (its
-  plain version on the CPU), whatever the process's routing: the engine
-  holds that route around every forward it runs (capture and replay, the
-  eager paths, the blocks over several devices), so it is in the compiled
-  forward's graph key, and the process's routing is restored when the
-  call returns;
+* **K3** — the low-channel 3×3 convs at ≥1024² run on kernel K3
+  (``ops/conv1024.takes_k3``: eligible, and no gradient recorded);
 * **several devices** — ``mesh`` (a list of devices) keeps a replica of the
   generator on each; a batch is split in contiguous blocks, one a device,
   run in a thread each, and concatenated.  Each block's noise starts at its
@@ -70,7 +65,6 @@ import torch
 
 from .data.rng import derive_seed
 from .models.infer import composite_forward, z_for_positions
-from .ops import conv1024
 from .parallel.mesh import Rows, ThreadGroup, split
 from .runtime.compiled import CompiledForward, eager_reason
 from .runtime.config import model_cfg_bank
@@ -219,12 +213,6 @@ class InpaintEngine:
             z = z_for_positions(self.seed, self.G.z_dim,
                                 range(start, start + n))
         noise_seed = derive_seed(self.seed, start, BATCH_NOISE_SALT)
-        with conv1024.routed("pallas"):
-            return self._forward(real, mask, z, noise_seed)
-
-    def _forward(self, real, mask, z, noise_seed):
-        """``_run_padded``'s forward, with K3 routed."""
-        n = real.shape[0]
         w = len(self.mesh)
         if w == 1:
             if eager_reason(self.G, self.mesh) is None:

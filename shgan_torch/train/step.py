@@ -31,7 +31,6 @@ named after it (``Gmain``, ``Gpl``, ``Dmain``, ``R1``, ``opt_ema``;
 from __future__ import annotations
 
 import copy
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -145,12 +144,11 @@ class TrainStep:
     the step over it.  ``step`` counts the steps taken, one update of each
     optimizer a step, so it is both optimizers' update count: update
     ``step`` runs at ``opt.lr_at(step)``, and a resumed state carries it.
-    ``timing=True`` fences each phase with a synchronize and records its
-    seconds in ``phase_s``.  ``mesh``: the ranks (None: one device); the
-    step then takes this rank's rows of its data group and the draws
-    ``given`` hold the global batch's.  With a model axis, G's sharded
-    levels run on slabs where :func:`~shgan_torch.parallel.spatial_sharding`
-    is active around the step."""
+    ``mesh``: the ranks (None: one device); the step then takes this rank's
+    rows of its data group and the draws ``given`` hold the global batch's.
+    With a model axis, G's sharded levels run on slabs where
+    :func:`~shgan_torch.parallel.spatial_sharding` is active around the
+    step."""
 
     PHASES = ("Gmain", "Gpl", "Dmain", "R1", "opt_ema")
 
@@ -166,21 +164,9 @@ class TrainStep:
         dev = next(G.parameters()).device
         self.pl_mean = torch.zeros((), device=dev)
         self.step = 0
-        self.timing = False
-        self.phase_s = {}
         beta = getattr(G.mapping, "w_avg_beta", None)
         self.w_beta = beta if getattr(G.mapping, "w_avg", None) is not None \
             else None
-
-    def _mark(self, phase, t0):
-        if not self.timing:
-            return t0
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        now = time.perf_counter()
-        if phase is not None:
-            self.phase_s[phase] = self.phase_s.get(phase, 0.0) + now - t0
-        return now
 
     def _draw(self, given, name, r, nm, shape, gen, device, rows=None):
         """Round ``r``'s ``nm`` rows of a per-row draw (given, or from
@@ -218,8 +204,6 @@ class TrainStep:
         rows = mesh.rows(nmg) if mesh is not None else None
         dev = real.device
         zs = (G.z_dim,)
-        self.phase_s = {}
-        t = self._mark(None, 0.0)
 
         # ----- G phase: Gmain [+ Gpl] -----
         D.requires_grad_(False)
@@ -237,7 +221,6 @@ class TrainStep:
             mains.append(loss.detach())
             scores.append(aux["scores_fake"])
             main_was.append(aux["w_avg"])
-            t = self._mark("Gmain", t)
             if do_greg:
                 with span("Gpl"):
                     # the round's global rows: the penalty takes the first
@@ -259,7 +242,6 @@ class TrainStep:
                     (loss_pl * (cfg.g_reg_interval / A)).backward()
                 pl_lens.append(pl_len)
                 pl_was.append(pl_wa)
-                t = self._mark("Gpl", t)
         if mesh is not None:
             # one path-length mean on the ranks of a model group
             pl_mean = mesh.model_mean(pl_mean)
@@ -276,7 +258,6 @@ class TrainStep:
                 for aux_wa in main_was + pl_was:
                     wa = aux_wa + self.w_beta * (wa - w0)
                 G.mapping.w_avg.copy_(wa)
-        t = self._mark("opt_ema", t)
         metrics = {"loss_g": torch.stack(mains).mean(),
                    "pl_mean": pl_mean,
                    "pl_lengths": (torch.stack(pl_lens).mean() if pl_lens
@@ -302,7 +283,6 @@ class TrainStep:
             s_fake.append(aux["scores_fake"])
             if self.w_beta is not None:
                 wad = aux["w_avg"] + self.w_beta * (wad - w0d)
-            t = self._mark("Dmain", t)
             if do_dreg:
                 with span("R1"):
                     loss_r1, r1 = L.d_r1_loss(D, mask[sl], real[sl],
@@ -310,7 +290,6 @@ class TrainStep:
                                               rows=rows)
                     (loss_r1 * (cfg.d_reg_interval / A)).backward()
                 r1s.append(r1)
-                t = self._mark("R1", t)
         with span("opt_ema"):
             if mesh is not None:
                 mesh.average_grads(freeze_buffers(D))
@@ -323,7 +302,6 @@ class TrainStep:
             ema_update(self.G_ema, G, ema_beta)
         self.pl_mean = pl_mean
         self.step += 1
-        self._mark("opt_ema", t)
         metrics.update(
             loss_d=torch.stack(d_mains).mean(),
             r1_penalty=(torch.stack(r1s).mean() if r1s

@@ -1,6 +1,7 @@
 """Kernel K3's module (shgan_torch/ops/conv1024.py) against shgan_tpu: the
-plain version against the Pallas kernel in interpret mode, and the routing
-of conv2d_resample with the switch on, on the CPU."""
+plain version against the Pallas kernel in interpret mode, the routing of
+conv2d_resample against the JAX package's with its switch on, and the
+port's route following the conv's grad mode, on the CPU."""
 
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ import shgan_tpu.ops.conv1024 as j24
 import shgan_tpu.ops.conv_resample as jcr
 from shgan_torch.kernels import build
 from shgan_torch.ops import conv1024 as t24
+from shgan_torch.ops import conv_resample
 from shgan_torch.ops.conv_resample import conv2d_resample
 
 
@@ -46,15 +48,16 @@ def test_plain_rounds_weights_and_output_to_bf16():
 
 @pytest.mark.parametrize("flip_weight", [True, False])
 def test_routing_matches_jax(flip_weight, monkeypatch):
-    """With MIN_RES lowered to 16 in both packages and the switch on, an
-    eligible conv2d_resample call goes to conv3x3_lowch (the plain version
-    on a CPU tensor, no kernel launch) and equals the JAX package's."""
+    """With MIN_RES lowered to 16 in both packages and the JAX package's
+    switch on, an eligible conv2d_resample call goes to conv3x3_lowch (the
+    plain version on a CPU tensor, no kernel launch) and equals the JAX
+    package's."""
     rng = np.random.RandomState(2)
     x = rng.randn(1, 8, 16, 16).astype(np.float32)
     wt = (rng.randn(8, 8, 3, 3) * 0.1).astype(np.float32)
     for mod in (j24, t24):
         monkeypatch.setattr(mod, "MIN_RES", 16)
-        monkeypatch.setattr(mod, "_IMPL", "pallas")
+    monkeypatch.setattr(j24, "_IMPL", "pallas")
     calls = []
     plain = t24.conv3x3_lowch_plain
     monkeypatch.setattr(t24, "conv3x3_lowch_plain",
@@ -91,7 +94,7 @@ def test_eligibility_matches_jax(x_shape, w_shape, stride, groups, padding,
                                  monkeypatch):
     for mod in (j24, t24):
         monkeypatch.setattr(mod, "MIN_RES", 16)
-        monkeypatch.setattr(mod, "_IMPL", "pallas")
+    monkeypatch.setattr(j24, "_IMPL", "pallas")
     want = j24.conv1024_eligible(x_shape, w_shape, stride, groups, padding)
     assert t24.conv1024_eligible(x_shape, w_shape, stride, groups,
                                  padding) == want
@@ -99,22 +102,36 @@ def test_eligibility_matches_jax(x_shape, w_shape, stride, groups, padding,
                     and groups == 1 and w_shape == (8, 8, 3, 3))
 
 
-def test_switch_and_environment_override(monkeypatch):
-    shape = ((1, 32, 1024, 1024), (32, 32, 3, 3), 1, 1, (1, 1))
-    monkeypatch.delenv("SHGAN_CONV1024", raising=False)
-    assert t24.conv1024_impl() == "xla"        # off by default, as in JAX
-    assert not t24.conv1024_eligible(*shape)
-    try:
-        t24.set_conv1024_impl("pallas")
-        assert t24.conv1024_eligible(*shape)
-        monkeypatch.setenv("SHGAN_CONV1024", "xla")
-        t24.set_conv1024_impl("pallas")
-        assert not t24.conv1024_eligible(*shape)
-        with pytest.raises(ValueError):
-            t24.set_conv1024_impl("cudnn")
-    finally:
-        monkeypatch.delenv("SHGAN_CONV1024")
-        t24.set_conv1024_impl("xla")
+@pytest.mark.parametrize("case,k3", [
+    ("inference", True),          # nothing records a gradient
+    ("x_grad", False),            # x.requires_grad under grad mode
+    ("w_grad", False),            # w.requires_grad under grad mode
+    ("no_grad", True),            # requires_grad tensors under no_grad
+    ("inference_mode", True),     # requires_grad tensors, inference mode
+])
+def test_route_follows_the_input(case, k3, monkeypatch):
+    """An eligible conv (32 channels at 1024²) runs K3's plain version on
+    the CPU unless it records a gradient, and the library conv where it
+    does; no switch is set.  Both compute the same correlation."""
+    calls = []
+    plain = t24.conv3x3_lowch_plain
+    monkeypatch.setattr(t24, "conv3x3_lowch_plain",
+                        lambda a, b, halo=0: calls.append(a.shape)
+                        or plain(a, b, halo))
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((1, 32, 1024, 1024), generator=g)
+    w = torch.randn((32, 32, 3, 3), generator=g) * 0.05
+    x.requires_grad_(case in ("x_grad", "no_grad", "inference_mode"))
+    w.requires_grad_(case in ("w_grad", "no_grad", "inference_mode"))
+    mode = {"no_grad": torch.no_grad, "inference_mode": torch.inference_mode
+            }.get(case, torch.enable_grad)
+    with mode():
+        y = conv_resample._conv2d(x, w, padding=(1, 1))
+    assert calls == ([(1, 32, 1024, 1024)] if k3 else [])
+    assert y.requires_grad == (not k3)
+    with torch.no_grad():
+        want = torch.nn.functional.conv2d(x, w, padding=1)
+    torch.testing.assert_close(y.detach(), want, atol=1e-4, rtol=1e-4)
 
 
 def test_wrapper_checks_and_cpu_route():

@@ -16,7 +16,7 @@ import torch
 
 from shgan_torch.kernels import build
 from shgan_torch.models.layers import SynthesisLayer
-from shgan_torch.ops import conv1024, noise
+from shgan_torch.ops import conv1024, conv_resample, noise
 from shgan_torch.ops import noise_bias_act as nba
 from shgan_torch.ops.bias_act import parse_activation
 from shgan_torch.serve import InpaintEngine
@@ -432,9 +432,8 @@ def test_compiled_engine_matches_eager(cuda):
 
 def test_engine_route_replays_k3_on_the_card(cuda, monkeypatch):
     """shgan_g1024's plan at a tiny width (2 channels at 1024²): the engine
-    replays a graph with K3's two launches whatever the process's routing,
-    which is unchanged after each call; the same engine with its route
-    swapped for the library conv replays none, and the two composites
+    replays a graph with K3's two launches; captured again with the route
+    swapped for the library conv it replays none, and the two composites
     agree within a level (K3 against cuDNN, TF32 off)."""
     import copy
     from shgan_torch.runtime.config import model_cfg_bank
@@ -449,23 +448,43 @@ def test_engine_route_replays_k3_on_the_card(cuda, monkeypatch):
     imgs = rng.randint(0, 256, (2, 3, 1024, 1024), dtype=np.uint8)
     masks = (rng.rand(2, 1024, 1024) > 0.5).astype(np.float32)
     e = InpaintEngine(cfg, device=cuda, batch_size=2, seed=1)
-    before, outs = conv1024.conv1024_impl(), {}
-    held = conv1024.routed
+    outs = {}
     for k3 in (True, False):
-        if not k3:   # the library conv in the engine's place
-            monkeypatch.setattr(conv1024, "routed",
-                                lambda impl: held("xla"))
+        if not k3:
+            # a graph replays the route it was captured with: free it, and
+            # capture again with the library conv in K3's place
+            e.close()
+            monkeypatch.setattr(conv_resample, "takes_k3",
+                                lambda *a, **k: False)
         e.inpaint(imgs, masks)                       # captures
         torch.cuda.synchronize()
         build.reset_launches()
         outs[k3] = e.inpaint(imgs, masks)            # replays
         assert build.launches["conv3x3_lowch"] == (2 if k3 else 0)
-        assert conv1024.conv1024_impl() == before
-    assert len(e.compiled.statics) == 2              # a graph a route
     e.close()
     build.reset_launches()
     d = np.abs(outs[True].astype(int) - outs[False].astype(int))
     assert d.max() <= 1
+
+
+def test_k3_route_follows_grad_mode_on_the_card(cuda):
+    """An eligible conv (32 channels at 1024²) launches K3 in inference and
+    the library conv where it records a gradient, which runs backward;
+    both compute the same correlation."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((1, 32, 1024, 1024), generator=g).to(cuda)
+    w = (torch.randn((32, 32, 3, 3), generator=g) * 0.05).to(cuda)
+    build.reset_launches()
+    with torch.inference_mode():
+        y_k3 = conv_resample._conv2d(x, w, padding=(1, 1))
+    assert build.launches["conv3x3_lowch"] == 1
+    xg = x.clone().requires_grad_()
+    y = conv_resample._conv2d(xg, w, padding=(1, 1))
+    assert build.launches["conv3x3_lowch"] == 1
+    y.square().sum().backward()
+    assert xg.grad is not None and xg.grad.shape == x.shape
+    torch.testing.assert_close(y.detach(), y_k3, rtol=0, atol=1e-4)
+    build.reset_launches()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

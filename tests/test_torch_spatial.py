@@ -25,8 +25,7 @@ import pytest
 import torch
 
 from shgan_torch.ops import noise as noise_ops
-from shgan_torch.ops.conv1024 import (conv3x3_lowch, conv3x3_lowch_plain,
-                                      set_conv1024_impl)
+from shgan_torch.ops.conv1024 import conv3x3_lowch, conv3x3_lowch_plain
 from shgan_torch.ops.conv_resample import conv2d_resample
 from shgan_torch.ops.noise_bias_act import (noise_bias_act_grad_plain,
                                             noise_bias_act_mask_plain,
@@ -261,16 +260,12 @@ def test_k3_slab_mode_is_the_planes_rows():
 
     big = torch.randn((1, 2, 1024, 1024), generator=g)
     w2 = torch.randn((3, 2, 3, 3), generator=g) * 0.2
-    set_conv1024_impl("pallas")
-    try:
-        want = conv3x3_lowch_plain(big, w2)
-        mesh = Mesh(world=4, rank=0, model=4)
-        for h0 in (0, 512):
-            slab = Slab(h0, h0 + 256, 1024, mesh)
-            got = conv2d_resample(big, w2, padding=1, slab=slab, src=None)
-            assert torch.equal(got, want[:, :, h0:h0 + 256])
-    finally:
-        set_conv1024_impl("xla")
+    want = conv3x3_lowch_plain(big, w2)
+    mesh = Mesh(world=4, rank=0, model=4)
+    for h0 in (0, 512):
+        slab = Slab(h0, h0 + 256, 1024, mesh)
+        got = conv2d_resample(big, w2, padding=1, slab=slab, src=None)
+        assert torch.equal(got, want[:, :, h0:h0 + 256])
 
 
 # ---------------------------------------------------------------------------
