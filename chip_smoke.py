@@ -26,13 +26,20 @@ Phases, each printing one JSON line:
    PyTorch chain) on the same inputs; K2 at the discriminator's calls of
    the training path (``comodgan_d256`` at batch 8: the blurs and the 1×1
    skips' down = 2, the resampling tiles), float32 and bf16, beside cuDNN's
-   stride-2 depthwise ``conv2d``;
+   stride-2 depthwise ``conv2d``.  Every check of a kernel the compiled
+   forward runs (K2 and the epilogue of the two generators, ``bias_lrelu``,
+   K3) is made on both index maps: on the NCHW input and on it made
+   channels-last, where the NHWC map's result stays channels-last, equals
+   the NCHW map's bit for bit and is timed (``nhwc_*``; the epilogue's
+   NHWC key is a noise-table row on the device, as in a replay);
 3. serving path: ``InpaintEngine("shgan_g512", device="cuda",
    batch_size=8)`` with random noise (every ``noise_strength`` set to 0.1
    so the noise reaches the image), its forward one captured CUDA graph a
    batch bucket (``runtime/compiled.py``), answers requests of 8, 8 and 3 rows;
    launch counts over exactly those requests (the fused epilogue 15 a
-   forward, K1 itself none); the composite contract and run-to-run
+   forward, K1 itself none), every hand-written forward launch of the
+   replays on its NHWC map (the captured forward runs channels-last:
+   ``nhwc_share`` 1.0); the composite contract and run-to-run
    determinism; latency and images/s;
 4. parity: the same weights with constant noise at batch 1 on the card and
    on the CPU (the plain versions), uint8 composites compared;
@@ -44,8 +51,9 @@ Phases, each printing one JSON line:
    style ``.pth``), PSNR and SSIM,
    run by the CLI's ``run`` (its forward one captured graph, replayed a
    batch); launch counts of every kernel over exactly
-   that run (K3 2, K2 24, the fused epilogue 17 a forward, K1 none),
-   finite metrics in ``result.json``, images/s and peak memory;
+   that run (K3 2, K2 24, the fused epilogue 17 a forward, K1 none), all
+   of them on the NHWC maps, finite metrics in ``result.json``, images/s
+   and peak memory;
 6. K3 in place: one ``shgan_g1024`` batch with constant noise, TF32 off,
    on K3 and with the route's predicate patched to the library conv
    (cuDNN): composites compared, forwards timed;
@@ -62,7 +70,8 @@ Phases, each printing one JSON line:
    (step 0 with both regularizers, 4 with the path-length penalty):
    per-step ms, images/s over steps 1–5, peak memory, launches per step
    checked against counts worked out from the modules (the counts set to 0
-   as each step starts and read as it ends), G_ema's image grids
+   as each step starts and read as it ends; none on an NHWC map), G_ema's
+   image grids
    (``demo/fakes_init.png`` and the final one) with their own launches
    (three forwards each, none between the steps), ``stats.jsonl`` a record
    a tick keyed by ``step``, finite losses, moved weights, ``pl_mean > 0``;
@@ -191,16 +200,22 @@ Phases, each printing one JSON line:
 15. the compiled forward (``compiled_path``): ``shgan_g512`` at batch 8
     with a latency bucket of 4, random noise, float32 and bf16, through
     the engine's graphs against the eager ``composite_forward`` on the
-    same inputs: five requests at other starts, a 3-row request through
-    bucket 4 and ``inpaint_stream`` at ``window=2`` (each bit for bit or
-    by phase 4's rule, the gap printed; known pixels exact; two starts
-    differ; launches exact per forward over the replays); ``shgan_g1024``
+    same inputs in the same channels-last layout: five requests at other
+    starts, a 3-row request through bucket 4 and ``inpaint_stream`` at
+    ``window=2`` (each bit for bit or by phase 4's rule, the gap printed;
+    known pixels exact; two starts differ; launches exact per forward over
+    the replays); in float32 the same requests against the NCHW eager
+    forward too, within the ``g512-stream-b8`` cell's limits (known pixels
+    exact, the figures printed); ``shgan_g1024``
     at batch 4 with K3 through the eval stage over 96 images, compiled and
     eager (composites by the same rule, fid / psnr / ssim equal, launches
     exact); request ms at 8 and 3 rows, steady images/s and the host's
     enqueue ms of both, capture seconds per key, pool GiB, eval images/s
     of both, beside the card's name and power limit;
-16. the kernels line ``{"kernels": [...]}`` (the grad kernel's and K2
+16. the kernels line ``{"kernels": [...]}`` (a forward kernel's ``ms``,
+    ``bf16_ms`` and ``max_abs_err`` from its NHWC map, which the compiled
+    forward runs, and ``nchw_*`` from its NCHW map, which the eager paths
+    and training run; the grad kernel's and K2
     backward's rows with their bf16 numbers; every row's launches over
     phase 11 as ``launches_bf16_path``, over phase 12 as
     ``launches_multi_device_path``, over phase 13 as
@@ -250,6 +265,10 @@ TF32_FLOPS_PER_S = 495e12   # H100 SXM TF32 tensor cores, dense
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bfloat16 tensor cores, dense
 FIR_F32_ATOL = 1e-5
 NOISE_ATOL = 1e-4
+CL = torch.channels_last
+# the serving cells' limits of a composite against the plain reference
+# (PERF.md §2): % of hole values > 1 level off, and their RMS gap in levels
+CELL_LIMITS = {"shgan_g512": (2.5, 0.8), "shgan_g1024": (4.5, 0.9)}
 TRAIN_EXPERIMENT = "shgan_ffhq256_train"   # shgan_g256 + comodgan_d256
 TRAIN_G, TRAIN_D = "shgan_g256", "comodgan_d256"
 TRAIN_BATCH = 8
@@ -381,9 +400,31 @@ def bf16_ulp(v):
     return 2.0 ** (torch.floor(torch.log2(v.abs().clamp_min(1e-30))) - 7)
 
 
-def check_fir(fir, calls, dtype_list, cpu_plain=True):
+def nhwc_map(kern, x, y_nchw, want, what, nbytes):
+    """A forward kernel's NHWC map, which the compiled forward runs: ``kern``
+    (a function of its input) on ``x`` made channels-last.  Its result is
+    channels-last and bit for bit ``y_nchw``, the NCHW map's on ``x``.
+    Returns (its max |error| against the plain version's ``want``, its
+    device ms)."""
+    xl = x.contiguous(memory_format=CL)
+    yl = kern(xl.clone())
+    torch.cuda.synchronize()
+    if not yl.is_contiguous(memory_format=CL):
+        raise AssertionError(f"{what}: the NHWC map's result is not "
+                             f"channels-last")
+    if not torch.equal(yl, y_nchw):
+        d = float((yl.float() - y_nchw.float()).abs().max())
+        raise AssertionError(f"{what}: the NHWC map differs from the NCHW "
+                             f"map by up to {d}")
+    err = float((yl.float() - want.float()).abs().max())
+    return err, graph_ms(lambda: kern(xl), nbytes)
+
+
+def check_fir(fir, calls, dtype_list, cpu_plain=True, nhwc=True):
     """K2 against its plain version at each of ``calls`` (``fir_calls``
-    or ``train_fir_calls`` rows)."""
+    or ``train_fir_calls`` rows); with ``nhwc``, its NHWC map too
+    (``nhwc_map``: the ``nhwc_*`` figures), as the compiled forward runs
+    it."""
     taps = fir.correlation_taps(fir.setup_filter([1, 3, 3, 1]), gain=1)
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(calls[0][2][0])
@@ -426,6 +467,11 @@ def check_fir(fir, calls, dtype_list, cpu_plain=True):
         nz = t.size // (up * up)          # taps that meet a sample
         bound(row, nbytes, 2 * y.numel() * nz)
         row["hbm_share"] = row["bytes_ms"] / row["ms"]   # of 3.35 TB/s
+        kern_of = lambda v: fir.fir_cuda(v, t, ups, downs, pads)  # noqa
+        if nhwc:
+            row["nhwc_max_abs_err"], row["nhwc_ms"] = nhwc_map(
+                kern_of, x, y, want, f"K2 f32 {site} R={r}", nbytes)
+            row["nhwc_hbm_share"] = row["bytes_ms"] / row["nhwc_ms"]
         if cpu_plain:
             xc = x.cpu()
             row["plain_cpu_ms"] = cpu_ms(
@@ -444,6 +490,9 @@ def check_fir(fir, calls, dtype_list, cpu_plain=True):
             row["bf16_bound_ms"] = (xb.numel() + yb.numel()) * 2 \
                 / HBM_BYTES_PER_S * 1e3
             row["bf16_hbm_share"] = row["bf16_bound_ms"] / row["bf16_ms"]
+            if nhwc:
+                row["nhwc_bf16_max_abs_err"], row["nhwc_bf16_ms"] = nhwc_map(
+                    kern_of, xb, yb, wb, f"K2 bf16 {site} R={r}", nbytes // 2)
         rows.append(row)
     return rows
 
@@ -504,7 +553,9 @@ def check_epilogue(noise, nba, cfg, batch, layers=None, seed=1234):
     """The fused epilogue against its plain version at each synthesis layer
     shape (random noise, demodulation, bias, the config's lrelu_agc), its
     noise against K1's bit for bit, and the unfused path (K1 + the PyTorch
-    chain) timed on the same inputs."""
+    chain) timed on the same inputs; its NHWC map (``nhwc_map``, the
+    ``nhwc_*`` figures) with the noise keyed by a noise-table row on the
+    device, as the compiled forward runs it, its noise K1's too."""
     from shgan_torch.ops.bias_act import parse_activation
     spec = cfg["args"]["synthesis"]["args"].get(
         "activation", "lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)")
@@ -558,6 +609,20 @@ def check_epilogue(noise, nba, cfg, batch, layers=None, seed=1234):
         # once per pixel) and ~8 operations an element
         bound(row, nbytes, batch * r * r * 65 + x.numel() * 8)
         row["hbm_share"] = row["bytes_ms"] / row["ms"]
+        # the NHWC map reads its key from a table row, as a replay does
+        kw_row = dict(kw, noise_key=torch.tensor(
+            [*key, 0], dtype=torch.int64, device="cuda"))
+        kern_of = lambda v: nba.noise_bias_act_cuda(v, **kw_row)  # noqa
+        row["nhwc_max_abs_err"], row["nhwc_ms"] = nhwc_map(
+            kern_of, x, y, want, f"noise_bias_act f32 R={r} C={c}", nbytes)
+        row["nhwc_hbm_share"] = row["bytes_ms"] / row["nhwc_ms"]
+        zl = nba.noise_bias_act_cuda(
+            torch.zeros_like(x, memory_format=CL), d, noise_mode="random",
+            noise_key=kw_row["noise_key"],
+            strength=torch.ones((), device="cuda"))
+        torch.cuda.synchronize()
+        if not torch.equal(zl, k1.expand_as(zl)):
+            raise AssertionError(f"fused noise (NHWC) != K1 at R={r}")
         xb = x.bfloat16()
         yb = nba.noise_bias_act_cuda(xb.clone(), **kw)
         wb = nba.noise_bias_act_plain(xb.float(), **kw)
@@ -573,8 +638,11 @@ def check_epilogue(noise, nba, cfg, batch, layers=None, seed=1234):
                                   bf16_bytes)
         row["bf16_hbm_share"] = bf16_bytes / HBM_BYTES_PER_S * 1e3 \
             / row["bf16_ms"]
+        row["nhwc_bf16_max_abs_err"], row["nhwc_bf16_ms"] = nhwc_map(
+            kern_of, xb, yb, wb, f"noise_bias_act bf16 R={r} C={c}",
+            bf16_bytes)
         rows.append(row)
-        del x, xk, xb, xbk, y, yb, want, wb, zero, k1
+        del x, xk, xb, xbk, y, yb, want, wb, zero, zl, k1
         torch.cuda.empty_cache()
     return rows
 
@@ -611,7 +679,9 @@ def check_conv_epilogue(nba, cfg, batch, layers=None):
     """bias_lrelu (a conv layer's bias and activation in one launch) at each
     of the encoder's conv output shapes: in place, float32 bit for bit the
     PyTorch chain, bf16 the float32 chain on the widened input rounded once;
-    timed beside the chain on the same input."""
+    timed beside the chain on the same input; its NHWC map too
+    (``nhwc_map``, the ``nhwc_*`` figures), as the compiled forward runs
+    it."""
     from shgan_torch.ops.bias_act import parse_activation
     spec = cfg["args"]["encoder"]["args"].get(
         "activation", "lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)")
@@ -633,13 +703,17 @@ def check_conv_epilogue(nba, cfg, batch, layers=None):
         kern = lambda: nba.noise_bias_act_cuda(xk, None, b, act)  # noqa
         lib = lambda: conv_chain(x, b, act)  # noqa: E731
         row = {"res": r, "channels": c, "batch": batch,
-               "layers_per_forward": count, "iters": it,
+               "layers_per_forward": count, "iters": it, "max_abs_err": 0.0,
                "ms": graph_ms(kern, nbytes), "eager_ms": eager_ms(kern, it),
                "library_ms": graph_ms(lib, nbytes),
                "library_eager_ms": eager_ms(lib, it)}
         # x read once and written once; ~6 operations an element
         bound(row, nbytes, x.numel() * 6)
         row["hbm_share"] = row["bytes_ms"] / row["ms"]
+        kern_of = lambda v: nba.noise_bias_act_cuda(v, None, b, act)  # noqa
+        row["nhwc_max_abs_err"], row["nhwc_ms"] = nhwc_map(
+            kern_of, x, y, want, f"bias_lrelu f32 R={r} C={c}", nbytes)
+        row["nhwc_hbm_share"] = row["bytes_ms"] / row["nhwc_ms"]
         xb = x.bfloat16()
         yb = nba.noise_bias_act_cuda(xb.clone(), None, b, act)
         wb = conv_chain(xb.float(), b, act).bfloat16()
@@ -653,6 +727,8 @@ def check_conv_epilogue(nba, cfg, batch, layers=None):
             lambda: nba.noise_bias_act_cuda(xbk, None, b, act), bf16_bytes)
         row["bf16_hbm_share"] = bf16_bytes / HBM_BYTES_PER_S * 1e3 \
             / row["bf16_ms"]
+        row["nhwc_bf16_max_abs_err"], row["nhwc_bf16_ms"] = nhwc_map(
+            kern_of, xb, yb, wb, f"bias_lrelu bf16 R={r} C={c}", bf16_bytes)
         rows.append(row)
         del x, xk, xb, xbk, y, yb, want, wb
         torch.cuda.empty_cache()
@@ -679,7 +755,9 @@ def check_conv3(conv1024, conv_resample):
     """K3 against its plain version at the shape of the two eligible convs
     of a ``shgan_g1024`` forward at the eval batch (and at batch 1), one
     case routed through ``_conv2d`` with ``flip_weight=False``; float32 and
-    bfloat16.  TF32 is off, except where a row says so."""
+    bfloat16; each on its NHWC map too (``nhwc_map``, the ``nhwc_*``
+    figures), as the compiled forward runs it.  TF32 is off, except where a
+    row says so."""
     from shgan_torch.kernels import build
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -729,6 +807,9 @@ def check_conv3(conv1024, conv_resample):
         # K3 keeps float32 accuracy with three TF32 products per
         # multiply-add (3xTF32): the floor of that design, not a bound
         row["floor_3xtf32_ms"] = 3 * row["ops"] / TF32_FLOPS_PER_S * 1e3
+        row["nhwc_max_abs_err"], row["nhwc_ms"] = nhwc_map(
+            lambda v: conv1024.conv3x3_lowch(v, wc), x, y, want,
+            f"K3 f32 {shape}", nbytes)
         if not flip:
             xb = x.bfloat16()
             yb = conv1024.conv3x3_lowch(xb, wc)
@@ -752,6 +833,9 @@ def check_conv3(conv1024, conv_resample):
             row["bf16_bound_ms"] = max(bf16_bytes_ms, bf16_ops_ms)
             row["bf16_bound_by"] = ("bytes" if bf16_bytes_ms >= bf16_ops_ms
                                     else "operations")
+            row["nhwc_bf16_max_abs_err"], row["nhwc_bf16_ms"] = nhwc_map(
+                lambda v: conv1024.conv3x3_lowch(v, wc), xb, yb, wb,
+                f"K3 bf16 {shape}", nb)
         rows.append(row)
         del x, y, want
         torch.cuda.empty_cache()
@@ -4482,11 +4566,12 @@ COMPILED_STARTS = (0, 8, 16, 1000, 123_456)   # five requests of 8 rows
 COMPILED_STREAM = 4                           # batches through the stream
 
 
-def eager_request(e, imgs, masks, start):
+def eager_request(e, imgs, masks, start, memory_format=CL):
     """An engine's request run eagerly: its chunks padded to their buckets,
     z and the batch noise seed of each chunk's start, ``composite_forward``
     on the device, as the engine ran every batch before its forward was
-    compiled."""
+    compiled; by default in the compiled forward's layout (channels-last),
+    ``torch.contiguous_format`` for the eager paths' NCHW."""
     from shgan_torch.data.rng import derive_seed
     from shgan_torch.models.infer import composite_forward, z_for_positions
     from shgan_torch.serve import BATCH_NOISE_SALT, _as_model_input
@@ -4505,7 +4590,8 @@ def eager_request(e, imgs, masks, start):
             out = composite_forward(
                 e.G, torch.from_numpy(r).cuda(), torch.from_numpy(m).cuda(),
                 torch.from_numpy(z).cuda(), noise_mode=e.noise_mode,
-                noise_seed=derive_seed(e.seed, start + lo, BATCH_NOISE_SALT))
+                noise_seed=derive_seed(e.seed, start + lo, BATCH_NOISE_SALT),
+                memory_format=memory_format)
         outs.append(out[:k].cpu().numpy())
     return np.concatenate(outs)
 
@@ -4514,6 +4600,36 @@ def uint8_gap(a, b):
     """(bit for bit, share within 1, max |a - b|) of two uint8 arrays."""
     d = np.abs(a.astype(np.int16) - b.astype(np.int16))
     return bool(not d.any()), float((d <= 1).mean()), int(d.max())
+
+
+def nhwc_rule(build, launches, share, what):
+    """The NHWC launches since the counts were last reset
+    (``kernels/build.launches_nhwc``), checked: ``share`` 1.0, every
+    hand-written forward launch of a compiled replay on its NHWC map; 0.0,
+    none (an eager NCHW path).  Returns them."""
+    nhwc = build.snapshot_nhwc()
+    got = (build.nhwc_share(launches, nhwc) if launches is not None
+           else float(bool(any(nhwc.values()))))
+    if got != share:
+        raise AssertionError(f"{what}: NHWC launches {nhwc} of {launches}, "
+                             f"a share of {got}, expected {share}")
+    return nhwc
+
+
+def cell_gap(got, want, masks, limits, what):
+    """A composite against another within a serving cell's limits (PERF.md
+    §2): known pixels equal; (% of hole values > 1 level off, their RMS gap
+    in levels) at most ``limits``.  Returns the two figures."""
+    kept = np.broadcast_to(masks[:, None] > 0.5, got.shape)
+    if not np.array_equal(got[kept], want[kept]):
+        raise AssertionError(f"{what}: known pixels differ")
+    gap = got[~kept].astype(np.float64) - want[~kept].astype(np.float64)
+    off = 100.0 * float((np.abs(gap) > 1).mean()) if gap.size else 0.0
+    rms = float(np.sqrt((gap ** 2).mean())) if gap.size else 0.0
+    if off > limits[0] or rms > limits[1]:
+        raise AssertionError(f"{what}: {off:.4f} % of hole values > 1 level "
+                             f"off, RMS {rms:.4f}, limits {limits}")
+    return off, rms
 
 
 def phase4_rule(gap, what):
@@ -4565,6 +4681,17 @@ def compiled_serving(build, bf16, smi):
     gaps.append(uint8_gap(out3, eager_request(e, imgs3, masks3, 40)))
     for g, st in zip(gaps, list(COMPILED_STARTS) + [40]):
         phase4_rule(g, f"{MODEL} bf16={bf16} start {st}")
+    # the channels-last graph against the NCHW eager forward: cuDNN may
+    # pick other algorithms for the other layout, so the cell's limits
+    nchw = None
+    if not bf16:
+        nchw = [cell_gap(o, eager_request(e, i, m, st,
+                                          torch.contiguous_format),
+                         m, CELL_LIMITS[MODEL], f"{MODEL} NHWC graph vs "
+                         f"NCHW eager, start {st}")
+                for o, (i, m), st in zip(
+                    outs + [out3], [reqs[0]] * len(outs) + [reqs[2]],
+                    list(COMPILED_STARTS) + [40])]
     for (imgs, masks), out in ((reqs[0], outs[0]), (reqs[2], out3)):
         keep = np.broadcast_to(masks[:, None] > 0.5, out.shape)
         if out.shape != imgs.shape or not np.array_equal(
@@ -4634,6 +4761,10 @@ def compiled_serving(build, bf16, smi):
            "bit_for_bit": [g[0] for g in gaps],
            "within_1": [g[1] for g in gaps],
            "max_abs_diff": [g[2] for g in gaps],
+           "vs_nchw_eager": None if nchw is None else {
+               "hole_px_off_pct": [g[0] for g in nchw],
+               "hole_rms_levels": [g[1] for g in nchw],
+               "limits": CELL_LIMITS[MODEL]},
            "stream_window": 2, "stream_batches": COMPILED_STREAM,
            "launches": launches, "forwards": n_fwd,
            "request_ms": times, "enqueue_ms": enq,
@@ -4671,7 +4802,9 @@ def compiled_eval(tmp, cli, build, g_pth, inc_pth, smi):
             return out
 
     def eager_forward(*a, **k):
-        out = forward(*a, **k)
+        # in the compiled forward's layout: graph against eager, not layout
+        # against layout (tests/test_torch_cuda.py holds the layouts apart)
+        out = forward(*a, memory_format=torch.channels_last, **k)
         got["eager"].append(out)
         return out
 
@@ -4753,6 +4886,7 @@ def compiled_path(tmp, cli, build, g_pth, inc_pth, smi):
     row = {"phase": "compiled_path", "serving": serving, "eval": ev,
            "summary": {
                "nvidia_smi": smi,
+               "vs_nchw_eager": f32["vs_nchw_eager"],
                "request_ms_8": {k: v["ms_8"] for k, v in
                                 f32["request_ms"].items()},
                "request_ms_3": {k: v["ms_3"] for k, v in
@@ -4830,6 +4964,12 @@ def main():
                   "max_abs_err": max(r["max_abs_err"] for r in rows),
                   "bf16_max_abs_err": max(r["bf16_max_abs_err"]
                                           for r in rows),
+                  "nhwc_max_abs_err": max(r["nhwc_max_abs_err"]
+                                          for r in rows),
+                  "nhwc_bf16_max_abs_err": max(r["nhwc_bf16_max_abs_err"]
+                                               for r in rows),
+                  "nhwc_ms": [r["nhwc_ms"] for r in rows],
+                  "nhwc_bf16_ms": [r["nhwc_bf16_ms"] for r in rows],
                   "ms": [r["ms"] for r in rows],
                   "eager_ms": [r["eager_ms"] for r in rows],
                   "bound_ms": [r["bound_ms"] for r in rows],
@@ -4855,8 +4995,12 @@ def main():
              for k in ("res", "channels", "layers_per_forward", "ms",
                        "eager_ms", "bound_ms", "hbm_share", "bf16_ms",
                        "bf16_hbm_share", "plain_ms", "library_ms",
-                       "library_eager_ms")},
+                       "library_eager_ms", "nhwc_ms", "nhwc_hbm_share",
+                       "nhwc_bf16_ms")},
           "max_abs_err": max(r["max_abs_err"] for r in epi_rows),
+          "nhwc_max_abs_err": max(r["nhwc_max_abs_err"] for r in epi_rows),
+          "nhwc_bf16_max_abs_err": max(r["nhwc_bf16_max_abs_err"]
+                                       for r in epi_rows),
           "bf16_max_abs_err": max(r["bf16_max_abs_err"] for r in epi_rows),
           "noise_equals_k1": True})
     detail["noise_bias_act"] = epi_rows
@@ -4866,7 +5010,8 @@ def main():
           **{k: [r[k] for r in conv_epi_rows]
              for k in ("res", "channels", "layers_per_forward", "ms",
                        "eager_ms", "bound_ms", "hbm_share", "bf16_ms",
-                       "bf16_hbm_share", "library_ms", "library_eager_ms")},
+                       "bf16_hbm_share", "library_ms", "library_eager_ms",
+                       "nhwc_ms", "nhwc_hbm_share", "nhwc_bf16_ms")},
           "bit_for_bit": True})
     detail["bias_lrelu"] = conv_epi_rows
 
@@ -4885,7 +5030,10 @@ def main():
                                      "bf16_max_abs_err", "ms", "eager_ms",
                                      "bound_ms", "bound_by", "hbm_share",
                                      "plain_ms", "library_ms", "bf16_ms",
-                                     "bf16_bound_ms", "bf16_hbm_share")}})
+                                     "bf16_bound_ms", "bf16_hbm_share",
+                                     "nhwc_max_abs_err",
+                                     "nhwc_bf16_max_abs_err", "nhwc_ms",
+                                     "nhwc_hbm_share", "nhwc_bf16_ms")}})
     for row in noise_1024:
         emit({"phase": "kernel_check", "kernel": "philox_normal",
               "model": MODEL_1024, "batch": EVAL_BATCH,
@@ -4902,7 +5050,10 @@ def main():
                                      "bf16_max_abs_err", "ms", "eager_ms",
                                      "bound_ms", "bound_by", "hbm_share",
                                      "bf16_ms", "bf16_hbm_share", "plain_ms",
-                                     "library_ms", "library_eager_ms")}})
+                                     "library_ms", "library_eager_ms",
+                                     "nhwc_max_abs_err",
+                                     "nhwc_bf16_max_abs_err", "nhwc_ms",
+                                     "nhwc_hbm_share", "nhwc_bf16_ms")}})
     conv_rows = check_conv3(conv1024, conv_resample)
     for row in conv_rows:
         emit({"phase": "kernel_check", "kernel": "conv3x3_lowch", **row})
@@ -4913,7 +5064,7 @@ def main():
         model_cfg_bank()(TRAIN_G), model_cfg_bank()(TRAIN_D), TRAIN_BATCH)
         if c[0].startswith("d_")]
     fir_d = check_fir(fir, d_calls, (torch.float32, torch.bfloat16),
-                      cpu_plain=False)
+                      cpu_plain=False, nhwc=False)   # training: NCHW only
     for site in ("d_down_blur", "d_skip_down"):
         rows = [r for r in fir_d if r["site"] == site]
         emit({"phase": "kernel_check", "kernel": "upfirdn2d",
@@ -4952,6 +5103,7 @@ def main():
         lat_ms.append((time.perf_counter() - t0) * 1e3)
         start += imgs.shape[0]
     launches = dict(build.launches)
+    nhwc = nhwc_rule(build, launches, 1.0, "main path")
 
     per_fwd_fir = len(detail["fir_calls"][SERVE_BATCH])
     per_fwd_noise = sum(layers.values())
@@ -4996,6 +5148,8 @@ def main():
           "buckets": engine.buckets, "requests_rows": [8, 8, 3],
           "latency_ms": lat_ms, "images_per_s": n_img / (sum(lat_ms) / 1e3),
           "steady_images_per_s": 40 / steady_s, "launches": launches,
+          "nhwc_launches": nhwc,
+          "nhwc_share": build.nhwc_share(launches, nhwc),
           "expected_per_forward": {k: v // 3 for k, v in want_serve.items()},
           "setup_s": setup_s, "cudnn_tf32": True,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -5050,6 +5204,7 @@ def main():
         rv = cli.run(ecfg)
         eval_s = time.perf_counter() - t0
         eval_launches = dict(build.launches)
+        eval_nhwc = nhwc_rule(build, eval_launches, 1.0, "eval path")
         n_batches = EVAL_IMAGES // EVAL_BATCH
         want = {"conv3x3_lowch": 2 * n_batches,
                 "upfirdn2d": len(calls_1024) * n_batches,
@@ -5075,7 +5230,8 @@ def main():
               "experiment": "shgan_synthetic256_eval", "images": EVAL_IMAGES,
               "batch": EVAL_BATCH, "resolution": K3_RES,
               "noise_mode": "random", "cudnn_tf32": True, "metrics": metrics,
-              "launches": eval_launches,
+              "launches": eval_launches, "nhwc_launches": eval_nhwc,
+              "nhwc_share": build.nhwc_share(eval_launches, eval_nhwc),
               "expected_per_forward": {k: v // n_batches
                                        for k, v in want.items()},
               "images_per_s": EVAL_BATCH * (n_batches - 1) / loop_s,
@@ -5136,6 +5292,8 @@ def main():
         # the path with PyTorch's defaults (cuDNN may use TF32), as served
         torch.backends.cudnn.allow_tf32 = True
         train_row, tcfg = train_path(tmp, cli, build)
+        # training runs eagerly under autograd: the NCHW maps alone
+        nhwc_rule(build, None, 0.0, "training")
         train_launches = {k: sum(s[k] for s in train_row["launches_per_step"])
                           for k in train_row["launches_per_step"][0]}
         torch.backends.cudnn.allow_tf32 = False
@@ -5208,15 +5366,33 @@ def main():
     ups = [r for r in fr if r["up"] == 2]
     rsg = [r for r in fgr if 2 in (r["up"], r["down"])]
 
-    def resampling(prefix, rows, bf16=True):
-        ms = sum(r["ms"] for r in rows)
+    def resampling(prefix, rows, bf16=True, nhwc=False):
+        key = "nhwc_ms" if nhwc else "ms"
+        ms = sum(r[key] for r in rows)
         out = {f"{prefix}_ms": ms,
                f"{prefix}_bound_ms": sum(r["bound_ms"] for r in rows),
                f"{prefix}_hbm_share": sum(r["bytes_ms"] for r in rows) / ms,
                f"{prefix}_library_ms": sum(r["library_ms"] for r in rows)}
         if bf16:
-            out[f"{prefix}_bf16_ms"] = sum(r["bf16_ms"] for r in rows)
+            out[f"{prefix}_bf16_ms"] = sum(
+                r["nhwc_bf16_ms" if nhwc else "bf16_ms"] for r in rows)
+        if nhwc:
+            out[f"{prefix}_nchw_ms"] = sum(r["ms"] for r in rows)
         return out
+
+    def by_map(rows, weigh=wsum):
+        """The main figures from the NHWC map the compiled forward runs,
+        the NCHW map's (the eager paths and training) beside them."""
+        return {"max_abs_err": max(r["nhwc_max_abs_err"] for r in rows),
+                "ms": weigh(rows, "nhwc_ms"),
+                "bf16_ms": weigh(rows, "nhwc_bf16_ms"),
+                "nchw_max_abs_err": max(r["max_abs_err"] for r in rows),
+                "nchw_ms": weigh(rows, "ms"),
+                "nchw_bf16_ms": weigh(rows, "bf16_ms"),
+                "nchw_eager_ms": weigh(rows, "eager_ms")}
+    maps = ("ms, bf16_ms and max_abs_err: the NHWC map the compiled forward "
+            "runs (nchw_*: the NCHW map of the eager paths and training, "
+            "bit for bit the same results; nchw_eager_ms not in a graph)")
     emit({"kernels": [
         {"name": "upfirdn2d", "route": "cuda",
          "source": "shgan_torch/csrc/upfirdn2d.cu",
@@ -5232,20 +5408,23 @@ def main():
          "launches_spatial_path": sp_total.get("upfirdn2d", 0),
          "launches_remat_path": remat_total.get("upfirdn2d", 0),
          "launches_compiled_path": compiled_total.get("upfirdn2d", 0),
-         "max_abs_err": max(r["max_abs_err"] for r in fr + fir_1024),
-         "ms": wsum(fr, "ms"), "eager_ms": wsum(fr, "eager_ms"),
-         "bf16_ms": wsum(fr, "bf16_ms"),
+         **by_map(fr),
+         "max_abs_err": max(r["nhwc_max_abs_err"] for r in fr + fir_1024),
+         "nchw_max_abs_err": max(r["max_abs_err"] for r in fr + fir_1024),
          "plain_ms": wsum(fr, "plain_ms"),
          "bound_ms": wsum(fr, "bound_ms"), "bound_by": bound_by(fr),
+         "hbm_share": wsum(fr, "bytes_ms") / wsum(fr, "nhwc_ms"),
          "library_ms": wsum(fr, "library_ms"),
-         **resampling("d_skip", dsk), **resampling("img_upsample", ups),
+         **resampling("d_skip", dsk),
+         **resampling("img_upsample", ups, nhwc=True),
          "scope": f"all {len(fr)} calls of one {MODEL} forward at batch "
-                  f"{SERVE_BATCH}, float32 (bf16_ms: in bfloat16); "
+                  f"{SERVE_BATCH}, float32 (bf16_ms: in bfloat16); {maps}; "
                   f"d_skip_*: the {len(dsk)} 1x1 skips (down = 2) of one "
                   f"{TRAIN_D} forward at batch {TRAIN_BATCH}, library_ms "
                   "cuDNN's stride-2 depthwise conv2d; img_upsample_*: the "
                   f"{len(ups)} skip-image upsamples (up = 2) of the {MODEL} "
-                  "forward, library_ms cuDNN's stride-2 conv_transpose2d; "
+                  "forward on the NHWC map (img_upsample_nchw_ms: the NCHW "
+                  "map), library_ms cuDNN's stride-2 conv_transpose2d; "
                   "launches over the serving path "
                   f"(and over the {MODEL_1024} eval path)"},
         {"name": "philox_normal", "route": "cuda",
@@ -5287,21 +5466,24 @@ def main():
          "launches_spatial_path": sp_total.get("noise_bias_act", 0),
          "launches_remat_path": remat_total.get("noise_bias_act", 0),
          "launches_compiled_path": compiled_total.get("noise_bias_act", 0),
-         "max_abs_err": max(r["max_abs_err"] for r in er + epi_1024),
-         "ms": wsum(er, "ms"), "eager_ms": wsum(er, "eager_ms"),
-         "bf16_ms": wsum(er, "bf16_ms"),
+         **by_map(er),
+         "max_abs_err": max(r["nhwc_max_abs_err"] for r in er + epi_1024),
+         "nchw_max_abs_err": max(r["max_abs_err"] for r in er + epi_1024),
          "plain_ms": wsum(er, "plain_ms"),
          "bound_ms": wsum(er, "bound_ms"), "bound_by": bound_by(er),
-         "hbm_share": wsum(er, "bytes_ms") / wsum(er, "ms"),
+         "hbm_share": wsum(er, "bytes_ms") / wsum(er, "nhwc_ms"),
+         "nchw_hbm_share": wsum(er, "bytes_ms") / wsum(er, "ms"),
          "library_ms": wsum(er, "library_ms"),
          "library_eager_ms": wsum(er, "library_eager_ms"),
-         "ms_1024": e1["ms"] * e1["layers_per_forward"],
+         "ms_1024": e1["nhwc_ms"] * e1["layers_per_forward"],
+         "nchw_ms_1024": e1["ms"] * e1["layers_per_forward"],
          "bound_ms_1024": e1["bound_ms"] * e1["layers_per_forward"],
          "library_ms_1024": e1["library_ms"] * e1["layers_per_forward"],
          "scope": f"all {per_fwd_noise} synthesis layers of one {MODEL} "
                   f"forward at batch {SERVE_BATCH}, random noise, float32 "
                   "(bf16_ms: in bfloat16; *_1024: the 1024² layers of one "
-                  f"{MODEL_1024} forward at batch {EVAL_BATCH}); "
+                  f"{MODEL_1024} forward at batch {EVAL_BATCH}); {maps}, "
+                  "the NHWC map's key a noise-table row; "
                   "library_ms: the unfused path on the same inputs, K1 "
                   "plus the PyTorch chain (no single PyTorch call computes "
                   "the function); launches over the serving path (and over "
@@ -5321,19 +5503,19 @@ def main():
          "launches_spatial_path": sp_total.get("bias_lrelu", 0),
          "launches_remat_path": remat_total.get("bias_lrelu", 0),
          "launches_compiled_path": compiled_total.get("bias_lrelu", 0),
-         "max_abs_err": 0.0,
-         "ms": wsum(conv_epi_rows, "ms"),
-         "eager_ms": wsum(conv_epi_rows, "eager_ms"),
-         "bf16_ms": wsum(conv_epi_rows, "bf16_ms"),
+         **by_map(conv_epi_rows),
          "bound_ms": wsum(conv_epi_rows, "bound_ms"),
          "bound_by": bound_by(conv_epi_rows),
          "hbm_share": wsum(conv_epi_rows, "bytes_ms")
+         / wsum(conv_epi_rows, "nhwc_ms"),
+         "nchw_hbm_share": wsum(conv_epi_rows, "bytes_ms")
          / wsum(conv_epi_rows, "ms"),
          "library_ms": wsum(conv_epi_rows, "library_ms"),
          "library_eager_ms": wsum(conv_epi_rows, "library_eager_ms"),
          "scope": f"all {per_fwd_conv} encoder convs of one {MODEL} forward "
                   f"at batch {SERVE_BATCH}, float32, bit for bit the "
-                  "chain (bf16_ms: in bfloat16); library_ms: the PyTorch "
+                  f"chain (bf16_ms: in bfloat16); {maps}; library_ms: the "
+                  "PyTorch "
                   "chain on the same inputs; launches over the serving "
                   f"path (and over the {MODEL_1024} eval path)"},
         {"name": "conv3x3_lowch", "route": "cuda",
@@ -5349,14 +5531,14 @@ def main():
          "launches_spatial_path": sp_total.get("conv3x3_lowch", 0),
          "launches_remat_path": remat_total.get("conv3x3_lowch", 0),
          "launches_compiled_path": compiled_total.get("conv3x3_lowch", 0),
-         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
-         "ms": 2 * k3["ms"], "eager_ms": 2 * k3["eager_ms"],
+         **by_map([k3], lambda rows, k: 2 * rows[0][k]),
+         "max_abs_err": max(r["nhwc_max_abs_err"] for r in conv_rows),
+         "nchw_max_abs_err": max(r["max_abs_err"] for r in conv_rows),
          "plain_ms": 2 * k3["plain_ms"],
          "bound_ms": 2 * k3["bound_ms"], "bound_by": k3["bound_by"],
          "floor_3xtf32_ms": 2 * k3["floor_3xtf32_ms"],
          "library_ms": 2 * k3["library_ms"],
          "library_tf32_ms": 2 * k3["library_tf32_ms"],
-         "bf16_ms": 2 * k3["bf16_ms"],
          "bf16_bound_ms": 2 * k3["bf16_bound_ms"],
          "bf16_library_ms": 2 * k3["bf16_library_ms"],
          "scope": f"both calls of one {MODEL_1024} forward at batch "
@@ -5364,7 +5546,7 @@ def main():
                   "float32, TF32 off (library_tf32_ms: cuDNN with TF32; "
                   "bound: bytes or operations at the TF32 tensor-core rate; "
                   "floor_3xtf32_ms: three TF32 products a multiply-add; "
-                  "bf16_*: in bfloat16); "
+                  f"bf16_*: in bfloat16); {maps}; "
                   f"launches over the {MODEL_1024} eval path"},
         {"name": "upfirdn2d_backward", "route": "cuda",
          "source": "shgan_torch/csrc/upfirdn2d.cu",

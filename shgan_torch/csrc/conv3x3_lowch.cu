@@ -1,6 +1,6 @@
 // 3x3, stride-1, pad-1 convolution for C_in, C_out <= 32 (kernel K3): NCHW
-// float32 or bfloat16 in and out, float32 weights (OIHW correlation kernel),
-// float32 sums.
+// or NHWC (channels-last) float32 or bfloat16 in and out, float32 weights
+// (OIHW correlation kernel), float32 sums.
 //
 // Replaces the TPU kernel shgan_tpu/ops/conv1024.py::conv3x3_lowch (body
 // `_kernel`), which ran the conv as three dy-shifted [O,3C] x [3C,BH*W]
@@ -30,6 +30,12 @@
 // stages are loaded to registers and interleaved there, their loads in
 // flight during the previous stage's multiplies.  The epilogue passes each
 // warp's sums through shared memory and stores 16 bytes at a time along W.
+// NHWC (the compiled forward's channels-last tensors, conv3x3_lowch.cuh):
+// both dtypes stage by cp.async into a pixel-major stage, two 16-byte copies
+// a pixel's 32 bytes of a stage (4-byte copies a slot where C is not a
+// multiple of 16 bytes), and the multiplies read the NCHW path's words
+// through the NHWC stage's index map; the epilogue stores each pixel's
+// channels of an n8 tile as 16-byte runs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -49,6 +55,7 @@ struct Args {
   int C, O, H, W, tiles_x, tiles_y, ntiles, nst;
   bool vec;  // W a multiple of 16 bytes and x, y 16-byte aligned
   int halo;  // input rows above and below the output's (0: pad 1 in H)
+  bool chunks;  // NHWC: a pixel's channels a multiple of 16 bytes, x aligned
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -62,6 +69,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool o
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(ok ? 4 : 0)
+               : "memory");
+}
+// 16 bytes at dst, the first `bytes` of them from src, the rest zero.
+__device__ __forceinline__ void cp_async16n(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -94,6 +107,38 @@ __device__ __forceinline__ const T* src_at(const T* x, const Args& a, int n, int
 }
 
 using Acc = float[kMTiles][kNTiles][4];
+
+// ---- NHWC staging (both dtypes) ---------------------------------------------------
+
+template <int Bytes>
+__device__ void stage_nhwc(const void* x, uint32_t* buf, const Args& a, int t, int s) {
+  int n, y0, x0;
+  tile_origin(t, a.tiles_x, a.tiles_y, &n, &y0, &x0);
+  const uint32_t base = smem_addr(buf);
+  const unsigned char* xb = static_cast<const unsigned char*>(x);
+  if (a.chunks) {  // a pixel's half stage (4 slots) a 16-byte copy
+    for (int j = threadIdx.x; j < 2 * kInH * kInW; j += kThreads) {
+      int iy, ix, h;
+      nhwc_chunk_item(j, &iy, &ix, &h);
+      const int c = slot_channel<Bytes>(s, 4 * h, 0), sy = y0 - 1 + iy, sx = x0 - 1 + ix;
+      const bool ok = inside(c, sy + a.halo, sx, a.C, a.H + 2 * a.halo, a.W);
+      const int left = (a.C - c) * Bytes;  // the channels past C read as zero
+      cp_async16n(base + 4 * nhwc_word(4 * h, iy, ix),
+                  ok ? xb + Bytes * nhwc_src(n, c, sy, sx, a.C, a.H, a.W, a.halo) : xb,
+                  ok ? (left < 16 ? left : 16) : 0);
+    }
+    return;
+  }
+  for (int j = threadIdx.x; j < kSlots * kInH * kInW; j += kThreads) {
+    int slot, iy, ix;
+    nhwc_item(j, &slot, &iy, &ix);
+    const int c = slot_channel<Bytes>(s, slot, 0), sy = y0 - 1 + iy, sx = x0 - 1 + ix;
+    // a bfloat16 pair (c, c + 1) is inside with c: C is even on this path
+    const bool ok = inside(c, sy + a.halo, sx, a.C, a.H + 2 * a.halo, a.W);
+    cp_async4(base + 4 * nhwc_word(slot, iy, ix),
+              ok ? xb + Bytes * nhwc_src(n, c, sy, sx, a.C, a.H, a.W, a.halo) : xb, ok);
+  }
+}
 
 // ---- float32: cp.async staging, 3xTF32 ----------------------------------------
 
@@ -145,6 +190,17 @@ __device__ void stage_weights_f32(float4* wsm, const Args& a) {
   }
 }
 
+// A register r's stage word: the NCHW stage's slot planes, or the NHWC stage.
+template <bool NHWC>
+__device__ __forceinline__ int a_at(int lane, int r, int warp, int mt, int dy, int dx) {
+  if constexpr (NHWC) {
+    return nhwc_a_word(lane, r, warp, mt, dy, dx);
+  } else {
+    return a_word(lane, r, warp, mt, dy, dx);
+  }
+}
+
+template <bool NHWC = false>
 __device__ __forceinline__ void mma_stage_f32(const uint32_t* buf, const float4* wsm, int s,
                                               int warp, int lane, Acc& acc) {
   const float* in = reinterpret_cast<const float*>(buf);
@@ -160,7 +216,7 @@ __device__ __forceinline__ void mma_stage_f32(const uint32_t* buf, const float4*
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         float h, l;
-        split_tf32_a(in[a_word(lane, r, warp, mt, dy, dx)], &h, &l);
+        split_tf32_a(in[a_at<NHWC>(lane, r, warp, mt, dy, dx)], &h, &l);
         ah[r] = __float_as_uint(h);
         al[r] = __float_as_uint(l);
       }
@@ -284,6 +340,7 @@ __device__ void stage_weights_bf16(uint2* wsm, const Args& a) {
   }
 }
 
+template <bool NHWC = false>
 __device__ __forceinline__ void mma_stage_bf16(const uint32_t* buf, const uint2* wsm, int s,
                                                int warp, int lane, Acc& acc) {
 #pragma unroll
@@ -296,7 +353,7 @@ __device__ __forceinline__ void mma_stage_bf16(const uint32_t* buf, const uint2*
     for (int mt = 0; mt < kMTiles; ++mt) {
       uint32_t af[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) af[r] = buf[a_word(lane, r, warp, mt, dy, dx)];
+      for (int r = 0; r < 4; ++r) af[r] = buf[a_at<NHWC>(lane, r, warp, mt, dy, dx)];
 #pragma unroll
       for (int nt = 0; nt < kNTiles; ++nt) mma_bf16(acc[mt][nt], af, b[nt].x, b[nt].y);
     }
@@ -316,9 +373,16 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* dst, const float* v) {
 }
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// NHWC: a pixel's run of 16 / sizeof(T) channels, gathered from the scratch.
+__device__ __forceinline__ void store_run(float* dst, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_run(__nv_bfloat16* dst, const float (&v)[8]) {
+  store_vec(dst, v);
+}
 
 // Warp `warp` writes its tile row (all output channels) and zeroes its sums.
-template <typename T>
+template <typename T, bool NHWC>
 __device__ __forceinline__ void epilogue(Acc& acc, float* sc, T* y, const Args& a, int t,
                                          int warp, int lane) {
   constexpr int kVec = Io<sizeof(T)>::kVec, kSegs = kTileW / kVec;
@@ -335,7 +399,24 @@ __device__ __forceinline__ void epilogue(Acc& acc, float* sc, T* y, const Args& 
         acc[mt][nt][r] = 0.0f;
       }
     __syncwarp();
-    if (oy < a.H) {
+    if constexpr (NHWC) {
+      // kRun channels a 16-byte run, kRuns runs an n8 tile a pixel
+      constexpr int kRun = 16 / sizeof(T), kRuns = 8 / kRun;
+      for (int j = lane; j < kTileW * kRuns && oy < a.H; j += 32) {
+        const int px = j / kRuns, q = j - px * kRuns, ox = x0 + px;
+        const int o0 = nt * 8 + q * kRun;
+        if (ox >= a.W || o0 >= a.O) continue;
+        float v[kRun];
+#pragma unroll
+        for (int k = 0; k < kRun; ++k) v[k] = sc[out_word(q * kRun + k, px)];
+        T* dst = y + nhwc_dst(n, o0, oy, ox, a.O, a.H, a.W);
+        if (a.vec) {  // O % kRun == 0: the run is inside and 16-byte aligned
+          store_run(dst, v);
+        } else {
+          for (int k = 0; k < kRun && o0 + k < a.O; ++k) store1(dst + k, v[k]);
+        }
+      }
+    } else if (oy < a.H) {
       for (int j = lane; j < 8 * kSegs; j += 32) {
         const int cl = j / kSegs, px = (j - cl * kSegs) * kVec;
         const int o = nt * 8 + cl, ox = x0 + px;
@@ -355,11 +436,19 @@ __device__ __forceinline__ void epilogue(Acc& acc, float* sc, T* y, const Args& 
 
 // ---- the kernels ----------------------------------------------------------------
 
-// Shared memory: two stage buffers, the warps' epilogue scratch, the weights.
-constexpr int kBufBytes = 2 * kStageWords * 4;
+// Shared memory: two stage buffers (of the layout's stage), the warps'
+// epilogue scratch, the weights.
+template <bool NHWC>
+constexpr int kStage = NHWC ? kNhwcStageWords : kStageWords;
+template <bool NHWC>
+constexpr int kBufBytes = 2 * kStage<NHWC> * 4;
 constexpr int kScratchBytes = kWarps * kOutWords * 4;
-constexpr int kSmemF32 = kBufBytes + kScratchBytes + kMaxStages * 9 * kNTiles * 32 * 16;
-constexpr int kSmemBf16 = kBufBytes + kScratchBytes + (kMaxStages / 2) * 9 * kNTiles * 32 * 8;
+template <bool NHWC>
+constexpr int kSmemF32 = kBufBytes<NHWC> + kScratchBytes + kMaxStages * 9 * kNTiles * 32 * 16;
+template <bool NHWC>
+constexpr int kSmemBf16 =
+    kBufBytes<NHWC> + kScratchBytes + (kMaxStages / 2) * 9 * kNTiles * 32 * 8;
+static_assert(kSmemF32<true> <= 232448, "at most the 227 KB a block can take");
 
 // Block b walks tiles b, b + gridDim.x, ...; item i is stage i % nst of its
 // (i / nst)-th tile.
@@ -370,16 +459,29 @@ __device__ __forceinline__ int block_items(const Args& a) {
   return (a.ntiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x * a.nst;
 }
 
+// Stage s of tile t of the input into buf, by cp.async: the NCHW or the NHWC
+// staging (float32; NHWC also bfloat16).
+template <int Bytes, bool NHWC>
+__device__ __forceinline__ void stage_async(const void* x, uint32_t* buf, const Args& a, int t,
+                                            int s) {
+  if constexpr (NHWC) {
+    stage_nhwc<Bytes>(x, buf, a, t, s);
+  } else {
+    stage_f32(static_cast<const float*>(x), buf, a, t, s);
+  }
+}
+
+template <bool NHWC>
 __global__ void __launch_bounds__(kThreads, 1) conv3x3_lowch_f32_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* bufs = reinterpret_cast<uint32_t*>(smem);
-  float* sc = reinterpret_cast<float*>(smem + kBufBytes) + (threadIdx.x / 32) * kOutWords;
-  float4* wsm = reinterpret_cast<float4*>(smem + kBufBytes + kScratchBytes);
-  const float* x = static_cast<const float*>(a.x);
+  float* sc =
+      reinterpret_cast<float*>(smem + kBufBytes<NHWC>) + (threadIdx.x / 32) * kOutWords;
+  float4* wsm = reinterpret_cast<float4*>(smem + kBufBytes<NHWC> + kScratchBytes);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int items = block_items(a);
   if (items <= 0) return;
-  stage_f32(x, bufs, a, item_tile(0, a.nst), 0);
+  stage_async<4, NHWC>(a.x, bufs, a, item_tile(0, a.nst), 0);
   cp_async_commit();
   stage_weights_f32(wsm, a);  // while the first stage is in flight
   Acc acc = {};
@@ -387,25 +489,48 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_lowch_f32_kernel(Args a) 
     cp_async_wait_all();
     __syncthreads();  // stage i landed; every warp is done with stage i - 1
     if (i + 1 < items) {
-      stage_f32(x, bufs + ((i + 1) & 1) * kStageWords, a, item_tile(i + 1, a.nst),
-                (i + 1) % a.nst);
+      stage_async<4, NHWC>(a.x, bufs + ((i + 1) & 1) * kStage<NHWC>, a,
+                           item_tile(i + 1, a.nst), (i + 1) % a.nst);
       cp_async_commit();
     }
-    mma_stage_f32(bufs + (i & 1) * kStageWords, wsm, i % a.nst, warp, lane, acc);
+    mma_stage_f32<NHWC>(bufs + (i & 1) * kStage<NHWC>, wsm, i % a.nst, warp, lane, acc);
     if (i % a.nst == a.nst - 1)
-      epilogue(acc, sc, static_cast<float*>(a.y), a, item_tile(i, a.nst), warp, lane);
+      epilogue<float, NHWC>(acc, sc, static_cast<float*>(a.y), a, item_tile(i, a.nst), warp,
+                            lane);
   }
 }
 
+template <bool NHWC>
 __global__ void __launch_bounds__(kThreads, 1) conv3x3_lowch_bf16_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* bufs = reinterpret_cast<uint32_t*>(smem);
-  float* sc = reinterpret_cast<float*>(smem + kBufBytes) + (threadIdx.x / 32) * kOutWords;
-  uint2* wsm = reinterpret_cast<uint2*>(smem + kBufBytes + kScratchBytes);
+  float* sc =
+      reinterpret_cast<float*>(smem + kBufBytes<NHWC>) + (threadIdx.x / 32) * kOutWords;
+  uint2* wsm = reinterpret_cast<uint2*>(smem + kBufBytes<NHWC> + kScratchBytes);
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int items = block_items(a);
   if (items <= 0) return;
+  if constexpr (NHWC) {  // the float32 kernel's cp.async pipeline
+    stage_async<2, true>(a.x, bufs, a, item_tile(0, a.nst), 0);
+    cp_async_commit();
+    stage_weights_bf16(wsm, a);
+    Acc acc = {};
+    for (int i = 0; i < items; ++i) {
+      cp_async_wait_all();
+      __syncthreads();
+      if (i + 1 < items) {
+        stage_async<2, true>(a.x, bufs + ((i + 1) & 1) * kNhwcStageWords, a,
+                             item_tile(i + 1, a.nst), (i + 1) % a.nst);
+        cp_async_commit();
+      }
+      mma_stage_bf16<true>(bufs + (i & 1) * kNhwcStageWords, wsm, i % a.nst, warp, lane, acc);
+      if (i % a.nst == a.nst - 1)
+        epilogue<__nv_bfloat16, true>(acc, sc, static_cast<__nv_bfloat16*>(a.y), a,
+                                      item_tile(i, a.nst), warp, lane);
+    }
+    return;
+  }
   Bf16Stage st;
   st.load(x, a, item_tile(0, a.nst), 0);
   stage_weights_bf16(wsm, a);
@@ -418,7 +543,8 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_lowch_bf16_kernel(Args a)
     __syncthreads();  // stage i stored; every warp is done with stage i - 1
     mma_stage_bf16(bufs + (i & 1) * kStageWords, wsm, i % a.nst, warp, lane, acc);
     if (i % a.nst == a.nst - 1)
-      epilogue(acc, sc, static_cast<__nv_bfloat16*>(a.y), a, item_tile(i, a.nst), warp, lane);
+      epilogue<__nv_bfloat16, false>(acc, sc, static_cast<__nv_bfloat16*>(a.y), a,
+                                     item_tile(i, a.nst), warp, lane);
     if (next) st.store(x, bufs + ((i + 1) & 1) * kStageWords, a, tn, sn);
   }
 }
@@ -439,13 +565,16 @@ cudaError_t allow_smem(K kernel, int bytes, int dev, bool* done) {
 // bfloat16); w: contiguous float32 OIHW [o, c, 3, 3]; y: contiguous [n, o, h,
 // w] of x's dtype.  halo 0: pad 1 on all sides; halo 1 (a slab of an
 // H-sharded plane with a row of each neighbour's above and below): output
-// row i reads input rows i..i+2, pad 1 in W only.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// arguments outside the kernel's range.
+// row i reads input rows i..i+2, pad 1 in W only.  nhwc = 1: x and y are
+// channels-last instead, [n, h + 2 * halo, w, c] and [n, h, w, o] in memory,
+// 4-byte aligned (bfloat16: c even).  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for arguments outside the kernel's range.
 extern "C" int shgan_conv3x3_lowch(const void* x, const float* w, void* y, int dtype, int n,
-                                   int c, int o, int h, int wd, int halo, void* stream) {
+                                   int c, int o, int h, int wd, int halo, int nhwc,
+                                   void* stream) {
   if (c < 1 || c > kMaxC || o < 1 || o > kMaxO || h < 1 || wd < 1 || n < 0 ||
-      (halo != 0 && halo != 1) || (dtype != 0 && dtype != 1))
+      (halo != 0 && halo != 1) || (dtype != 0 && dtype != 1) ||
+      (nhwc && dtype == 1 && c % 2) || (nhwc && reinterpret_cast<uintptr_t>(x) % 4))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaSuccess);
   const int tiles_x = (wd + kTileW - 1) / kTileW, tiles_y = (h + kTileH - 1) / kTileH;
@@ -456,22 +585,32 @@ extern "C" int shgan_conv3x3_lowch(const void* x, const float* w, void* y, int d
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int vec_px = dtype == 0 ? 4 : 8;
+  // vec: NCHW, W a multiple of a 16-byte access; NHWC, O a multiple of a
+  // 16-byte run of channels; and x, y 16-byte aligned
   Args a{x, w, y, c, o, h, wd, tiles_x, tiles_y, static_cast<int>(ntiles),
          stages_for(c, dtype == 0 ? Io<4>::kStageCh : Io<2>::kStageCh),
-         wd % vec_px == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         (nhwc ? o % vec_px == 0 : wd % vec_px == 0) &&
+             reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
              reinterpret_cast<uintptr_t>(y) % 16 == 0,
-         halo};
+         halo,
+         nhwc && (c * (dtype == 0 ? 4 : 2)) % 16 == 0 &&
+             reinterpret_cast<uintptr_t>(x) % 16 == 0};
   const int grid = static_cast<int>(ntiles < sms ? ntiles : sms);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static bool f32_ready[64] = {}, bf16_ready[64] = {};
+  static bool ready[2][2][64] = {};  // [dtype][nhwc][device]
+  bool* done = ready[dtype][nhwc ? 1 : 0];
   if (dtype == 0) {
-    e = allow_smem(conv3x3_lowch_f32_kernel, kSmemF32, dev, f32_ready);
+    auto* k = nhwc ? conv3x3_lowch_f32_kernel<true> : conv3x3_lowch_f32_kernel<false>;
+    const int bytes = nhwc ? kSmemF32<true> : kSmemF32<false>;
+    e = allow_smem(k, bytes, dev, done);
     if (e != cudaSuccess) return static_cast<int>(e);
-    conv3x3_lowch_f32_kernel<<<grid, kThreads, kSmemF32, s>>>(a);
+    k<<<grid, kThreads, bytes, s>>>(a);
   } else {
-    e = allow_smem(conv3x3_lowch_bf16_kernel, kSmemBf16, dev, bf16_ready);
+    auto* k = nhwc ? conv3x3_lowch_bf16_kernel<true> : conv3x3_lowch_bf16_kernel<false>;
+    const int bytes = nhwc ? kSmemBf16<true> : kSmemBf16<false>;
+    e = allow_smem(k, bytes, dev, done);
     if (e != cudaSuccess) return static_cast<int>(e);
-    conv3x3_lowch_bf16_kernel<<<grid, kThreads, kSmemBf16, s>>>(a);
+    k<<<grid, kThreads, bytes, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

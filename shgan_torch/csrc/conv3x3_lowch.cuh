@@ -3,7 +3,8 @@
 // the host harness of tests/test_torch_kernel_math.py.
 //
 // Contract: y[n,o,i,j] = sum_{c,dy,dx} w[o,c,dy,dx] * x[n,c,i+dy-1,j+dx-1]
-// (correlation, stride 1, zero padding 1), NCHW in and out, C, O <= 32.
+// (correlation, stride 1, zero padding 1), NCHW in and out, or NHWC in and
+// out (channels-last tensors), C, O <= 32.
 //
 // Implicit GEMM: M = output pixels, N = 32 output channels, K = 9*C ordered
 // (stage s, tap dy*3+dx, channel slot).  A tile is kTileH output rows x
@@ -19,6 +20,20 @@
 // starts 16-byte aligned.  The slot planes are kPlane words apart, kPlane = 24
 // (mod 32), so the 8 x 4 lanes of an A-fragment load (pixel = lane / 4, slot
 // = lane % 4) fall on 32 distinct banks.
+//
+// NHWC: a pixel's channels are contiguous, and a stage's kSlots slots of one
+// pixel are its 32 bytes of channels [s * kStageCh, (s + 1) * kStageCh): a
+// float32 channel or a bfloat16 pair (2c, 2c + 1) is already the 32-bit word
+// its slot holds.  So the NHWC stage is pixel-major: staged pixel (iy, ix)
+// keeps its kSlots words together (nhwc_word), kNhwcPitch = 12 words apart,
+// so the 8 pixels x 4 slots of an A-fragment load fall on 32 distinct banks
+// (12 g mod 32 for g < 8 are 8 distinct multiples of 4) while a lane's
+// address stays linear in its pixel.  A pixel's two halves of
+// 4 slots are two 16-byte copies (nhwc_chunk_item) where a pixel's channels
+// are a multiple of 16 bytes, else 4-byte copies a slot (nhwc_item).  The
+// multiplies read the words the NCHW stage holds, through nhwc_a_word, so
+// the two layouts give the same bits.  The epilogue writes each output
+// pixel's channels of an n8 tile as 16-byte runs.
 #pragma once
 
 #include <cstdint>
@@ -110,6 +125,46 @@ SHGAN_HD void pixel_item(int j, int* slot, int* iy, int* ix) {
   *ix = r - *iy * kInW;
 }
 
+// NHWC stage word of (slot, staged row iy, staged pixel ix).
+constexpr int kNhwcPitch = 12;  // words a staged pixel: its kSlots, then 4 unused
+constexpr int kNhwcStageWords = kInH * kInW * kNhwcPitch;
+static_assert(kNhwcPitch >= kSlots && kNhwcPitch % 4 == 0, "16-byte halves");
+SHGAN_HD int nhwc_word(int slot, int iy, int ix) {
+  return (iy * kInW + ix) * kNhwcPitch + slot;
+}
+
+// NHWC staging item j (j < kSlots * kInH * kInW) -> slot, staged row iy and
+// pixel ix, slots fastest (the 4-byte copies).
+SHGAN_HD void nhwc_item(int j, int* slot, int* iy, int* ix) {
+  *slot = j % kSlots;
+  const int r = j / kSlots;
+  *iy = r / kInW;
+  *ix = r - *iy * kInW;
+}
+
+// NHWC 16-byte staging item j (j < 2 * kInH * kInW) -> staged row iy, pixel
+// ix and half h: slots [4h, 4h + 4), halves fastest: the words
+// nhwc_word(4h, iy, ix)... are contiguous and 16-byte aligned.
+SHGAN_HD void nhwc_chunk_item(int j, int* iy, int* ix, int* h) {
+  *h = j & 1;
+  const int r = j >> 1;
+  *iy = r / kInW;
+  *ix = r - *iy * kInW;
+}
+
+// Element offset of channel c of input pixel (sy, sx) (sy in the output's
+// rows: the halo rows are -halo and H + halo - 1) of image n of an NHWC
+// [n, H + 2 halo, W, C] tensor.
+SHGAN_HD long long nhwc_src(int n, int c, int sy, int sx, int C, int H, int W, int halo) {
+  return ((static_cast<long long>(n) * (H + 2 * halo) + sy + halo) * W + sx) * C + c;
+}
+
+// Element offset of channel o of output pixel (oy, ox) of image n of an NHWC
+// [n, H, W, O] tensor.
+SHGAN_HD long long nhwc_dst(int n, int o, int oy, int ox, int O, int H, int W) {
+  return ((static_cast<long long>(n) * H + oy) * W + ox) * O + o;
+}
+
 // bfloat16 interleave: from words e (channel c) and o (channel c + 1), each
 // holding two pixels (low half first), the (c, c+1) words of the first and
 // the second pixel; the lower K index sits in the low half, as mma takes it.
@@ -133,6 +188,11 @@ SHGAN_HD int c_col(int lane, int r) { return 2 * (lane & 3) + (r & 1); }
 // pixel (warp + dy, 16*mt + a_row + dx).
 SHGAN_HD int a_word(int lane, int r, int warp, int mt, int dy, int dx) {
   return staged_word(a_slot(lane, r), warp + dy, 16 * mt + a_row(lane, r) + dx);
+}
+
+// The word lane `lane` loads into A register r (as a_word) from an NHWC stage.
+SHGAN_HD int nhwc_a_word(int lane, int r, int warp, int mt, int dy, int dx) {
+  return nhwc_word(a_slot(lane, r), warp + dy, 16 * mt + a_row(lane, r) + dx);
 }
 
 // Weight fragments are staged in the order the lanes read them: entry

@@ -198,6 +198,165 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
                    shgan::nba::kNoiseNone, 0, 0, 0, act, L);
 }
 
+// ---- the channels-last (NHWC) map ------------------------------------------
+//
+// The same epilogue on x [N, R, R, C] in memory (noise_bias_act.cuh: the
+// NHWC map).  The channel is the fastest axis, so a thread cannot keep its
+// pixels' normals for many channels in registers as the NCHW map does: a
+// block draws each of its Philox calls once into shared memory (noise *
+// strength, one value a pixel), then its threads walk the block's two runs
+// of pixels, V channels an access, and every element takes its pixel's
+// value.  The draws, the dcoef and bias of each element and apply() are the
+// NCHW map's, so both maps give the same bits.  Bound on the card: bytes, as
+// the NCHW map; the draw is ~65 operations a pixel, shared by its C
+// channels.
+using shgan::nba::NhwcLaunch;
+
+// V = 4: the 16-byte (float32) or 8-byte (bf16) accesses above; V = 1: one
+// element.
+template <int V>
+__device__ __forceinline__ void load_n(const float* p, float* v) {
+  if constexpr (V == 1) {
+    v[0] = *p;
+  } else {
+    load<V>(p, v);
+  }
+}
+template <int V>
+__device__ __forceinline__ void load_n(const uint16_t* p, float* v) {
+  if constexpr (V == 1) {
+    v[0] = shgan::nba::from_bf16(*p);
+  } else {
+    load<V>(p, v);
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_n(float* p, const float* v) {
+  if constexpr (V == 1) {
+    *p = v[0];
+  } else {
+    store<V>(p, v);
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_n(uint16_t* p, const float* v) {
+  if constexpr (V == 1) {
+    *p = shgan::nba::to_bf16(v[0]);
+  } else {
+    store<V>(p, v);
+  }
+}
+
+template <typename T, int V, bool NOISE>
+__device__ __forceinline__ void epilogue_nhwc(const T* x, T* y, int c, long long half,
+                                              long long calls, const float* __restrict__ dcoef,
+                                              const float* __restrict__ bias,
+                                              const float* __restrict__ strength,
+                                              const float* __restrict__ noise_const,
+                                              const long long* __restrict__ key_row, int mode,
+                                              uint32_t k0, uint32_t k1, long long row0, Act act,
+                                              const NhwcLaunch& L) {
+  __shared__ float nz[2][NOISE ? 2 * shgan::nba::kNhwcMaxCalls : 1];
+  const int row = blockIdx.y;
+  const long long qa = static_cast<long long>(blockIdx.x) * L.cpb;
+  const long long nq = shgan::nba::nhwc_calls(L, blockIdx.x, calls);
+  if constexpr (NOISE) {
+    const float s = *strength;
+    if (mode == shgan::nba::kNoiseRandom) {
+      const shgan::nba::NoiseKey key = shgan::nba::pick_key(key_row, k0, k1, row0);
+      for (long long j = threadIdx.x; j < nq; j += blockDim.x) {
+        float cs[2], sn[2];
+        shgan::noise_quad(static_cast<uint32_t>(qa + j), shgan::noise_row(key.row0, row), key.k0,
+                          key.k1, cs, sn);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          nz[0][2 * j + e] = shgan::nba::mul_rn(cs[e], s);
+          nz[1][2 * j + e] = shgan::nba::mul_rn(sn[e], s);
+        }
+      }
+    } else {
+      for (long long j = threadIdx.x; j < 2 * nq; j += blockDim.x) {
+        nz[0][j] = shgan::nba::mul_rn(noise_const[2 * qa + j], s);
+        nz[1][j] = shgan::nba::mul_rn(noise_const[half + 2 * qa + j], s);
+      }
+    }
+    __syncthreads();
+  }
+  const long long img = static_cast<long long>(row) * 2 * half;  // the row's first pixel
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long base = (img + shgan::nba::nhwc_pixel(L, blockIdx.x, h, half, 0)) * c;
+    shgan::nba::nhwc_walk(L, nq, c, threadIdx.x, blockDim.x, [&](long long e, long long pl,
+                                                                  int ch) {
+      float d[V], b[V], v[V];
+      if (dcoef != nullptr) {
+        load_n<V>(dcoef + static_cast<long long>(row) * c + ch, d);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) d[k] = 1.0f;
+      }
+      if (bias != nullptr) {
+        load_n<V>(bias + ch, b);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) b[k] = -0.0f;
+      }
+      float n = -0.0f;
+      if constexpr (NOISE) n = nz[h][pl];
+      load_n<V>(x + base + e, v);
+#pragma unroll
+      for (int k = 0; k < V; ++k) v[k] = shgan::nba::apply(v[k], d[k], n, b[k], act);
+      store_n<V>(y + base + e, v);
+    });
+  }
+}
+
+template <typename T, int V, bool NOISE>
+__global__ void __launch_bounds__(shgan::nba::kThreads)
+    noise_bias_act_nhwc_kernel(const T* x, T* y, int c, long long half, long long calls,
+                               const float* __restrict__ dcoef, const float* __restrict__ bias,
+                               const float* __restrict__ strength,
+                               const float* __restrict__ noise_const,
+                               const long long* __restrict__ key_row, int mode, uint32_t k0,
+                               uint32_t k1, long long row0, Act act, NhwcLaunch L) {
+  epilogue_nhwc<T, V, NOISE>(x, y, c, half, calls, dcoef, bias, strength, noise_const, key_row,
+                             mode, k0, k1, row0, act, L);
+}
+
+// bias_lrelu_kernel's NHWC map: the epilogue above with no dcoef and no
+// noise, under its own name for the profiler, as on the NCHW map.
+template <typename T, int V>
+__global__ void __launch_bounds__(shgan::nba::kThreads)
+    bias_lrelu_nhwc_kernel(const T* x, T* y, int c, long long half, long long calls,
+                           const float* __restrict__ bias, Act act, NhwcLaunch L) {
+  epilogue_nhwc<T, V, false>(x, y, c, half, calls, nullptr, bias, nullptr, nullptr, nullptr,
+                             shgan::nba::kNoiseNone, 0, 0, 0, act, L);
+}
+
+template <typename T, int V>
+void launch_nhwc(const void* x, void* y, int n, int c, int res, const float* dcoef,
+                 const float* bias, const float* strength, const float* noise_const,
+                 const long long* key_row, int mode, uint32_t k0, uint32_t k1, long long row0,
+                 Act act, cudaStream_t stream) {
+  const NhwcLaunch L = shgan::nba::plan_nhwc(n, c, res, V);
+  const long long half = static_cast<long long>(res) * res / 2, calls = half / 2;
+  const dim3 grid(static_cast<unsigned int>(L.tiles), static_cast<unsigned int>(n));
+  const T* xp = static_cast<const T*>(x);
+  T* yp = static_cast<T*>(y);
+  if (dcoef == nullptr && mode == shgan::nba::kNoiseNone) {
+    bias_lrelu_nhwc_kernel<T, V><<<grid, shgan::nba::kThreads, 0, stream>>>(xp, yp, c, half,
+                                                                            calls, bias, act, L);
+  } else if (mode == shgan::nba::kNoiseNone) {
+    noise_bias_act_nhwc_kernel<T, V, false><<<grid, shgan::nba::kThreads, 0, stream>>>(
+        xp, yp, c, half, calls, dcoef, bias, strength, noise_const, key_row, mode, k0, k1, row0,
+        act, L);
+  } else {
+    noise_bias_act_nhwc_kernel<T, V, true><<<grid, shgan::nba::kThreads, 0, stream>>>(
+        xp, yp, c, half, calls, dcoef, bias, strength, noise_const, key_row, mode, k0, k1, row0,
+        act, L);
+  }
+}
+
 template <typename T, int CPT>
 void launch(const void* x, void* y, int n, int c, const shgan::NoiseWindow& win,
             const float* dcoef, const float* bias, const float* strength,
@@ -235,18 +394,47 @@ void launch(const void* x, void* y, int n, int c, const shgan::NoiseWindow& win,
 // the key of a captured graph's launch, written before each replay).
 // clamp +inf for none;
 // alpha 1 for a linear activation.  With no dcoef and mode 0 (a conv layer's
-// bias and activation alone) the launch is bias_lrelu_kernel.  Returns
+// bias and activation alone) the launch is bias_lrelu_kernel.  nhwc = 1: x
+// and y are channels-last, [n, res, res, c] in memory, whole planes (h0 = 0,
+// rows = res); the NHWC map (noise_bias_act_nhwc_kernel, bias_lrelu_nhwc_kernel)
+// takes 16-byte float32 / 8-byte bf16 accesses where c % 4 == 0 and x, y,
+// bias and dcoef allow, else one element an access.  Returns
 // cudaGetLastError() after the launch.
 extern "C" int shgan_noise_bias_act(const void* x, void* y, int bf16, int n, int c, int res,
                                     int rows, int h0, const float* dcoef, const float* bias,
                                     const float* strength, const float* noise_const,
                                     const long long* key_row, int mode, unsigned int k0,
                                     unsigned int k1, long long row0, float alpha, float gain,
-                                    float clamp, void* stream) {
-  if (res < 2 || res % 2 || h0 < 0 || rows < 0 || h0 + rows > res)
+                                    float clamp, int nhwc, void* stream) {
+  if (res < 2 || res % 2 || h0 < 0 || rows < 0 || h0 + rows > res ||
+      (nhwc && (h0 != 0 || rows != res)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || c == 0 || rows == 0) return static_cast<int>(cudaSuccess);
   const Act act{alpha, gain, clamp};
+  if (nhwc) {
+    const uintptr_t xb = bf16 ? 8 : 16;
+    const bool v4 = c % 4 == 0 && reinterpret_cast<uintptr_t>(x) % xb == 0 &&
+                    reinterpret_cast<uintptr_t>(y) % xb == 0 &&
+                    reinterpret_cast<uintptr_t>(bias) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(dcoef) % 16 == 0;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (bf16) {
+      if (v4) {
+        launch_nhwc<uint16_t, 4>(x, y, n, c, res, dcoef, bias, strength, noise_const, key_row,
+                                 mode, k0, k1, row0, act, s);
+      } else {
+        launch_nhwc<uint16_t, 1>(x, y, n, c, res, dcoef, bias, strength, noise_const, key_row,
+                                 mode, k0, k1, row0, act, s);
+      }
+    } else if (v4) {
+      launch_nhwc<float, 4>(x, y, n, c, res, dcoef, bias, strength, noise_const, key_row, mode,
+                            k0, k1, row0, act, s);
+    } else {
+      launch_nhwc<float, 1>(x, y, n, c, res, dcoef, bias, strength, noise_const, key_row, mode,
+                            k0, k1, row0, act, s);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   const shgan::NoiseWindow win = shgan::noise_window(res, h0, rows);
   const uintptr_t vec_bytes = bf16 ? 8 : 16;
   const bool vec = res % 4 == 0 && reinterpret_cast<uintptr_t>(x) % vec_bytes == 0 &&

@@ -181,6 +181,82 @@ SHGAN_HD int channel(const Launch& L, int bz, int ty, int k, int c) {
   return ch < c ? static_cast<int>(ch) : -1;
 }
 
+// ---- the channels-last (NHWC) map --------------------------------------------
+//
+// x [N, R, R, C] in memory (a channels-last tensor of logical shape
+// [N, C, R, R]), whole planes only: the compiled forward's layout.  The
+// channel is the fastest axis, so the C channels of pixel p are contiguous
+// and share one noise value.  A block takes the Philox calls [qa, qa + cpb)
+// of one batch row (qa = bx * cpb): the pixels [2 qa, 2 qa + 2 nq) of the cos
+// half and the same pixels + R*R/2 of the sin half (nq = the calls left, at
+// most cpb), each half's a contiguous run of 2 nq C elements.  Its threads
+// first draw each call once (a thread a call; noise_quad with the NCHW map's
+// key, counter and row, so the same draws: call q yields pixels 2q, 2q + 1
+// and R*R/2 + 2q, R*R/2 + 2q + 1 on both maps), times the strength, into
+// shared memory; then walk each run `vec` elements an access (4: 16-byte
+// float32 / 8-byte bf16 accesses where C % 4 == 0 and the pointers allow,
+// else 1), neighbouring threads on neighbouring channels (nhwc_walk).
+// cpb: the most calls (a power of two up to kNhwcMaxCalls) whose two runs
+// hold at most kNhwcElems elements, halved while the grid has fewer than
+// kTargetBlocks blocks, and at most a plane's calls.
+constexpr int kNhwcMaxCalls = 512;
+constexpr long long kNhwcElems = 8192;
+
+struct NhwcLaunch {
+  int vec;          // elements an access: 4 or 1
+  long long cpb;    // Philox calls a block
+  long long tiles;  // blocks a batch row (grid x)
+};
+
+SHGAN_HD NhwcLaunch plan_nhwc(int n, int c, int res, int vec) {
+  NhwcLaunch L;
+  L.vec = vec;
+  const long long calls = static_cast<long long>(res) * res / 4;
+  long long cpb = 1;
+  while (cpb < kNhwcMaxCalls && 4 * (2 * cpb) * c <= kNhwcElems) cpb *= 2;
+  while (cpb > 1 && n * cdiv(calls, cpb) < kTargetBlocks) cpb /= 2;
+  while (cpb > 1 && cpb > calls) cpb /= 2;
+  L.cpb = cpb;
+  L.tiles = cdiv(calls, cpb);
+  return L;
+}
+
+// The calls of tile bx: at most cpb, fewer at a plane's end.
+SHGAN_HD long long nhwc_calls(const NhwcLaunch& L, long long bx, long long calls) {
+  const long long left = calls - bx * L.cpb;
+  return left < L.cpb ? left : L.cpb;
+}
+
+// Pixel index (within the plane) of pixel pl of half h's run of tile bx.
+SHGAN_HD long long nhwc_pixel(const NhwcLaunch& L, long long bx, int h, long long half,
+                              long long pl) {
+  return h * half + 2 * bx * L.cpb + pl;
+}
+
+// Thread t's walk over one run of nq calls' pixels, C channels each:
+// f(e, pl, ch) for each of its accesses, e the run's element of the access's
+// first element, pl its pixel in the run and ch its channel (an access of
+// vec elements stays in one pixel: vec divides C).
+template <typename F>
+SHGAN_HD void nhwc_walk(const NhwcLaunch& L, long long nq, int c, int t, int threads, F&& f) {
+  const long long run = 2 * nq * c;
+  const long long step = static_cast<long long>(threads) * L.vec;
+  const long long dpl = step / c;
+  const int dch = static_cast<int>(step - dpl * c);
+  long long e = static_cast<long long>(t) * L.vec;
+  long long pl = e / c;
+  int ch = static_cast<int>(e - pl * c);
+  for (; e < run; e += step) {
+    f(e, pl, ch);
+    pl += dpl;
+    ch += dch;
+    if (ch >= c) {
+      ch -= c;
+      ++pl;
+    }
+  }
+}
+
 // ---- the gradient (noise_bias_act_grad in noise_bias_act.cu) ---------------
 //
 // With pre = x * dcoef + noise * strength + bias, the cotangent of pre is

@@ -44,6 +44,14 @@
 // * anything else (up = down = 2, one axis only, a tensor off 16-byte
 //   alignment): one thread per output element; the taps that meet a sample
 //   are found with shifts and masks (up is 1 or 2).  fir_route picks.
+// * channels-last tensors (the compiled forward's layout) take the NHWC map
+//   (upfirdn2d.cuh): a thread owns 4 channels (16-byte float32 loads, 8-byte
+//   bf16) or, for the 3-channel skip image, one, of a strip of outputs, and
+//   neighbouring threads neighbouring channels; stride 1 slides a register
+//   window down a strip of 8 rows x 2 columns, up = 2 computes a 2 x 2 quad
+//   from its 3 x 3 input pixels, other resampling sums one output a thread.  The input is read from device memory once, its reuse across a
+//   strip in registers and across neighbouring strips from L1/L2; every
+//   access is a contiguous run of channels.
 // The taps ride in the kernel's parameter space.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -469,6 +477,164 @@ __global__ void upfirdn2d_kernel(const T* __restrict__ x, T* __restrict__ y, int
   }
 }
 
+// ---- the channels-last (NHWC) map ------------------------------------------
+
+struct NhwcArgs {
+  int h, w, c, out_h, out_w, lupx, lupy, downx, downy, padx0, pady0, fh, fw;
+  shgan::NhwcFir P;
+};
+
+// V channels of an NHWC tensor at element offset `off`, as float.
+template <int V>
+__device__ __forceinline__ void load_v(const float* x, long long off, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(x + off));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = __ldg(x + off + k);
+  }
+}
+template <int V>
+__device__ __forceinline__ void load_v(const __nv_bfloat16* x, long long off, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(x + off));
+    v[0] = __uint_as_float(t.x << 16); v[1] = __uint_as_float(t.x & 0xffff0000u);
+    v[2] = __uint_as_float(t.y << 16); v[3] = __uint_as_float(t.y & 0xffff0000u);
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = to_float(x[off + k]);
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_v(float* y, long long off, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(y + off) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) y[off + k] = v[k];
+  }
+}
+template <int V>
+__device__ __forceinline__ void store_v(__nv_bfloat16* y, long long off, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    store4(y + off, v);
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) y[off + k] = __float2bfloat16(v[k]);
+  }
+}
+
+// up = down = 1.  K = 4: 4x4 taps, the register window of fir_strip_fixed;
+// K = 0: any fh, fw <= kMaxTaps, fir_strip's loop over the taps.
+template <typename T, int V, int K>
+__global__ void __launch_bounds__(shgan::kNhwcThreads)
+    upfirdn2d_nhwc_tile_kernel(const T* __restrict__ x, T* __restrict__ y, NhwcArgs a,
+                               Taps taps) {
+  using namespace shgan;
+  const unsigned int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= a.P.threads) return;
+  int n, oy0, ox0, ch;
+  nhwc_fir_thread(a.P, t, &n, &oy0, &ox0, &ch);
+  // V channels of input pixel (sy, sx), zero outside the plane
+  auto pixel = [&](int sy, int sx, float (&v)[V]) {
+    if (sy < 0 || sy >= a.h || sx < 0 || sx >= a.w) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) v[k] = 0.0f;
+      return;
+    }
+    load_v<V>(x, nhwc_offset(n, sy, sx, ch, a.h, a.w, a.c), v);
+  };
+  auto put = [&](int oy, int ox, const float (&v)[V]) {
+    store_v<V>(y, nhwc_offset(n, oy, ox, ch, a.out_h, a.out_w, a.c), v);
+  };
+  const int iy0 = oy0 - a.pady0, ix0 = ox0 - a.padx0;
+  if constexpr (K > 0) {
+    nhwc_fir_strip_fixed<K, V>(pixel, put, taps.v, oy0, ox0, iy0, ix0, a.out_h, a.out_w);
+  } else {
+    nhwc_fir_strip<V>(pixel, put, taps.v, a.fh, a.fw, oy0, ox0, iy0, ix0, a.out_h, a.out_w);
+  }
+}
+
+// up = 2, 4x4 taps, even pads: a 2 x 2 quad of output pixels' V channels a
+// thread.
+template <typename T, int V>
+__global__ void __launch_bounds__(shgan::kNhwcThreads)
+    upfirdn2d_nhwc_up2_kernel(const T* __restrict__ x, T* __restrict__ y, NhwcArgs a,
+                              Taps taps) {
+  using namespace shgan;
+  const unsigned int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= a.P.threads) return;
+  int n, oy0, ox0, ch;
+  nhwc_fir_thread(a.P, t, &n, &oy0, &ox0, &ch);
+  auto pixel = [&](int sy, int sx, float (&v)[V]) {
+    if (sy < 0 || sy >= a.h || sx < 0 || sx >= a.w) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) v[k] = 0.0f;
+      return;
+    }
+    load_v<V>(x, nhwc_offset(n, sy, sx, ch, a.h, a.w, a.c), v);
+  };
+  auto put = [&](int oy, int ox, const float (&v)[V]) {
+    store_v<V>(y, nhwc_offset(n, oy, ox, ch, a.out_h, a.out_w, a.c), v);
+  };
+  nhwc_up2_quad<V>(pixel, put, taps.v, oy0, ox0, a.padx0, a.pady0, a.out_h, a.out_w);
+}
+
+// Any up, down in {1, 2}: one output pixel's V channels a thread.
+template <typename T, int V>
+__global__ void __launch_bounds__(shgan::kNhwcThreads)
+    upfirdn2d_nhwc_kernel(const T* __restrict__ x, T* __restrict__ y, NhwcArgs a, Taps taps) {
+  using namespace shgan;
+  const unsigned int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= a.P.threads) return;
+  int n, oy, ox, ch;
+  nhwc_fir_thread(a.P, t, &n, &oy, &ox, &ch);
+  auto load = [&](int sy, int sx, float (&v)[V]) {
+    load_v<V>(x, nhwc_offset(n, sy, sx, ch, a.h, a.w, a.c), v);
+  };
+  float acc[V];
+  upfirdn2d_point_v<V>(load, a.h, a.w, a.lupx, a.lupy, a.downx, a.downy, a.padx0, a.pady0,
+                       taps.v, a.fh, a.fw, ox, oy, acc);
+  store_v<V>(y, nhwc_offset(n, oy, ox, ch, a.out_h, a.out_w, a.c), acc);
+}
+
+template <typename T, int V>
+cudaError_t launch_nhwc_v(const T* x, T* y, NhwcArgs a, int route, const Taps& t,
+                          cudaStream_t s) {
+  if (a.P.threads > INT_MAX) return cudaErrorInvalidValue;  // nhwc_fir_thread's range
+  const long long blocks = (a.P.threads + shgan::kNhwcThreads - 1) / shgan::kNhwcThreads;
+  const unsigned int grid = static_cast<unsigned int>(blocks);
+  if (route == shgan::kNhwcUp2) {
+    upfirdn2d_nhwc_up2_kernel<T, V><<<grid, shgan::kNhwcThreads, 0, s>>>(x, y, a, t);
+  } else if (route == shgan::kNhwcGeneric) {
+    upfirdn2d_nhwc_kernel<T, V><<<grid, shgan::kNhwcThreads, 0, s>>>(x, y, a, t);
+  } else if (a.fh == 4 && a.fw == 4) {
+    upfirdn2d_nhwc_tile_kernel<T, V, 4><<<grid, shgan::kNhwcThreads, 0, s>>>(x, y, a, t);
+  } else {
+    upfirdn2d_nhwc_tile_kernel<T, V, 0><<<grid, shgan::kNhwcThreads, 0, s>>>(x, y, a, t);
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_nhwc(const void* x, void* y, int n, int c, int h, int w, int out_h,
+                        int out_w, int upx, int upy, int downx, int downy, int padx0,
+                        int pady0, const Taps& t, int fh, int fw, cudaStream_t s) {
+  const uintptr_t vb = 4 * sizeof(T);  // a 4-channel access
+  const int vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(x) % vb == 0 &&
+                          reinterpret_cast<uintptr_t>(y) % vb == 0
+                      ? 4
+                      : 1;
+  const int route = shgan::nhwc_fir_route(upx, upy, downx, downy, fh, fw, padx0, pady0);
+  NhwcArgs a{h, w, c, out_h, out_w, shgan::log2_factor(upx), shgan::log2_factor(upy), downx,
+             downy, padx0, pady0, fh, fw, shgan::nhwc_fir_plan(n, c, out_h, out_w, vec, route)};
+  const T* xin = static_cast<const T*>(x);
+  T* yout = static_cast<T*>(y);
+  return vec == 4 ? launch_nhwc_v<T, 4>(xin, yout, a, route, t, s)
+                  : launch_nhwc_v<T, 1>(xin, yout, a, route, t, s);
+}
+
 // A grid of one wave for kernel `fn`: as many blocks as the card holds at
 // once (per_sm: its blocks per SM, found once), or fewer.
 cudaError_t one_wave(const void* fn, int& per_sm, int items, unsigned int* grid) {
@@ -595,19 +761,32 @@ bool factor_ok(int f) { return f == 1 || f == 2; }
 
 // x: contiguous [planes, h, w]; y: contiguous [planes, out_h, out_w]; dtype 0 =
 // float32, 1 = bfloat16.  taps: host pointer to fh*fw row-major float32
-// correlation taps.  Returns cudaGetLastError() after the launch, or
+// correlation taps.  nhwc_c > 0: x and y are channels-last instead, [planes /
+// nhwc_c, h, w, nhwc_c] and [planes / nhwc_c, out_h, out_w, nhwc_c] in memory
+// (the NHWC map).  Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments outside the kernels' range.
 extern "C" int shgan_upfirdn2d(const void* x, void* y, int dtype, long long planes, int h,
                                int w, int out_h, int out_w, int upx, int upy, int downx,
                                int downy, int padx0, int pady0, const float* taps, int fh,
-                               int fw, void* stream) {
+                               int fw, int nhwc_c, void* stream) {
   if (fh < 1 || fw < 1 || fh > shgan::kMaxTaps || fw > shgan::kMaxTaps || !factor_ok(upx) ||
-      !factor_ok(upy) || !factor_ok(downx) || !factor_ok(downy) || (dtype != 0 && dtype != 1))
+      !factor_ok(upy) || !factor_ok(downx) || !factor_ok(downy) || (dtype != 0 && dtype != 1) ||
+      nhwc_c < 0 || (nhwc_c > 0 && (planes % nhwc_c != 0 || planes / nhwc_c > INT_MAX)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (planes == 0 || out_h <= 0 || out_w <= 0) return static_cast<int>(cudaSuccess);
   Taps t = {};
   for (int i = 0; i < fh * fw; ++i) t.v[i] = taps[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nhwc_c > 0) {
+    const int n = static_cast<int>(planes / nhwc_c);
+    const cudaError_t e =
+        dtype == 0 ? launch_nhwc<float>(x, y, n, nhwc_c, h, w, out_h, out_w, upx, upy, downx,
+                                        downy, padx0, pady0, t, fh, fw, s)
+                   : launch_nhwc<__nv_bfloat16>(x, y, n, nhwc_c, h, w, out_h, out_w, upx, upy,
+                                                downx, downy, padx0, pady0, t, fh, fw, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
+  }
   const cudaError_t e =
       dtype == 0 ? launch<float>(x, y, planes, h, w, out_h, out_w, upx, upy, downx, downy,
                                  padx0, pady0, t, fh, fw, s)

@@ -518,4 +518,205 @@ SHGAN_HD void fir_up_quads(const At& at, const float* taps, int fh, int fw, int 
   }
 }
 
+// ---- The channels-last (NHWC) map --------------------------------------------
+//
+// x [N, H, W, C] in memory (a channels-last tensor of logical shape [N, C, H,
+// W]); y the same of the output.  The channel is the fastest axis, so the
+// planes are not tiled as on the NCHW map: a thread owns `vec` consecutive
+// channels (4 where C % 4 == 0 and the pointers allow 16-byte float32 /
+// 8-byte bf16 accesses, else 1: the 3-channel skip image) of a strip of
+// outputs, and neighbouring threads take neighbouring channel groups of one
+// strip, so a warp's load of an input pixel is one contiguous run.  Threads
+// are numbered channel group fastest, then strip column, strip row, batch
+// row (nhwc_fir_thread).
+// * up = down = 1 (every FIR of the main path but the image upsample): a
+//   strip is kCols adjacent outputs on each of kStrip rows; the thread slides
+//   an FH-row window of FW + kCols - 1 input pixels (zero outside the plane)
+//   down the strip in registers, so each input pixel it reads is loaded once
+//   a strip, and each output is fir_strip_fixed's (or fir_strip's) sum, term
+//   for term.
+// * up = 2 with 4x4 taps and even pads (the skip-image upsample): a strip is
+//   a 2 x 2 quad of outputs, one of each phase, from the 3 x 3 input pixels
+//   around it (nhwc_up2_quad: fir_up_quads_fixed4's sums).
+// * anything else (down = 2, other taps or pads, one axis): a strip is one
+//   output, its sum upfirdn2d_point's over the taps that meet a sample.
+// Either way an output's sum is the NCHW map's, in the same order: the two
+// maps give the same bits.
+constexpr int kNhwcThreads = 256;
+constexpr int kNhwcGeneric = 0;  // upfirdn2d_nhwc_kernel: an output a thread
+constexpr int kNhwcTile = 1;     // up = down = 1: strips of kStrip x kCols
+constexpr int kNhwcUp2 = 2;      // up = 2, 4x4 taps, even pads: quads
+
+SHGAN_HD int nhwc_fir_route(int upx, int upy, int downx, int downy, int fh, int fw, int padx0,
+                            int pady0) {
+  if (upx == 1 && upy == 1 && downx == 1 && downy == 1) return kNhwcTile;
+  if (upx == 2 && upy == 2 && downx == 1 && downy == 1 && fir_resample_fixed(true, fh, fw, padx0, pady0))
+    return kNhwcUp2;
+  return kNhwcGeneric;
+}
+
+struct NhwcFir {
+  int vec;                 // channels an access
+  int groups;              // channel groups a pixel: C / vec
+  int sw, sh;              // outputs a strip: columns, rows
+  int strips_x, strips_y;  // strips of a plane
+  long long threads;       // N * strips_y * strips_x * groups
+};
+
+SHGAN_HD NhwcFir nhwc_fir_plan(int n, int c, int out_h, int out_w, int vec, int route) {
+  NhwcFir P;
+  P.vec = vec;
+  P.groups = c / vec;
+  P.sw = route == kNhwcTile ? kCols : route == kNhwcUp2 ? 2 : 1;
+  P.sh = route == kNhwcTile ? kStrip : route == kNhwcUp2 ? 2 : 1;
+  P.strips_x = (out_w + P.sw - 1) / P.sw;
+  P.strips_y = (out_h + P.sh - 1) / P.sh;
+  P.threads = static_cast<long long>(n) * P.strips_y * P.strips_x * P.groups;
+  return P;
+}
+
+// Thread t -> batch row n, first output row oy0 and column ox0 of its strip,
+// first channel ch.  32-bit arithmetic: a launch has fewer than 2^31
+// threads (the launch refuses more).
+SHGAN_HD void nhwc_fir_thread(const NhwcFir& P, unsigned int t, int* n, int* oy0, int* ox0,
+                              int* ch) {
+  const unsigned int groups = P.groups, sxn = P.strips_x, syn = P.strips_y;
+  const unsigned int g = t % groups;
+  unsigned int r = t / groups;
+  const unsigned int sx = r % sxn;
+  r /= sxn;
+  const unsigned int sy = r % syn;
+  *n = static_cast<int>(r / syn);
+  *oy0 = static_cast<int>(sy) * P.sh;
+  *ox0 = static_cast<int>(sx) * P.sw;
+  *ch = static_cast<int>(g) * P.vec;
+}
+
+// Element offset of (row n, pixel (py, px), channel ch) of an NHWC tensor.
+SHGAN_HD long long nhwc_offset(int n, int py, int px, int ch, int h, int w, int c) {
+  return ((static_cast<long long>(n) * h + py) * w + px) * c + ch;
+}
+
+// The stride-1 thread body: the strip of outputs (oy0.., ox0..) of V
+// channels, its window's first input pixel (iy0, ix0) = (oy0 - pady0, ox0 -
+// padx0).  `pixel(sy, sx, v)` fills v with the V channels of input pixel
+// (sy, sx), zero outside the plane; `put(oy, ox, v)` stores an output's V
+// channels.  Fixed K x K taps: an FH-row window of K + kCols - 1 pixels
+// slides down the strip, each output row loading one new window row, and an
+// output is fir_strip_fixed's sum, term for term.
+template <int K, int V, typename Pixel, typename Put>
+SHGAN_HD void nhwc_fir_strip_fixed(const Pixel& pixel, const Put& put, const float* taps,
+                                   int oy0, int ox0, int iy0, int ix0, int out_h, int out_w) {
+  constexpr int N = K + kCols - 1;
+  float win[K][N][V];
+  SHGAN_UNROLL
+  for (int i = 0; i < K - 1; ++i)
+    SHGAN_UNROLL
+    for (int j = 0; j < N; ++j) pixel(iy0 + i, ix0 + j, win[i][j]);
+  SHGAN_UNROLL
+  for (int r = 0; r < kStrip; ++r) {
+    if (oy0 + r >= out_h) break;
+    SHGAN_UNROLL
+    for (int j = 0; j < N; ++j) pixel(iy0 + r + K - 1, ix0 + j, win[K - 1][j]);
+    SHGAN_UNROLL
+    for (int u = 0; u < kCols; ++u) {
+      if (ox0 + u >= out_w) break;
+      float out[V];
+      SHGAN_UNROLL
+      for (int k = 0; k < V; ++k) {
+        float acc = 0.0f;
+        SHGAN_UNROLL
+        for (int i = 0; i < K; ++i)
+          SHGAN_UNROLL
+          for (int j = 0; j < K; ++j) acc += taps[i * K + j] * win[i][u + j][k];
+        out[k] = acc;
+      }
+      put(oy0 + r, ox0 + u, out);
+    }
+    SHGAN_UNROLL
+    for (int i = 0; i < K - 1; ++i)
+      SHGAN_UNROLL
+      for (int j = 0; j < N; ++j)
+        SHGAN_UNROLL
+        for (int k = 0; k < V; ++k) win[i][j][k] = win[i + 1][j][k];
+  }
+}
+
+// Any fh x fw taps: each output fir_strip's sum, the taps in its order.
+template <int V, typename Pixel, typename Put>
+SHGAN_HD void nhwc_fir_strip(const Pixel& pixel, const Put& put, const float* taps, int fh,
+                             int fw, int oy0, int ox0, int iy0, int ix0, int out_h, int out_w) {
+  for (int r = 0; r < kStrip && oy0 + r < out_h; ++r)
+    for (int u = 0; u < kCols && ox0 + u < out_w; ++u) {
+      float out[V];
+      for (int k = 0; k < V; ++k) out[k] = 0.0f;
+      for (int i = 0; i < fh; ++i)
+        for (int j = 0; j < fw; ++j) {
+          float v[V];
+          pixel(iy0 + r + i, ix0 + u + j, v);
+          for (int k = 0; k < V; ++k) out[k] += taps[i * fw + j] * v[k];
+        }
+      put(oy0 + r, ox0 + u, out);
+    }
+}
+
+// The up = 2 thread body (4x4 taps, even pads): the quad of outputs (oy0 +
+// py, ox0 + px), oy0 and ox0 even, from input pixels (oy0 / 2 - pady0 / 2 +
+// r, ox0 / 2 - padx0 / 2 + q), r, q < 3 (zero outside the plane): output
+// (py, px) takes taps (py + 2m, px + 2n) times pixel (py + m, px + n), in m
+// then n, as fir_up_quads_fixed4 sums and upfirdn2d_point meets them.
+template <int V, typename Pixel, typename Put>
+SHGAN_HD void nhwc_up2_quad(const Pixel& pixel, const Put& put, const float* taps, int oy0,
+                            int ox0, int padx0, int pady0, int out_h, int out_w) {
+  const int iy0 = oy0 / 2 - pady0 / 2, ix0 = ox0 / 2 - padx0 / 2;
+  float win[3][3][V];
+  SHGAN_UNROLL
+  for (int r = 0; r < 3; ++r)
+    SHGAN_UNROLL
+    for (int q = 0; q < 3; ++q) pixel(iy0 + r, ix0 + q, win[r][q]);
+  SHGAN_UNROLL
+  for (int py = 0; py < 2; ++py)
+    SHGAN_UNROLL
+    for (int px = 0; px < 2; ++px) {
+      if (oy0 + py >= out_h || ox0 + px >= out_w) continue;
+      float out[V];
+      SHGAN_UNROLL
+      for (int k = 0; k < V; ++k) {
+        float acc = 0.0f;
+        SHGAN_UNROLL
+        for (int m = 0; m < 2; ++m)
+          SHGAN_UNROLL
+          for (int nn = 0; nn < 2; ++nn)
+            acc += taps[(py + 2 * m) * 4 + px + 2 * nn] * win[py + m][px + nn][k];
+        out[k] = acc;
+      }
+      put(oy0 + py, ox0 + px, out);
+    }
+}
+
+// The V-channel version of upfirdn2d_point: `load(sy, sx, v)` fills v with
+// the V channels of input sample (sy, sx); acc[k] is channel k's sum, in
+// upfirdn2d_point's order.
+template <int V, typename Load>
+SHGAN_HD void upfirdn2d_point_v(const Load& load, int h, int w, int lupx, int lupy, int downx,
+                                int downy, int padx0, int pady0, const float* taps, int fh,
+                                int fw, int ox, int oy, float (&acc)[V]) {
+  const int by = oy * downy - pady0;
+  const int bx = ox * downx - padx0;
+  const int hu = h << lupy, wu = w << lupx;
+  for (int k = 0; k < V; ++k) acc[k] = 0.0f;
+  for (int ty = upfirdn_first_tap(by, lupy); ty < fh; ty += 1 << lupy) {
+    const int ky = by + ty;
+    if (ky < 0 || ky >= hu) continue;
+    const int sy = ky >> lupy;
+    for (int tx = upfirdn_first_tap(bx, lupx); tx < fw; tx += 1 << lupx) {
+      const int kx = bx + tx;
+      if (kx < 0 || kx >= wu) continue;
+      float v[V];
+      load(sy, kx >> lupx, v);
+      for (int k = 0; k < V; ++k) acc[k] += taps[ty * fw + tx] * v[k];
+    }
+  }
+}
+
 }  // namespace shgan

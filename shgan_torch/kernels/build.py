@@ -38,12 +38,12 @@ ENTRY_POINTS = {
     "noise": {"shgan_philox_normal": (_P,) + (_I,) * 4 + (_LL, _U, _U, _P)},
     "noise_bias_act": {
         "shgan_noise_bias_act": (_P, _P) + (_I,) * 6 + (_P,) * 5
-        + (_I, _U, _U, _LL, _F, _F, _F, _P),
+        + (_I, _U, _U, _LL, _F, _F, _F, _I, _P),
         "shgan_noise_bias_act_grad": (_P,) * 3 + (_I,) * 6 + (_P,) * 4
         + (_I, _U, _U, _LL, _F, _F, _F, _I) + (_P,) * 6},
     "upfirdn2d": {"shgan_upfirdn2d": (_P, _P, _I, _LL) + (_I,) * 10
-                  + (_P, _I, _I, _P)},
-    "conv3x3_lowch": {"shgan_conv3x3_lowch": (_P, _P, _P) + (_I,) * 7
+                  + (_P, _I, _I, _I, _P)},
+    "conv3x3_lowch": {"shgan_conv3x3_lowch": (_P, _P, _P) + (_I,) * 8
                       + (_P,)},
 }
 
@@ -54,28 +54,38 @@ ENTRY_POINTS = {
 # forward calls; the epilogue's grad kernel counts in both of its modes; a
 # forward epilogue launch with no dcoefs and no noise (a conv layer's bias
 # and activation) counts as bias_lrelu, the kernel it runs.
+# A forward kernel's launch on a channels-last tensor (its NHWC index map)
+# counts in launches_nhwc as well: the NHWC launches beside the total.
 # The counts are plain Python counts: a CUDA graph's replay launches its
 # captured kernels without a wrapper call, so runtime/compiled.py records
 # each graph's counts at capture and adds them once per replay (add()).
+FORWARD_KERNELS = ("upfirdn2d", "conv3x3_lowch", "noise_bias_act",
+                   "bias_lrelu")
 launches = {"upfirdn2d": 0, "upfirdn2d_grad": 0, "philox_normal": 0,
             "conv3x3_lowch": 0, "noise_bias_act": 0,
             "noise_bias_act_grad": 0, "bias_lrelu": 0}
+launches_nhwc = dict.fromkeys(FORWARD_KERNELS, 0)
 
 
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count(name):
+def count(name, nhwc=False):
     with _LAUNCH_LOCK:
         launches[name] += 1
+        if nhwc:
+            launches_nhwc[name] += 1
 
 
-def add(delta):
-    """Add ``{name: n}`` to the counts (a graph's launches per replay; a
-    negative n takes back a capture's, whose kernels ran no time)."""
+def add(delta, nhwc=None):
+    """Add ``{name: n}`` to the counts and ``nhwc`` (``{name: n}``) to the
+    NHWC counts (a graph's launches per replay; a negative n takes back a
+    capture's, whose kernels ran no time)."""
     with _LAUNCH_LOCK:
         for k, v in delta.items():
             launches[k] += v
+        for k, v in (nhwc or {}).items():
+            launches_nhwc[k] += v
 
 
 def snapshot():
@@ -84,10 +94,25 @@ def snapshot():
         return dict(launches)
 
 
+def snapshot_nhwc():
+    """A copy of the NHWC counts."""
+    with _LAUNCH_LOCK:
+        return dict(launches_nhwc)
+
+
 def reset_launches():
     with _LAUNCH_LOCK:
-        for k in launches:
-            launches[k] = 0
+        for counts in (launches, launches_nhwc):
+            for k in counts:
+                counts[k] = 0
+
+
+def nhwc_share(total, nhwc):
+    """The share (0..1) of the hand-written forward launches in ``total``
+    (counts, or a difference of two) that took the NHWC map by ``nhwc``;
+    None where there are none."""
+    n = sum(total.get(k, 0) for k in FORWARD_KERNELS)
+    return None if n == 0 else sum(nhwc.values()) / n
 
 
 def find_nvcc():

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from ..ops.bias_act import add_bias, get_activation, parse_activation
 from ..ops.conv_resample import conv2d_resample
 from ..ops.dense import dense_apply
+from ..ops.layout import scaled_weight
 from ..ops.modulated_conv import modulated_conv2d
 from ..ops.noise import noise_key
 from ..ops.noise_bias_act import epilogue_act, noise_bias_act
@@ -111,7 +112,7 @@ class Conv2dLayer(nn.Module):
         """``slab`` / ``src``: the output rows this rank computes and what
         ``x`` holds (:func:`~shgan_torch.ops.conv_resample.conv2d_resample`;
         None: the whole plane)."""
-        w = self.weight * self.weight_gain
+        w = scaled_weight(self.weight, self.weight_gain, x)
         x = conv2d_resample(x, w.to(x.dtype), f=self.resample_filter,
                             up=self.up, down=self.down, padding=self.padding,
                             flip_weight=(self.up == 1), slab=slab, src=src)

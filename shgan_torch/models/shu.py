@@ -12,6 +12,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops.layout import like
 from ..spectral.cweight import make_cweight
 from ..spectral.dft import irfft2, rfft2
 from ..spectral.gaussian import build_gaussian_split_maps
@@ -60,7 +61,10 @@ class SHU(nn.Module):
         """x: [N, in_channels, input_res, input_res] →
         {res: [N, out_channels, res, res]}."""
         re, im = rfft2(x.float())
-        ff = torch.cat([spectral_shift(re), spectral_shift(im)], dim=1)
+        # the spectrum in the input's layout (a slice of channels-last
+        # features in the compiled forward), for the conv that reads it
+        ff = like(torch.cat([spectral_shift(re), spectral_shift(im)], dim=1),
+                  x)
         ff = torch.relu(self.conv0(ff))
         ff = heterogeneous_filter_apply(self.df1.weight, ff, self.cweight,
                                         self.out_channels * 2)

@@ -180,7 +180,8 @@ class CoModSynthesisBlockFirst(nn.Module):
         w0 = x
         x = self.fc(x).reshape(x.shape[0], -1, self.resolution,
                                self.resolution)
-        x = x + x0.float()
+        # the encoder's feature first: the sum takes its memory layout
+        x = x0.float() + x
         x = self.conv(x, torch.cat([ws[:, 0], w0], dim=1),
                       noise_mode=noise_mode, noise_seed=noise_seed,
                       row0=row0, rows=rows)

@@ -10,8 +10,10 @@ on the library conv where it does.  No switch chooses it.
 
 :func:`conv3x3_lowch` launches kernel K3 (``csrc/conv3x3_lowch.cu``) on a
 CUDA tensor and runs :func:`conv3x3_lowch_plain`, the plain PyTorch version
-of the same function, on a CPU tensor.  K3 is forward-only, like the TPU
-kernel.
+of the same function, on a CPU tensor.  Both take an NCHW or a
+channels-last ``x`` (``ops/layout.py``) and return the result in its
+layout; the kernel stages its tiles through the matching index map.  K3 is
+forward-only, like the TPU kernel.
 
 On a slab of an H-sharded plane (``parallel/spatial.py``) the conv takes
 its input with a row of each neighbour's above and below (``halo=1``):
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import build as _kb
+from .layout import CL, channels_last, like
 
 BH = 8          # the TPU kernel's row block: kept in the eligibility rule
 MIN_RES = 1024  # below this the JAX package keeps the XLA conv
@@ -56,7 +59,10 @@ def conv3x3_lowch_plain(x, w, halo=0):
     """Plain PyTorch version of K3: Σ over the nine taps of a channel
     contraction with the shifted padded input, summed in float32, cast to
     ``x.dtype``.  ``w`` is the [O, C, 3, 3] correlation kernel; ``halo=1``:
-    ``x`` holds a row above and below the output's (padded in W only)."""
+    ``x`` holds a row above and below the output's (padded in W only).  A
+    channels-last ``x`` is computed as NCHW and the result returned
+    channels-last."""
+    src, x = x, x.contiguous()
     n, c, h, wd = x.shape
     h -= 2 * halo
     wf = w.to(x.dtype).float()
@@ -67,7 +73,7 @@ def conv3x3_lowch_plain(x, w, halo=0):
             term = torch.einsum("oc,nchw->nohw", wf[:, :, dy, dx],
                                 xp[:, :, dy:dy + h, dx:dx + wd])
             y = term if y is None else y + term
-    return y.to(x.dtype)
+    return like(y.to(x.dtype), src)
 
 
 def _check(x, w, halo=0):
@@ -95,8 +101,13 @@ def conv3x3_lowch_cuda(x, w, halo=0):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv3x3_lowch kernel takes float32/bfloat16, got "
                         f"{x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("conv3x3_lowch kernel needs a contiguous NCHW x")
+    nhwc = channels_last(x)
+    if not (x.is_contiguous() or nhwc):
+        raise ValueError("conv3x3_lowch kernel needs a contiguous NCHW or "
+                         "channels-last x")
+    if nhwc and x.dtype == torch.bfloat16 and x.shape[1] % 2:
+        raise ValueError("conv3x3_lowch kernel: a channels-last bfloat16 x "
+                         "needs an even channel count")
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise RuntimeError("the conv3x3_lowch kernel is forward-only; run "
                            "under torch.inference_mode()")
@@ -106,18 +117,20 @@ def conv3x3_lowch_cuda(x, w, halo=0):
     # the kernel reads float32 weights; rounding them to x.dtype first keeps
     # the JAX package's `w.astype(x.dtype)` (exact for float32)
     wk = w.to(x.dtype).float().contiguous()
-    y = torch.empty((n, o, h, wd), dtype=x.dtype, device=x.device)
+    y = torch.empty((n, o, h, wd), dtype=x.dtype, device=x.device,
+                    memory_format=CL if nhwc else torch.contiguous_format)
     rc = _kb.launch(_kb.library("conv3x3_lowch").shgan_conv3x3_lowch,
                     x.device, x.data_ptr(), wk.data_ptr(), y.data_ptr(),
                     0 if x.dtype == torch.float32 else 1, n, c, o, h, wd,
-                    halo)
+                    halo, int(nhwc))
     _kb.check(rc, "conv3x3_lowch kernel")
-    _kb.count("conv3x3_lowch")
+    _kb.count("conv3x3_lowch", nhwc)
     return y
 
 
 def conv3x3_lowch(x, w, halo=0):
-    """3×3 same-padding correlation, NCHW, stride 1, C_in/C_out ≤ 32
+    """3×3 same-padding correlation, NCHW or channels-last, stride 1,
+    C_in/C_out ≤ 32
     (``halo=1``: ``x`` a slab with a row above and below, pad 1 in W only):
     kernel K3 on a CUDA tensor (or raise), the plain version on a CPU
     tensor."""

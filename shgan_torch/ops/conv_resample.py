@@ -10,7 +10,10 @@ The up path: the JAX code runs an lhs-dilated correlation with ``w'`` (``w``
 spatially flipped iff ``flip_weight`` is False) and padding ``k-1-pt``.  A
 transposed convolution with stride ``up`` and padding ``pt`` computes the
 same thing when its weight is ``w'`` flipped back and OI-transposed per
-group, which :func:`_transpose_weight` builds.
+group, which :func:`_transpose_weight` builds (where ``flip_weight`` is
+False the two flips cancel: the OI swap of ``w`` alone, a view that a
+channels-last kernel of ``ops/layout.scaled_weight`` hands cuDNN without a
+copy).
 """
 
 from __future__ import annotations
@@ -42,19 +45,22 @@ def _conv2d(x, w, stride=1, padding=(0, 0), groups=1, flip_weight=True):
                     groups=groups)
 
 
-def _transpose_weight(w, groups):
+def _transpose_weight(w, groups, flip=True):
     """[O, I/g, kh, kw] correlation kernel → the [I, O/g, kh, kw] weight of
-    the equivalent transposed convolution (per-group OI swap + flip)."""
+    the equivalent transposed convolution (per-group OI swap + flip); with
+    ``flip`` False, ``w`` is the convolution kernel, whose flip and the
+    transposed conv's cancel: the OI swap alone, a view for one group."""
     o, ig, kh, kw = w.shape
     w = w.reshape(groups, o // groups, ig, kh, kw).transpose(1, 2)
-    return w.reshape(groups * ig, o // groups, kh, kw).flip([2, 3])
+    w = w.reshape(groups * ig, o // groups, kh, kw)
+    return w.flip([2, 3]) if flip else w
 
 
 def _conv2d_up(x, w, up, padding, groups=1, flip_weight=True):
     """Equivalent of the JAX lhs-dilated up conv; padding=(pyt, pxt)."""
-    w = _maybe_flip(w, flip_weight)
-    return F.conv_transpose2d(x, _transpose_weight(w, groups).to(x.dtype),
-                              stride=up, padding=padding, groups=groups)
+    w = _transpose_weight(w, groups, flip=flip_weight)
+    return F.conv_transpose2d(x, w.to(x.dtype), stride=up, padding=padding,
+                              groups=groups)
 
 
 def conv2d_resample(x, w, f=None, up=1, down=1, padding=0, groups=1,

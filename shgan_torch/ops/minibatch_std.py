@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from .layout import like
+
 
 def minibatch_std(x, group_size=4, num_channels=1, rows=None):
     """x: [N, C, H, W] -> [N, C + num_channels, H, W].  N must be a multiple
@@ -36,4 +38,6 @@ def minibatch_std(x, group_size=4, num_channels=1, rows=None):
     y = y.mean(dim=(2, 3, 4))                 # [n F]
     y = y.reshape(-1, f, 1, 1)
     y = y.repeat(g, 1, h, w)                  # [N F H W]
-    return torch.cat([x, y.to(x.dtype)], dim=1)
+    # like(): cat keeps a channels-last x's layout only where every part
+    # has it, and a one-channel y has both
+    return like(torch.cat([x, y.to(x.dtype)], dim=1), x)

@@ -21,6 +21,7 @@ import torch
 
 from ..parallel.spatial import replicated
 from .conv_resample import conv2d_resample
+from .layout import scaled_weight
 
 
 def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
@@ -54,11 +55,20 @@ def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
     if demodulate:
         # weight to unit RMS over [I, kh, kw]; styles to unit RMS over ALL
         # elements (batch included)
-        weight = weight * torch.rsqrt(
-            weight.square().mean(dim=(1, 2, 3), keepdim=True))
+        # written in the layout the conv reads it in (ops/layout.py)
+        weight = scaled_weight(
+            weight, torch.rsqrt(weight.square().mean(dim=(1, 2, 3),
+                                                     keepdim=True)),
+            x, transposed=up > 1 and weight.shape[2:] != (1, 1))
         whole = styles if rows is None else rows.gather(styles)
         styles = styles * torch.rsqrt(whole.square().mean())
-        wsq = weight.square().sum(dim=(2, 3))                    # [O, I]
+        # the dcoefs from the same values, their squares written NCHW
+        # whatever the weight's layout: the sum then runs as on an NCHW
+        # weight, so both layouts give the same dcoefs bit for bit
+        sq = weight.square() if weight.is_contiguous() else torch.square(
+            weight, out=torch.empty(weight.shape, dtype=weight.dtype,
+                                    device=weight.device))
+        wsq = sq.sum(dim=(2, 3))                                 # [O, I]
         dcoefs = torch.rsqrt(styles.square() @ wsq.t() + 1e-8)  # [N, O]
 
     x = x * replicated(styles, src).to(x.dtype)[:, :, None, None]

@@ -33,6 +33,12 @@ With no dcoefs and no noise (a conv layer's bias and activation,
 ``bias_lrelu_kernel``, one channel a thread, and counts as ``"bias_lrelu"``
 (:func:`kernel_of`); its gradient is the same grad kernel.
 
+Layouts.  The forward takes ``x`` NCHW or channels-last (``ops/layout.py``;
+whole planes only, no window), and the result keeps its layout: the kernel
+picks its index map from the strides, with the same draws and the same
+arithmetic per element.  The grad kernel takes NCHW only, and a
+channels-last ``x`` that would need a gradient is refused.
+
 The gradient.  With ``pre`` the activation's input and ``g = dy *
 act'(pre)`` (the activation's gain, times alpha where ``pre < 0``, 0 where a
 finite clamp is active), the backward is ``dx = g * dcoefs``, ``d dcoefs =
@@ -62,6 +68,7 @@ import torch
 from ..kernels import build as _kb
 from ..parallel.spatial import replicated
 from .bias_act import lrelu_agc, lrelu_agc_params
+from .layout import channels_last, like
 from .noise import noise_window, philox_normal_plain
 
 NOISE_MODES = {"none": 0, "random": 1, "const": 2}
@@ -133,8 +140,11 @@ def _check_row(noise_key, row0, device):
 def noise_bias_act_plain(x, dcoefs=None, bias=None, act=LINEAR,
                          noise_mode="none", noise_key=None, noise_const=None,
                          strength=None, row0=0, h0=None):
-    """Plain PyTorch version: the layer's chain after the conv, op for op."""
+    """Plain PyTorch version: the layer's chain after the conv, op for op.
+    A channels-last ``x`` runs the chain as NCHW (the same values) and the
+    result is returned channels-last."""
     _check(x, noise_mode, noise_key, noise_const, strength, h0)
+    src, x = x, x.contiguous()
     noise = None
     if noise_mode == "random":
         noise_key, row0 = _host_key(noise_key, row0)
@@ -153,18 +163,21 @@ def noise_bias_act_plain(x, dcoefs=None, bias=None, act=LINEAR,
         x = x + bias.to(x.dtype)[None, :, None, None]
     alpha, gain, clamp = act
     if alpha is not None:
-        return lrelu_agc(x, alpha, gain=gain, clamp=clamp)
-    return x * gain if gain != 1.0 else x
+        x = lrelu_agc(x, alpha, gain=gain, clamp=clamp)
+    elif gain != 1.0:
+        x = x * gain
+    return like(x, src)
 
 
 def _kernel_args(x, dcoefs, bias, noise_mode, noise_key, noise_const,
-                 strength, row0, what):
-    """Check the kernel's operands; the (mode, k0, k1, row0, pointers) it
-    takes.  A noise-table row is for the forward kernel's ``key_row``
-    operand (:func:`noise_bias_act_cuda`), not for this."""
+                 strength, row0, what, nhwc=False):
+    """Check the kernel's operands (``nhwc``: ``x`` channels-last); the
+    (mode, k0, k1, row0, pointers) it takes.  A noise-table row is for the
+    forward kernel's ``key_row`` operand (:func:`noise_bias_act_cuda`), not
+    for this."""
     if not x.is_cuda:
         raise ValueError(f"{what} needs a CUDA tensor")
-    if not x.is_contiguous():
+    if not (nhwc or x.is_contiguous()):
         raise ValueError(f"{what} needs a contiguous NCHW x")
     n, c, rows, r = x.shape
     if r % 2 or x.data_ptr() % (2 * x.element_size()):
@@ -204,8 +217,13 @@ def noise_bias_act_cuda(x, dcoefs=None, bias=None, act=LINEAR,
                         strength=None, row0=0, out=None, h0=None):
     """Launch ``csrc/noise_bias_act.cu`` on a CUDA tensor: ``x`` is updated
     in place and returned, or the result goes to ``out`` (a tensor of x's
-    shape and layout) and ``out`` is returned."""
+    shape and layout) and ``out`` is returned.  A channels-last ``x`` takes
+    the NHWC index map (whole planes only)."""
     _check(x, noise_mode, noise_key, noise_const, strength, h0)
+    nhwc = channels_last(x)
+    if nhwc and h0:
+        raise ValueError("noise_bias_act kernel: a channels-last x holds "
+                         "whole planes, not a window of rows")
     if x.is_cuda and x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"noise_bias_act kernel takes float32/bfloat16, got "
                         f"{x.dtype}")
@@ -216,7 +234,7 @@ def noise_bias_act_cuda(x, dcoefs=None, bias=None, act=LINEAR,
         key_row, noise_key = noise_key, (0, 0)
     aux, margs, ptrs = _kernel_args(
         x, dcoefs, bias, noise_mode, noise_key, noise_const, strength, row0,
-        "noise_bias_act kernel")
+        "noise_bias_act kernel", nhwc)
     needs_grad = x.requires_grad or any(
         t is not None and t.requires_grad for t, _ in aux.values())
     if out is None and torch.is_grad_enabled() and needs_grad:
@@ -225,19 +243,20 @@ def noise_bias_act_cuda(x, dcoefs=None, bias=None, act=LINEAR,
                            "noise_bias_act, which differentiates")
     y = x if out is None else out
     if y is not x and (y.shape != x.shape or y.dtype != x.dtype
-                       or y.device != x.device or not y.is_contiguous()
+                       or y.device != x.device or channels_last(y) != nhwc
+                       or not (nhwc or y.is_contiguous())
                        or y.data_ptr() % (2 * y.element_size())):
-        raise ValueError("noise_bias_act kernel: out must be a contiguous, "
-                         "2-element aligned tensor like x")
+        raise ValueError("noise_bias_act kernel: out must be a 2-element "
+                         "aligned tensor like x, in its layout")
     n, c, rows, r = x.shape
     rc = _kb.launch(
         _kb.library("noise_bias_act").shgan_noise_bias_act, x.device,
         x.data_ptr(), y.data_ptr(), 0 if x.dtype == torch.float32 else 1, n,
         c, r, rows, h0 or 0, *ptrs,
         None if key_row is None else key_row.data_ptr(), *margs,
-        *_act_args(act))
+        *_act_args(act), int(nhwc))
     _kb.check(rc, "noise_bias_act kernel")
-    _kb.count(kernel_of(dcoefs, noise_mode))
+    _kb.count(kernel_of(dcoefs, noise_mode), nhwc)
     return y
 
 
@@ -485,7 +504,8 @@ def noise_bias_act(x, dcoefs=None, bias=None, act=LINEAR, noise_mode="none",
                    noise_key=None, noise_const=None, strength=None, row0=0,
                    h0=None, slab=None):
     """The synthesis epilogue: the kernel on a CUDA tensor (``x`` updated in
-    place) or raise, the plain version on a CPU tensor.  Where grad mode is
+    place; NCHW or channels-last) or raise, the plain version on a CPU
+    tensor.  Where grad mode is
     on and an operand needs a gradient, the result is a new tensor with a
     gradient (:class:`_Epilogue`, the grad kernel on the card).  ``row0``:
     the random noise's first counter row; ``h0``: the first plane row that
@@ -507,6 +527,10 @@ def noise_bias_act(x, dcoefs=None, bias=None, act=LINEAR, noise_mode="none",
             t is not None and t.requires_grad
             for t in (x, dcoefs, bias, strength, noise_const)):
         _check(x, noise_mode, noise_key, noise_const, strength, h0)
+        if channels_last(x):
+            raise ValueError("noise_bias_act: the grad kernel takes NCHW "
+                             "tensors; a channels-last x whose epilogue "
+                             "records a gradient is refused")
         used = lambda t, on: t if on else None  # noqa: E731
         return _Epilogue.apply(
             x, dcoefs, bias, used(strength, noise_mode != "none"),

@@ -14,14 +14,17 @@ taps (flip and gain already folded in on the host).  On a CUDA tensor it
 launches the hand-written kernel ``csrc/upfirdn2d.cu`` (kernel K2, the port
 of the TPU kernel ``shgan_tpu/ops/fir_pallas.py::_pallas_fir``, widened to
 the whole contract); on a CPU tensor it runs :func:`fir_plain`, the plain
-PyTorch version of the same function.
+PyTorch version of the same function.  Both take an NCHW or a channels-last
+tensor (``ops/layout.py``) and return the result in the input's layout;
+the kernel picks its index map from the strides.
 
 The gradient (the counterpart of the custom VJP at
 ``shgan_tpu/ops/fir_pallas.py:134-159``): upfirdn2d is linear in ``x``, and
 its adjoint is upfirdn2d again with the taps reversed, ``up`` and ``down``
 swapped and the pads of :func:`grad_pads`.  :class:`_Fir` applies itself to
 the cotangent, so the backward, the double backward (R1, path length) and
-any higher order are kernel K2 too.
+any higher order are kernel K2 too, on NCHW tensors: a channels-last
+tensor that records a gradient is refused.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import build as _kb
+from .layout import CL, channels_last, like
 
 # ---------------------------------------------------------------------------
 # argument parsing helpers (contract of shgan_tpu/ops/upfirdn2d.py:39-64)
@@ -120,7 +124,10 @@ def out_size(n_in, up, down, pad0, pad1, taps):
 def fir_plain(x, taps, up=(1, 1), down=(1, 1), pads=(0, 0, 0, 0)):
     """Plain PyTorch upfirdn2d with 2D correlation ``taps``: zero-insert,
     signed pad, depthwise correlation, decimate.  Runs on any device; the
-    sum is taken in float32 and cast back to ``x.dtype``."""
+    sum is taken in float32 and cast back to ``x.dtype``.  A channels-last
+    ``x`` is computed as NCHW (the same sums) and the result returned
+    channels-last."""
+    src, x = x, x.contiguous()
     upx, upy = up
     downx, downy = down
     padx0, padx1, pady0, pady1 = pads
@@ -138,19 +145,23 @@ def fir_plain(x, taps, up=(1, 1), down=(1, 1), pads=(0, 0, 0, 0)):
                      device=x.device)
     k = k[None, None].expand(c, 1, fh, fw)
     y = F.conv2d(x, k, stride=(downy, downx), groups=c)
-    return y.to(dtype)
+    return like(y.to(dtype), src)
 
 
 def fir_cuda(x, taps, up=(1, 1), down=(1, 1), pads=(0, 0, 0, 0),
              counter="upfirdn2d"):
-    """Launch kernel K2 (``csrc/upfirdn2d.cu``) on a CUDA tensor; the launch
-    counts under ``counter`` (``"upfirdn2d_grad"`` for a derivative)."""
+    """Launch kernel K2 (``csrc/upfirdn2d.cu``) on a CUDA tensor, NCHW or
+    channels-last (the NHWC index map; the output in the input's layout);
+    the launch counts under ``counter`` (``"upfirdn2d_grad"`` for a
+    derivative)."""
     if not x.is_cuda:
         raise ValueError("fir_cuda needs a CUDA tensor")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"upfirdn2d kernel takes float32/bfloat16, got {x.dtype}")
-    if x.ndim != 4 or not x.is_contiguous():
-        raise ValueError("upfirdn2d kernel needs a contiguous NCHW tensor")
+    nhwc = x.ndim == 4 and channels_last(x)
+    if x.ndim != 4 or not (x.is_contiguous() or nhwc):
+        raise ValueError("upfirdn2d kernel needs a contiguous NCHW or "
+                         "channels-last tensor")
     upx, upy = up
     downx, downy = down
     padx0, padx1, pady0, pady1 = pads
@@ -163,15 +174,16 @@ def fir_cuda(x, taps, up=(1, 1), down=(1, 1), pads=(0, 0, 0, 0),
     ow = out_size(w, upx, downx, padx0, padx1, fw)
     if oh <= 0 or ow <= 0:
         raise ValueError(f"empty upfirdn2d output {oh}x{ow}")
-    y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device)
+    y = torch.empty((n, c, oh, ow), dtype=x.dtype, device=x.device,
+                    memory_format=CL if nhwc else torch.contiguous_format)
     t = np.array(taps, dtype=np.float32, order="C")
     rc = _kb.launch(
         _kb.library("upfirdn2d").shgan_upfirdn2d, x.device, x.data_ptr(),
         y.data_ptr(), 0 if x.dtype == torch.float32 else 1, n * c, h, w, oh,
         ow, upx, upy, downx, downy, padx0, pady0,
-        t.ctypes.data_as(ctypes.c_void_p), fh, fw)
+        t.ctypes.data_as(ctypes.c_void_p), fh, fw, c if nhwc else 0)
     _kb.check(rc, "upfirdn2d kernel")
-    _kb.count(counter)
+    _kb.count(counter, nhwc)
     return y
 
 
@@ -219,8 +231,12 @@ class _Fir(torch.autograd.Function):
 def fir(x, taps, up=(1, 1), down=(1, 1), pads=(0, 0, 0, 0)):
     """upfirdn2d with 2D correlation taps: kernel K2 on a CUDA tensor (or
     raise), the plain version on a CPU tensor; differentiable where ``x``
-    needs a gradient."""
+    needs a gradient (NCHW only)."""
     if torch.is_grad_enabled() and x.requires_grad:
+        if channels_last(x):   # K2's backward takes NCHW; no silent copy
+            raise ValueError("upfirdn2d: the backward kernels take NCHW "
+                             "tensors; a channels-last tensor that records "
+                             "a gradient is refused")
         return _Fir.apply(x, taps, tuple(up), tuple(down), tuple(pads),
                           "upfirdn2d")
     return _fir_any(x, taps, up, down, pads, "upfirdn2d")
@@ -230,7 +246,8 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
     """Pad, upsample, FIR-filter and downsample a batch of NCHW images.
 
     Args:
-        x: ``[N, C, H, W]`` tensor.
+        x: ``[N, C, H, W]`` tensor, NCHW or channels-last (the result
+           keeps its layout).
         f: float FIR filter (numpy), ``[fh, fw]``, ``[taps]`` (separable) or
            None (identity).
         up / down: int or (x, y) int pair.
@@ -248,7 +265,9 @@ def upfirdn2d(x, f, up=1, down=1, padding=0, flip_filter=False, gain=1):
     down = _parse_scaling(down)
     pads = _parse_padding(padding)
     taps = correlation_taps(f, flip_filter=flip_filter, gain=gain)
-    return fir(x.contiguous(), taps, up, down, pads)
+    if not (x.is_contiguous() or channels_last(x)):
+        x = x.contiguous()
+    return fir(x, taps, up, down, pads)
 
 
 def fir_rows(x, src, slab, o0, o1, f, up=1, down=1, padding=0,

@@ -24,14 +24,19 @@ Launch counts: the kernel wrappers count where they launch, in Python; a
 replay launches without them.  The graph's counts are recorded at capture
 (the warm-up, set-up like a trace, is taken back out of the counts, and so
 are the capture's own, whose kernels ran no time) and added once per
-replay.
+replay; the NHWC counts (``kernels/build.launches_nhwc``) alike.
 
 A call's host stages are spans (``runtime/tracing``): ``compiled.load``
 (the staging wait, the copies and the table) and ``compiled.replay`` (the
 replay and the output's copy).
 
+On a CUDA device the captured forward holds its activations channels-last
+(``composite_forward``'s ``memory_format``): cuDNN's convolutions read and
+write them without layout transposes, and the hand-written kernels take
+their NHWC index maps.  Every eager forward of the package stays NCHW.
+
 On the CPU there is nothing to capture: a call writes the statics and the
-table and runs ``composite_forward`` on them.  On CUDA a failed capture
+table and runs ``composite_forward`` on them, NCHW.  On CUDA a failed capture
 raises; it never falls back to the eager forward.  The forwards that stay
 eager on CUDA are named by :func:`eager_reason`.
 """
@@ -101,6 +106,7 @@ class _Statics:
         self.copied = None
         self.graph = self.out = None
         self.launches = {}
+        self.launches_nhwc = {}
 
     def _pinned(self, name):
         if name not in self.host:
@@ -140,8 +146,8 @@ class CompiledForward:
     """``composite_forward(G, real, mask, z, noise_mode, ...)`` as one CUDA
     graph per key (the module docstring); on the CPU, the same forward run
     eagerly on the statics.  ``G`` stays on its device and in eval mode;
-    ``records`` lists each capture: its key, seconds (warm-up and capture)
-    and pool bytes (the growth of the device's reserved memory over the
+    ``records`` lists each capture: its key, seconds (warm-up and capture),
+    launches per replay (all, and those on the NHWC maps) and pool bytes (the growth of the device's reserved memory over the
     capture, the cache emptied before it); ``last_path`` says how the last
     call ran: ``"capture"``, ``"replay"`` or, on the CPU, ``"eager"``."""
 
@@ -208,34 +214,43 @@ class CompiledForward:
 
     def _forward(self, st):
         d = st.dev
-        return composite_forward(self.G, d["real"], d["mask"], d["z"],
-                                 noise_mode=self.noise_mode,
-                                 noise_seed=d.get("table"))
+        return composite_forward(
+            self.G, d["real"], d["mask"], d["z"], noise_mode=self.noise_mode,
+            noise_seed=d.get("table"),
+            memory_format=(torch.channels_last if self.captures
+                           else torch.contiguous_format))
 
     def _compile(self, key, st):
         """Warm up and capture the forward of ``st``; record its launches
         per replay and take the warm-up's and the capture's back out of
         the counts."""
-        before = _kb.snapshot()
+        def counts():
+            return _kb.snapshot(), _kb.snapshot_nhwc()
+
+        def delta(a, b):
+            return {k: a[k] - b[k] for k in a if a[k] != b[k]}
+
+        before = counts()
         t0 = time.perf_counter()
         try:
             self._warm_up(st)
-            mid = _kb.snapshot()
+            mid = counts()
             # torch.cuda.graph empties the cache as it begins: read the
             # reserved memory after the same emptying
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(self.device)
             st.graph, st.out = self._record(st)
-            after = _kb.snapshot()
-            st.launches = {k: after[k] - mid[k] for k in after
-                           if after[k] != mid[k]}
+            after = counts()
+            st.launches, st.launches_nhwc = (delta(a, m)
+                                             for a, m in zip(after, mid))
         finally:
-            _kb.add({k: before[k] - v for k, v in _kb.snapshot().items()})
+            _kb.add(*(delta(b, n) for b, n in zip(before, counts())))
         self.records.append({
             "key": [str(v) for v in key],
             "capture_s": time.perf_counter() - t0,
             "pool_bytes": torch.cuda.memory_reserved(self.device) - reserved,
-            "launches_per_replay": dict(st.launches)})
+            "launches_per_replay": dict(st.launches),
+            "nhwc_launches_per_replay": dict(st.launches_nhwc)})
 
     def _warm_up(self, st):
         side = torch.cuda.Stream(self.device)
@@ -259,7 +274,7 @@ class CompiledForward:
 
     def _replay(self, st):
         st.graph.replay()
-        _kb.add(st.launches)
+        _kb.add(st.launches, st.launches_nhwc)
         return st.out.clone()
 
     def pool_bytes(self):

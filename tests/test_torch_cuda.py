@@ -373,7 +373,8 @@ def test_compiled_engine_matches_eager(cuda):
     bit, and so does each of six streamed batches at window 2 (read back
     on the copy stream into arrays that share no memory and stay as they
     were after the stream ends); the launch counts are one forward's a
-    replay."""
+    replay.  The eager forward runs in the compiled forward's layout
+    (channels-last): the same kernels, so the same bits."""
     from shgan_torch.data.rng import derive_seed
     from shgan_torch.models.infer import composite_forward, z_for_positions
     from shgan_torch.serve import BATCH_NOISE_SALT
@@ -395,8 +396,8 @@ def test_compiled_engine_matches_eager(cuda):
                 e.G, torch.from_numpy(imgs[:n]).to(cuda),
                 torch.from_numpy(masks[:n, None]).to(cuda),
                 torch.from_numpy(z).to(cuda),
-                noise_seed=derive_seed(1, start, BATCH_NOISE_SALT)
-            ).cpu().numpy()
+                noise_seed=derive_seed(1, start, BATCH_NOISE_SALT),
+                memory_format=torch.channels_last).cpu().numpy()
 
     e.inpaint(imgs, masks)            # captures bucket 2
     torch.cuda.synchronize()
@@ -613,9 +614,10 @@ def test_noise_bias_act_kernel_keeps_nan_and_refuses_layouts(cuda):
     assert torch.equal(torch.isnan(y), torch.isnan(want))
     ok = ~torch.isnan(want)
     assert torch.equal(y[ok], want[ok]) and float(y.nan_to_num().max()) == 128
+    # channels-last is a layout the kernel takes; a transposed plane is not
     with pytest.raises(ValueError, match="contiguous"):
-        nba.noise_bias_act(torch.zeros(1, 4, 4, 2, device=cuda).permute(
-            0, 3, 1, 2))
+        nba.noise_bias_act(torch.zeros(1, 2, 4, 4, device=cuda).transpose(
+            2, 3))
     with pytest.raises(TypeError, match="float32/bfloat16"):
         nba.noise_bias_act(torch.zeros(1, 2, 4, 4, device=cuda).half())
     with pytest.raises(ValueError, match="dcoefs"):
@@ -1183,3 +1185,227 @@ def test_train_losses_through_the_conv_epilogue_match_the_chain(cuda,
     for (name, a), (_, b) in zip(got, want):
         err = float((a - b).norm())
         assert err <= 1e-4 * float(b.norm()) + 1e-12, (name, err)
+
+
+# ---- the channels-last (NHWC) maps -------------------------------------------
+
+
+def _served(model, batch=8):
+    """One forward of ``model`` at ``batch``: its K2 calls, its synthesis
+    epilogues and its encoder conv epilogues as (channels, resolution)."""
+    import chip_smoke as cs
+    from shgan_torch.runtime.config import model_cfg_bank
+    cfg = model_cfg_bank()(model)
+    syn = cfg["args"]["synthesis"]["args"]
+    ch = lambda r: min(int(syn["ch_base"]) // r, int(syn["ch_max"]))  # noqa
+    return (cs.fir_calls(cfg, batch),
+            [(ch(r), r) for r, k in cs.noise_layers(cfg).items()],
+            [(c, r) for (r, c) in cs.encoder_conv_layers(cfg)])
+
+
+def _bits(t):
+    t = t.contiguous()
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model", ["shgan_g512", "shgan_g1024"])
+def test_forward_kernels_nhwc_equal_nchw_at_the_served_shapes(cuda, model,
+                                                               dtype):
+    """Each forward kernel on a channels-last tensor (its NHWC map) gives
+    the bits of its NCHW map at every served shape of ``model`` at batch 8:
+    every K2 call, every synthesis epilogue (random noise keyed by a table
+    row on the device), every encoder conv epilogue (bias_lrelu), K3 at
+    1024²; each output in its input's layout, the NHWC launches counted
+    beside the totals."""
+    from shgan_torch.ops.layout import channels_last
+    calls, syn, enc = _served(model)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    act = nba.epilogue_act(parse_activation(
+        "lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)"))
+    row = torch.tensor([0x1234567, 0x89ABCDE, 5], dtype=torch.int64,
+                       device=cuda)
+    build.reset_launches()
+    runs = 0
+
+    def same(fn, shape):
+        nonlocal runs
+        x = (torch.randn(shape, generator=g, device=cuda) * 2).to(dtype)
+        a = fn(x.clone())
+        b = fn(x.contiguous(memory_format=torch.channels_last))
+        torch.cuda.synchronize()
+        assert a.is_contiguous() and channels_last(b), shape
+        assert torch.equal(_bits(a), _bits(b)), shape
+        runs += 1
+
+    with torch.inference_mode():
+        for site, r, shape, up, down, pads, gain in calls:
+            t = fir_mod.correlation_taps(fir_mod.setup_filter([1, 3, 3, 1]),
+                                         gain=gain)
+            same(lambda x: fir_mod.fir(x, t, (up, up), (down, down), pads),
+                 shape)
+        for c, r in syn:
+            d = torch.rand(8, c, generator=g, device=cuda) + 0.5
+            b = torch.randn(c, generator=g, device=cuda) * 0.1
+            s = torch.full((), 0.3, device=cuda)
+            same(lambda x: nba.noise_bias_act(
+                x, d, b, act, noise_mode="random", noise_key=row,
+                strength=s), (8, c, r, r))
+        for c, r in enc:
+            b = torch.randn(c, generator=g, device=cuda) * 0.1
+            same(lambda x: nba.noise_bias_act(x, None, b, act), (8, c, r, r))
+        if model == "shgan_g1024":
+            w = torch.randn(32, 32, 3, 3, generator=g, device=cuda) / 17
+            same(lambda x: conv1024.conv3x3_lowch(x, w), (8, 32, 1024, 1024))
+    total, nhwc = build.snapshot(), build.snapshot_nhwc()
+    assert sum(total[k] for k in build.FORWARD_KERNELS) == 2 * runs
+    assert {k: 2 * v for k, v in nhwc.items()} == {
+        k: total[k] for k in build.FORWARD_KERNELS}
+    assert build.nhwc_share(total, nhwc) == 0.5
+    build.reset_launches()
+
+
+@pytest.mark.parametrize("model", ["shgan_g512", "shgan_g1024"])
+def test_modulated_weights_reach_cudnn_channels_last(cuda, model,
+                                                     monkeypatch, capsys):
+    """Every synthesis layer's modulated conv on a channels-last input at
+    full width: its normalized weight reaches F.conv2d / F.conv_transpose2d
+    already channels-last (no copy by cuDNN), the conv gives the values of
+    the NCHW weight's conv in the same layout, and its dcoefs, summed from
+    the same values in NCHW order, are the NCHW weight's bit for bit."""
+    import torch.nn.functional as F
+    from shgan_torch.models import get_model
+    from shgan_torch.ops import modulated_conv
+    from shgan_torch.runtime.config import model_cfg_bank
+    torch.backends.cudnn.allow_tf32 = True      # as served
+    G = get_model(model_cfg_bank()(model), seed=0).to(cuda).eval()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    layers = differ = 0
+    for m in G.modules():
+        if not isinstance(m, SynthesisLayer):
+            continue
+        o, i = m.weight.shape[:2]
+        x = torch.randn(8, i, 16, 16, generator=g, device=cuda)
+        s = torch.randn(8, i, generator=g, device=cuda)
+        kw = dict(up=m.up, padding=m.padding,
+                  resample_filter=m.resample_filter, flip_weight=m.up == 1,
+                  split_dcoefs=True)
+        xl = x.contiguous(memory_format=torch.channels_last)
+        seen = []
+        with monkeypatch.context() as mp:
+            for name in ("conv2d", "conv_transpose2d"):
+                f = getattr(F, name)
+                mp.setattr(F, name, lambda a, w, *r, _f=f, **k: (
+                    seen.append(w.is_contiguous(
+                        memory_format=torch.channels_last)), _f(a, w, *r,
+                                                                **k))[1])
+            with torch.inference_mode():
+                got, d_cl = modulated_conv.modulated_conv2d(
+                    xl, m.weight, s, **kw)
+        with torch.inference_mode():
+            _, d_nchw = modulated_conv.modulated_conv2d(x, m.weight, s, **kw)
+            # the same conv with the NCHW normalized weight, as before
+            wn = m.weight * torch.rsqrt(
+                m.weight.square().mean(dim=(1, 2, 3), keepdim=True))
+            sn = s * torch.rsqrt(s.square().mean())
+            want = conv_resample.conv2d_resample(
+                xl * sn[:, :, None, None], wn, f=m.resample_filter, up=m.up,
+                padding=m.padding, flip_weight=m.up == 1)
+        torch.cuda.synchronize()
+        assert seen == [True], (m.up, seen)
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(d_cl, d_nchw)
+        layers += 1
+    with capsys.disabled():
+        print(f"\n{model}: {layers} modulated convs, weights channels-last, "
+              f"dcoefs bit for bit")
+    assert layers > 0
+
+
+def test_backward_wrappers_refuse_channels_last_on_the_card(cuda):
+    """K2 and the epilogue under autograd take NCHW only: a channels-last
+    tensor that records a gradient raises, and so does the grad kernel's
+    own entry on a channels-last operand."""
+    cl = torch.channels_last
+    x = torch.randn(2, 8, 16, 16, device=cuda).contiguous(memory_format=cl)
+    act = nba.epilogue_act(parse_activation(NBA_ACTS[1][0]), 1.0)
+    with pytest.raises(ValueError, match="NCHW"):
+        fir_mod.upfirdn2d(x.clone().requires_grad_(),
+                          fir_mod.setup_filter([1, 3, 3, 1]), padding=1)
+    with pytest.raises(ValueError, match="NCHW"):
+        nba.noise_bias_act(x.clone().requires_grad_(), None,
+                           torch.zeros(8, device=cuda), act)
+    with pytest.raises(ValueError, match="NCHW"):
+        nba.noise_bias_act(x.clone(), None,
+                           torch.zeros(8, device=cuda, requires_grad=True),
+                           act)
+    with pytest.raises(ValueError, match="contiguous"):
+        nba.noise_bias_act_grad_cuda(x, x, act=act)
+    with torch.no_grad():   # no gradient: the NHWC maps run
+        fir_mod.upfirdn2d(x, fir_mod.setup_filter([1, 3, 3, 1]), padding=1)
+        nba.noise_bias_act(x.clone(), act=act)
+
+
+@pytest.mark.parametrize("model,limits", [("shgan_g512", (2.5, 0.8)),
+                                          ("shgan_g1024", (4.5, 0.9))])
+def test_compiled_forward_runs_channels_last(cuda, model, limits, capsys):
+    """A full-width replay at batch 8, TF32 on as served: every hand-written
+    forward launch takes the NHWC map, the profiler sees no cuDNN layout
+    transpose (nchwToNhwc / nhwcToNchw) of an activation in it, and its
+    composites keep the known pixels and stay within the serving cell's
+    limits of the NCHW eager forward (equal where cuDNN picks the same
+    algorithms); the figures are printed.  One transpose kernel remains:
+    cuDNN's conversion of the 4-channel fromrgb conv's weight [C, 4, 1, 1]
+    for its TF32 algorithm, ~2 µs, which a channels-last weight runs
+    alike; it is held to one launch of a few µs."""
+    from torch.profiler import ProfilerActivity, profile
+    from shgan_torch.data.rng import derive_seed
+    from shgan_torch.models.infer import composite_forward, z_for_positions
+    from shgan_torch.serve import BATCH_NOISE_SALT
+    torch.backends.cudnn.allow_tf32 = True      # as served
+    res = 1024 if model == "shgan_g1024" else 512
+    rng = np.random.RandomState(0)
+    imgs = rng.randint(0, 256, (8, 3, res, res), dtype=np.uint8)
+    masks = (rng.rand(8, res, res) > 0.5).astype(np.float32)
+    e = InpaintEngine(model, device=cuda, batch_size=8, seed=1)
+    with torch.no_grad():
+        for name, p in e.G.named_parameters():
+            if name.endswith("noise_strength"):
+                p.fill_(0.1)
+    e.inpaint(imgs, masks)                              # captures
+    torch.cuda.synchronize()
+    build.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = e.inpaint(imgs, masks, start_index=16)    # replays
+        torch.cuda.synchronize()
+    assert e.path() == "compiled"
+    total, nhwc = build.snapshot(), build.snapshot_nhwc()
+    names = [k.key for k in prof.key_averages()]
+    transposes = [(k.key, k.count, k.device_time_total)
+                  for k in prof.key_averages()
+                  if "nchwtonhwc" in k.key.lower()
+                  or "nhwctonchw" in k.key.lower()]
+    assert any("upfirdn2d" in n for n in names), names[:20]
+    assert len(transposes) <= 1 and all(
+        c == 1 and us < 10.0 for _, c, us in transposes), transposes
+    assert build.nhwc_share(total, nhwc) == 1.0
+    z = z_for_positions(1, e.G.z_dim, range(16, 24))
+    with torch.inference_mode():
+        want = composite_forward(
+            e.G, torch.from_numpy(imgs).to(cuda),
+            torch.from_numpy(masks[:, None]).to(cuda),
+            torch.from_numpy(z).to(cuda),
+            noise_seed=derive_seed(1, 16, BATCH_NOISE_SALT)).cpu().numpy()
+    e.close()
+    build.reset_launches()
+    kept = np.broadcast_to(masks[:, None] > 0.5, got.shape)
+    gap = got.astype(np.float64) - want.astype(np.float64)
+    assert np.array_equal(got[kept], want[kept])
+    off = 100.0 * float((np.abs(gap[~kept]) > 1).mean())
+    rms = float(np.sqrt((gap[~kept] ** 2).mean()))
+    with capsys.disabled():
+        print(f"\n{model} b8 channels-last replay vs NCHW eager: "
+              f"{int((gap != 0).sum())} of {gap.size} values differ, "
+              f"{off:.4f} % of hole values by > 1 level, RMS {rms:.4f}, "
+              f"max {int(np.abs(gap).max())}; launches {total}, NHWC {nhwc}")
+    assert off <= limits[0] and rms <= limits[1]

@@ -278,7 +278,13 @@ static float from_bf16(uint32_t b) { return val((b & 0xffffu) << 16); }
 // kernel's staging (16-byte or pixel path), its weight fragments, and each
 // mma rebuilt from the fragments the 32 lanes own, summed in float.
 // Unstaged shared words hold NaN, so a fragment read of one shows up.
-static void conv3() {
+// conv3 / conv3nhwc bf n c o h w w[...] x[...]: K3 emulated block by
+// block; conv3nhwc takes x in NHWC memory order, stages it as the NHWC path
+// does (into the pixel-major stage: 16-byte copies of a pixel's half stage
+// where its channels are a multiple of 16 bytes, else a 32-bit copy a slot
+// word), reads the A fragments through nhwc_a_word and prints y in NHWC
+// memory order.
+static void conv3(bool nhwc) {
   int bf, n, ch, oc, h, w;
   std::scanf("%d %d %d %d %d %d", &bf, &n, &ch, &oc, &h, &w);
   std::vector<float> wt(oc * ch * 9), x((long)n * ch * h * w);
@@ -309,7 +315,7 @@ static void conv3() {
       }
     }
   }
-  std::vector<uint32_t> buf(k3::kStageWords);
+  std::vector<uint32_t> buf(nhwc ? k3::kNhwcStageWords : k3::kStageWords);
   std::vector<float> y((long)n * oc * h * w, -1e30f);  // unwritten: huge
   static float acc[k3::kWarps][32][k3::kMTiles][k3::kNTiles][4];
   for (int t = 0; t < n * tx * ty; ++t) {
@@ -317,7 +323,8 @@ static void conv3() {
     k3::tile_origin(t, tx, ty, &b, &y0, &x0);
     std::memset(acc, 0, sizeof(acc));
     auto xin = [&](int c, int sy, int sx) {
-      return x[((long)(b * ch + c) * h + sy) * w + sx];
+      return nhwc ? x[k3::nhwc_src(b, c, sy, sx, ch, h, w, 0)]
+                  : x[((long)(b * ch + c) * h + sy) * w + sx];
     };
     for (int s = 0; s < nst; ++s) {
       std::fill(buf.begin(), buf.end(), 0x7fc00000u);
@@ -334,7 +341,40 @@ static void conv3() {
             k3::inside(c + 1, sy, sx, ch, h, w) ? bf16_bits(xin(c + 1, sy, sx)) : 0u;
         return lo | (hi << 16);
       };
-      if (vec) {
+      if (nhwc) {  // copies of memory, zero fill outside
+        const int bytes = bf ? 2 : 4;
+        // the memory word (a channel or a bf16 pair) of channel c, or zero
+        auto mem = [&](int c, int sy, int sx) -> uint32_t {
+          if (!k3::inside(c, sy, sx, ch, h, w)) return 0u;
+          const long long off = k3::nhwc_src(b, c, sy, sx, ch, h, w, 0);
+          return bf ? bf16_bits(x[off]) | (c + 1 < ch ? bf16_bits(x[off + 1]) << 16 : 0u)
+                    : bits(x[off]);
+        };
+        auto put = [&](int word, uint32_t u) {
+          if (buf[word] != 0x7fc00000u) std::abort();
+          buf[word] = u;
+        };
+        if ((ch * bytes) % 16 == 0) {   // a pixel's half stage a 16-byte copy
+          for (int j = 0; j < 2 * k3::kInH * k3::kInW; ++j) {
+            int iy, ix, hh;
+            k3::nhwc_chunk_item(j, &iy, &ix, &hh);
+            const int sy = y0 - 1 + iy, sx = x0 - 1 + ix;
+            const int word = k3::nhwc_word(4 * hh, iy, ix);
+            for (int q = 0; q < 4; ++q) {   // 4 contiguous words
+              const int c = (bf ? k3::slot_channel<2>(s, 4 * hh, 0)
+                                : k3::slot_channel<4>(s, 4 * hh, 0)) + q * (4 / bytes);
+              put(word + q, mem(c, sy, sx));
+            }
+          }
+        } else {   // a 32-bit copy a slot word
+          for (int j = 0; j < k3::kSlots * k3::kInH * k3::kInW; ++j) {
+            int slot, iy, ix;
+            k3::nhwc_item(j, &slot, &iy, &ix);
+            const int c = bf ? k3::slot_channel<2>(s, slot, 0) : k3::slot_channel<4>(s, slot, 0);
+            put(k3::nhwc_word(slot, iy, ix), mem(c, y0 - 1 + iy, x0 - 1 + ix));
+          }
+        }
+      } else if (vec) {
         for (int j = 0; j < k3::kSlots * k3::kInH * (k3::kTileW / px); ++j) {
           int slot, iy, ix;
           k3::vec_item(j, px, &slot, &iy, &ix);
@@ -385,7 +425,9 @@ static void conv3() {
               float A[3][16][16], B[3][16][8];  // [part]: 0 hi, 1 lo (float32)
               for (int lane = 0; lane < 32; ++lane) {
                 for (int r = 0; r < 4; ++r) {
-                  const uint32_t u = buf[k3::a_word(lane, r, warp, mt, tap / 3, tap % 3)];
+                  const uint32_t u =
+                      buf[nhwc ? k3::nhwc_a_word(lane, r, warp, mt, tap / 3, tap % 3)
+                               : k3::a_word(lane, r, warp, mt, tap / 3, tap % 3)];
                   const int m = k3::a_row(lane, r), sl = k3::a_slot(lane, r);
                   if (bf) {
                     A[0][m][2 * sl] = from_bf16(u);
@@ -430,7 +472,8 @@ static void conv3() {
               const int yy = y0 + warp, xx = x0 + 16 * mt + k3::c_row(lane, r);
               const int o = nt * 8 + k3::c_col(lane, r);
               if (o < oc && yy < h && xx < w)
-                y[((long)(b * oc + o) * h + yy) * w + xx] = acc[warp][lane][mt][nt][r];
+                y[nhwc ? k3::nhwc_dst(b, o, yy, xx, oc, h, w)
+                       : ((long)(b * oc + o) * h + yy) * w + xx] = acc[warp][lane][mt][nt][r];
             }
   }
   for (float v : y) std::printf("%.9g\n", v);
@@ -702,6 +745,140 @@ static void resample() {
 //                                      chunks, calls a block, work floats,
 //                                      channels a block, groups a row)
 //   bf16 m v...                     -> the bf16 bits of m floats
+// K2's NHWC map emulated thread by thread: nhwc_fir_plan's threads on
+// nhwc_fir_route's route, each running the kernel's body
+// (nhwc_fir_strip_fixed / nhwc_fir_strip for stride 1, nhwc_up2_quad for
+// up = 2 with 4x4 taps and even pads, upfirdn2d_point_v otherwise) on x in
+// NHWC memory order; prints the route, out_h out_w, then y in NHWC memory
+// order.  An output written twice or never aborts.
+template <int V>
+static void run_nhwc_fir(int n, int c, int h, int w, int upx, int upy, int dx, int dy, int px0,
+                         int py0, int fh, int fw, const std::vector<float>& taps,
+                         const std::vector<float>& x, int oh, int ow) {
+  const int route = shgan::nhwc_fir_route(upx, upy, dx, dy, fh, fw, px0, py0);
+  const bool tile = route == shgan::kNhwcTile;
+  const shgan::NhwcFir P = shgan::nhwc_fir_plan(n, c, oh, ow, V, route);
+  std::vector<float> y((size_t)n * oh * ow * c);
+  std::vector<int> hits(y.size(), 0);
+  for (long long t = 0; t < P.threads; ++t) {
+    int b, oy0, ox0, ch;
+    shgan::nhwc_fir_thread(P, (unsigned)t, &b, &oy0, &ox0, &ch);
+    auto pixel = [&](int sy, int sx, float (&v)[V]) {
+      for (int k = 0; k < V; ++k)
+        v[k] = (sy < 0 || sy >= h || sx < 0 || sx >= w)
+                   ? 0.0f
+                   : x[shgan::nhwc_offset(b, sy, sx, ch, h, w, c) + k];
+    };
+    auto put = [&](int oy, int ox, const float (&v)[V]) {
+      const long long off = shgan::nhwc_offset(b, oy, ox, ch, oh, ow, c);
+      for (int k = 0; k < V; ++k) {
+        if (hits[off + k]++) std::abort();
+        y[off + k] = v[k];
+      }
+    };
+    if (tile && fh == 4 && fw == 4) {
+      shgan::nhwc_fir_strip_fixed<4, V>(pixel, put, taps.data(), oy0, ox0, oy0 - py0, ox0 - px0,
+                                        oh, ow);
+    } else if (tile) {
+      shgan::nhwc_fir_strip<V>(pixel, put, taps.data(), fh, fw, oy0, ox0, oy0 - py0, ox0 - px0,
+                               oh, ow);
+    } else if (route == shgan::kNhwcUp2) {
+      shgan::nhwc_up2_quad<V>(pixel, put, taps.data(), oy0, ox0, px0, py0, oh, ow);
+    } else {
+      auto load = [&](int sy, int sx, float (&v)[V]) {
+        for (int k = 0; k < V; ++k) v[k] = x[shgan::nhwc_offset(b, sy, sx, ch, h, w, c) + k];
+      };
+      float acc[V];
+      shgan::upfirdn2d_point_v<V>(load, h, w, shgan::log2_factor(upx), shgan::log2_factor(upy),
+                                  dx, dy, px0, py0, taps.data(), fh, fw, ox0, oy0, acc);
+      put(oy0, ox0, acc);
+    }
+  }
+  for (int v : hits)
+    if (v != 1) std::abort();
+  std::printf("%d %d %d\n", route, oh, ow);
+  for (float v : y) std::printf("%.9g\n", v);
+}
+
+// nhwcfir vec n c h w upx upy dx dy px0 px1 py0 py1 fh fw taps[...] x[...]
+static void nhwc_fir() {
+  int vec, n, c, h, w, upx, upy, dx, dy, px0, px1, py0, py1, fh, fw;
+  std::scanf("%d %d %d %d %d %d %d %d %d %d %d %d %d %d %d", &vec, &n, &c, &h, &w, &upx, &upy,
+             &dx, &dy, &px0, &px1, &py0, &py1, &fh, &fw);
+  std::vector<float> taps(fh * fw), x((size_t)n * h * w * c);
+  for (float& t : taps) std::scanf("%f", &t);
+  for (float& v : x) std::scanf("%f", &v);
+  const int oh = shgan::upfirdn_out_size(h, upy, dy, py0, py1, fh);
+  const int ow = shgan::upfirdn_out_size(w, upx, dx, px0, px1, fw);
+  if (vec == 4)
+    run_nhwc_fir<4>(n, c, h, w, upx, upy, dx, dy, px0, py0, fh, fw, taps, x, oh, ow);
+  else
+    run_nhwc_fir<1>(n, c, h, w, upx, upy, dx, dy, px0, py0, fh, fw, taps, x, oh, ow);
+}
+
+// nbanhwc bf vec n c res mode k0 k1 alpha gain clamp has_dcoef has_bias
+//     strength row0 dcoef[n*c]... bias[c]... const[res*res]... x[n*res*res*c]...
+// -> the epilogue's NHWC map emulated block by block as the kernel runs it
+// (plan_nhwc's tiles; the block's draws into its shared noise, a call a
+// thread; each thread's nhwc_walk over the two runs), x and y in NHWC
+// memory order; each output as its float32 bits.  An element written twice
+// or never aborts.
+static void nba_nhwc() {
+  int bf, vec, n, c, res, mode, hd, hb;
+  unsigned k0, k1;
+  float s;
+  long long row0;
+  nba::Act act;
+  std::scanf("%d %d %d %d %d %d %u %u %f %f %f %d %d %f %lld", &bf, &vec, &n, &c, &res, &mode,
+             &k0, &k1, &act.alpha, &act.gain, &act.clamp, &hd, &hb, &s, &row0);
+  const long long plane = (long long)res * res, half = plane / 2, calls = plane / 4;
+  std::vector<float> dcoef(n * c), bias(c), cst(plane), x((size_t)n * c * plane);
+  for (float& v : dcoef) std::scanf("%f", &v);
+  for (float& v : bias) std::scanf("%f", &v);
+  for (float& v : cst) std::scanf("%f", &v);
+  for (float& v : x) std::scanf("%f", &v);
+  std::vector<float> y(x.size());
+  std::vector<int> hits(x.size(), 0);
+  const nba::NhwcLaunch L = nba::plan_nhwc(n, c, res, vec);
+  std::vector<float> nz[2] = {std::vector<float>(2 * L.cpb), std::vector<float>(2 * L.cpb)};
+  for (int row = 0; row < n; ++row)
+    for (long long bx = 0; bx < L.tiles; ++bx) {
+      const long long qa = bx * L.cpb, nq = nba::nhwc_calls(L, bx, calls);
+      for (long long j = 0; j < nq; ++j) {  // the block's draws
+        float cs[2] = {-0.0f, -0.0f}, sn[2] = {-0.0f, -0.0f};
+        if (mode == nba::kNoiseRandom)
+          shgan::noise_quad((unsigned)(qa + j), shgan::noise_row(row0, row), k0, k1, cs, sn);
+        for (int e = 0; e < 2; ++e) {
+          if (mode == nba::kNoiseConst) {
+            cs[e] = cst[2 * (qa + j) + e];
+            sn[e] = cst[half + 2 * (qa + j) + e];
+          }
+          nz[0][2 * j + e] = mode == nba::kNoiseNone ? -0.0f : nba::mul_rn(cs[e], s);
+          nz[1][2 * j + e] = mode == nba::kNoiseNone ? -0.0f : nba::mul_rn(sn[e], s);
+        }
+      }
+      const long long img = (long long)row * plane;
+      for (int h = 0; h < 2; ++h) {
+        const long long base = (img + nba::nhwc_pixel(L, bx, h, half, 0)) * c;
+        for (int t = 0; t < nba::kThreads; ++t)
+          nba::nhwc_walk(L, nq, c, t, nba::kThreads, [&](long long e, long long pl, int ch) {
+            for (int k = 0; k < L.vec; ++k) {
+              const long long at = base + e + k;
+              const float d = hd ? dcoef[(long long)row * c + ch + k] : 1.0f;
+              const float b = hb ? bias[ch + k] : -0.0f;
+              float v = nba::apply(x[at], d, nz[h][pl], b, act);
+              if (bf) v = nba::from_bf16(nba::to_bf16(v));
+              if (hits[at]++) std::abort();
+              y[at] = v;
+            }
+          });
+      }
+    }
+  for (int h : hits)
+    if (h != 1) std::abort();
+  for (float v : y) std::printf("%u\n", bits(v));
+}
+
 int main() {
   char cmd[16];
   while (std::scanf("%15s", cmd) == 1) {
@@ -812,8 +989,8 @@ int main() {
       for (int w : writes) bad += w != 1;
       std::printf("%ld\n", bad);
       for (float v : out) std::printf("%.9g\n", v);
-    } else if (c == "conv3") {
-      conv3();
+    } else if (c == "conv3" || c == "conv3nhwc") {
+      conv3(c == "conv3nhwc");
     } else if (c == "tf32dot") {
       // tf32dot K a... b... -> the 3xTF32 and the single-TF32 sums, taken
       // as K3's mma loop takes them (a split per fragment load, b once):
@@ -846,6 +1023,16 @@ int main() {
       std::printf("%.9g %.9g %u %u %.9g %.9g\n", h, l, bits(h), bits(l), ha, la);
     } else if (c == "tile") {
       tile();
+    } else if (c == "nhwcfir") {
+      nhwc_fir();
+    } else if (c == "nbanhwc") {
+      nba_nhwc();
+    } else if (c == "nhwcplan") {
+      // nhwcplan n c res vec -> the epilogue's NHWC launch: cpb tiles
+      int n, ch, res, vec;
+      std::scanf("%d %d %d %d", &n, &ch, &res, &vec);
+      const nba::NhwcLaunch L = nba::plan_nhwc(n, ch, res, vec);
+      std::printf("%lld %lld\n", L.cpb, L.tiles);
     } else if (c == "resample") {
       resample();
     } else if (c == "route") {
@@ -1883,3 +2070,179 @@ def test_bias_lrelu_emulation_equals_the_chain(harness, spec, gain, has_bias,
     assert np.array_equal(np.isnan(got), nan)
     assert np.array_equal(got[~nan].view(np.uint32),
                           want[~nan].view(np.uint32))
+
+
+# ---- the channels-last (NHWC) maps ------------------------------------------
+
+NHWC_FIR_CASES = [
+    # (n, c, h, w, up, down, pads x0 x1 y0 y1, taps, vec): the main path's
+    # three call sites (4 channels an access; the 3-channel image one), then
+    # strips with ragged ends, down = 2, signed pads and other taps
+    (2, 8, 8, 8, (1, 1), (1, 1), (2, 2, 2, 2), (4, 4), 4),    # encoder blur
+    (2, 12, 9, 9, (1, 1), (1, 1), (1, 1, 1, 1), (4, 4), 4),   # synthesis FIR
+    (2, 3, 4, 4, (2, 2), (1, 1), (2, 1, 2, 1), (4, 4), 1),    # image upsample
+    (1, 4, 19, 21, (1, 1), (1, 1), (2, 2, 2, 2), (4, 4), 4),
+    (1, 5, 17, 13, (1, 1), (1, 1), (1, 1, 1, 1), (4, 4), 1),
+    (2, 8, 16, 12, (1, 1), (2, 2), (1, 1, 1, 1), (4, 4), 4),
+    (1, 3, 11, 9, (2, 2), (1, 1), (2, 1, 2, 1), (4, 4), 1),
+    (1, 4, 8, 9, (1, 1), (1, 1), (-1, 2, 0, -2), (3, 5), 4),
+    (1, 4, 13, 11, (1, 1), (1, 1), (3, 4, 4, 3), (8, 8), 4),
+    (1, 8, 7, 6, (2, 1), (1, 2), (1, 1, 2, 2), (8, 8), 4),
+    (1, 4, 5, 5, (1, 1), (1, 1), (0, 0, 0, 0), (1, 1), 4),
+    (1, 4, 8, 9, (2, 2), (2, 2), (2, 2, 2, 2), (4, 4), 4),
+    # up = 2 quads with ragged edges, 4 channels an access, other even pads;
+    # an odd pad takes the generic kernel
+    (1, 8, 7, 5, (2, 2), (1, 1), (2, 1, 2, 1), (4, 4), 4),
+    (2, 3, 5, 6, (2, 2), (1, 1), (0, 2, 4, 1), (4, 4), 1),
+    (1, 4, 6, 5, (2, 2), (1, 1), (1, 2, 2, 1), (4, 4), 4),
+]
+
+
+def _nchw_map(harness, up, down, pads, taps, t, x):
+    """The NCHW map's result for x [planes, h, w], as the kernel would
+    route it: the stride-1 tiles, the resampling tiles, or the generic
+    one-thread-an-output kernel plane by plane."""
+    planes, h, w = x.shape
+    vals = " ".join(f"{v:.9g}" for v in np.concatenate([t.ravel(),
+                                                        x.ravel()]))
+    if up == down == (1, 1):
+        out = harness(f"tile 4 {planes} {h} {w} "
+                      + " ".join(map(str, pads + taps)) + f" {vals}")[2:]
+    elif {up, down} == {(1, 1), (2, 2)}:
+        out = harness(f"resample {int(up == (2, 2))} 4 {planes} {h} {w} "
+                      + " ".join(map(str, pads + taps)) + f" {vals}")[3:]
+    else:
+        out = []
+        for p in range(planes):
+            cmd = " ".join(map(str, (h, w, up[0], up[1], down[0], down[1])
+                               + pads + taps))
+            pv = " ".join(f"{v:.9g}" for v in np.concatenate(
+                [t.ravel(), x[p].ravel()]))
+            out += harness(f"fir {cmd} {pv}")[2:]
+    return np.array(out, np.float32)
+
+
+@pytest.mark.parametrize("n,c,h,w,up,down,pads,taps,vec", NHWC_FIR_CASES)
+def test_upfirdn_nhwc_map_equals_the_nchw_map(harness, n, c, h, w, up, down,
+                                               pads, taps, vec):
+    """K2's NHWC map emulated thread by thread on x in NHWC memory order:
+    every output written once; the NCHW map's bits on the same values
+    (its tiled or generic route), and fir_plain's values."""
+    t, x = _fir_inputs(n * 97 + c * 13 + h, taps, (n, c, h, w))
+    if taps == (4, 4) and h % 2:   # the main path's taps
+        t = correlation_taps(setup_filter([1, 3, 3, 1]), gain=4)
+    xl = np.ascontiguousarray(x.transpose(0, 2, 3, 1))   # NHWC memory
+    cmd = " ".join(map(str, (vec, n, c, h, w, up[0], up[1], down[0],
+                             down[1]) + pads + taps))
+    vals = " ".join(f"{v:.9g}" for v in np.concatenate([t.ravel(),
+                                                        xl.ravel()]))
+    out = harness(f"nhwcfir {cmd} {vals}")
+    route, oh, ow = (int(v) for v in out[:3])
+    # stride 1 on the strips, up = 2 with 4x4 taps and even pads on the
+    # quads, the rest one output a thread
+    assert route == (1 if up == down == (1, 1) else 2 if (
+        up == (2, 2) and down == (1, 1) and taps == (4, 4)
+        and pads[0] % 2 == pads[2] % 2 == 0) else 0)
+    got = np.array(out[3:], np.float32).reshape(n, oh, ow, c)
+    got = got.transpose(0, 3, 1, 2)
+    nchw = _nchw_map(harness, up, down, pads, taps, t,
+                     x.reshape(n * c, h, w)).reshape(n, c, oh, ow)
+    np.testing.assert_array_equal(got.view(np.uint32), nchw.view(np.uint32))
+    want = fir_plain(torch.from_numpy(x), t, up, down, pads).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,c,res,vec", [
+    # the served planes at batch 8: 512 x 4² ... 64 x 512², 32 x 1024²
+    (8, 512, 4, 4), (8, 512, 8, 4), (8, 512, 32, 4), (8, 256, 128, 4),
+    (8, 64, 512, 4), (8, 32, 1024, 4), (2, 3, 16, 1), (1, 12, 2, 4)])
+def test_noise_bias_act_nhwc_launch_rule(harness, n, c, res, vec):
+    """The epilogue's NHWC launch: the calls a block a power of two, its
+    two runs at most kNhwcElems elements, the tiles cover a plane's calls,
+    the grid has 1024 blocks wherever a call a block allows it."""
+    cpb, tiles = (int(v) for v in harness(f"nhwcplan {n} {c} {res} {vec}"))
+    calls = res * res // 4
+    assert cpb & (cpb - 1) == 0 and 1 <= cpb <= 512
+    assert 4 * cpb * c <= 8192 or cpb == 1
+    assert tiles * cpb >= calls > (tiles - 1) * cpb
+    assert n * tiles >= 1024 or cpb == 1 or cpb >= calls
+    assert tiles < 2 ** 31 and n <= 65535
+
+
+@pytest.mark.parametrize("act", NBA_ACTS, ids=["linear", "lrelu",
+                                               "lrelu_clamp"])
+@pytest.mark.parametrize("has_d,has_b", [(True, True), (False, True),
+                                         (False, False)])
+@pytest.mark.parametrize("mode", ["random", "const", "none"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,vec", [(8, 4), (5, 1)])
+def test_noise_bias_act_nhwc_map_equals_the_nchw_map(harness, c, vec, dtype,
+                                                      mode, has_d, has_b,
+                                                      act):
+    """The epilogue's NHWC map (noise drawn once a call into the block's
+    shared noise, each pixel's value shared by its channels) emulated on x
+    in NHWC memory order gives the NCHW map's bits, element for element:
+    the same Philox key, counter and row a pixel, the same dcoef and bias a
+    channel, the same arithmetic (bias_lrelu's launch: no dcoef, no
+    noise)."""
+    spec, gain, cpt, per = act
+    n, res = 2, 8
+    rng = np.random.RandomState(c * 7 + res + cpt + has_d)
+    x = (rng.randn(n, c, res, res) * 300).astype(np.float32)
+    x.flat[3], x.flat[7], x.flat[11] = np.nan, -0.0, 0.0
+    if dtype == "bfloat16":
+        x = torch.from_numpy(x).bfloat16().float().numpy()
+    dcoef = (rng.rand(n, c) + 0.5).astype(np.float32)
+    bias = (rng.randn(c) * 0.1).astype(np.float32)
+    cst = rng.randn(res, res).astype(np.float32)
+    key = noise.noise_key(3, 2 * res)
+    alpha, g, clamp = epilogue_act(parse_activation(spec), gain)
+    tail = (f"{['none', 'random', 'const'].index(mode)} {key[0]} {key[1]} "
+            f"{_f(1.0 if alpha is None else alpha)} {_f(g)} "
+            f"{'inf' if clamp is None else _f(clamp)} {int(has_d)} "
+            f"{int(has_b)} {_f(0.3)} 5")
+    aux = [dcoef.ravel(), bias, cst.ravel()]
+    bf = int(dtype == "bfloat16")
+    vals = lambda xs: " ".join(_f(v) for v in np.concatenate(aux + [xs]))  # noqa: E731
+    nchw = np.array(harness(f"nba {bf} {cpt} {per} {n} {c} {res} {tail} "
+                            f"{vals(x.ravel())}"), np.uint64).astype(
+        np.uint32).reshape(n, c, res, res)
+    xl = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    got = np.array(harness(f"nbanhwc {bf} {vec} {n} {c} {res} {tail} "
+                           f"{vals(xl.ravel())}"), np.uint64).astype(
+        np.uint32).reshape(n, res, res, c).transpose(0, 3, 1, 2)
+    np.testing.assert_array_equal(got, nchw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,c,o,h,w", [
+    # K3's served shape cut to a few tiles; ragged tiles; C not a multiple
+    # of the stage (float32); O < 32
+    (1, 32, 32, 18, 70), (2, 8, 8, 8, 64), (1, 12, 32, 17, 130),
+    (1, 32, 7, 3, 5), (1, 6, 20, 16, 72)])
+def test_conv3x3_lowch_nhwc_staging_equals_the_nchw_map(harness, n, c, o, h,
+                                                        w, dtype):
+    """K3's NHWC staging (a 32-bit copy a slot word, slots fastest) emulated
+    block by block on x in NHWC memory order fills the NCHW staging's words
+    (each once), so the mma loop gives the NCHW map's bits; the output
+    written in NHWC order, and the plain version's values."""
+    rng = np.random.RandomState(n * 1000 + c * 37 + w)
+    wt = (rng.randn(o, c, 3, 3) / np.sqrt(9 * c)).astype(np.float32)
+    x = rng.randn(n, c, h, w).astype(np.float32)
+    bf = dtype == "bfloat16"
+    if bf:
+        wt = torch.from_numpy(wt).bfloat16().float().numpy()
+        x = torch.from_numpy(x).bfloat16().float().numpy()
+    head = f"{int(bf)} {n} {c} {o} {h} {w}"
+    vals = lambda xs: " ".join(f"{v:.9g}" for v in np.concatenate(  # noqa
+        [wt.ravel(), xs.ravel()]))
+    nchw = np.array(harness(f"conv3 {head} {vals(x)}"),
+                    np.float32).reshape(n, o, h, w)
+    xl = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    got = np.array(harness(f"conv3nhwc {head} {vals(xl)}"),
+                   np.float32).reshape(n, h, w, o).transpose(0, 3, 1, 2)
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got.view(np.uint32), nchw.view(np.uint32))
+    want = conv3x3_lowch_plain(torch.from_numpy(x),
+                               torch.from_numpy(wt)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)

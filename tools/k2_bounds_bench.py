@@ -120,7 +120,7 @@ def main():
                 return fn(x.data_ptr(), y.data_ptr(),
                           0 if dt == torch.float32 else 1, n * c, h, w, oh,
                           ow, up[0], up[1], down[0], down[1], pads[0],
-                          pads[2], tp, 4, 4,
+                          pads[2], tp, 4, 4, 0,   # NCHW
                           torch.cuda.current_stream().cuda_stream)
             nbytes = (x.numel() + y.numel()) * x.element_size()
             row = {"kind": kind, "shape": list(shape),

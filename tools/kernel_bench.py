@@ -4,7 +4,7 @@ epilogue (noise_bias_act) on one NVIDIA GPU at the shapes of the port's
 main path, each checked against its plain version.
 
     python3 tools/kernel_bench.py [--root DIR]
-        [--only k2,k3,width,nba,bl,resample,k2grad] [--out FILE]
+        [--only k2,k3,width,nba,bl,resample,k2grad,nhwc] [--out FILE]
 
 It runs the kernel checks of ``chip_smoke.py`` phase 2 (the same inputs,
 tolerances, CUDA-graph timing and bounds) from the checkout at ``--root``
@@ -27,7 +27,12 @@ skip-image upsample of ``shgan_g256`` at batch 8 (up = 2) and its backward
 (down = 2), float32 and bf16, each beside the one cuDNN call that computes
 it (``conv2d`` with stride 2, ``conv_transpose2d`` with stride 2); the
 backward of every K2 call of one ``shgan_g256`` and one ``comodgan_d256``
-forward at batch 8 (``k2grad``, chip_smoke.py's ``check_fir_grad``).  Prints
+forward at batch 8 (``k2grad``, chip_smoke.py's ``check_fir_grad``); every
+forward kernel of a ``shgan_g512`` and a ``shgan_g1024`` forward at batch 8
+(``nhwc``: K2's stride-1 and resampling calls, the synthesis epilogues,
+``bias_lrelu`` at the encoder convs, K3 at 1024²) on NCHW and, where the
+checkout's kernels take it, on channels-last tensors (their NHWC maps),
+with the byte bound and whether both layouts give the same bits.  Prints
 the card's ``nvidia-smi`` name and power limit, then one JSON line; the
 full rows go to ``--out`` when given.
 """
@@ -37,6 +42,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -136,6 +142,108 @@ def resample_rows(cs, fir, calls):
     return rows
 
 
+def nhwc_rows(cs, model, batch, dtype):
+    """One ``model`` forward's kernel calls at ``batch`` in ``dtype``: each
+    call's CUDA-graph ms on NCHW and (where the kernels take it) on a
+    channels-last tensor, its bound (bytes over the HBM rate; K3: the larger
+    of that and its operations at the rate of its arithmetic, 3xTF32 in
+    float32) and whether the two layouts gave the same bits."""
+    import torch
+    from shgan_torch.ops import conv1024
+    from shgan_torch.ops import noise_bias_act as nba
+    from shgan_torch.ops.bias_act import parse_activation
+    from shgan_torch.runtime.config import model_cfg_bank
+    fir = importlib.import_module("shgan_torch.ops.upfirdn2d")
+    try:
+        importlib.import_module("shgan_torch.ops.layout")
+        both = True
+    except ImportError:   # a checkout before the NHWC maps
+        both = False
+    cfg = model_cfg_bank()(model)
+    syn = cfg["args"]["synthesis"]["args"]
+    ch = lambda r: min(int(syn["ch_base"]) // r, int(syn["ch_max"]))  # noqa
+    act = nba.epilogue_act(parse_activation(
+        "lrelu_agc(alpha=0.2, gain=sqrt_2, clamp=256)"))
+    g = torch.Generator(device="cuda").manual_seed(9)
+    key = torch.tensor([0x1234567, 0x89ABCDE, 0], dtype=torch.int64,
+                       device="cuda")
+    size = torch.tensor([], dtype=dtype).element_size()
+    calls = []
+    for site, r, shape, up, down, pads, gain in cs.fir_calls(cfg, batch):
+        t = fir.correlation_taps(fir.setup_filter([1, 3, 3, 1]), gain=gain)
+        oh = fir.out_size(shape[2], up, down, pads[2], pads[3], 4)
+        ow = fir.out_size(shape[3], up, down, pads[0], pads[1], 4)
+        calls.append((
+            "k2_stride1" if up == down == 1 else "k2_resample", site, shape,
+            lambda x, t=t, up=up, down=down, pads=pads: fir.fir(
+                x, t, (up, up), (down, down), pads),
+            (shape[0] * shape[1] * (shape[2] * shape[3] + oh * ow)) * size,
+            0))
+    for r, k in cs.noise_layers(cfg).items():
+        shape = (batch, ch(r), r, r)
+        d = torch.rand(batch, ch(r), generator=g, device="cuda") + 0.5
+        b = torch.randn(ch(r), generator=g, device="cuda") * 0.1
+        s = torch.full((), 0.3, device="cuda")
+        for _ in range(k):
+            calls.append(("epilogue", f"syn{r}", shape,
+                          lambda x, d=d, b=b, s=s: nba.noise_bias_act(
+                              x, d, b, act, noise_mode="random",
+                              noise_key=key, strength=s),
+                          2 * math.prod(shape) * size, 0))
+    for (r, c), k in cs.encoder_conv_layers(cfg).items():
+        b = torch.randn(c, generator=g, device="cuda") * 0.1
+        for _ in range(k):
+            shape = (batch, c, r, r)
+            calls.append(("bias_lrelu", f"enc{r}", shape,
+                          lambda x, b=b: nba.noise_bias_act(x, None, b, act),
+                          2 * math.prod(shape) * size, 0))
+    if int(syn["resolution"]) >= conv1024.MIN_RES:
+        w = torch.randn(32, 32, 3, 3, generator=g, device="cuda") / 17
+        shape = (batch, 32, conv1024.MIN_RES, conv1024.MIN_RES)
+        ops = 2 * 9 * 32 * math.prod(shape) * (3 if size == 4 else 1)
+        for _ in range(2):
+            calls.append(("k3", "syn1024", shape,
+                          lambda x, w=w: conv1024.conv3x3_lowch(x, w),
+                          2 * math.prod(shape) * size, ops))
+    rows = []
+    rate = cs.TF32_FLOPS_PER_S if size == 4 else cs.BF16_FLOPS_PER_S
+    with torch.inference_mode():
+        for kernel, site, shape, fn, nbytes, ops in calls:
+            x = (torch.randn(shape, generator=g, device="cuda") * 2).to(dtype)
+            row = {"kernel": kernel, "site": site, "shape": list(shape),
+                   "bound_ms": max(nbytes / cs.HBM_BYTES_PER_S,
+                                   ops / rate) * 1e3,
+                   "nchw_ms": cs.graph_ms(lambda: fn(x), nbytes)}
+            if both:
+                xl = x.contiguous(memory_format=torch.channels_last)
+                a, b = fn(x.clone()), fn(xl.clone())
+                row["same_bits"] = bool(torch.equal(
+                    a.contiguous().view(torch.int16), b.contiguous().view(
+                        torch.int16)))
+                row["nhwc_ms"] = cs.graph_ms(lambda: fn(xl), nbytes)
+            rows.append(row)
+            del x
+            torch.cuda.empty_cache()
+    return rows
+
+
+def nhwc_summary(rows):
+    """Sums by kernel: NCHW and NHWC ms, bound ms and share of the bound,
+    and whether every call gave the same bits on both maps."""
+    out = {}
+    for k in sorted({r["kernel"] for r in rows}):
+        sub = [r for r in rows if r["kernel"] == k]
+        o = {"calls": len(sub), "bound_ms": sum(r["bound_ms"] for r in sub),
+             "nchw_ms": sum(r["nchw_ms"] for r in sub)}
+        o["nchw_share"] = o["bound_ms"] / o["nchw_ms"]
+        if all("nhwc_ms" in r for r in sub):
+            o["nhwc_ms"] = sum(r["nhwc_ms"] for r in sub)
+            o["nhwc_share"] = o["bound_ms"] / o["nhwc_ms"]
+            o["same_bits"] = all(r["same_bits"] for r in sub)
+        out[k] = o
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE,
@@ -146,7 +254,9 @@ def main():
                          "(the fused synthesis epilogue), bl (bias_lrelu, "
                          "the encoder's conv epilogues), resample (K2's "
                          "down = 2 / up = 2 calls of training) and/or "
-                         "k2grad (K2's backward over one G and D forward)")
+                         "k2grad (K2's backward over one G and D forward); "
+                         "nhwc (every forward kernel of a shgan_g512 and a "
+                         "shgan_g1024 forward at batch 8, NCHW beside NHWC)")
     ap.add_argument("--out", default=None, help="file for the full rows")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
@@ -280,6 +390,12 @@ def main():
                 "library_tf32_ms", "bf16_max_abs_err", "bf16_ms",
                 "bf16_bound_ms", "bf16_library_ms")
         out["k3"] = [{k: r[k] for k in keys if k in r} for r in full["k3"]]
+    if "nhwc" in only:
+        for model in (cs.MODEL, cs.MODEL_1024):
+            for dt in (torch.float32, torch.bfloat16):
+                name = f"nhwc_{model}_{str(dt).split('.')[-1]}"
+                full[name] = nhwc_rows(cs, model, cs.SERVE_BATCH, dt)
+                out[name] = nhwc_summary(full[name])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
