@@ -22,6 +22,12 @@ the global batch, and the collectives are explicit:
 * on the model group: sums (the spatial gather and the gradient rule) and
   the point-to-point halo exchange (:meth:`Mesh.exchange`).
 
+Where a profiler records (``runtime/tracing.span``), each gradient
+all-reduce is a ``dist.grads`` span and each gather of rows a ``dist.rows``
+span (the forward's and the backward's), each with its ``bytes``; the
+mesh's ``traffic`` counts them always (``grad_calls`` / ``grad_bytes``,
+``rows_calls`` / ``rows_bytes``).  One rank records nothing of either.
+
 Gloo takes CUDA tensors in ``all_reduce`` and ``broadcast`` but not in
 ``all_gather``, so the device gather is a sum: each rank places its rows at
 its offset in zeros and the ranks all-reduce (adding zeros is exact).  It
@@ -39,6 +45,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from ..runtime.tracing import span
 from . import multihost
 
 # how far (relative to a leaf's norm) a model group's copies of a gradient
@@ -84,13 +91,18 @@ def split(n, world, rank):
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the ranks of the mesh's data group; its backward is the
     same sum of the cotangents (each rank's loss reads every rank's
-    rows)."""
+    rows), through this function again, so each sum, forward or backward,
+    is one ``dist.rows`` span and one count of ``rows_calls``."""
 
     @staticmethod
     def forward(ctx, t, mesh):
         ctx.mesh = mesh
         out = t.contiguous().clone()
-        mesh.data_all_reduce_(out)
+        nbytes = out.numel() * out.element_size()
+        mesh.traffic["rows_calls"] += 1
+        mesh.traffic["rows_bytes"] += nbytes
+        with span("dist.rows", bytes=nbytes):
+            mesh.data_all_reduce_(out)
         return out
 
     @staticmethod
@@ -119,8 +131,11 @@ class Mesh:
         self.data_group = group if model == 1 else data_group
         self.model_group = model_group
         # bytes this rank sent on the model group: halo rows (and their
-        # cotangents) through exchange, and the planes it summed
-        self.traffic = {"halo_bytes": 0, "sum_bytes": 0}
+        # cotangents) through exchange, and the planes it summed; on the
+        # data group: the gradient all-reduces and the gathers of rows
+        # (calls and bytes)
+        self.traffic = {"halo_bytes": 0, "sum_bytes": 0, "grad_calls": 0,
+                        "grad_bytes": 0, "rows_calls": 0, "rows_bytes": 0}
         # the largest gap between a model group's copies of a gradient,
         # relative to its norm, that average_grads has seen
         self.replica_gap = 0.0
@@ -256,18 +271,23 @@ class Mesh:
         params = list(params)
         if self.world == 1 or not params:
             return
-        flat = torch.cat([
-            (p.grad if p.grad is not None else torch.zeros_like(p))
-            .reshape(-1).float() for p in params])
-        if self.data > 1:
-            self.data_all_reduce_(flat).div_(self.data)
-        if self.model > 1:
-            flat = self._model_agreed(flat, params)
-        at = 0
-        for p in params:
-            n = p.numel()
-            p.grad = flat[at:at + n].view_as(p).to(p.dtype)
-            at += n
+        with span("dist.grads") as sp:
+            flat = torch.cat([
+                (p.grad if p.grad is not None else torch.zeros_like(p))
+                .reshape(-1).float() for p in params])
+            nbytes = flat.numel() * flat.element_size()
+            sp.set(bytes=nbytes)
+            if self.data > 1:
+                self.traffic["grad_calls"] += 1
+                self.traffic["grad_bytes"] += nbytes
+                self.data_all_reduce_(flat).div_(self.data)
+            if self.model > 1:
+                flat = self._model_agreed(flat, params)
+            at = 0
+            for p in params:
+                n = p.numel()
+                p.grad = flat[at:at + n].view_as(p).to(p.dtype)
+                at += n
 
     def _model_agreed(self, flat, params):
         """Model index 0's ``flat``, once every rank of the model group

@@ -15,9 +15,7 @@ gradient by < 1e-5 of its norm: the step is held there, per network.
 """
 
 import json
-import os
 import os.path as osp
-import socket
 import subprocess
 import sys
 
@@ -28,51 +26,24 @@ import torch
 from shgan_torch.parallel import (Rows, ThreadGroup, check_replicated,
                                   create_mesh, split)
 from shgan_torch.parallel.multihost import pick_backend
+from mh_launch import Ranks, rank_env
 
 HERE = osp.dirname(osp.abspath(__file__))
 REPO = osp.dirname(HERE)
 RANK_SCRIPT = osp.join(HERE, "torch_mh_driver.py")
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _env():
-    env = dict(os.environ)
-    for k in ("SHGAN_DIST_COORDINATOR", "SHGAN_DIST_NPROCS", "SHGAN_DIST_PID",
-              "MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
-              "LOCAL_RANK", "XLA_FLAGS"):
-        env.pop(k, None)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env["OMP_NUM_THREADS"] = "2"
-    return env
+    return rank_env(2)
 
 
 def _run(mode, out_dir, world):
     """``mode`` of ``torch_mh_driver.py`` on ``world`` ranks (1: one
-    process); returns each rank's output, after every rank exited 0."""
-    os.makedirs(out_dir, exist_ok=True)
-    port = str(_free_port()) if world > 1 else "0"
-    procs = [subprocess.Popen(
-        [sys.executable, RANK_SCRIPT, str(r), str(world), port, out_dir,
-         mode],
-        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=240)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert all(p.returncode == 0 for p in procs), "\n".join(
-        o[-3000:] for o in outs)
-    return outs
+    process, port 0 unused); returns each rank's output, after every rank
+    exited 0 (``mh_launch``: a port reserved for the run, the first failed
+    rank ends it)."""
+    return Ranks(RANK_SCRIPT, world, [out_dir, mode], out_dir, _env(),
+                 timeout=300).wait()
 
 
 def _npz(path):

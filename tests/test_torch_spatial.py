@@ -16,7 +16,6 @@ to 2e-4 and the train step to the bounds of ``__graft_entry__.py:184-241``
 import json
 import os
 import os.path as osp
-import socket
 import subprocess
 import sys
 
@@ -34,6 +33,7 @@ from shgan_torch.parallel import Mesh, spatial
 from shgan_torch.parallel.mesh import MODEL_GRAD_RTOL
 from shgan_torch.parallel.spatial import (HALO, Slab, constrain, level,
                                           spatial_sharding)
+from mh_launch import Ranks, rank_env
 
 # step 0's gradient leaves, each relative to its norm, against the 1-rank
 # step (measured ≤ 5e-5: another summation order); a partial gradient that
@@ -53,44 +53,21 @@ RUNS = {
 }
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _env():
-    env = dict(os.environ)
-    for k in ("SHGAN_DIST_COORDINATOR", "SHGAN_DIST_NPROCS", "SHGAN_DIST_PID",
-              "MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
-              "LOCAL_RANK", "XLA_FLAGS"):
-        env.pop(k, None)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env["OMP_NUM_THREADS"] = "1"
-    return env
+    return rank_env(1)
 
 
 def _start(out_dir, world, model, modes):
-    os.makedirs(out_dir, exist_ok=True)
-    port = str(_free_port())
-    return [subprocess.Popen(
-        [sys.executable, RANK_SCRIPT, str(r), str(world), port, out_dir,
-         modes, str(model)], env=_env(), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    """The ranks of one case, on a port reserved until they end
+    (``mh_launch``)."""
+    return Ranks(RANK_SCRIPT, world, [out_dir, modes, model], out_dir,
+                 _env(), timeout=300)
 
 
-def _finish(procs):
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=300)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert all(p.returncode == 0 for p in procs), "\n".join(
-        o[-3000:] for o in outs)
+def _finish(run):
+    """Wait for ``run``'s ranks: every one exits 0, or the case fails at its
+    first failed rank, or at its deadline, with every rank's output."""
+    run.wait()
 
 
 def _json(out_dir, name, rank):
@@ -115,14 +92,16 @@ def runs(tmp_path_factory):
                for name, spec in RUNS.items()}
     try:
         out = jax_proc.communicate(timeout=300)[0]
+        assert jax_proc.returncode == 0, out[-3000:]
+        _finish(_start(jax_dir, 2, 2, "spatial_jax"))
+        for _, run in started.values():
+            _finish(run)
     finally:
         if jax_proc.poll() is None:
             jax_proc.kill()
             jax_proc.wait()
-    assert jax_proc.returncode == 0, out[-3000:]
-    _finish(_start(jax_dir, 2, 2, "spatial_jax"))
-    for out_dir, procs in started.values():
-        _finish(procs)
+        for _, run in started.values():
+            run.stop()
     return {"jax": jax_dir, **{name: out_dir
                                for name, (out_dir, _) in started.items()}}
 

@@ -21,7 +21,16 @@ the test needs each one):
 * ``engine``: nothing distributed: the engine over two CPU "devices";
 * ``mbstd``: D's logits and R1's gradient on the global batch;
 * ``remat_step``: the ``step`` mode's step with remat on, against the
-  ranks' step without it and one process's step on the global batch.
+  ranks' step without it and one process's step on the global batch;
+* ``dp_reference``: one ``TrainStep`` (Gpl, R1) of the benchmark's tiny
+  training configuration (``benchmark/tests/tiny.py``) on the benchmark's
+  seeded weights, each rank on its rows of a global batch of 8: the ranks'
+  mean of the losses (as the train stage logs them), Adam's first
+  ``exp_avg`` and every tensor of the state after the step, for the plain
+  reference (``benchmark/reference/training.py``) the test runs;
+* ``dp_spans``: one ``TrainStep`` (Gpl, R1) under a CPU profiler: the
+  ``dist.grads`` and ``dist.rows`` spans it recorded and the mesh's
+  counters.
 
 With ``model`` (default 1) the mesh has a model axis of that many ranks,
 and the spatial modes (for tests/test_torch_spatial.py) run G's levels on
@@ -62,7 +71,8 @@ from shgan_torch.parallel import (allgather_rows, barrier,  # noqa: E402
                                   check_replicated, create_mesh,
                                   maybe_initialize_distributed)
 
-maybe_initialize_distributed(device="cpu")
+# a rank that cannot reach its peers fails within the test's time
+maybe_initialize_distributed(device="cpu", timeout_s=240)
 mesh = create_mesh(device="cpu", model=MODEL)
 
 from shgan_torch.main import build_config  # noqa: E402
@@ -70,6 +80,9 @@ from shgan_torch.models.registry import get_model  # noqa: E402
 from shgan_torch.data.rng import derive_seed  # noqa: E402
 
 BATCH = 8
+REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+# the dp_reference mode's seed: weights, batch and the step's draws
+DP_SEED = 2 ** 31 + 5
 
 
 def recording(opt, net, grads):
@@ -101,6 +114,17 @@ def models(seed=0):
             elif name.endswith(".bias"):
                 p.add_(0.05)
     return cfg, G, D
+
+
+def dp_batch():
+    """The ``dp_reference`` mode's global batch: photo-like images and
+    free-form masks of the benchmark's inputs, at 32²."""
+    from harness import inputs
+    rng = np.random.RandomState(DP_SEED)
+    real = np.stack([inputs.photo(rng, 32) for _ in range(BATCH)])
+    mask = np.stack([inputs.free_form_mask(rng, 32) for _ in range(BATCH)])
+    return (torch.from_numpy(real.astype(np.float32) / 127.5 - 1),
+            torch.from_numpy(mask[:, None].astype(np.float32)))
 
 
 def global_batch(seed=3):
@@ -234,6 +258,71 @@ elif mode == "eval":
     with open(os.path.join(out_dir, f"eval_rv{rank}.json"), "w") as f:
         json.dump({"gen": rv["eval_rv"], "pregen": pre["eval_rv"]}, f)
     print("MH_EVAL_OK", rank, rv["eval_rv"], flush=True)
+
+elif mode == "dp_reference":
+    from shgan_torch.runtime.stages import step_generator
+    from shgan_torch.train import TrainConfig, TrainStep
+    from shgan_torch.train.step import compute_ema_beta
+    sys.path.insert(0, os.path.join(REPO, "benchmark", "tests"))
+    import tiny  # noqa: E402  (puts the benchmark's directory on the path)
+    from harness import inputs  # noqa: E402
+    cfg = tiny.tiny_train()
+    nets = {}
+    for name, seed in (("model_g", DP_SEED), ("model_d", DP_SEED + 1)):
+        net = get_model(cfg[name], seed=seed)
+        tmpl = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                for k, v in net.state_dict().items()}
+        net.load_state_dict(inputs.weights(tmpl, cfg[name], seed,
+                                           torch.device("cpu")), strict=True)
+        nets[name] = net
+    G, D = nets["model_g"], nets["model_d"]
+    tc = TrainConfig(**cfg["train"]["loss_kwargs"])
+    step = TrainStep(G, D, tc, mesh=mesh)
+    real, mask = dp_batch()
+    m = step(*mesh.shard_batch((real, mask)), step_generator(DP_SEED, 0),
+             compute_ema_beta(tc, BATCH, 0), do_greg=True, do_dreg=True)
+    keys = sorted(m)
+    loss = mesh.all_reduce_mean_(torch.stack([m[k].float() for k in keys]))
+    first = {f"F_{net}.{name}": opt.state[p]["exp_avg"].numpy()
+             for net, opt, mod in (("G", step.opt_g, G), ("D", step.opt_d, D))
+             for name, p in mod.named_parameters() if p in opt.state}
+    check_replicated([step.G, step.D, step.G_ema, step.pl_mean])
+    state = {**{"G." + k: v for k, v in G.state_dict().items()},
+             **{"D." + k: v for k, v in D.state_dict().items()},
+             **{"G_ema." + k: v for k, v in step.G_ema.state_dict().items()}}
+    save("dp_reference", **first, pl_mean=step.pl_mean.numpy(),
+         seed=np.int64(DP_SEED), real=real.numpy(), mask=mask.numpy(),
+         **{f"L_{k}": v for k, v in zip(keys, loss.numpy())},
+         **{f"S_{k}": v.detach().numpy() for k, v in state.items()})
+    print("MH_DP_REFERENCE_OK", rank, flush=True)
+
+elif mode == "dp_spans":
+    from torch.profiler import ProfilerActivity, profile
+    from shgan_torch.runtime import tracing
+    from shgan_torch.runtime.stages import step_generator
+    from shgan_torch.train import TrainConfig, TrainStep
+    from shgan_torch.train.step import freeze_buffers
+    cfg, G, D = models()
+    step = TrainStep(G, D, TrainConfig(
+        **(cfg["train"].get("loss_kwargs") or {})), mesh=mesh)
+    real, mask = mesh.shard_batch(global_batch())
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        step(real, mask, step_generator(0, 0), 0.99, do_greg=True,
+             do_dreg=True)
+    recs = tracing.spans()
+    import json
+    with open(os.path.join(out_dir, f"{mode}_rank{rank}.json"), "w") as f:
+        json.dump({
+            "traffic": mesh.traffic,
+            "steps": sum(r.name == "train.step" for r in recs),
+            "grads": [r.attrs["bytes"] for r in recs
+                      if r.name == "dist.grads"],
+            "rows": [r.attrs["bytes"] for r in recs
+                     if r.name == "dist.rows"],
+            "params": sum(p.numel() for net in (G, D)
+                          for p in freeze_buffers(net))}, f)
+    print("MH_DP_SPANS_OK", rank, flush=True)
 
 elif mode == "train":
     from shgan_torch.main import run
