@@ -23,7 +23,12 @@ Phases, each printing one JSON line:
    shape of a ``shgan_g512`` forward at batch 8 and at the 1024² layers of
    a ``shgan_g1024`` forward at batch 4, float32 and bfloat16, its noise
    held to K1's bit for bit, beside the unfused path (K1 plus the
-   PyTorch chain) on the same inputs; K2 at the discriminator's calls of
+   PyTorch chain) on the same inputs, and its fold (the synthesis's three
+   options: ``+ addend`` then one ``* scale`` output, or one or two ``*
+   scale`` outputs; each on both maps, float32 and bf16, the plain launch
+   plus the PyTorch chain bit for bit, float32 within the plain version's
+   bound, the two that run most timed); K2 at
+   the discriminator's calls of
    the training path (``comodgan_d256`` at batch 8: the blurs and the 1×1
    skips' down = 2, the resampling tiles), float32 and bf16, beside cuDNN's
    stride-2 depthwise ``conv2d``.  Every check of a kernel the compiled
@@ -70,8 +75,10 @@ Phases, each printing one JSON line:
    (step 0 with both regularizers, 4 with the path-length penalty):
    per-step ms, images/s over steps 1–5, peak memory, launches per step
    checked against counts worked out from the modules (the counts set to 0
-   as each step starts and read as it ends; none on an NHWC map), G_ema's
-   image grids
+   as each step starts and read as it ends; none on an NHWC map), the
+   modulated convs' counts per step exact (the D phase's generator
+   forward, under ``no_grad``, takes the no-grad route: all but ``b4.conv``
+   prescaled; Gmain and Gpl multiply in every conv), G_ema's image grids
    (``demo/fakes_init.png`` and the final one) with their own launches
    (three forwards each, none between the steps), ``stats.jsonl`` a record
    a tick keyed by ``step``, finite losses, moved weights, ``pl_mean > 0``;
@@ -132,8 +139,8 @@ Phases, each printing one JSON line:
     the directory scored with no generator (in process: psnr, ssim, no
     launch; ``python -m shgan_torch.main --evalnog_path``: fid);
     ``shgan_ffhq256_train`` with bf16 blocks as in phase 8 (6 steps,
-    launches exact per step, bf16 ones by their own rule, a bit-exact
-    resume); the grad kernel with bf16 I/O at the bf16 layers (both modes,
+    launches exact per step, bf16 ones by their own rule, the modulated
+    convs' counts per step exact, a bit-exact resume); the grad kernel with bf16 I/O at the bf16 layers (both modes,
     one bf16 ulp, sums within 1e-5, noise K1's) and K2's bf16 backward at
     the resampling calls (one bf16 ulp + 1e-6) against their plain
     versions; a Gmain + Dmain + R1 gradient with bf16 blocks against the
@@ -204,7 +211,9 @@ Phases, each printing one JSON line:
     starts, a 3-row request through bucket 4 and ``inpaint_stream`` at
     ``window=2`` (each bit for bit or by phase 4's rule, the gap printed;
     known pixels exact; two starts differ; launches exact per forward over
-    the replays); in float32 the same requests against the NCHW eager
+    the replays; the modulated convs' counts, prescaled by the epilogue's
+    fold or multiplied, exact per replay); in float32 the same requests
+    against the NCHW eager
     forward too, within the ``g512-stream-b8`` cell's limits (known pixels
     exact, the figures printed); ``shgan_g1024``
     at batch 4 with K3 through the eval stage over 96 images, compiled and
@@ -641,10 +650,88 @@ def check_epilogue(noise, nba, cfg, batch, layers=None, seed=1234):
         row["nhwc_bf16_max_abs_err"], row["nhwc_bf16_ms"] = nhwc_map(
             kern_of, xb, yb, wb, f"noise_bias_act bf16 R={r} C={c}",
             bf16_bytes)
+        row.update(check_fold(nba, x, kw, kw_row, want,
+                              f"noise_bias_act fold R={r} C={c}"))
         rows.append(row)
         del x, xk, xb, xbk, y, yb, want, wb, zero, zl, k1
         torch.cuda.empty_cache()
     return rows
+
+
+# the fold's options the synthesis runs: a conv0 (the skip, conv1's input),
+# a conv1 before another block (torgb's and the next conv0's inputs), the
+# last conv1 (torgb's)
+FOLD_OPTIONS = {"add_1": (True, 1), "out_2": (False, 2), "out_1": (False, 1)}
+
+
+def check_fold(nba, x, kw, kw_row, want, what):
+    """The fold (the epilogue writing its consumers' inputs: ``+ addend``,
+    then ``* scale`` for up to two consumers) at ``x``'s shape, each option
+    the synthesis runs (:data:`FOLD_OPTIONS`) on both maps (the NHWC map keyed by ``kw_row``'s table row), float32
+    and bf16: its outputs are the plain launch's followed by the chain it
+    replaces (``+ addend``, ``* scale.to(x.dtype)``) bit for bit, and in
+    float32 within the plain version's bound of ``noise_bias_act_plain``
+    with the fold (the epilogue's bound ``want`` carried through the add
+    and the product, one rounding each).  The NHWC float32 launches of the
+    two options that run most (``add_1``: a conv0; ``out_2``: a conv1
+    before another block) are timed.  Returns the row's fold fields."""
+    n, c = x.shape[:2]
+    gen = torch.Generator(device="cuda").manual_seed(c + 1)
+    scales = tuple(torch.rand((n, c), generator=gen, device="cuda") + 0.5
+                   for _ in range(2))
+    addend = torch.randn(x.shape, generator=gen, device="cuda") * 0.5
+    ulp = lambda t: 2.0 ** (torch.floor(torch.log2(  # noqa: E731
+        t.abs().clamp_min(1e-30))) - 23)
+    noise_tol = NOISE_ATOL * float(kw["strength"]) * kw["act"][1]
+    pre_tol = 4 * ulp(want) + noise_tol
+    err, out = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for fmt in (torch.contiguous_format, CL):
+            k = kw_row if fmt is CL else kw
+            xd = x.to(dtype).contiguous(memory_format=fmt)
+            ad = addend.to(dtype).contiguous(memory_format=fmt)
+            ref = nba.noise_bias_act_cuda(xd.clone(), **k)
+            for name, (add, outs) in FOLD_OPTIONS.items():
+                sc = scales[:outs]
+                got = nba.noise_bias_act_cuda(
+                    xd.clone(), addend=ad if add else None, scales=sc, **k)
+                got = got if outs else (got,)
+                chain = ref + ad if add else ref
+                chain = [chain * t.to(dtype)[:, :, None, None]
+                         for t in sc] or [chain]
+                torch.cuda.synchronize()
+                for g_, w_ in zip(got, chain):
+                    if (not torch.equal(g_, w_)
+                            or g_.is_contiguous(memory_format=CL)
+                            != (fmt is CL)):
+                        raise AssertionError(f"{what} {name} {dtype} {fmt}: "
+                                             f"not the chain's bits")
+                if dtype is not torch.float32 or fmt is CL:
+                    continue
+                plain = nba.noise_bias_act_plain(
+                    x, addend=addend if add else None, scales=sc, **kw)
+                plain = plain if outs else (plain,)
+                s_pre = want + addend if add else want
+                for g_, p_, t in zip(got, plain, sc or (None,)):
+                    m = 1.0 if t is None else t[:, :, None, None]
+                    tol = (pre_tol + (ulp(s_pre) if add else 0)) * m \
+                        + ulp(p_)
+                    d = (g_ - p_).abs()
+                    if not bool((d <= tol).all()):
+                        raise AssertionError(f"{what} {name}: "
+                                             f"{float(d.max())} from plain")
+                    err = max(err, float(d.max()))
+    xl = x.contiguous(memory_format=CL)
+    al = addend.contiguous(memory_format=CL)
+    plane = x.numel() * 4
+    out["fold_max_abs_err"] = err
+    out["fold_bit_for_bit"] = True
+    out["fold_nhwc_ms"] = {
+        "add_1": graph_ms(lambda: nba.noise_bias_act_cuda(
+            xl, addend=al, scales=scales[:1], **kw_row), 3 * plane),
+        "out_2": graph_ms(lambda: nba.noise_bias_act_cuda(
+            xl, scales=scales, **kw_row), 3 * plane)}
+    return out
 
 
 def encoder_conv_layers(cfg):
@@ -1626,7 +1713,7 @@ def train_path(tmp, cli, build, bf16=False):
     # launches in each step, and outside the steps (before step 0, between
     # steps, after the last): the counts are set to 0 as each step starts
     # and read as it ends
-    per_step, outside, per_step_bf16 = [], [], []
+    per_step, outside, per_step_bf16, per_step_mod = [], [], [], []
 
     def on_step_start(i):
         outside.append(dict(build.launches))
@@ -1636,6 +1723,7 @@ def train_path(tmp, cli, build, bf16=False):
     def on_step(i, metrics):
         per_step.append(dict(build.launches))
         per_step_bf16.append(dict(bf16_launches))
+        per_step_mod.append(build.snapshot_modconv())
         build.reset_launches()
 
     torch.cuda.synchronize()
@@ -1663,6 +1751,12 @@ def train_path(tmp, cli, build, bf16=False):
                 raise AssertionError(f"train step {i} bf16 launches "
                                      f"{per_step_bf16[i]}, expected "
                                      f"{want16}")
+    for i, got in enumerate(per_step_mod):
+        want = train_modconv(step.G.synthesis, i % tc.g_reg_interval == 0,
+                             tc.grad_accum)
+        if got != want:
+            raise AssertionError(f"train step {i} modulated convs {got}, "
+                                 f"expected {want}")
     if len(per_step) != TRAIN_STEPS or step.step != TRAIN_STEPS:
         raise AssertionError(f"{len(per_step)} steps run")
     # G_ema's image grids: fakes_init.png before step 0 and the final
@@ -1715,6 +1809,7 @@ def train_path(tmp, cli, build, bf16=False):
            / sum(timing["step_s"][1:]),
            "peak_mem_gib": peak_gib, "stage_s": stage_s,
            "launches_per_step": per_step,
+           "modconv_per_step": per_step_mod,
            "bf16_launches_per_step": per_step_bf16 if bf16 else None,
            "bf16_sites": dict(zip(
                ("k2_encoder", "k2_synthesis", "k2_discriminator",
@@ -2672,6 +2767,40 @@ def forward_launches(G, encoder=True):
                   noise_bias_act=sum(n for _, n, _ in bfk),
                   bias_lrelu=sum(c for _, _, c in bfk))
     return want, want16
+
+
+def modconv_counts(blocks, casts=0):
+    """The modulated convs' counts (``build.modconv``) of one no-grad
+    forward of a co-modulated synthesis of ``blocks`` levels (4² up):
+    every modulated conv but ``b4.conv`` takes an input its producer's
+    epilogue scaled (the fold), except at each of ``casts`` levels whose
+    type differs from the level before (bf16 after float32), where the
+    ``torgb`` before it and its ``conv0`` multiply for themselves."""
+    multiplied = 1 + 2 * casts
+    return {"prescaled": 3 * blocks - 1 - multiplied,
+            "multiplied": multiplied}
+
+
+def synthesis_modconv(syn):
+    """:func:`modconv_counts` of the synthesis module ``syn``."""
+    dts = [torch.float32] + [getattr(syn, f"b{r}").dtype
+                             for r in syn.block_res[1:]]
+    return modconv_counts(len(dts), sum(a != b for a, b in zip(dts,
+                                                              dts[1:])))
+
+
+def train_modconv(syn, greg, accum=1):
+    """The modulated convs' counts (``build.modconv``) of one training step
+    of a co-modulated synthesis ``syn`` (no remat): each round's Gmain and
+    Gpl (``greg``) forwards record a gradient and multiply in every conv;
+    its D-phase generator forward runs under ``no_grad`` and takes the
+    route (:func:`synthesis_modconv`)."""
+    d = synthesis_modconv(syn)
+    convs = sum(d.values())
+    a = max(int(accum), 1)
+    return {"prescaled": a * d["prescaled"],
+            "multiplied": a * ((2 if greg else 1) * convs
+                               + d["multiplied"])}
 
 
 def counted(build, fn):
@@ -4672,10 +4801,15 @@ def compiled_serving(build, bf16, smi):
     out3 = e.inpaint(imgs3, masks3, start_index=40)
     torch.cuda.synchronize()
     launches = dict(build.launches)
+    modconv = build.snapshot_modconv()
     n_fwd = len(COMPILED_STARTS) + 1
     if launches != {k: v * n_fwd for k, v in want.items()}:
         raise AssertionError(f"compiled {MODEL} launches {launches}, "
                              f"expected {n_fwd} x {want}")
+    want_mod = synthesis_modconv(e.G.synthesis)
+    if modconv != {k: v * n_fwd for k, v in want_mod.items()}:
+        raise AssertionError(f"compiled {MODEL} modulated convs {modconv}, "
+                             f"expected {n_fwd} x {want_mod}")
     gaps = [uint8_gap(o, eager_request(e, imgs8, masks8, st))
             for o, st in zip(outs, COMPILED_STARTS)]
     gaps.append(uint8_gap(out3, eager_request(e, imgs3, masks3, 40)))
@@ -4767,6 +4901,7 @@ def compiled_serving(build, bf16, smi):
                "limits": CELL_LIMITS[MODEL]},
            "stream_window": 2, "stream_batches": COMPILED_STREAM,
            "launches": launches, "forwards": n_fwd,
+           "modconv_per_replay": {k: v / n_fwd for k, v in modconv.items()},
            "request_ms": times, "enqueue_ms": enq,
            "steady_images_per_s": {k: v["ips"] for k, v in times.items()},
            "captures": e.compiled.records,
@@ -4812,6 +4947,8 @@ def compiled_eval(tmp, cli, build, g_pth, inc_pth, smi):
                "eager": {"eager_reason": lambda *a, **k: "compared",
                          "composite_forward": eager_forward}}
     n_batches = EVAL_IMAGES // EVAL_BATCH
+    # float32 throughout: no level casts
+    want_mod = modconv_counts(int(np.log2(K3_RES)) - 1)
     calls = fir_calls(model_cfg_bank_cfg(MODEL_1024), EVAL_BATCH)
     layers = noise_layers(model_cfg_bank_cfg(MODEL_1024))
     convs = encoder_conv_layers(model_cfg_bank_cfg(MODEL_1024))
@@ -4832,12 +4969,16 @@ def compiled_eval(tmp, cli, build, g_pth, inc_pth, smi):
             rv = cli.run(cfg)
             stage_s = time.perf_counter() - t0
             launches = dict(build.launches)
+            modconv = build.snapshot_modconv()
         finally:
             (stages.CompiledForward, stages.eager_reason,
              stages.composite_forward) = Compiled, reason, forward
         if launches != want:
             raise AssertionError(f"{name} eval launches {launches}, "
                                  f"expected {want}")
+        if modconv != {k: v * n_batches for k, v in want_mod.items()}:
+            raise AssertionError(f"{name} eval modulated convs {modconv}, "
+                                 f"expected {n_batches} x {want_mod}")
         with open(os.path.join(cfg["eval"]["log_dir"], "result.json")) as f:
             result = json.load(f)
         t = rv["timing"]
@@ -4846,7 +4987,9 @@ def compiled_eval(tmp, cli, build, g_pth, inc_pth, smi):
             "images_per_s": EVAL_BATCH * (n_batches - 1)
             / (sum(t["batch_s"][1:]) + t["drain_s"]),
             "batch0_s": t["batch_s"][0], "stage_s": stage_s,
-            "launches": launches}
+            "launches": launches,
+            "modconv_per_forward": {k: v / n_batches
+                                    for k, v in modconv.items()}}
     if len(made) != 1 or not made[0].records or len(got["eager"]) != len(
             got["compiled"]):
         raise AssertionError("the eval stage's compiled run did not capture "
@@ -4905,7 +5048,11 @@ def compiled_path(tmp, cli, build, g_pth, inc_pth, smi):
                | {"eval": sum(c["pool_bytes"] for c in ev["captures"])
                   / 2 ** 30},
                "eval_images_per_s": {k: v["images_per_s"]
-                                     for k, v in ev["runs"].items()}},
+                                     for k, v in ev["runs"].items()},
+               "modconv_per_replay": {
+                   prec: r["modconv_per_replay"]
+                   for prec, r in serving.items()}
+               | {"eval": ev["runs"]["compiled"]["modconv_per_forward"]}},
            "launches": total, "wall_s": time.perf_counter() - t_phase}
     emit(row)
     return row, total
@@ -4996,8 +5143,10 @@ def main():
                        "eager_ms", "bound_ms", "hbm_share", "bf16_ms",
                        "bf16_hbm_share", "plain_ms", "library_ms",
                        "library_eager_ms", "nhwc_ms", "nhwc_hbm_share",
-                       "nhwc_bf16_ms")},
+                       "nhwc_bf16_ms", "fold_nhwc_ms")},
           "max_abs_err": max(r["max_abs_err"] for r in epi_rows),
+          "fold_max_abs_err": max(r["fold_max_abs_err"] for r in epi_rows),
+          "fold_bit_for_bit": True,
           "nhwc_max_abs_err": max(r["nhwc_max_abs_err"] for r in epi_rows),
           "nhwc_bf16_max_abs_err": max(r["nhwc_bf16_max_abs_err"]
                                        for r in epi_rows),
@@ -5053,7 +5202,8 @@ def main():
                                      "library_ms", "library_eager_ms",
                                      "nhwc_max_abs_err",
                                      "nhwc_bf16_max_abs_err", "nhwc_ms",
-                                     "nhwc_hbm_share", "nhwc_bf16_ms")}})
+                                     "nhwc_hbm_share", "nhwc_bf16_ms",
+                                     "fold_max_abs_err", "fold_nhwc_ms")}})
     conv_rows = check_conv3(conv1024, conv_resample)
     for row in conv_rows:
         emit({"phase": "kernel_check", "kernel": "conv3x3_lowch", **row})

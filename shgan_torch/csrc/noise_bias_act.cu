@@ -23,8 +23,16 @@
 // chosen so the grid fills the card at every resolution (noise_bias_act.cuh),
 // one launch per layer.  All arithmetic in float32, one rounding at a bf16
 // store.
+//
+// The fold (noise_bias_act_fold_kernel, its NHWC map): on a forward that
+// records no gradient the launch also adds the encoder skip and writes each
+// consumer's x * styles (noise_bias_act.cuh: the fold), so the PyTorch
+// kernels that did it, each a full pass over a plane read straight back,
+// drop out: ~8 GB a 512^2 batch of 8 for ~1.5 GB more here.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "noise_bias_act.cuh"
 
@@ -96,10 +104,39 @@ __device__ __forceinline__ void store(uint16_t* p, const float* v) {
   }
 }
 
+// The fold's operands (noise_bias_act.cuh: the fold): the addend (ADD) and
+// the scales of the outputs (OUTS of them: output 1 into y, output 2 into
+// y2), each scale float32 [n, c] as the dcoefs are.  The plain epilogue has
+// none (Fold<T>{}).
+template <typename T>
+struct Fold {
+  const T* addend = nullptr;
+  T* y2 = nullptr;
+  const float* scale1 = nullptr;
+  const float* scale2 = nullptr;
+};
+
+template <typename T>
+constexpr bool kBf16 = sizeof(T) == 2;
+
+// Element e of an access: the epilogue's result r becomes the fold's
+// outputs o1 and o2 (r itself where OUTS is 0: the plain epilogue).
+template <typename T, bool ADD, int OUTS>
+__device__ __forceinline__ void fold(float r, float a, float s1, float s2, float* o1, float* o2) {
+  static_assert(!ADD || OUTS == 1, "an addend takes one output");
+  if constexpr (OUTS == 0) {
+    *o1 = r;
+  } else {
+    const float v = shgan::nba::fold_sum(r, a, ADD, kBf16<T>);
+    *o1 = shgan::nba::mul_rn(v, s1);
+    if constexpr (OUTS == 2) *o2 = shgan::nba::mul_rn(v, s2);
+  }
+}
+
 // One thread's work of the epilogue: its 2 * CPT elements in each half of
 // each plane it walks.  x and y may be the same tensor: each thread reads its
 // elements before it writes them, so neither pointer is __restrict__.
-template <typename T, int CPT>
+template <typename T, int CPT, bool ADD = false, int OUTS = 0>
 __device__ __forceinline__ void epilogue(const T* x, T* y, int c, const shgan::NoiseWindow& win,
                                          long long calls, const float* __restrict__ dcoef,
                                          const float* __restrict__ bias,
@@ -107,7 +144,7 @@ __device__ __forceinline__ void epilogue(const T* x, T* y, int c, const shgan::N
                                          const float* __restrict__ noise_const,
                                          const long long* __restrict__ key_row, int mode,
                                          uint32_t k0, uint32_t k1, long long row0, Act act,
-                                         const Launch& L) {
+                                         const Launch& L, Fold<T> f = {}) {
   constexpr int V = 2 * CPT;  // elements of each half a thread owns
   const long long rel = shgan::nba::first_call(L, blockIdx.x, threadIdx.x, calls);
   if (rel < 0) return;
@@ -148,15 +185,22 @@ __device__ __forceinline__ void epilogue(const T* x, T* y, int c, const shgan::N
     const long long p = static_cast<long long>(row) * c + ch;
     const float d = dcoef != nullptr ? dcoef[p] : 1.0f;
     const float b = bias != nullptr ? bias[ch] : -0.0f;
+    float s1 = 0.0f, s2 = 0.0f;
+    if constexpr (OUTS >= 1) s1 = shgan::nba::held(f.scale1[p], kBf16<T>);
+    if constexpr (OUTS == 2) s2 = shgan::nba::held(f.scale2[p], kBf16<T>);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (o[h] < 0) continue;
       const long long off = p * win.len + o[h];
-      float v[V];
+      float v[V], a[V], v2[V];
       load<V>(x + off, v);
+      if constexpr (ADD) load<V>(f.addend + off, a);
 #pragma unroll
-      for (int e = 0; e < V; ++e) v[e] = shgan::nba::apply(v[e], d, nz[h][e], b, act);
+      for (int e = 0; e < V; ++e)
+        fold<T, ADD, OUTS>(shgan::nba::apply(v[e], d, nz[h][e], b, act), ADD ? a[e] : 0.0f, s1,
+                           s2, &v[e], &v2[e]);
       store<V>(y + off, v);
+      if constexpr (OUTS == 2) store<V>(f.y2 + off, v2);
     }
   }
 }
@@ -171,6 +215,20 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
                           uint32_t k1, long long row0, Act act, Launch L) {
   epilogue<T, CPT>(x, y, c, win, calls, dcoef, bias, strength, noise_const, key_row, mode, k0, k1,
                    row0, act, L);
+}
+
+// The epilogue with the fold (ADD, OUTS; not both off): a launch that
+// writes its consumers' inputs.  The plain epilogue keeps its own kernel.
+template <typename T, int CPT, bool ADD, int OUTS>
+__global__ void __launch_bounds__(shgan::nba::kThreads)
+    noise_bias_act_fold_kernel(const T* x, T* y, int c, shgan::NoiseWindow win, long long calls,
+                               const float* __restrict__ dcoef, const float* __restrict__ bias,
+                               const float* __restrict__ strength,
+                               const float* __restrict__ noise_const,
+                               const long long* __restrict__ key_row, int mode, uint32_t k0,
+                               uint32_t k1, long long row0, Act act, Launch L, Fold<T> f) {
+  epilogue<T, CPT, ADD, OUTS>(x, y, c, win, calls, dcoef, bias, strength, noise_const, key_row,
+                              mode, k0, k1, row0, act, L, f);
 }
 
 // bias_lrelu_kernel: the conv layers' epilogue.  Every Conv2dLayer of the
@@ -247,7 +305,7 @@ __device__ __forceinline__ void store_n(uint16_t* p, const float* v) {
   }
 }
 
-template <typename T, int V, bool NOISE>
+template <typename T, int V, bool NOISE, bool ADD = false, int OUTS = 0>
 __device__ __forceinline__ void epilogue_nhwc(const T* x, T* y, int c, long long half,
                                               long long calls, const float* __restrict__ dcoef,
                                               const float* __restrict__ bias,
@@ -255,7 +313,7 @@ __device__ __forceinline__ void epilogue_nhwc(const T* x, T* y, int c, long long
                                               const float* __restrict__ noise_const,
                                               const long long* __restrict__ key_row, int mode,
                                               uint32_t k0, uint32_t k1, long long row0, Act act,
-                                              const NhwcLaunch& L) {
+                                              const NhwcLaunch& L, Fold<T> f = {}) {
   __shared__ float nz[2][NOISE ? 2 * shgan::nba::kNhwcMaxCalls : 1];
   const int row = blockIdx.y;
   const long long qa = static_cast<long long>(blockIdx.x) * L.cpb;
@@ -301,12 +359,24 @@ __device__ __forceinline__ void epilogue_nhwc(const T* x, T* y, int c, long long
 #pragma unroll
         for (int k = 0; k < V; ++k) b[k] = -0.0f;
       }
+      float s1[V], s2[V], a[V], v2[V];
+      if constexpr (OUTS >= 1) load_n<V>(f.scale1 + static_cast<long long>(row) * c + ch, s1);
+      if constexpr (OUTS == 2) load_n<V>(f.scale2 + static_cast<long long>(row) * c + ch, s2);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if constexpr (OUTS >= 1) s1[k] = shgan::nba::held(s1[k], kBf16<T>);
+        if constexpr (OUTS == 2) s2[k] = shgan::nba::held(s2[k], kBf16<T>);
+      }
       float n = -0.0f;
       if constexpr (NOISE) n = nz[h][pl];
       load_n<V>(x + base + e, v);
+      if constexpr (ADD) load_n<V>(f.addend + base + e, a);
 #pragma unroll
-      for (int k = 0; k < V; ++k) v[k] = shgan::nba::apply(v[k], d[k], n, b[k], act);
+      for (int k = 0; k < V; ++k)
+        fold<T, ADD, OUTS>(shgan::nba::apply(v[k], d[k], n, b[k], act), ADD ? a[k] : 0.0f,
+                           OUTS >= 1 ? s1[k] : 0.0f, OUTS == 2 ? s2[k] : 0.0f, &v[k], &v2[k]);
       store_n<V>(y + base + e, v);
+      if constexpr (OUTS == 2) store_n<V>(f.y2 + base + e, v2);
     });
   }
 }
@@ -323,6 +393,21 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
                              mode, k0, k1, row0, act, L);
 }
 
+// The NHWC map with the fold, as noise_bias_act_fold_kernel on the NCHW map.
+template <typename T, int V, bool NOISE, bool ADD, int OUTS>
+__global__ void __launch_bounds__(shgan::nba::kThreads)
+    noise_bias_act_fold_nhwc_kernel(const T* x, T* y, int c, long long half, long long calls,
+                                    const float* __restrict__ dcoef,
+                                    const float* __restrict__ bias,
+                                    const float* __restrict__ strength,
+                                    const float* __restrict__ noise_const,
+                                    const long long* __restrict__ key_row, int mode, uint32_t k0,
+                                    uint32_t k1, long long row0, Act act, NhwcLaunch L,
+                                    Fold<T> f) {
+  epilogue_nhwc<T, V, NOISE, ADD, OUTS>(x, y, c, half, calls, dcoef, bias, strength, noise_const,
+                                        key_row, mode, k0, k1, row0, act, L, f);
+}
+
 // bias_lrelu_kernel's NHWC map: the epilogue above with no dcoef and no
 // noise, under its own name for the profiler, as on the NCHW map.
 template <typename T, int V>
@@ -333,16 +418,49 @@ __global__ void __launch_bounds__(shgan::nba::kThreads)
                              shgan::nba::kNoiseNone, 0, 0, 0, act, L);
 }
 
+// k(ADD, OUTS) with the fold's options as std::integral_constant values, for
+// the runtime (add, outs) of a fold launch.  The synthesis runs three: a
+// conv0 adds the skip and writes conv1's input (add, 1); a conv1 writes
+// torgb's input and the next conv0's (2), or one of them (1).  The entry
+// point refuses the others.
+template <typename F>
+void with_fold(bool add, int outs, F&& k) {
+  using std::integral_constant;
+  if (add) {
+    k(std::true_type{}, integral_constant<int, 1>{});
+  } else if (outs == 1) {
+    k(std::false_type{}, integral_constant<int, 1>{});
+  } else {
+    k(std::false_type{}, integral_constant<int, 2>{});
+  }
+}
+
 template <typename T, int V>
 void launch_nhwc(const void* x, void* y, int n, int c, int res, const float* dcoef,
                  const float* bias, const float* strength, const float* noise_const,
                  const long long* key_row, int mode, uint32_t k0, uint32_t k1, long long row0,
-                 Act act, cudaStream_t stream) {
+                 Act act, const Fold<T>& f, bool add, int outs, cudaStream_t stream) {
   const NhwcLaunch L = shgan::nba::plan_nhwc(n, c, res, V);
   const long long half = static_cast<long long>(res) * res / 2, calls = half / 2;
   const dim3 grid(static_cast<unsigned int>(L.tiles), static_cast<unsigned int>(n));
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
+  if (add || outs) {
+    with_fold(add, outs, [&](auto a, auto o) {
+      constexpr bool A = decltype(a)::value;
+      constexpr int O = decltype(o)::value;
+      if (mode == shgan::nba::kNoiseNone) {
+        noise_bias_act_fold_nhwc_kernel<T, V, false, A, O><<<grid, shgan::nba::kThreads, 0, stream>>>(
+            xp, yp, c, half, calls, dcoef, bias, strength, noise_const, key_row, mode, k0, k1,
+            row0, act, L, f);
+      } else {
+        noise_bias_act_fold_nhwc_kernel<T, V, true, A, O><<<grid, shgan::nba::kThreads, 0, stream>>>(
+            xp, yp, c, half, calls, dcoef, bias, strength, noise_const, key_row, mode, k0, k1,
+            row0, act, L, f);
+      }
+    });
+    return;
+  }
   if (dcoef == nullptr && mode == shgan::nba::kNoiseNone) {
     bias_lrelu_nhwc_kernel<T, V><<<grid, shgan::nba::kThreads, 0, stream>>>(xp, yp, c, half,
                                                                             calls, bias, act, L);
@@ -361,13 +479,22 @@ template <typename T, int CPT>
 void launch(const void* x, void* y, int n, int c, const shgan::NoiseWindow& win,
             const float* dcoef, const float* bias, const float* strength,
             const float* noise_const, const long long* key_row, int mode, uint32_t k0, uint32_t k1,
-            long long row0, Act act, cudaStream_t stream) {
+            long long row0, Act act, const Fold<T>& f, bool add, int outs, cudaStream_t stream) {
   const long long calls = win.q1 - win.q0;
-  const bool conv = dcoef == nullptr && mode == shgan::nba::kNoiseNone;
+  const bool conv = dcoef == nullptr && mode == shgan::nba::kNoiseNone && !add && !outs;
   const Launch L = shgan::nba::plan_calls(n, c, calls, CPT, conv ? 1 : 0);
   const dim3 grid(static_cast<unsigned int>(L.tiles), static_cast<unsigned int>(n),
                   static_cast<unsigned int>(L.chunks));
   const dim3 block(L.bt, L.bc);
+  if (add || outs) {
+    with_fold(add, outs, [&](auto a, auto o) {
+      noise_bias_act_fold_kernel<T, CPT, decltype(a)::value, decltype(o)::value>
+          <<<grid, block, 0, stream>>>(static_cast<const T*>(x), static_cast<T*>(y), c, win,
+                                       calls, dcoef, bias, strength, noise_const, key_row, mode,
+                                       k0, k1, row0, act, L, f);
+    });
+    return;
+  }
   if (conv) {
     bias_lrelu_kernel<T, CPT><<<grid, block, 0, stream>>>(
         static_cast<const T*>(x), static_cast<T*>(y), c, win, calls, bias, act, L);
@@ -398,63 +525,76 @@ void launch(const void* x, void* y, int n, int c, const shgan::NoiseWindow& win,
 // and y are channels-last, [n, res, res, c] in memory, whole planes (h0 = 0,
 // rows = res); the NHWC map (noise_bias_act_nhwc_kernel, bias_lrelu_nhwc_kernel)
 // takes 16-byte float32 / 8-byte bf16 accesses where c % 4 == 0 and x, y,
-// bias and dcoef allow, else one element an access.  Returns
+// bias and dcoef allow, else one element an access.
+//
+// The fold (noise_bias_act.cuh; noise_bias_act_fold_kernel and its NHWC
+// map): addend, null or a tensor of x's type, shape and layout, added to the
+// result (rounded as the block's type rounds); outs, 0-2 outputs (1 with an
+// addend), output k the result (with the addend) times scale_k, a float32
+// [n, c], output 1 into y and output 2 into y2 (x's type, shape and layout).
+// With no addend and outs 0 the launch is the plain epilogue's, as above.
+// Returns
 // cudaGetLastError() after the launch.
 extern "C" int shgan_noise_bias_act(const void* x, void* y, int bf16, int n, int c, int res,
                                     int rows, int h0, const float* dcoef, const float* bias,
                                     const float* strength, const float* noise_const,
                                     const long long* key_row, int mode, unsigned int k0,
                                     unsigned int k1, long long row0, float alpha, float gain,
-                                    float clamp, int nhwc, void* stream) {
+                                    float clamp, int nhwc, const void* addend, void* y2,
+                                    const float* scale1, const float* scale2, int outs,
+                                    void* stream) {
   if (res < 2 || res % 2 || h0 < 0 || rows < 0 || h0 + rows > res ||
-      (nhwc && (h0 != 0 || rows != res)))
+      (nhwc && (h0 != 0 || rows != res)) || outs < 0 || outs > 2 || (addend && outs != 1) ||
+      (outs >= 1 && scale1 == nullptr) || (outs == 2 && (scale2 == nullptr || y2 == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || c == 0 || rows == 0) return static_cast<int>(cudaSuccess);
   const Act act{alpha, gain, clamp};
+  const bool add = addend != nullptr;
+  const Fold<float> f32{static_cast<const float*>(addend), static_cast<float*>(y2), scale1,
+                        scale2};
+  const Fold<uint16_t> f16{static_cast<const uint16_t*>(addend), static_cast<uint16_t*>(y2),
+                           scale1, scale2};
+  const auto at = [](const void* p, uintptr_t b) { return reinterpret_cast<uintptr_t>(p) % b == 0; };
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nhwc) {
     const uintptr_t xb = bf16 ? 8 : 16;
-    const bool v4 = c % 4 == 0 && reinterpret_cast<uintptr_t>(x) % xb == 0 &&
-                    reinterpret_cast<uintptr_t>(y) % xb == 0 &&
-                    reinterpret_cast<uintptr_t>(bias) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(dcoef) % 16 == 0;
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool v4 = c % 4 == 0 && at(x, xb) && at(y, xb) && at(bias, 16) && at(dcoef, 16) &&
+                    at(addend, xb) && at(y2, xb) && at(scale1, 16) && at(scale2, 16);
     if (bf16) {
       if (v4) {
         launch_nhwc<uint16_t, 4>(x, y, n, c, res, dcoef, bias, strength, noise_const, key_row,
-                                 mode, k0, k1, row0, act, s);
+                                 mode, k0, k1, row0, act, f16, add, outs, s);
       } else {
         launch_nhwc<uint16_t, 1>(x, y, n, c, res, dcoef, bias, strength, noise_const, key_row,
-                                 mode, k0, k1, row0, act, s);
+                                 mode, k0, k1, row0, act, f16, add, outs, s);
       }
     } else if (v4) {
       launch_nhwc<float, 4>(x, y, n, c, res, dcoef, bias, strength, noise_const, key_row, mode,
-                            k0, k1, row0, act, s);
+                            k0, k1, row0, act, f32, add, outs, s);
     } else {
       launch_nhwc<float, 1>(x, y, n, c, res, dcoef, bias, strength, noise_const, key_row, mode,
-                            k0, k1, row0, act, s);
+                            k0, k1, row0, act, f32, add, outs, s);
     }
     return static_cast<int>(cudaGetLastError());
   }
   const shgan::NoiseWindow win = shgan::noise_window(res, h0, rows);
   const uintptr_t vec_bytes = bf16 ? 8 : 16;
-  const bool vec = res % 4 == 0 && reinterpret_cast<uintptr_t>(x) % vec_bytes == 0 &&
-                   reinterpret_cast<uintptr_t>(y) % vec_bytes == 0 &&
-                   reinterpret_cast<uintptr_t>(noise_const) % 16 == 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = res % 4 == 0 && at(x, vec_bytes) && at(y, vec_bytes) && at(noise_const, 16) &&
+                   at(addend, vec_bytes) && at(y2, vec_bytes);
   if (bf16) {
     if (vec) {
       launch<uint16_t, 2>(x, y, n, c, win, dcoef, bias, strength, noise_const, key_row, mode, k0,
-                          k1, row0, act, s);
+                          k1, row0, act, f16, add, outs, s);
     } else {
       launch<uint16_t, 1>(x, y, n, c, win, dcoef, bias, strength, noise_const, key_row, mode, k0,
-                          k1, row0, act, s);
+                          k1, row0, act, f16, add, outs, s);
     }
   } else if (vec) {
     launch<float, 2>(x, y, n, c, win, dcoef, bias, strength, noise_const, key_row, mode, k0, k1,
-                     row0, act, s);
+                     row0, act, f32, add, outs, s);
   } else {
     launch<float, 1>(x, y, n, c, win, dcoef, bias, strength, noise_const, key_row, mode, k0, k1,
-                     row0, act, s);
+                     row0, act, f32, add, outs, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -97,6 +97,27 @@ SHGAN_HD uint16_t to_bf16(float f) {
   return static_cast<uint16_t>((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
 }
 
+// ---- the fold: the epilogue writes its consumers' inputs -------------------
+//
+// On a forward that records no gradient the co-modulated synthesis hands a
+// layer's epilogue what its consumers would do to its result next
+// (models/synthesis.py): add the encoder skip (an addend of x's shape) and
+// multiply by each consumer's styles, y_k = v * scale_k[n, c] for up to two
+// consumers.  The chain this replaces is PyTorch ops on tensors of the
+// block's type T, each rounded to T, so the fold rounds where it rounds: the
+// epilogue's result, then the sum, then each product (the store's rounding),
+// and a scale is taken as T holds it (styles.to(x.dtype)).  `held` is a value
+// as T holds it: a bf16 rounded to nearest even and widened back, a float32
+// as it is.  In float32 the outputs are the chain's bit for bit.
+SHGAN_HD float held(float f, bool bf16) { return bf16 ? from_bf16(to_bf16(f)) : f; }
+
+// The value the consumers scale: the epilogue's result r, held, plus the
+// addend a (already a T value) where there is one, held.
+SHGAN_HD float fold_sum(float r, float a, bool add, bool bf16) {
+  const float v = held(r, bf16);
+  return add ? held(add_rn(v, a), bf16) : v;
+}
+
 // The Philox key and first counter row of a random-noise launch.  With a
 // device row (k0, k1, row0) of a noise table (int64 [3]: ops/noise.py,
 // noise_table) the launch reads them from it and ignores the scalars; with

@@ -38,7 +38,7 @@ ENTRY_POINTS = {
     "noise": {"shgan_philox_normal": (_P,) + (_I,) * 4 + (_LL, _U, _U, _P)},
     "noise_bias_act": {
         "shgan_noise_bias_act": (_P, _P) + (_I,) * 6 + (_P,) * 5
-        + (_I, _U, _U, _LL, _F, _F, _F, _I, _P),
+        + (_I, _U, _U, _LL, _F, _F, _F, _I) + (_P,) * 4 + (_I, _P),
         "shgan_noise_bias_act_grad": (_P,) * 3 + (_I,) * 6 + (_P,) * 4
         + (_I, _U, _U, _LL, _F, _F, _F, _I) + (_P,) * 6},
     "upfirdn2d": {"shgan_upfirdn2d": (_P, _P, _I, _LL) + (_I,) * 10
@@ -65,6 +65,11 @@ launches = {"upfirdn2d": 0, "upfirdn2d_grad": 0, "philox_normal": 0,
             "conv3x3_lowch": 0, "noise_bias_act": 0,
             "noise_bias_act_grad": 0, "bias_lrelu": 0}
 launches_nhwc = dict.fromkeys(FORWARD_KERNELS, 0)
+# How each modulated conv's input got its x * styles (ops/modulated_conv.py),
+# counted on every device: "prescaled" where the epilogue before it wrote it
+# (the no-grad route of models/synthesis.py), "multiplied" where the conv
+# multiplied for itself.  A replay adds its capture's counts, as above.
+modconv = {"prescaled": 0, "multiplied": 0}
 
 
 _LAUNCH_LOCK = threading.Lock()
@@ -77,15 +82,20 @@ def count(name, nhwc=False):
             launches_nhwc[name] += 1
 
 
-def add(delta, nhwc=None):
-    """Add ``{name: n}`` to the counts and ``nhwc`` (``{name: n}``) to the
-    NHWC counts (a graph's launches per replay; a negative n takes back a
-    capture's, whose kernels ran no time)."""
+def count_modconv(prescaled):
     with _LAUNCH_LOCK:
-        for k, v in delta.items():
-            launches[k] += v
-        for k, v in (nhwc or {}).items():
-            launches_nhwc[k] += v
+        modconv["prescaled" if prescaled else "multiplied"] += 1
+
+
+def add(delta, nhwc=None, mod=None):
+    """Add ``{name: n}`` to the counts, ``nhwc`` (``{name: n}``) to the
+    NHWC counts and ``mod`` to the modulated convs' (a graph's per replay;
+    a negative n takes back a capture's, whose kernels ran no time)."""
+    with _LAUNCH_LOCK:
+        for counts, d in ((launches, delta), (launches_nhwc, nhwc),
+                          (modconv, mod)):
+            for k, v in (d or {}).items():
+                counts[k] += v
 
 
 def snapshot():
@@ -100,9 +110,15 @@ def snapshot_nhwc():
         return dict(launches_nhwc)
 
 
+def snapshot_modconv():
+    """A copy of the modulated convs' counts."""
+    with _LAUNCH_LOCK:
+        return dict(modconv)
+
+
 def reset_launches():
     with _LAUNCH_LOCK:
-        for counts in (launches, launches_nhwc):
+        for counts in (launches, launches_nhwc, modconv):
             for k in counts:
                 counts[k] = 0
 

@@ -20,7 +20,7 @@ from ..ops.bias_act import add_bias, get_activation, parse_activation
 from ..ops.conv_resample import conv2d_resample
 from ..ops.dense import dense_apply
 from ..ops.layout import scaled_weight
-from ..ops.modulated_conv import modulated_conv2d
+from ..ops.modulated_conv import modulated_conv2d, normalize_styles
 from ..ops.noise import noise_key
 from ..ops.noise_bias_act import epilogue_act, noise_bias_act
 from ..ops.upfirdn2d import setup_filter
@@ -134,7 +134,12 @@ class SynthesisLayer(nn.Module):
     as one :func:`noise_bias_act` call: one kernel launch on the card, and
     with grad mode on, a differentiable one (its backward the grad kernel).
     ``noise_const`` is a buffer (the JAX step's ``_BUFFER_NAMES``): the
-    optimizer leaves it alone and the EMA copies it."""
+    optimizer leaves it alone and the EMA copies it.
+
+    The no-grad route of ``models/synthesis.py`` hands a layer ``styles``
+    (:meth:`input_scale`: its input already holds ``x ⊙ styles``) and its
+    epilogue's fold (``addend``, ``scales``: its consumers' inputs, the
+    tuple of them returned; ``ops/noise_bias_act``)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, w_dim,
                  resolution, bias=True,
@@ -163,27 +168,35 @@ class SynthesisLayer(nn.Module):
                                  randn((resolution, resolution), generator))
             self.noise_strength = nn.Parameter(torch.zeros(()))
 
+    def input_scale(self, w, rows=None):
+        """The styles this layer's modulated conv scales its input by."""
+        return normalize_styles(self.affine(w), rows)
+
     def forward(self, x, w, gain=1.0, noise_mode="random", noise_seed=None,
-                row0=0, rows=None, slab=None, src=None):
+                row0=0, rows=None, slab=None, src=None, styles=None,
+                addend=None, scales=()):
         """``noise_seed``: an integer, or a noise table (its row
         ``layer_id`` holds the key and the first counter row; ``row0`` is
         then 0); ``row0``: the random noise's first counter row; ``rows``: this
         worker's rows of a global batch, whose style statistic the
         modulated conv reads (None: the batch is whole); ``slab`` / ``src``:
         the output rows this rank computes and what ``x`` holds (spatial
-        sharding; None: the whole plane)."""
+        sharding; None: the whole plane); ``styles``: ``x`` already holds
+        ``x ⊙ styles`` (``w`` is then not read); ``addend`` / ``scales``:
+        the epilogue's fold."""
         if noise_mode not in ("random", "const", "none"):
             raise ValueError(f"noise_mode {noise_mode!r}")
         mode = noise_mode if self.use_noise else "none"
         if mode == "random" and noise_seed is None:
             raise ValueError("noise_mode='random' requires a noise_seed")
-        styles = self.affine(w)
-        x, dcoefs = modulated_conv2d(x, self.weight, styles, up=self.up,
-                                     padding=self.padding,
+        prescaled = styles is not None
+        x, dcoefs = modulated_conv2d(x, self.weight,
+                                     styles if prescaled else self.affine(w),
+                                     up=self.up, padding=self.padding,
                                      resample_filter=self.resample_filter,
                                      flip_weight=(self.up == 1),
                                      split_dcoefs=True, rows=rows,
-                                     slab=slab, src=src)
+                                     slab=slab, src=src, prescaled=prescaled)
         key = None
         if mode == "random":
             key = (noise_seed[self.layer_id]
@@ -194,7 +207,7 @@ class SynthesisLayer(nn.Module):
             noise_mode=mode, noise_key=key,
             noise_const=self.noise_const if mode == "const" else None,
             strength=self.noise_strength if mode != "none" else None,
-            row0=row0, slab=slab)
+            row0=row0, slab=slab, addend=addend, scales=scales)
 
 
 class ToRGBLayer(nn.Module):
@@ -213,12 +226,19 @@ class ToRGBLayer(nn.Module):
         self.affine = Dense(w_dim, in_channels, bias=True, bias_init=1.0,
                             generator=generator)
 
-    def forward(self, x, w, slab=None):
+    def input_scale(self, w):
+        """The styles this layer's modulated conv scales its input by."""
+        return self.affine(w) * self.weight_gain
+
+    def forward(self, x, w, slab=None, styles=None):
         """``slab``: ``x`` is this rank's slab of the planes (spatial
-        sharding), and so is the result."""
-        styles = self.affine(w) * self.weight_gain
-        x = modulated_conv2d(x, self.weight, styles, demodulate=False,
-                             slab=slab, src=slab)
+        sharding), and so is the result; ``styles``: ``x`` already holds
+        ``x ⊙ styles`` (``w`` is then not read)."""
+        prescaled = styles is not None
+        x = modulated_conv2d(x, self.weight,
+                             styles if prescaled else self.input_scale(w),
+                             demodulate=False, slab=slab, src=slab,
+                             prescaled=prescaled)
         x = add_bias(x, self.bias, slab)
         if self.activation is not None:
             x = self.activation(x)

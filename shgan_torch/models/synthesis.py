@@ -14,9 +14,27 @@ counter row).  A block above
 With ``remat`` each co-modulated block after ``b4`` is checkpointed
 (:mod:`.remat`); as in the JAX package, ``StyleGANSynthesis`` has no
 ``remat``.
+
+The no-grad route of ``CoModSynthesis``: on a forward that records no
+gradient (grad mode off, or neither the parameters nor the inputs need one)
+with no level sharded, which is serving's, the eval stage's and training's
+D-phase generator forward (``train/loss.d_main_loss`` runs G under
+``no_grad``), every layer's styles are computed first (the same
+affine matmuls, in another order) and each synthesis layer's epilogue
+writes its consumers' inputs: ``conv0``'s the encoder skip added and
+scaled by ``conv1``'s styles, ``conv1``'s (and ``b4.conv``'s) scaled by
+``torgb``'s and by the next block's ``conv0``'s (``ops/noise_bias_act``:
+the fold).  Those consumers then skip their own multiply (``prescaled``);
+``b4.conv`` scales its own input.  Where the next block's type differs
+from this one's (a bf16 block after a float32 one) the block's last
+epilogue folds nothing, and its consumers multiply for themselves: the
+chain casts before it multiplies there.  Every output is the chain's,
+rounded where it rounds.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -175,19 +193,22 @@ class CoModSynthesisBlockFirst(nn.Module):
         self.num_torgb = 1 if rgb_n is not None else 0
 
     def forward(self, x, x0, ws, noise_mode="random", noise_seed=None,
-                row0=0, rows=None):
+                row0=0, rows=None, fold=None):
+        """``fold``: this block's :class:`Fold` on the no-grad route."""
+        f = fold or NO_FOLD
         x = x.float()
         w0 = x
         x = self.fc(x).reshape(x.shape[0], -1, self.resolution,
                                self.resolution)
         # the encoder's feature first: the sum takes its memory layout
         x = x0.float() + x
-        x = self.conv(x, torch.cat([ws[:, 0], w0], dim=1),
-                      noise_mode=noise_mode, noise_seed=noise_seed,
-                      row0=row0, rows=rows)
+        x, rgb_in = f.split(self.conv(
+            x, torch.cat([ws[:, 0], w0], dim=1), noise_mode=noise_mode,
+            noise_seed=noise_seed, row0=row0, rows=rows,
+            scales=f.scales.get("conv", ())))
         img = None
         if self.torgb is not None:
-            img = self.torgb(x, torch.cat([ws[:, 1], w0], dim=1))
+            img = self.torgb(rgb_in, **f.w_or_styles("torgb", ws, 1, w0))
         return x, img
 
 
@@ -220,23 +241,30 @@ class CoModSynthesisBlock(nn.Module):
         self.num_torgb = 1 if rgb_n is not None else 0
 
     def forward(self, x, x0, img, ws, w0, noise_mode="random",
-                noise_seed=None, row0=0, rows=None):
+                noise_seed=None, row0=0, rows=None, fold=None):
+        """``fold``: this block's :class:`Fold` on the no-grad route."""
         # under spatial sharding a sharded level's x, x0 and img are this
         # rank's slabs (the input's level's layout in, this level's out)
         s, src = level(self.resolution), level(self.resolution // 2)
         x = x.to(self.dtype)
         x0 = x0.to(self.dtype)
-        x = self.conv0(x, torch.cat([ws[:, 0], w0], dim=1),
-                       noise_mode=noise_mode, noise_seed=noise_seed,
-                       row0=row0, rows=rows, slab=s, src=src)
-        x = x + x0
-        x = self.conv1(x, torch.cat([ws[:, 1], w0], dim=1),
-                       noise_mode=noise_mode, noise_seed=noise_seed,
-                       row0=row0, rows=rows, slab=s, src=s)
+        f = fold or NO_FOLD
+        kw = dict(noise_mode=noise_mode, noise_seed=noise_seed, row0=row0,
+                  rows=rows)
+        # on the route conv0's epilogue adds the skip (the fold), else here
+        skip = f.scales.get("conv0", ())
+        x, _ = f.split(self.conv0(
+            x, **f.w_or_styles("conv0", ws, 0, w0), slab=s, src=src,
+            addend=x0 if skip else None, scales=skip, **kw))
+        if not skip:
+            x = x + x0
+        x, rgb_in = f.split(self.conv1(
+            x, **f.w_or_styles("conv1", ws, 1, w0), slab=s, src=s,
+            scales=f.scales.get("conv1", ()), **kw))
         if img is not None:
             img = upsample2d(img, self.resample_filter, slab=s, src=src)
         if self.torgb is not None:
-            y = self.torgb(x, torch.cat([ws[:, 2], w0], dim=1),
+            y = self.torgb(rgb_in, **f.w_or_styles("torgb", ws, 2, w0),
                            slab=s).float()
             img = img + y if img is not None else y
         return x, img
@@ -301,15 +329,92 @@ class CoModSynthesis(nn.Module):
             if w0_noise is None:
                 w0_noise = plural_noise(w0, noise_mode, noise_seed, row0)
             w0 = w0 + w0_noise.to(w0.device, w0.dtype) * w0
+        folds = (self.fold_plan(block_ws, x.float(), w0, rows)
+                 if self.on_route(x, feats, ws, w0)
+                 else [None] * len(self.block_res))
         x, img = self.b4(x, feats[4], block_ws[0], noise_mode=noise_mode,
-                         noise_seed=noise_seed, row0=row0, rows=rows)
-        for res, cur_ws in zip(self.block_res[1:], block_ws[1:]):
+                         noise_seed=noise_seed, row0=row0, rows=rows,
+                         fold=folds[0])
+        for res, cur_ws, fold in zip(self.block_res[1:], block_ws[1:],
+                                     folds[1:]):
             x, img = remat_call(
                 self.remat, getattr(self, f"b{res}"), x, feats[res], img,
                 cur_ws, w0, noise_mode=noise_mode, noise_seed=noise_seed,
-                row0=row0, rows=rows)
+                row0=row0, rows=rows, fold=fold)
         s = level(self.resolution)
         return img if s is None else s.gather(img)
+
+    def on_route(self, x, feats, ws, w0):
+        """Whether this forward takes the no-grad route (the module
+        docstring): it records no gradient and no level is sharded."""
+        if any(level(r) is not None for r in self.block_res):
+            return False
+        if not torch.is_grad_enabled():
+            return True
+        return not any(t.requires_grad for t in (
+            x, ws, w0, *feats.values(), *self.parameters()))
+
+    def fold_plan(self, block_ws, w0_first, w0, rows=None):
+        """Each block's :class:`Fold`: the styles of every prescaled
+        consumer, and each synthesis layer's consumers' styles in the
+        order its epilogue writes them (``torgb``'s, then the next block's
+        ``conv0``'s)."""
+        blocks = [getattr(self, f"b{r}") for r in self.block_res]
+        dtypes = [torch.float32] + [b.dtype for b in blocks[1:]]
+        plan = [Fold({}, {}) for _ in blocks]
+        for i, (b, cur) in enumerate(zip(blocks, block_ws)):
+            code = w0_first if i == 0 else w0
+            f = plan[i]
+            if i:
+                f.styles["conv1"] = b.conv1.input_scale(
+                    torch.cat([cur[:, 1], code], dim=1), rows)
+                f.scales["conv0"] = (f.styles["conv1"],)
+            last = i + 1 == len(blocks)
+            if not (last or dtypes[i + 1] == dtypes[i]):
+                continue   # the next block casts first: no fold here
+            out = []
+            if b.torgb is not None:
+                f.styles["torgb"] = b.torgb.input_scale(
+                    torch.cat([cur[:, b.num_conv], code], dim=1))
+                out.append(f.styles["torgb"])
+            if not last:
+                nxt = blocks[i + 1].conv0.input_scale(
+                    torch.cat([block_ws[i + 1][:, 0], w0], dim=1), rows)
+                plan[i + 1].styles["conv0"] = nxt
+                out.append(nxt)
+            f.scales["conv" if i == 0 else "conv1"] = tuple(out)
+        return plan
+
+
+class Fold(NamedTuple):
+    """A block's part of the no-grad route: ``styles``, the styles that a
+    prescaled layer's input holds, by layer name (a layer not named
+    multiplies for itself); ``scales``, by synthesis layer, its
+    consumers' styles in the order its epilogue writes their inputs
+    (``torgb``'s, then the next block's ``conv0``'s)."""
+    styles: dict
+    scales: dict
+
+    def w_or_styles(self, layer, ws, j, w0):
+        """``layer``'s ``w`` and ``styles`` arguments: its prescaled
+        input's styles and no w, or its w (``concat[ws[:, j], w0]``) and no
+        styles."""
+        st = self.styles.get(layer)
+        if st is not None:
+            return {"w": None, "styles": st}
+        return {"w": torch.cat([ws[:, j], w0], dim=1), "styles": None}
+
+    @staticmethod
+    def split(y):
+        """``(the next layer's input, torgb's input)`` from a synthesis
+        layer's result: its outputs where it folds (torgb's first, the
+        next conv0's last; after the last block both are torgb's), else
+        ``y`` for both."""
+        y = y if isinstance(y, tuple) else (y,)
+        return y[-1], y[0]
+
+
+NO_FOLD = Fold({}, {})
 
 
 def plural_noise(w0, noise_mode, noise_seed, row0=0):

@@ -13,20 +13,47 @@ worker holding rows of a larger batch (``rows``: a rank of a data-parallel
 run) takes the mean over that whole batch, as a device mesh does: it
 gathers the batch's styles (``[N, I]``, small) and reduces them as one
 device would.
+
+A conv whose input already holds ``x ⊙ styles`` (``prescaled``: the epilogue
+before it wrote it, ``models/synthesis.py``'s no-grad route) skips the
+multiply; :func:`normalize_styles` gives the styles it was scaled by.  Each
+call is counted in ``kernels/build.modconv``, prescaled or multiplied.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels import build as _kb
 from ..parallel.spatial import replicated
 from .conv_resample import conv2d_resample
 from .layout import scaled_weight
 
 
+def normalize_styles(styles, rows=None):
+    """A demodulated conv's styles at unit RMS over all their elements, the
+    batch's included (``rows``: this worker's rows of a global batch, whose
+    styles are gathered for the mean)."""
+    whole = styles if rows is None else rows.gather(styles)
+    return styles * torch.rsqrt(whole.square().mean())
+
+
+def demod_coefs(weight, styles):
+    """The dcoefs ``[N, O]`` of the scaled ``weight`` and the normalized
+    ``styles``: the weight's squares written NCHW whatever its layout, so
+    the sum runs as on an NCHW weight and both layouts give the same
+    dcoefs bit for bit."""
+    sq = weight.square() if weight.is_contiguous() else torch.square(
+        weight, out=torch.empty(weight.shape, dtype=weight.dtype,
+                                device=weight.device))
+    wsq = sq.sum(dim=(2, 3))                                 # [O, I]
+    return torch.rsqrt(styles.square() @ wsq.t() + 1e-8)
+
+
 def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
                      resample_filter=None, demodulate=True, flip_weight=True,
-                     split_dcoefs=False, rows=None, slab=None, src=None):
+                     split_dcoefs=False, rows=None, slab=None, src=None,
+                     prescaled=False):
     """
     Args:
         x:       [N, I, H, W] input activations.
@@ -45,6 +72,10 @@ def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
             holds (:func:`~shgan_torch.ops.conv_resample.conv2d_resample`);
             the styles, weight and dcoefs read by slab ops get their
             gradients summed over the model group.
+        prescaled: ``x`` already holds ``x ⊙ styles`` for exactly these
+            styles (with demodulation, the normalized ones:
+            :func:`normalize_styles`, taken as given), so the multiply is
+            skipped.
     """
     n = x.shape[0]
     i_ch = weight.shape[1]
@@ -60,18 +91,13 @@ def modulated_conv2d(x, weight, styles, noise=None, up=1, down=1, padding=0,
             weight, torch.rsqrt(weight.square().mean(dim=(1, 2, 3),
                                                      keepdim=True)),
             x, transposed=up > 1 and weight.shape[2:] != (1, 1))
-        whole = styles if rows is None else rows.gather(styles)
-        styles = styles * torch.rsqrt(whole.square().mean())
-        # the dcoefs from the same values, their squares written NCHW
-        # whatever the weight's layout: the sum then runs as on an NCHW
-        # weight, so both layouts give the same dcoefs bit for bit
-        sq = weight.square() if weight.is_contiguous() else torch.square(
-            weight, out=torch.empty(weight.shape, dtype=weight.dtype,
-                                    device=weight.device))
-        wsq = sq.sum(dim=(2, 3))                                 # [O, I]
-        dcoefs = torch.rsqrt(styles.square() @ wsq.t() + 1e-8)  # [N, O]
+        if not prescaled:
+            styles = normalize_styles(styles, rows)
+        dcoefs = demod_coefs(weight, styles)
 
-    x = x * replicated(styles, src).to(x.dtype)[:, :, None, None]
+    _kb.count_modconv(prescaled)
+    if not prescaled:
+        x = x * replicated(styles, src).to(x.dtype)[:, :, None, None]
     x = conv2d_resample(x, weight.to(x.dtype), f=resample_filter, up=up,
                         down=down, padding=padding, flip_weight=flip_weight,
                         slab=slab, src=src)

@@ -57,6 +57,19 @@ and the tensor result is rounded once to bf16; the sums stay float32.
 The activation is a tuple ``(alpha, gain, clamp)``: :func:`epilogue_act`
 parses a layer's spec at its runtime gain (``alpha`` None is linear, ``clamp``
 None is no clamp).
+
+The fold.  Where nothing records a gradient, a call may also do what its
+consumers do next (``models/synthesis.py`` wires it): ``addend``, a tensor
+of x's type, shape and layout, is added to the result (the encoder skip),
+and ``scales``, up to two float32 ``[N, C]`` styles (exactly one with an
+addend: a conv0's fold), make the outputs ``y_k = y * scales[k][n, c]``
+(each consumer's ``x * styles``), so the unscaled result is never
+written.  Each step rounds to x's type where the
+chain it replaces (``+ addend``, then ``* scale.to(x.dtype)``) rounds, so in
+float32 the outputs are that chain's bit for bit.  On the card output 1
+goes into x's buffer (or ``out``) and output 2 into a new tensor like x;
+the call returns the tuple of outputs (the result alone without scales).
+A call with these operands whose epilogue would record a gradient raises.
 """
 
 from __future__ import annotations
@@ -89,12 +102,37 @@ def epilogue_act(parsed, gain=1.0):
     return lrelu_agc_params(**kwargs, extra_gain=gain)
 
 
-def kernel_of(dcoefs, noise_mode):
+def kernel_of(dcoefs, noise_mode, fold=False):
     """The kernel a forward launch runs, as the launch counts name it:
     ``"bias_lrelu"`` for a bias and activation alone (no dcoefs, no
-    noise: a conv layer's epilogue), else the fused ``"noise_bias_act"``."""
+    noise, no fold: a conv layer's epilogue), else the fused
+    ``"noise_bias_act"``."""
     return ("bias_lrelu" if dcoefs is None and noise_mode == "none"
-            else "noise_bias_act")
+            and not fold else "noise_bias_act")
+
+
+def _check_fold(x, addend, scales, what):
+    """The fold's operands: an addend like ``x`` (type, shape, device,
+    layout) and at most two float32 ``[N, C]`` scales on x's device, one
+    where there is an addend (the options the synthesis runs)."""
+    if len(scales) > 2:
+        raise ValueError(f"{what}: at most two scales, got {len(scales)}")
+    if addend is not None and len(scales) != 1:
+        raise ValueError(f"{what}: an addend takes exactly one scale, got "
+                         f"{len(scales)}")
+    if addend is not None and (
+            addend.shape != x.shape or addend.dtype != x.dtype
+            or addend.device != x.device or addend.stride() != x.stride()):
+        raise ValueError(f"{what}: the addend must be a tensor like x (its "
+                         f"type, shape, device and layout), got "
+                         f"{addend.dtype} {tuple(addend.shape)} strides "
+                         f"{addend.stride()} against {x.stride()}")
+    for t in scales:
+        if (t.dtype != torch.float32 or tuple(t.shape) != tuple(x.shape[:2])
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"{what}: a scale is a contiguous float32 "
+                             f"{tuple(x.shape[:2])} on {x.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _check(x, noise_mode, noise_key, noise_const, strength, h0=None):
@@ -139,11 +177,25 @@ def _check_row(noise_key, row0, device):
 
 def noise_bias_act_plain(x, dcoefs=None, bias=None, act=LINEAR,
                          noise_mode="none", noise_key=None, noise_const=None,
-                         strength=None, row0=0, h0=None):
-    """Plain PyTorch version: the layer's chain after the conv, op for op.
-    A channels-last ``x`` runs the chain as NCHW (the same values) and the
-    result is returned channels-last."""
+                         strength=None, row0=0, h0=None, addend=None,
+                         scales=()):
+    """Plain PyTorch version: the layer's chain after the conv, op for op,
+    then the fold's ``+ addend`` and ``* scale.to(x.dtype)`` (the tuple of
+    outputs where there are scales).  A channels-last ``x`` runs the chain
+    as NCHW (the same values) and the result is returned channels-last."""
     _check(x, noise_mode, noise_key, noise_const, strength, h0)
+    _check_fold(x, addend, scales, "noise_bias_act")
+    y = _chain_plain(x, dcoefs, bias, act, noise_mode, noise_key,
+                     noise_const, strength, row0, h0)
+    if addend is not None:
+        y = y + addend
+    if not scales:
+        return y
+    return tuple(y * t.to(y.dtype)[:, :, None, None] for t in scales)
+
+
+def _chain_plain(x, dcoefs, bias, act, noise_mode, noise_key, noise_const,
+                 strength, row0, h0):
     src, x = x, x.contiguous()
     noise = None
     if noise_mode == "random":
@@ -214,12 +266,16 @@ def _act_args(act):
 
 def noise_bias_act_cuda(x, dcoefs=None, bias=None, act=LINEAR,
                         noise_mode="none", noise_key=None, noise_const=None,
-                        strength=None, row0=0, out=None, h0=None):
+                        strength=None, row0=0, out=None, h0=None,
+                        addend=None, scales=()):
     """Launch ``csrc/noise_bias_act.cu`` on a CUDA tensor: ``x`` is updated
     in place and returned, or the result goes to ``out`` (a tensor of x's
     shape and layout) and ``out`` is returned.  A channels-last ``x`` takes
-    the NHWC index map (whole planes only)."""
+    the NHWC index map (whole planes only).  With the fold's ``scales``
+    (the module docstring) output 1 goes where the result would and
+    output 2 into a new tensor like x; the tuple of outputs is returned."""
     _check(x, noise_mode, noise_key, noise_const, strength, h0)
+    _check_fold(x, addend, scales, "noise_bias_act kernel")
     nhwc = channels_last(x)
     if nhwc and h0:
         raise ValueError("noise_bias_act kernel: a channels-last x holds "
@@ -235,11 +291,13 @@ def noise_bias_act_cuda(x, dcoefs=None, bias=None, act=LINEAR,
     aux, margs, ptrs = _kernel_args(
         x, dcoefs, bias, noise_mode, noise_key, noise_const, strength, row0,
         "noise_bias_act kernel", nhwc)
+    fold = addend is not None or bool(scales)
     needs_grad = x.requires_grad or any(
-        t is not None and t.requires_grad for t, _ in aux.values())
-    if out is None and torch.is_grad_enabled() and needs_grad:
-        raise RuntimeError("the in-place noise_bias_act launch takes no "
-                           "tensor that needs a gradient; call "
+        t is not None and t.requires_grad
+        for t in (*(t for t, _ in aux.values()), addend, *scales))
+    if (out is None or fold) and torch.is_grad_enabled() and needs_grad:
+        raise RuntimeError("the in-place or folded noise_bias_act launch "
+                           "takes no tensor that needs a gradient; call "
                            "noise_bias_act, which differentiates")
     y = x if out is None else out
     if y is not x and (y.shape != x.shape or y.dtype != x.dtype
@@ -248,16 +306,21 @@ def noise_bias_act_cuda(x, dcoefs=None, bias=None, act=LINEAR,
                        or y.data_ptr() % (2 * y.element_size())):
         raise ValueError("noise_bias_act kernel: out must be a 2-element "
                          "aligned tensor like x, in its layout")
+    if addend is not None and addend.data_ptr() % (2 * x.element_size()):
+        raise ValueError("noise_bias_act kernel: the addend must be "
+                         "2-element aligned")
+    y2 = torch.empty_like(x) if len(scales) == 2 else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     n, c, rows, r = x.shape
     rc = _kb.launch(
         _kb.library("noise_bias_act").shgan_noise_bias_act, x.device,
         x.data_ptr(), y.data_ptr(), 0 if x.dtype == torch.float32 else 1, n,
-        c, r, rows, h0 or 0, *ptrs,
-        None if key_row is None else key_row.data_ptr(), *margs,
-        *_act_args(act), int(nhwc))
+        c, r, rows, h0 or 0, *ptrs, ptr(key_row), *margs, *_act_args(act),
+        int(nhwc), ptr(addend), ptr(y2),
+        *(ptr(t) for t in (tuple(scales) + (None, None))[:2]), len(scales))
     _kb.check(rc, "noise_bias_act kernel")
-    _kb.count(kernel_of(dcoefs, noise_mode), nhwc)
-    return y
+    _kb.count(kernel_of(dcoefs, noise_mode, fold), nhwc)
+    return (y, y2)[:len(scales)] if scales else y
 
 
 # ---------------------------------------------------------------------------
@@ -502,7 +565,7 @@ class _EpilogueGrad(torch.autograd.Function):
 
 def noise_bias_act(x, dcoefs=None, bias=None, act=LINEAR, noise_mode="none",
                    noise_key=None, noise_const=None, strength=None, row0=0,
-                   h0=None, slab=None):
+                   h0=None, slab=None, addend=None, scales=()):
     """The synthesis epilogue: the kernel on a CUDA tensor (``x`` updated in
     place; NCHW or channels-last) or raise, the plain version on a CPU
     tensor.  Where grad mode is
@@ -513,7 +576,9 @@ def noise_bias_act(x, dcoefs=None, bias=None, act=LINEAR, noise_mode="none",
     ``x`` is this :class:`~shgan_torch.parallel.spatial.Slab` of the
     layer's planes: the window is its rows, ``noise_const`` (the layer's
     whole plane) is cut to them, and the dcoefs, bias and strength get
-    their gradients summed over the model group."""
+    their gradients summed over the model group.  ``addend`` / ``scales``:
+    the fold (the module docstring), on a call that records no gradient;
+    the tuple of outputs is returned where there are scales."""
     if slab is not None:
         h0 = slab.h0
         if noise_const is not None:
@@ -525,7 +590,11 @@ def noise_bias_act(x, dcoefs=None, bias=None, act=LINEAR, noise_mode="none",
               strength=strength, row0=row0, h0=h0)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
-            for t in (x, dcoefs, bias, strength, noise_const)):
+            for t in (x, dcoefs, bias, strength, noise_const, addend,
+                      *scales)):
+        if addend is not None or scales:
+            raise RuntimeError("noise_bias_act: the fold (addend, scales) "
+                               "runs only where no gradient is recorded")
         _check(x, noise_mode, noise_key, noise_const, strength, h0)
         if channels_last(x):
             raise ValueError("noise_bias_act: the grad kernel takes NCHW "
@@ -536,4 +605,5 @@ def noise_bias_act(x, dcoefs=None, bias=None, act=LINEAR, noise_mode="none",
             x, dcoefs, bias, used(strength, noise_mode != "none"),
             used(noise_const, noise_mode == "const"),
             (act, noise_mode, noise_key, row0, h0))
-    return _on(x, noise_bias_act_cuda, noise_bias_act_plain)(x, **kw)
+    return _on(x, noise_bias_act_cuda, noise_bias_act_plain)(
+        x, addend=addend, scales=tuple(scales), **kw)

@@ -24,7 +24,8 @@ Launch counts: the kernel wrappers count where they launch, in Python; a
 replay launches without them.  The graph's counts are recorded at capture
 (the warm-up, set-up like a trace, is taken back out of the counts, and so
 are the capture's own, whose kernels ran no time) and added once per
-replay; the NHWC counts (``kernels/build.launches_nhwc``) alike.
+replay; the NHWC counts (``kernels/build.launches_nhwc``) and the modulated
+convs' (``kernels/build.modconv``) alike.
 
 A call's host stages are spans (``runtime/tracing``): ``compiled.load``
 (the staging wait, the copies and the table) and ``compiled.replay`` (the
@@ -107,6 +108,7 @@ class _Statics:
         self.graph = self.out = None
         self.launches = {}
         self.launches_nhwc = {}
+        self.modconv = {}
 
     def _pinned(self, name):
         if name not in self.host:
@@ -147,8 +149,10 @@ class CompiledForward:
     graph per key (the module docstring); on the CPU, the same forward run
     eagerly on the statics.  ``G`` stays on its device and in eval mode;
     ``records`` lists each capture: its key, seconds (warm-up and capture),
-    launches per replay (all, and those on the NHWC maps) and pool bytes (the growth of the device's reserved memory over the
-    capture, the cache emptied before it); ``last_path`` says how the last
+    launches per replay (all, and those on the NHWC maps), the modulated
+    convs' counts per replay and pool bytes (the growth of the device's
+    reserved memory over the capture, the cache emptied before it);
+    ``last_path`` says how the last
     call ran: ``"capture"``, ``"replay"`` or, on the CPU, ``"eager"``."""
 
     def __init__(self, G, noise_mode="random"):
@@ -225,7 +229,7 @@ class CompiledForward:
         per replay and take the warm-up's and the capture's back out of
         the counts."""
         def counts():
-            return _kb.snapshot(), _kb.snapshot_nhwc()
+            return _kb.snapshot(), _kb.snapshot_nhwc(), _kb.snapshot_modconv()
 
         def delta(a, b):
             return {k: a[k] - b[k] for k in a if a[k] != b[k]}
@@ -241,8 +245,8 @@ class CompiledForward:
             reserved = torch.cuda.memory_reserved(self.device)
             st.graph, st.out = self._record(st)
             after = counts()
-            st.launches, st.launches_nhwc = (delta(a, m)
-                                             for a, m in zip(after, mid))
+            st.launches, st.launches_nhwc, st.modconv = (
+                delta(a, m) for a, m in zip(after, mid))
         finally:
             _kb.add(*(delta(b, n) for b, n in zip(before, counts())))
         self.records.append({
@@ -250,7 +254,8 @@ class CompiledForward:
             "capture_s": time.perf_counter() - t0,
             "pool_bytes": torch.cuda.memory_reserved(self.device) - reserved,
             "launches_per_replay": dict(st.launches),
-            "nhwc_launches_per_replay": dict(st.launches_nhwc)})
+            "nhwc_launches_per_replay": dict(st.launches_nhwc),
+            "modconv_per_replay": dict(st.modconv)})
 
     def _warm_up(self, st):
         side = torch.cuda.Stream(self.device)
@@ -274,7 +279,7 @@ class CompiledForward:
 
     def _replay(self, st):
         st.graph.replay()
-        _kb.add(st.launches, st.launches_nhwc)
+        _kb.add(st.launches, st.launches_nhwc, st.modconv)
         return st.out.clone()
 
     def pool_bytes(self):

@@ -1409,3 +1409,104 @@ def test_compiled_forward_runs_channels_last(cuda, model, limits, capsys):
               f"{off:.4f} % of hole values by > 1 level, RMS {rms:.4f}, "
               f"max {int(np.abs(gap).max())}; launches {total}, NHWC {nhwc}")
     assert off <= limits[0] and rms <= limits[1]
+
+
+# ---- the fold: the epilogue writes its consumers' inputs ------------------
+
+FOLDS = [(True, 1), (False, 1), (False, 2)]   # the synthesis runs these
+
+
+@pytest.mark.parametrize("nhwc", [False, True])
+@pytest.mark.parametrize("add,outs", FOLDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res,c,mode", [(4, 512, "random"), (8, 7, "const"),
+                                        (64, 64, "random"), (512, 4, "none")])
+def test_noise_bias_act_fold_is_the_chain_bit_for_bit(cuda, res, c, mode,
+                                                      dtype, add, outs,
+                                                      nhwc):
+    """The fold on both maps: one launch whose outputs are the plain
+    epilogue's launch followed by the chain it replaces (``+ addend``, then
+    ``* scale.to(x.dtype)`` for each consumer) bit for bit, NaN where the
+    chain has NaN; output 1 in x's buffer, every output in x's layout."""
+    from shgan_torch.ops.layout import channels_last
+    x, dcoefs, bias, const, strength = _nba_inputs(
+        cuda, dtype, 2, c, res, seed=res + c, offset=2 if res == 8 else 0)
+    fmt = torch.channels_last if nhwc else torch.contiguous_format
+    x = x.contiguous(memory_format=fmt) if nhwc else x
+    g = torch.Generator(device="cuda").manual_seed(c)
+    x0 = (torch.randn(x.shape, generator=g, device=cuda) * 20).to(
+        dtype).contiguous(memory_format=fmt)
+    scales = tuple(torch.randn(2, c, generator=g, device=cuda) + 1.0
+                   for _ in range(outs))
+    spec, gain = NBA_ACTS[(res + c) % 3]
+    kw = dict(dcoefs=dcoefs, bias=bias,
+              act=nba.epilogue_act(parse_activation(spec), gain),
+              noise_mode=mode, noise_key=noise.noise_key(5, 2 * res),
+              noise_const=const, strength=strength)
+    ref = nba.noise_bias_act(x.clone(), **kw)
+    if add:
+        ref = ref + x0
+    refs = [ref * s.to(dtype)[:, :, None, None] for s in scales] or [ref]
+    xin = x   # res 8: 2 elements off the 16-byte alignment (NCHW)
+    build.reset_launches()
+    got = nba.noise_bias_act(xin, addend=x0 if add else None, scales=scales,
+                             **kw)
+    torch.cuda.synchronize()
+    assert build.launches["noise_bias_act"] == 1
+    assert build.launches_nhwc["noise_bias_act"] == int(nhwc)
+    got = list(got) if outs else [got]
+    assert len(got) == len(refs) and got[0].data_ptr() == xin.data_ptr()
+    for a, b in zip(got, refs):
+        assert a.dtype == dtype and channels_last(a) == nhwc
+        a, b = a.float(), b.float()
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        ok = ~torch.isnan(b)
+        assert torch.equal(a[ok], b[ok]), float((a[ok] - b[ok]).abs().max())
+    build.reset_launches()
+
+
+def test_shgan_g512_synthesis_route_is_the_grad_path_bit_for_bit(cuda,
+                                                                 capsys):
+    """The full-width ``shgan_g512`` synthesis at batch 2, TF32 off and
+    cuDNN deterministic, random noise: the forward under ``no_grad`` (the
+    fold's route: 22 prescaled modulated convs, 1 that multiplies) against
+    the same forward recording a gradient (none prescaled), bit for bit."""
+    from shgan_torch.models import get_model
+    from shgan_torch.runtime.config import model_cfg_bank
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        G = get_model(model_cfg_bank()("shgan_g512"), seed=0).to(cuda)
+        syn = G.synthesis
+        with torch.no_grad():
+            for name, p in syn.named_parameters():
+                if name.endswith("noise_strength"):
+                    p.fill_(0.1)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        n = 2
+        x = torch.randn(n, syn.b4.fc.weight.shape[1], generator=g,
+                        device=cuda)
+        feats = {r: torch.randn(n, (syn.b4.conv if r == 4 else getattr(
+            syn, f"b{r}").conv1).weight.shape[0], r, r, generator=g,
+            device=cuda) for r in syn.block_res}
+        w_dim = syn.b4.conv.affine.weight.shape[1] - x.shape[1]
+        ws = torch.randn(n, syn.num_ws, w_dim, generator=g, device=cuda)
+        counts = []
+        outs = []
+        for grad in (False, True):
+            build.reset_launches()
+            with torch.set_grad_enabled(grad):
+                outs.append(syn(x, feats, ws, noise_mode="random",
+                                noise_seed=7).detach())
+            torch.cuda.synchronize()
+            counts.append(build.snapshot_modconv())
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        build.reset_launches()
+    with capsys.disabled():
+        print(f"\nshgan_g512 synthesis b2: route {counts[0]}, grad path "
+              f"{counts[1]}, max |diff| "
+              f"{float((outs[0] - outs[1]).abs().max())}")
+    assert counts == [{"prescaled": 22, "multiplied": 1},
+                      {"prescaled": 0, "multiplied": 23}]
+    assert torch.equal(outs[0], outs[1])

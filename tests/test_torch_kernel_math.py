@@ -879,6 +879,24 @@ static void nba_nhwc() {
   for (float v : y) std::printf("%u\n", bits(v));
 }
 
+// nbafold bf add count r[count]... a[count]... s[count]... -> for each
+// element the fold's sum and its output as the kernel stores them (bf:
+// rounded to bf16 at the store), as float32 bits: held(r), + a (held),
+// then * held(s) (noise_bias_act.cuh: the fold).
+static void nba_fold() {
+  int bf, add, count;
+  std::scanf("%d %d %d", &bf, &add, &count);
+  std::vector<float> r(count), a(count), sc(count);
+  for (float& v : r) std::scanf("%f", &v);
+  for (float& v : a) std::scanf("%f", &v);
+  for (float& v : sc) std::scanf("%f", &v);
+  for (int i = 0; i < count; ++i) {
+    const float v = nba::fold_sum(r[i], a[i], add, bf);
+    const float o = nba::held(nba::mul_rn(v, nba::held(sc[i], bf)), bf);
+    std::printf("%u %u\n", bits(v), bits(o));
+  }
+}
+
 int main() {
   char cmd[16];
   while (std::scanf("%15s", cmd) == 1) {
@@ -894,6 +912,8 @@ int main() {
       nba_run(false);
     } else if (c == "nbadev") {
       nba_run(true);
+    } else if (c == "nbafold") {
+      nba_fold();
     } else if (c == "nbakey") {
       // nbakey has_row r0 r1 r2 k0 k1 row0 -> pick_key's (k0, k1, row0)
       int has_row;
@@ -2246,3 +2266,35 @@ def test_conv3x3_lowch_nhwc_staging_equals_the_nchw_map(harness, n, c, o, h,
     want = conv3x3_lowch_plain(torch.from_numpy(x),
                                torch.from_numpy(wt)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("add", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_noise_bias_act_fold_element_math_matches_torch(harness, dtype, add):
+    """The fold's element math (noise_bias_act.cuh: held, fold_sum, then
+    the product rounded at the store) against the PyTorch chain it
+    replaces on x's type: the epilogue's result rounded to it, ``+
+    addend``, ``* scale.to(dtype)``, bit for bit (NaN, ±0, infinities and
+    bf16 ties among the inputs)."""
+    g = torch.Generator().manual_seed(3)
+    r = torch.randn(400, generator=g) * 30
+    r[:6] = torch.tensor([np.nan, -0.0, 0.0, np.inf, -np.inf, 1.00390625])
+    a = (torch.randn(400, generator=g) * 10).to(dtype)
+    a[6:9] = torch.tensor([-0.0, np.inf, 3e38]).to(dtype)
+    sc = torch.rand(400, generator=g) * 3 - 1
+    sc[9] = 1.00390625
+    bf = int(dtype == torch.bfloat16)
+    text = f"nbafold {bf} {int(add)} {r.numel()} " + " ".join(
+        f"{v:.9g}" for t in (r, a.float(), sc) for v in t.tolist())
+    out = np.array(harness(text), dtype=np.uint64).reshape(-1, 2)
+    v = r.to(dtype) + a if add else r.to(dtype)
+    o = v * sc.to(dtype)
+    as_bits = lambda t: t.float().numpy().view(np.uint32)  # noqa: E731
+
+    def same(got, want):
+        nan = np.isnan(want.float().numpy())
+        return (np.array_equal(np.isnan(got.view(np.float32)), nan)
+                and np.array_equal(got[~nan], as_bits(want)[~nan]))
+
+    assert same(out[:, 0].astype(np.uint32), v)
+    assert same(out[:, 1].astype(np.uint32), o)

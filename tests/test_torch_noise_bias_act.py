@@ -84,6 +84,37 @@ def test_plain_equals_todays_chain(dtype, mode, demod, with_bias, act, gain):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("with_addend,n_scales", [
+    (True, 1), (False, 1), (False, 2)])
+@pytest.mark.parametrize("mode", ["random", "const"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_fold_equals_the_unfused_chain(dtype, mode, with_addend,
+                                             n_scales):
+    """The fold (the encoder skip added, then each consumer's ``x *
+    styles``) on the plain epilogue, bit for bit the chain it replaces:
+    the epilogue, ``+ x0``, then modulated_conv2d's multiply by the styles
+    in x's type."""
+    x, w, s, bias, const, strength = _case(dtype, seed=3)
+    g = torch.Generator().manual_seed(4)
+    y, dcoefs = modulated_conv2d(x, w, s, padding=1, split_dcoefs=True)
+    x0 = (torch.randn(y.shape, generator=g) * 5).to(dtype)
+    styles = [torch.randn(2, 6, generator=g) + 1.0 for _ in range(n_scales)]
+    kw = dict(dcoefs=dcoefs, bias=bias,
+              act=epilogue_act(parse_activation(ACTS["lrelu_clamp"]), 0.6),
+              noise_mode=mode, noise_key=noise_key(SEED, LAYER),
+              noise_const=const, strength=strength)
+    want = noise_bias_act(y.clone(), **kw)
+    if with_addend:
+        want = want + x0
+    want = [want * t.to(dtype)[:, :, None, None] for t in styles] or [want]
+    got = noise_bias_act(y, addend=x0 if with_addend else None,
+                         scales=styles, **kw)
+    got = list(got) if n_scales else [got]
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
 def test_plain_keeps_nan_and_clamps():
     """NaN passes the leaky ReLU and the clamp (torch.where and torch.clamp
     keep it); finite values are clamped to ±256·gain."""
@@ -122,6 +153,35 @@ def test_argument_checks():
         modulated_conv2d(x, torch.zeros(2, 2, 3, 3), torch.ones(1, 2),
                          noise=torch.zeros(4, 4), padding=1,
                          split_dcoefs=True)
+
+
+@pytest.mark.parametrize("n_scales", [0, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fold_refuses_an_addend_without_one_scale(dtype, n_scales):
+    """The synthesis adds the skip only in a conv0's epilogue, which
+    writes conv1's input alone: an addend takes exactly one scale, in the
+    plain version as in the kernel's entry point."""
+    x = torch.zeros(2, 3, 4, 4, dtype=dtype)
+    s = (torch.ones(2, 3),) * n_scales
+    for fn in (noise_bias_act, noise_bias_act_plain):
+        with pytest.raises(ValueError, match="exactly one scale"):
+            fn(x, addend=torch.zeros_like(x), scales=s)
+
+
+def test_fold_argument_checks():
+    x = torch.zeros(2, 3, 4, 4)
+    s = torch.ones(2, 3)
+    with pytest.raises(ValueError, match="at most two scales"):
+        noise_bias_act(x, scales=(s, s, s))
+    with pytest.raises(ValueError, match="a scale is"):
+        noise_bias_act(x, scales=(torch.ones(2, 4),))
+    with pytest.raises(ValueError, match="a scale is"):
+        noise_bias_act(x, scales=(s.double(),))
+    with pytest.raises(ValueError, match="addend"):
+        noise_bias_act(x, addend=torch.zeros(2, 3, 4, 4).bfloat16())
+    with pytest.raises(ValueError, match="addend"):
+        noise_bias_act(x, addend=torch.zeros(2, 3, 4, 4).contiguous(
+            memory_format=torch.channels_last))
 
 
 def _jax_layer_pair(up, spec, seed):
